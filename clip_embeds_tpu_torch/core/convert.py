@@ -1,0 +1,94 @@
+"""Weights across packages: open_clip state dicts in, and the JAX package's
+flax CLIP params back to an open_clip state dict.
+
+:func:`state_dict_from_jax_params` inverts
+``clip_embeds_tpu/core/torch_convert.py`` ``convert_clip_state_dict`` for
+the plain ViT + text layout: flax Dense kernels are [in, out] and come back
+as ``nn.Linear`` [out, in] weights, ``in_proj`` is repacked into
+``attn.in_proj_weight``, and the patch kernel, whose rows are ordered
+(kh, kw, cin), is rebuilt into ``visual.conv1.weight`` [W, 3, p, p].
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+# Keys of OpenAI's original checkpoints that are not parameters.
+_NON_PARAM_KEYS = ("input_resolution", "context_length", "vocab_size")
+
+
+def load_open_clip_state_dict(model: torch.nn.Module,
+                              sd: Mapping[str, Any]) -> None:
+    """Load an open_clip (or OpenAI) CLIP state dict into the port's CLIP.
+
+    A ``module.`` prefix (DataParallel checkpoints) is stripped; every
+    parameter must be present (strict load)."""
+    sd = {k[len("module."):] if k.startswith("module.") else k: v
+          for k, v in sd.items()}
+    model.load_state_dict({k: v for k, v in sd.items()
+                           if k not in _NON_PARAM_KEYS})
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, np.float32))  # a writable copy
+
+
+def _ln(p: Mapping[str, Any], prefix: str) -> Dict[str, torch.Tensor]:
+    return {f"{prefix}.weight": _t(p["scale"]),
+            f"{prefix}.bias": _t(p["bias"])}
+
+
+def _linear(p: Mapping[str, Any], prefix: str) -> Dict[str, torch.Tensor]:
+    return {f"{prefix}.weight": _t(np.asarray(p["kernel"]).T),
+            f"{prefix}.bias": _t(p["bias"])}
+
+
+def _transformer(p: Mapping[str, Any], prefix: str
+                 ) -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    i = 0
+    while f"resblocks_{i}" in p:
+        bp, pre = p[f"resblocks_{i}"], f"{prefix}.resblocks.{i}"
+        out.update(_ln(bp["ln_1"], pre + ".ln_1"))
+        out[pre + ".attn.in_proj_weight"] = _t(
+            np.asarray(bp["attn"]["in_proj"]["kernel"]).T)
+        out[pre + ".attn.in_proj_bias"] = _t(bp["attn"]["in_proj"]["bias"])
+        out.update(_linear(bp["attn"]["out_proj"], pre + ".attn.out_proj"))
+        out.update(_ln(bp["ln_2"], pre + ".ln_2"))
+        out.update(_linear(bp["mlp"]["c_fc"], pre + ".mlp.c_fc"))
+        out.update(_linear(bp["mlp"]["c_proj"], pre + ".mlp.c_proj"))
+        i += 1
+    return out
+
+
+def state_dict_from_jax_params(params: Mapping[str, Any]
+                               ) -> Dict[str, torch.Tensor]:
+    """flax params of ``clip_embeds_tpu.models.clip.CLIP`` (ViT tower), as
+    numpy arrays -> open_clip CLIP state dict of fp32 tensors."""
+    v, t = params["visual"], params["text"]
+    kernel = np.asarray(v["patch_embed"]["kernel"])       # [p*p*3, W]
+    width = kernel.shape[1]
+    p = int(round((kernel.shape[0] // 3) ** 0.5))
+    conv = kernel.reshape(p, p, 3, width).transpose(3, 2, 0, 1)
+    sd: Dict[str, torch.Tensor] = {
+        "visual.conv1.weight": _t(conv),
+        "visual.class_embedding": _t(v["class_embedding"]),
+        "visual.positional_embedding": _t(v["positional_embedding"]),
+        "visual.proj": _t(v["proj"]),
+    }
+    if "ln_pre" in v:
+        sd.update(_ln(v["ln_pre"], "visual.ln_pre"))
+    sd.update(_transformer(v["transformer"], "visual.transformer"))
+    sd.update(_ln(v["ln_post"], "visual.ln_post"))
+    sd["token_embedding.weight"] = _t(t["token_embedding"]["embedding"])
+    sd["positional_embedding"] = _t(t["positional_embedding"])
+    sd.update(_transformer(t["transformer"], "transformer"))
+    sd.update(_ln(t["ln_final"], "ln_final"))
+    sd["text_projection"] = _t(t["text_projection"])
+    sd["logit_scale"] = _t(np.asarray(params["logit_scale"]).reshape(()))
+    if "logit_bias" in params:
+        sd["logit_bias"] = _t(np.asarray(params["logit_bias"]).reshape(()))
+    return sd

@@ -1,0 +1,83 @@
+"""Model factory: name -> the port's CLIP, with seeded random weights or a
+local open_clip state dict (counterpart of ``clip_embeds_tpu/core/
+factory.py``; nothing is downloaded)."""
+
+from __future__ import annotations
+
+import math
+import os
+from typing import Optional, Union
+
+import torch
+from torch import nn
+
+from ..models.clip import CLIP
+from .config import get_model_config
+from .convert import load_open_clip_state_dict
+
+_CKPT_EXTS = (".pt", ".pth", ".bin")
+
+
+def _init_tower(tower_blocks, width: int, layers: int,
+                g: torch.Generator) -> None:
+    """open_clip's block init (``init_parameters``), from generator g."""
+    attn_std = width ** -0.5
+    proj_std = attn_std * (2 * layers) ** -0.5
+    fc_std = (2 * width) ** -0.5
+    for blk in tower_blocks:
+        nn.init.normal_(blk.attn.in_proj_weight, std=attn_std, generator=g)
+        nn.init.normal_(blk.attn.out_proj.weight, std=proj_std, generator=g)
+        nn.init.normal_(blk.mlp.c_fc.weight, std=fc_std, generator=g)
+        nn.init.normal_(blk.mlp.c_proj.weight, std=proj_std, generator=g)
+        for lin in (blk.mlp.c_fc, blk.mlp.c_proj, blk.attn.out_proj):
+            nn.init.zeros_(lin.bias)
+        nn.init.zeros_(blk.attn.in_proj_bias)
+
+
+@torch.no_grad()
+def init_params(model: CLIP, seed: int = 0) -> None:
+    """Seeded random init in place, on the CPU in fp32, so one seed gives
+    the same weights whatever the target device and dtype."""
+    g = torch.Generator().manual_seed(seed)
+    cfg = model.cfg
+    v, t = cfg.vision, cfg.text
+    vis = model.visual
+    scale = v.width ** -0.5
+    fan_in = 3 * v.patch_size ** 2
+    nn.init.normal_(vis.conv1.weight, std=fan_in ** -0.5, generator=g)
+    nn.init.normal_(vis.class_embedding, std=scale, generator=g)
+    nn.init.normal_(vis.positional_embedding, std=scale, generator=g)
+    nn.init.normal_(vis.proj, std=scale, generator=g)
+    _init_tower(vis.transformer.resblocks, v.width, v.layers, g)
+    nn.init.normal_(model.token_embedding.weight, std=0.02, generator=g)
+    nn.init.normal_(model.positional_embedding, std=0.01, generator=g)
+    nn.init.normal_(model.text_projection, std=t.width ** -0.5, generator=g)
+    _init_tower(model.transformer.resblocks, t.width, t.layers, g)
+    model.logit_scale.fill_(math.log(1 / 0.07))
+
+
+def create_model(
+    name: str,
+    pretrained: Optional[str] = None,
+    seed: int = 0,
+    dtype: torch.dtype = torch.float32,
+    device: Union[str, torch.device] = "cpu",
+) -> CLIP:
+    """Build the port's CLIP in eval mode on ``device`` in ``dtype``.
+
+    ``pretrained`` may be None, a tag ('openai' selects QuickGELU; the
+    weights are still seeded random), or the path of a torch checkpoint
+    (``.pt``/``.pth``/``.bin``) holding an open_clip state dict.
+    """
+    cfg = get_model_config(name, pretrained)
+    model = CLIP(cfg)
+    if pretrained and os.path.exists(pretrained):
+        sd = torch.load(pretrained, map_location="cpu", weights_only=True)
+        if "state_dict" in sd:
+            sd = sd["state_dict"]
+        load_open_clip_state_dict(model, sd)
+    elif pretrained and pretrained.endswith(_CKPT_EXTS):
+        raise FileNotFoundError(pretrained)
+    else:
+        init_params(model, seed)
+    return model.to(device=device, dtype=dtype).eval()

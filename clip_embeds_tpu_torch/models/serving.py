@@ -1,0 +1,183 @@
+"""Serving path: CLIP towers replayed block by block through
+``ops.fused_block`` (counterpart of ``clip_embeds_tpu/models/serving.py``,
+bf16 ViT and text towers).
+
+Reads the weights of a :class:`~clip_embeds_tpu_torch.models.clip.CLIP`.
+The sequence is padded once to a multiple of 16 before the block stack;
+padded keys are masked through ``kv_valid`` and padded rows are dropped
+after. For inference only.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..ops.fused_block import _ln as _ln_affine
+from ..ops.fused_block import fused_block, fused_block_supported
+from .clip import l2_normalize
+from .layers import get_act
+from .text_transformer import text_global_pool
+from .vit import patch_weight, patchify
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _block_weights(block, dtype: torch.dtype) -> Tuple[torch.Tensor, ...]:
+    """A ResidualAttentionBlock's weights in fused_block's argument order."""
+    a, m = block.attn, block.mlp
+    ws = (a.in_proj_weight, a.in_proj_bias, a.out_proj.weight,
+          a.out_proj.bias, m.c_fc.weight, m.c_fc.bias, m.c_proj.weight,
+          m.c_proj.bias,
+          torch.stack([block.ln_1.weight, block.ln_1.bias]),
+          torch.stack([block.ln_2.weight, block.ln_2.bias]))
+    return tuple(w.to(dtype) for w in ws)
+
+
+def _pad_rows(x: torch.Tensor, n_pad: int) -> torch.Tensor:
+    return F.pad(x, (0, 0, 0, n_pad - x.shape[1]))
+
+
+def fused_encode_image(
+    model,                        # models.clip.CLIP (vit tower)
+    images: torch.Tensor,         # [B, S, S, 3]
+    normalize: bool = True,
+    dtype: torch.dtype = torch.bfloat16,
+    cls_fast_last: bool = True,
+    output_tokens: bool = False,
+):
+    """encode_image through fused blocks; returns [B, embed_dim].
+
+    With ``output_tokens`` returns (pooled, tokens [B, N, width]) like the
+    composable ``encode_image(output_tokens=True)``; token output reads
+    every row, so the CLS-only last block is then off.
+    """
+    cfg = model.cfg.vision
+    v = model.visual
+    quick = model.cfg.quick_gelu
+    b = images.shape[0]
+
+    x = patchify(images.to(dtype), cfg.patch_size)
+    x = x @ patch_weight(v.conv1.weight.to(dtype)).t()
+    cls = v.class_embedding.to(dtype).expand(b, 1, cfg.width)
+    x = torch.cat([cls, x], dim=1) + v.positional_embedding.to(dtype)
+    n_valid = x.shape[1]
+    if v.ln_pre is not None:
+        x = _ln_affine(x, v.ln_pre.weight, v.ln_pre.bias, 1e-5)
+    x = _pad_rows(x, _round_up(n_valid, 16))
+
+    # pool 'tok' reads only the CLS row of the last block's output, so the
+    # last block runs in CLS-only form (k/v full, q/out/MLP one row)
+    use_cls_fast = cls_fast_last and cfg.pool_type == "tok" \
+        and not output_tokens
+    blocks = v.transformer.resblocks
+    n_fused = cfg.layers - 1 if use_cls_fast else cfg.layers
+    for block in blocks[:n_fused]:
+        x = fused_block(x, *_block_weights(block, dtype), heads=cfg.heads,
+                        kv_valid=n_valid, quick_gelu=quick)
+
+    lnp = v.ln_post
+    tokens = None
+    if use_cls_fast:
+        pooled = _cls_only_last_block(x, blocks[-1], cfg.heads, n_valid,
+                                      quick, dtype)
+        # for 'tok', ln-then-pool and pool-then-ln agree on the CLS row
+        pooled = _ln_affine(pooled, lnp.weight, lnp.bias, 1e-5)
+    else:
+        x = x[:, :n_valid]
+        if cfg.final_ln_after_pool:
+            pooled, tokens = v.pool(x)
+            pooled = _ln_affine(pooled, lnp.weight, lnp.bias, 1e-5)
+        else:
+            pooled, tokens = v.pool(_ln_affine(x, lnp.weight, lnp.bias,
+                                               1e-5))
+    pooled = pooled @ v.proj.to(dtype)
+    pooled = l2_normalize(pooled) if normalize else pooled
+    return (pooled, tokens) if output_tokens else pooled
+
+
+def _cls_only_last_block(
+    x: torch.Tensor,               # [B, n_pad, D] input to the final block
+    block,                         # the final ResidualAttentionBlock
+    heads: int,
+    n_valid: int,
+    quick_gelu: bool,
+    dtype: torch.dtype,
+) -> torch.Tensor:
+    """Row-0 (CLS) output of the final residual block, as [B, D].
+
+    With pool_type 'tok' nothing downstream reads the other rows, so only
+    the k/v projections run over the full sequence; the query,
+    out-projection and MLP run on one row. Plain PyTorch, numerics as the
+    composable block.
+    """
+    b, n, d = x.shape
+    hd = d // heads
+    a, mlp = block.attn, block.mlp
+    h = _ln_affine(x, block.ln_1.weight, block.ln_1.bias, 1e-5)
+    wq, wk, wv = a.in_proj_weight.to(dtype).chunk(3, dim=0)
+    bq, bk, bv = a.in_proj_bias.to(dtype).chunk(3)
+    q = h[:, :1] @ wq.t() + bq                    # [B, 1, D]
+    k = h @ wk.t() + bk                           # [B, n, D]
+    v = h @ wv.t() + bv
+
+    qh = q.view(b, 1, heads, hd).transpose(1, 2)
+    kh = k.view(b, n, heads, hd).transpose(1, 2)
+    vh = v.view(b, n, heads, hd).transpose(1, 2)
+    logits = (qh.float() * hd ** -0.5) @ kh.float().transpose(-1, -2)
+    # padded rows carry ln-of-zero garbage in k/v; mask them out
+    key_ok = torch.arange(n, device=x.device) < n_valid
+    logits = logits.masked_fill(~key_ok, float("-inf"))
+    o = torch.softmax(logits, dim=-1) @ vh.float()
+    o = o.transpose(1, 2).reshape(b, 1, d).to(dtype)
+
+    r = x[:, :1] + (o @ a.out_proj.weight.to(dtype).t()
+                    + a.out_proj.bias.to(dtype))
+    t = _ln_affine(r, block.ln_2.weight, block.ln_2.bias, 1e-5)
+    t = t @ mlp.c_fc.weight.to(dtype).t() + mlp.c_fc.bias.to(dtype)
+    t = get_act(quick_gelu)(t)
+    t = t @ mlp.c_proj.weight.to(dtype).t() + mlp.c_proj.bias.to(dtype)
+    return (r + t)[:, 0]
+
+
+def fused_encode_text(
+    model,
+    text_ids: torch.Tensor,        # int [B, ctx]
+    normalize: bool = True,
+    dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """encode_text through fused causal blocks (77 -> 80 rows)."""
+    cfg = model.cfg.text
+    n_valid = text_ids.shape[1]
+    x = model.token_embedding.weight.to(dtype)[text_ids]
+    x = x + model.positional_embedding[:n_valid].to(dtype)
+    x = _pad_rows(x, _round_up(n_valid, 16))
+
+    causal = not cfg.no_causal_mask
+    for block in model.transformer.resblocks:
+        x = fused_block(x, *_block_weights(block, dtype), heads=cfg.heads,
+                        kv_valid=n_valid, quick_gelu=model.cfg.quick_gelu,
+                        causal=causal)
+    x = x[:, :n_valid]
+    x = _ln_affine(x, model.ln_final.weight, model.ln_final.bias, 1e-5)
+    pooled, _ = text_global_pool(x, text_ids, cfg.pool_type)
+    pooled = pooled @ model.text_projection.to(dtype)
+    return l2_normalize(pooled) if normalize else pooled
+
+
+def fused_path_available(model) -> bool:
+    """Whether both towers' block shapes pass ``fused_block_supported``."""
+    v = model.cfg.vision
+    if v.tower != "vit":
+        return False
+    t = model.cfg.text
+    return (
+        fused_block_supported(_round_up(v.num_patches + 1, 16), v.width,
+                              v.heads, v.mlp_ratio)
+        and fused_block_supported(_round_up(t.context_length, 16), t.width,
+                                  t.heads, t.mlp_ratio)
+    )
