@@ -8,15 +8,26 @@ flash kernel for bf16 on the card. Texts go through ``fused_encode_text``
 through the composable ``encode_text``. On the CPU both run the plain
 PyTorch paths. The tail batch is padded to the batch size and sliced after.
 
+``--int8`` serves W8A8 (``models/quant.py``), with int8 weights quantised
+from the fp32 weights and static activation scales calibrated on the first
+16 images of the first batch, or on the first 64 texts. On the card,
+where the shapes allow, both towers run ``fused_encode_*_int8`` (the
+``fused_block_int8`` kernels, which compute in bf16: ``--int8 --fp32``
+raises there). Elsewhere images take the composable static-quant model
+and texts stay on the composable fp tower, as the JAX CLI routes off the
+TPU. The JSON line names the route.
+
 Usage:
   python -m clip_embeds_tpu_torch.cli.embed --model ViT-L-14-336 \
       --pretrained /ckpt.pt --input /data/images --output emb.npy \
-      [--batch-size 256] [--fp32]
+      [--batch-size 256] [--fp32] [--int8]
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
+import itertools
 import json
 import os
 import sys
@@ -64,40 +75,148 @@ def _run(encode, batches: Iterable[np.ndarray], batch_size: int,
     return torch.cat(outputs).float().cpu().numpy()
 
 
-def embed_image_batches(model, batches: Iterable[np.ndarray],
-                        batch_size: int) -> np.ndarray:
-    """Decoded pixel batches (float32 [b <= batch_size, S, S, 3]) ->
-    L2-normalised embeddings, float32 [N, embed_dim]."""
-    dtype = model.visual.proj.dtype
-    device = model.visual.proj.device
-    return _run(lambda px: model.encode_image(px.to(dtype), normalize=True),
-                batches, batch_size, device)
+def _as_dtype(model, dtype: torch.dtype):
+    """``model`` itself if it computes in ``dtype``, else a cast copy."""
+    if model.visual.proj.dtype == dtype:
+        return model
+    return copy.deepcopy(model).to(dtype)
 
 
-def text_route(model) -> str:
-    """'fused' (fused-block kernels) or 'composable' for the text tower."""
+def _on_card(model) -> bool:
+    return model.visual.proj.is_cuda
+
+
+def _fused_ok(model, dtype: torch.dtype) -> bool:
+    """The fused-block kernels take bf16 on the card, at the fused
+    shapes."""
     from ..models.serving import fused_path_available
 
-    p = model.text_projection
-    if p.is_cuda and p.dtype == torch.bfloat16 and fused_path_available(model):
-        return "fused"
-    return "composable"
+    return (_on_card(model) and dtype == torch.bfloat16
+            and fused_path_available(model))
+
+
+def _int8_fused(model, dtype: torch.dtype) -> bool:
+    """Whether ``--int8`` takes the fused_block_int8 kernels: on the card
+    whenever the shapes allow, as the JAX CLI does on the TPU in any dtype.
+    The kernels compute in bf16, so fp32 there raises rather than serve a
+    route the user did not ask for."""
+    from ..models.serving import fused_path_available
+
+    if not (_on_card(model) and fused_path_available(model)):
+        return False
+    if dtype != torch.bfloat16:
+        raise ValueError("--int8 on the card runs the bf16 fused_block_int8 "
+                         "kernels; --fp32 cannot be served with it")
+    return True
+
+
+def image_route(model, int8: bool = False,
+                dtype: Optional[torch.dtype] = None) -> str:
+    """'composable' (bf16/fp32 tower), 'fused_int8' (the fused_block_int8
+    kernels) or 'composable_int8' (static-quant QuantLinear model)."""
+    if not int8:
+        return "composable"
+    dtype = dtype or model.visual.proj.dtype
+    return "fused_int8" if _int8_fused(model, dtype) else \
+        "composable_int8"
+
+
+def embed_image_batches(model, batches: Iterable[np.ndarray],
+                        batch_size: int, int8: bool = False,
+                        dtype: Optional[torch.dtype] = None) -> np.ndarray:
+    """Decoded pixel batches (float32 [b <= batch_size, S, S, 3]) ->
+    L2-normalised embeddings, float32 [N, embed_dim], computed in
+    ``dtype`` (default: the model's).
+
+    With ``int8``, the int8 weights are quantised from ``model``'s weights
+    (keep them fp32, as the JAX package's params are) and the activation
+    scales are calibrated on the first batch's first 16 images; the route
+    is :func:`image_route`'s."""
+    dtype = dtype or model.visual.proj.dtype
+    device = model.visual.proj.device
+    route = image_route(model, int8, dtype)
+    batches = iter(batches)
+    first = next(batches, None)
+    if first is None:
+        return np.zeros((0, 0), np.float32)
+    calib = torch.from_numpy(first[:16]).to(device) if int8 else None
+    if route == "fused_int8":
+        from ..models.serving import (
+            fused_encode_image_int8,
+            prepare_int8_tower,
+        )
+
+        qtower = prepare_int8_tower(model, calib, dtype)
+
+        def encode(px):
+            return fused_encode_image_int8(model, qtower, px, dtype=dtype)
+    else:
+        if route == "composable_int8":
+            from ..models.quant import calibrate_act_scales, quantize_model
+
+            tower = quantize_model(model, "dynamic", dtype, tower="visual")
+            with torch.inference_mode():
+                calibrate_act_scales(tower, [calib], "encode_image")
+        else:
+            tower = _as_dtype(model, dtype)
+
+        def encode(px):
+            return tower.encode_image(px.to(dtype), normalize=True)
+    return _run(encode, itertools.chain([first], batches), batch_size,
+                device)
+
+
+def text_route(model, int8: bool = False,
+               dtype: Optional[torch.dtype] = None) -> str:
+    """'fused' or 'fused_int8' (the fused-block kernels, bf16 on the card)
+    or 'composable' for the text tower."""
+    dtype = dtype or model.text_projection.dtype
+    if int8:
+        return "fused_int8" if _int8_fused(model, dtype) else "composable"
+    return "fused" if _fused_ok(model, dtype) else "composable"
 
 
 def embed_text_batches(model, batches: Iterable[np.ndarray],
-                       batch_size: int) -> np.ndarray:
+                       batch_size: int, int8: bool = False,
+                       dtype: Optional[torch.dtype] = None,
+                       calib: Optional[np.ndarray] = None) -> np.ndarray:
     """Token-id batches (int [b <= batch_size, ctx]) -> L2-normalised
-    embeddings, float32 [N, embed_dim]."""
+    embeddings, float32 [N, embed_dim], computed in ``dtype``.
+
+    With ``int8`` and the 'fused_int8' route, the activation scales are
+    calibrated on ``calib`` (default: the first batch); off that route
+    texts stay on the fp tower, as in the JAX CLI."""
+    dtype = dtype or model.text_projection.dtype
     device = model.text_projection.device
-    if text_route(model) == "fused":
+    route = text_route(model, int8, dtype)
+    batches = iter(batches)
+    first = next(batches, None)
+    if first is None:
+        return np.zeros((0, 0), np.float32)
+    if route == "fused_int8":
+        from ..models.serving import (
+            fused_encode_text_int8,
+            prepare_int8_text_tower,
+        )
+
+        ids = first if calib is None else calib
+        qtower = prepare_int8_text_tower(
+            model, torch.from_numpy(ids).long().to(device), dtype)
+
+        def encode(ids):
+            return fused_encode_text_int8(model, qtower, ids, dtype=dtype)
+    elif route == "fused":
         from ..models.serving import fused_encode_text
 
         def encode(ids):
-            return fused_encode_text(model, ids, normalize=True)
+            return fused_encode_text(model, ids, dtype=dtype)
     else:
+        tower = _as_dtype(model, dtype)
+
         def encode(ids):
-            return model.encode_text(ids, normalize=True)
-    return _run(lambda ids: encode(ids.long()), batches, batch_size, device)
+            return tower.encode_text(ids, normalize=True)
+    return _run(lambda ids: encode(ids.long()),
+                itertools.chain([first], batches), batch_size, device)
 
 
 def _device_name(device: torch.device) -> str:
@@ -105,7 +224,7 @@ def _device_name(device: torch.device) -> str:
         else "cpu"
 
 
-def _embed_texts(args, model) -> int:
+def _embed_texts(args, model, dtype: torch.dtype) -> int:
     """One caption per line -> [N, D] .npy."""
     from ..shared import load_shared
 
@@ -120,7 +239,8 @@ def _embed_texts(args, model) -> int:
     t0 = time.perf_counter()
     embs = embed_text_batches(
         model, (tokenizer(texts[i: i + bs]) for i in range(0, len(texts), bs)),
-        bs)
+        bs, int8=args.int8, dtype=dtype,
+        calib=tokenizer(texts[:64]) if args.int8 else None)
     elapsed = time.perf_counter() - t0
     np.save(args.output, embs)
     print(json.dumps({
@@ -128,7 +248,7 @@ def _embed_texts(args, model) -> int:
         "dim": int(embs.shape[1]),
         "seconds": round(elapsed, 3),
         "texts_per_sec": round(len(texts) / elapsed, 2),
-        "route": text_route(model),
+        "route": text_route(model, args.int8, dtype),
         "device": _device_name(model.text_projection.device),
         "output": args.output,
     }))
@@ -148,6 +268,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--batch-size", type=int, default=256)
     ap.add_argument("--bf16", action="store_true", default=True)
     ap.add_argument("--fp32", dest="bf16", action="store_false")
+    ap.add_argument("--int8", action="store_true",
+                    help="int8 W8A8 serving path (models/quant.py)")
     args = ap.parse_args(argv)
 
     if (args.input is None) == (args.input_texts is None):
@@ -160,10 +282,12 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
     dtype = torch.bfloat16 if args.bf16 else torch.float32
+    # --int8 quantises from fp32 weights, as the JAX package does
     model = create_model(args.model, pretrained=args.pretrained,
-                         dtype=dtype, device=device)
+                         dtype=torch.float32 if args.int8 else dtype,
+                         device=device)
     if args.input_texts is not None:
-        return _embed_texts(args, model)
+        return _embed_texts(args, model, dtype)
 
     paths = list_images(args.input)
     if not paths:
@@ -189,7 +313,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             yield np.stack(batch)
 
     t0 = time.perf_counter()
-    embs = embed_image_batches(model, batches(), bs)
+    embs = embed_image_batches(model, batches(), bs, int8=args.int8,
+                               dtype=dtype)
     elapsed = time.perf_counter() - t0
     if not kept_paths:
         print(f"no decodable images under {args.input}", file=sys.stderr)
@@ -202,6 +327,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         "dim": int(embs.shape[1]),
         "seconds": round(elapsed, 3),
         "images_per_sec": round(len(kept_paths) / elapsed, 2),
+        "route": image_route(model, args.int8, dtype),
         "device": _device_name(device),
         "output": args.output,
     }))

@@ -40,4 +40,31 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+enum Act { ACT_QUICK = 0, ACT_ERF = 1, ACT_TANH = 2 };
+
+__device__ __forceinline__ float apply_act(float v, int act) {
+  if (act == ACT_QUICK) return v / (1.0f + expf(-1.702f * v));
+  if (act == ACT_TANH) {
+    const float c = 0.7978845608028654f;  // sqrt(2/pi)
+    return 0.5f * v * (1.0f + tanhf(c * (v + 0.044715f * v * v * v)));
+  }
+  return 0.5f * v * (1.0f + erff(v * 0.7071067811865476f));
+}
+
+// Mean and 1/std of one row of d values, read by the 32 lanes of a warp:
+// fp32, two passes (mean, then centred variance) as the Pallas `_ln`.
+__device__ __forceinline__ void row_ln_stats(const bf16* xr, int d, int lane,
+                                             float eps, float& mu,
+                                             float& rstd) {
+  float s = 0.f;
+  for (int c = lane; c < d; c += 32) s += bf2f(xr[c]);
+  mu = warp_sum(s) / d;
+  float v = 0.f;
+  for (int c = lane; c < d; c += 32) {
+    float t = bf2f(xr[c]) - mu;
+    v += t * t;
+  }
+  rstd = rsqrtf(warp_sum(v) / d + eps);
+}
+
 }  // namespace cet

@@ -43,19 +43,8 @@ constexpr int kLds = kBK + 8;  // padded smem row (80 bytes), fewer conflicts
 constexpr int kThreads = 256;
 
 enum Epilogue { EPI_BIAS = 0, EPI_BIAS_ACT = 1, EPI_BIAS_RESIDUAL = 2 };
-enum Act { ACT_QUICK = 0, ACT_ERF = 1, ACT_TANH = 2 };
 
-__device__ __forceinline__ float apply_act(float v, int act) {
-  if (act == ACT_QUICK) return v / (1.0f + expf(-1.702f * v));
-  if (act == ACT_TANH) {
-    const float c = 0.7978845608028654f;  // sqrt(2/pi)
-    return 0.5f * v * (1.0f + tanhf(c * (v + 0.044715f * v * v * v)));
-  }
-  return 0.5f * v * (1.0f + erff(v * 0.7071067811865476f));
-}
-
-// y[m, :] = bf16(LN(x[m, :]) * gamma + beta): one warp per row, fp32 stats
-// (two-pass mean/variance as the Pallas `_ln`).
+// y[m, :] = bf16(LN(x[m, :]) * gamma + beta): one warp per row, fp32 stats.
 __global__ void __launch_bounds__(256)
 layernorm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
                  const bf16* __restrict__ beta, bf16* __restrict__ y, int rows,
@@ -64,15 +53,8 @@ layernorm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
   int lane = threadIdx.x % 32;
   if (row >= rows) return;
   const bf16* xr = x + static_cast<size_t>(row) * d;
-  float s = 0.f;
-  for (int c = lane; c < d; c += 32) s += bf2f(xr[c]);
-  float mu = warp_sum(s) / d;
-  float v = 0.f;
-  for (int c = lane; c < d; c += 32) {
-    float t = bf2f(xr[c]) - mu;
-    v += t * t;
-  }
-  float rstd = rsqrtf(warp_sum(v) / d + eps);
+  float mu, rstd;
+  row_ln_stats(xr, d, lane, eps, mu, rstd);
   bf16* yr = y + static_cast<size_t>(row) * d;
   for (int c = lane; c < d; c += 32)
     yr[c] = f2bf((bf2f(xr[c]) - mu) * rstd * bf2f(gamma[c]) + bf2f(beta[c]));

@@ -3,7 +3,9 @@ vision tower only for now.
 
 Parameter names are open_clip's (``open_clip/model.py`` CLIP): the vision
 tower under ``visual.``, the text tower's modules at top level, so an
-open_clip state dict loads with ``load_state_dict``.
+open_clip state dict loads with ``load_state_dict``. ``quant`` ('dynamic' /
+'static') builds both towers' block projections as int8 QuantLinear (the
+W8A8 serving path, ``models/quant.py``).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import torch
 from torch import nn
 
 from ..core.config import CLIPConfig
+from .quant import Quant
 from .text_transformer import TextTransformer, encode_text_tower
 from .vit import VisionTransformer
 
@@ -24,12 +27,12 @@ def l2_normalize(x: torch.Tensor, dim: int = -1,
 
 
 class CLIP(nn.Module):
-    def __init__(self, cfg: CLIPConfig):
+    def __init__(self, cfg: CLIPConfig, quant: Quant = False):
         super().__init__()
         self.cfg = cfg
         self.visual = VisionTransformer(cfg.vision, cfg.embed_dim,
-                                        cfg.quick_gelu)
-        text = TextTransformer(cfg.text, cfg.embed_dim, cfg.quick_gelu)
+                                        cfg.quick_gelu, quant)
+        text = TextTransformer(cfg.text, cfg.embed_dim, cfg.quick_gelu, quant)
         # open_clip keeps the text tower's modules at top level
         self.token_embedding = text.token_embedding
         self.positional_embedding = text.positional_embedding

@@ -5,9 +5,11 @@ Module and parameter names follow open_clip
 (``open_clip/transformer.py`` ResidualAttentionBlock), so an open_clip state
 dict loads with ``load_state_dict``: ``attn.in_proj_weight`` is [3d, d]
 (q, k, v stacked), ``nn.Linear`` weights are [out, in]. Activations are
-[B, N, d]. The projections are plain ``nn.Linear``; attention goes through
-``ops.attention.dot_product_attention`` (the flash kernel for bf16 on the
-card, plain PyTorch otherwise).
+[B, N, d]. The projections are plain ``nn.Linear``, or with ``quant``
+('dynamic' / 'static') int8 :class:`~.quant.QuantLinear` (the packed
+``in_proj`` becomes one [3d, d] QuantLinear, as the JAX ``in_proj``);
+attention goes through ``ops.attention.dot_product_attention`` (the flash
+kernel for bf16 on the card, plain PyTorch otherwise).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import dot_product_attention
+from .quant import Quant, linear
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -36,17 +39,23 @@ def get_act(quick: bool) -> Callable[[torch.Tensor], torch.Tensor]:
 class MultiHeadAttention(nn.Module):
     """Packed-QKV multi-head attention (torch nn.MultiheadAttention names)."""
 
-    def __init__(self, width: int, heads: int):
+    def __init__(self, width: int, heads: int, quant: Quant = False):
         super().__init__()
         self.width, self.heads = width, heads
-        self.in_proj_weight = nn.Parameter(torch.empty(3 * width, width))
-        self.in_proj_bias = nn.Parameter(torch.zeros(3 * width))
-        self.out_proj = nn.Linear(width, width)
+        if quant:
+            self.in_proj = linear(quant, width, 3 * width)
+        else:
+            self.in_proj_weight = nn.Parameter(torch.empty(3 * width, width))
+            self.in_proj_bias = nn.Parameter(torch.zeros(3 * width))
+        self.out_proj = linear(quant, width, width)
 
     def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
         b, n, _ = x.shape
         hd = self.width // self.heads
-        qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
+        if hasattr(self, "in_proj"):
+            qkv = self.in_proj(x)
+        else:
+            qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
         # [B, n, 3, H, hd] -> three [B, H, n, hd] views of the packed buffer
         q, k, v = qkv.view(b, n, 3, self.heads, hd).permute(2, 0, 3, 1, 4)
         out = dot_product_attention(q, k, v, causal=causal)
@@ -56,11 +65,11 @@ class MultiHeadAttention(nn.Module):
 
 class MLP(nn.Module):
     def __init__(self, width: int, mlp_ratio: float = 4.0,
-                 quick_gelu: bool = False):
+                 quick_gelu: bool = False, quant: Quant = False):
         super().__init__()
         hidden = int(width * mlp_ratio)
-        self.c_fc = nn.Linear(width, hidden)
-        self.c_proj = nn.Linear(hidden, width)
+        self.c_fc = linear(quant, width, hidden)
+        self.c_proj = linear(quant, hidden, width)
         self.act = get_act(quick_gelu)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -69,12 +78,12 @@ class MLP(nn.Module):
 
 class ResidualAttentionBlock(nn.Module):
     def __init__(self, width: int, heads: int, mlp_ratio: float = 4.0,
-                 quick_gelu: bool = False):
+                 quick_gelu: bool = False, quant: Quant = False):
         super().__init__()
         self.ln_1 = nn.LayerNorm(width)
-        self.attn = MultiHeadAttention(width, heads)
+        self.attn = MultiHeadAttention(width, heads, quant)
         self.ln_2 = nn.LayerNorm(width)
-        self.mlp = MLP(width, mlp_ratio, quick_gelu)
+        self.mlp = MLP(width, mlp_ratio, quick_gelu, quant)
 
     def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
         x = x + self.attn(self.ln_1(x), causal=causal)
@@ -86,10 +95,11 @@ class Transformer(nn.Module):
     (the LLaVA hidden_states[-2] tap)."""
 
     def __init__(self, width: int, layers: int, heads: int,
-                 mlp_ratio: float = 4.0, quick_gelu: bool = False):
+                 mlp_ratio: float = 4.0, quick_gelu: bool = False,
+                 quant: Quant = False):
         super().__init__()
         self.resblocks = nn.ModuleList(
-            ResidualAttentionBlock(width, heads, mlp_ratio, quick_gelu)
+            ResidualAttentionBlock(width, heads, mlp_ratio, quick_gelu, quant)
             for _ in range(layers)
         )
 

@@ -1,24 +1,36 @@
 """Serving path: CLIP towers replayed block by block through
 ``ops.fused_block`` (counterpart of ``clip_embeds_tpu/models/serving.py``,
-bf16 ViT and text towers).
+bf16 and W8A8 ViT and text towers).
 
 Reads the weights of a :class:`~clip_embeds_tpu_torch.models.clip.CLIP`.
 The sequence is padded once to a multiple of 16 before the block stack;
 padded keys are masked through ``kv_valid`` and padded rows are dropped
 after. For inference only.
+
+The W8A8 towers (``prepare_int8_tower`` / ``prepare_int8_text_tower``)
+are a list of ``fused_block_int8`` argument dicts whose int8 weights,
+scales and static activation scales come from a calibrated quantised copy
+of the tower (``models/quant.py``); the embeddings, LayerNorms and heads
+are read from the fp model at each call, as the JAX package reads them
+from its fp param tree.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..ops.fused_block import _ln as _ln_affine
-from ..ops.fused_block import fused_block, fused_block_supported
+from ..ops.fused_block import (
+    fused_block,
+    fused_block_int8,
+    fused_block_supported,
+)
 from .clip import l2_normalize
 from .layers import get_act
+from .quant import calibrate_act_scales, quantize_model
 from .text_transformer import text_global_pool
 from .vit import patch_weight, patchify
 
@@ -42,23 +54,13 @@ def _pad_rows(x: torch.Tensor, n_pad: int) -> torch.Tensor:
     return F.pad(x, (0, 0, 0, n_pad - x.shape[1]))
 
 
-def fused_encode_image(
-    model,                        # models.clip.CLIP (vit tower)
-    images: torch.Tensor,         # [B, S, S, 3]
-    normalize: bool = True,
-    dtype: torch.dtype = torch.bfloat16,
-    cls_fast_last: bool = True,
-    output_tokens: bool = False,
-):
-    """encode_image through fused blocks; returns [B, embed_dim].
-
-    With ``output_tokens`` returns (pooled, tokens [B, N, width]) like the
-    composable ``encode_image(output_tokens=True)``; token output reads
-    every row, so the CLS-only last block is then off.
-    """
+def _encode_image(model, images, block_fn: Callable, normalize: bool,
+                  dtype: torch.dtype, cls_fast_last: bool,
+                  output_tokens: bool):
+    """The fused image tower; ``block_fn(i, x, n_valid)`` runs block i on
+    the padded sequence."""
     cfg = model.cfg.vision
     v = model.visual
-    quick = model.cfg.quick_gelu
     b = images.shape[0]
 
     x = patchify(images.to(dtype), cfg.patch_size)
@@ -74,17 +76,15 @@ def fused_encode_image(
     # last block runs in CLS-only form (k/v full, q/out/MLP one row)
     use_cls_fast = cls_fast_last and cfg.pool_type == "tok" \
         and not output_tokens
-    blocks = v.transformer.resblocks
-    n_fused = cfg.layers - 1 if use_cls_fast else cfg.layers
-    for block in blocks[:n_fused]:
-        x = fused_block(x, *_block_weights(block, dtype), heads=cfg.heads,
-                        kv_valid=n_valid, quick_gelu=quick)
+    for i in range(cfg.layers - 1 if use_cls_fast else cfg.layers):
+        x = block_fn(i, x, n_valid)
 
     lnp = v.ln_post
     tokens = None
     if use_cls_fast:
-        pooled = _cls_only_last_block(x, blocks[-1], cfg.heads, n_valid,
-                                      quick, dtype)
+        pooled = _cls_only_last_block(x, v.transformer.resblocks[-1],
+                                      cfg.heads, n_valid,
+                                      model.cfg.quick_gelu, dtype)
         # for 'tok', ln-then-pool and pool-then-ln agree on the CLS row
         pooled = _ln_affine(pooled, lnp.weight, lnp.bias, 1e-5)
     else:
@@ -98,6 +98,31 @@ def fused_encode_image(
     pooled = pooled @ v.proj.to(dtype)
     pooled = l2_normalize(pooled) if normalize else pooled
     return (pooled, tokens) if output_tokens else pooled
+
+
+def fused_encode_image(
+    model,                        # models.clip.CLIP (vit tower)
+    images: torch.Tensor,         # [B, S, S, 3]
+    normalize: bool = True,
+    dtype: torch.dtype = torch.bfloat16,
+    cls_fast_last: bool = True,
+    output_tokens: bool = False,
+):
+    """encode_image through fused blocks; returns [B, embed_dim].
+
+    With ``output_tokens`` returns (pooled, tokens [B, N, width]) like the
+    composable ``encode_image(output_tokens=True)``; token output reads
+    every row, so the CLS-only last block is then off.
+    """
+    blocks = model.visual.transformer.resblocks
+
+    def block_fn(i, x, n_valid):
+        return fused_block(x, *_block_weights(blocks[i], dtype),
+                           heads=model.cfg.vision.heads, kv_valid=n_valid,
+                           quick_gelu=model.cfg.quick_gelu)
+
+    return _encode_image(model, images, block_fn, normalize, dtype,
+                         cls_fast_last, output_tokens)
 
 
 def _cls_only_last_block(
@@ -144,13 +169,10 @@ def _cls_only_last_block(
     return (r + t)[:, 0]
 
 
-def fused_encode_text(
-    model,
-    text_ids: torch.Tensor,        # int [B, ctx]
-    normalize: bool = True,
-    dtype: torch.dtype = torch.bfloat16,
-) -> torch.Tensor:
-    """encode_text through fused causal blocks (77 -> 80 rows)."""
+def _encode_text(model, text_ids, block_fn: Callable, normalize: bool,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """The fused text tower; ``block_fn(i, x, n_valid, causal)`` runs
+    block i on the padded sequence."""
     cfg = model.cfg.text
     n_valid = text_ids.shape[1]
     x = model.token_embedding.weight.to(dtype)[text_ids]
@@ -158,15 +180,30 @@ def fused_encode_text(
     x = _pad_rows(x, _round_up(n_valid, 16))
 
     causal = not cfg.no_causal_mask
-    for block in model.transformer.resblocks:
-        x = fused_block(x, *_block_weights(block, dtype), heads=cfg.heads,
-                        kv_valid=n_valid, quick_gelu=model.cfg.quick_gelu,
-                        causal=causal)
+    for i in range(cfg.layers):
+        x = block_fn(i, x, n_valid, causal)
     x = x[:, :n_valid]
     x = _ln_affine(x, model.ln_final.weight, model.ln_final.bias, 1e-5)
     pooled, _ = text_global_pool(x, text_ids, cfg.pool_type)
     pooled = pooled @ model.text_projection.to(dtype)
     return l2_normalize(pooled) if normalize else pooled
+
+
+def fused_encode_text(
+    model,
+    text_ids: torch.Tensor,        # int [B, ctx]
+    normalize: bool = True,
+    dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """encode_text through fused causal blocks (77 -> 80 rows)."""
+    blocks = model.transformer.resblocks
+
+    def block_fn(i, x, n_valid, causal):
+        return fused_block(x, *_block_weights(blocks[i], dtype),
+                           heads=model.cfg.text.heads, kv_valid=n_valid,
+                           quick_gelu=model.cfg.quick_gelu, causal=causal)
+
+    return _encode_text(model, text_ids, block_fn, normalize, dtype)
 
 
 def fused_path_available(model) -> bool:
@@ -181,3 +218,100 @@ def fused_path_available(model) -> bool:
         and fused_block_supported(_round_up(t.context_length, 16), t.width,
                                   t.heads, t.mlp_ratio)
     )
+
+
+# -- W8A8 fused serving path -------------------------------------------------
+
+# fused_block_int8's weight arguments, in order (the JAX package's)
+INT8_BLOCK_ARGS = ("wqkv_q", "sqkv", "bqkv", "wo_q", "so", "bo", "w1_q",
+                   "s1", "b1", "w2_q", "s2", "b2", "ln1", "ln2",
+                   "act_scales")
+
+
+@torch.no_grad()
+def int8_block_args(block) -> Dict[str, torch.Tensor]:
+    """A calibrated quantised ResidualAttentionBlock (``quant``) ->
+    ``fused_block_int8`` arguments: int8 [out, in] weights, fp32 scales
+    and biases, its LayerNorms and the four static activation scales."""
+    a, m = block.attn, block.mlp
+    lins = (a.in_proj, a.out_proj, m.c_fc, m.c_proj)
+    out: Dict[str, torch.Tensor] = {}
+    for name, lin in zip(("qkv", "o", "1", "2"), lins):
+        out[f"w{name}_q"] = lin.weight_q
+        out[f"s{name}"] = lin.scale
+        out[f"b{name}"] = lin.bias
+    out["ln1"] = torch.stack([block.ln_1.weight, block.ln_1.bias])
+    out["ln2"] = torch.stack([block.ln_2.weight, block.ln_2.bias])
+    out["act_scales"] = torch.stack([lin.act_scale for lin in lins]).float()
+    return out
+
+
+def _int8_block(x, bp: Dict[str, torch.Tensor], heads: int, n_valid: int,
+                quick_gelu: bool, causal: bool = False) -> torch.Tensor:
+    return fused_block_int8(
+        x, *(bp[k] for k in INT8_BLOCK_ARGS), heads=heads, kv_valid=n_valid,
+        quick_gelu=quick_gelu, causal=causal)
+
+
+def _prepare_int8(model, calib, method: str, tower: str,
+                  dtype: Optional[torch.dtype]) -> Dict[str, List]:
+    qmodel = quantize_model(model, "dynamic", dtype, tower=tower)
+    with torch.inference_mode():
+        calibrate_act_scales(qmodel, [calib], method)
+    blocks = (qmodel.visual if tower == "visual" else qmodel).transformer
+    return {"blocks": [int8_block_args(b) for b in blocks.resblocks]}
+
+
+def prepare_int8_tower(model, calib_images: torch.Tensor,
+                       dtype: Optional[torch.dtype] = None
+                       ) -> Dict[str, List]:
+    """Quantise the ViT tower's block projections to int8 (from
+    ``model``'s own weights: fp32 where the model is fp32, as the JAX
+    package quantises its fp32 params) and calibrate the static activation
+    scales on ``calib_images`` through a dynamic-mode copy computing in
+    ``dtype`` (default: the model's)."""
+    return _prepare_int8(model, calib_images, "encode_image", "visual",
+                         dtype)
+
+
+def prepare_int8_text_tower(model, calib_ids: torch.Tensor,
+                            dtype: Optional[torch.dtype] = None
+                            ) -> Dict[str, List]:
+    """:func:`prepare_int8_tower` for the text tower, calibrated on token
+    batches."""
+    return _prepare_int8(model, calib_ids, "encode_text", "text", dtype)
+
+
+def fused_encode_image_int8(
+    model,
+    qtower: Dict[str, List],      # prepare_int8_tower output
+    images: torch.Tensor,
+    normalize: bool = True,
+    dtype: torch.dtype = torch.bfloat16,
+    cls_fast_last: bool = True,
+    output_tokens: bool = False,
+):
+    """encode_image with W8A8 fused blocks. The CLS-only last block runs in
+    ``dtype`` from the fp weights (one row is cheaper than an int8 block);
+    ``output_tokens`` returns (pooled, tokens) and turns it off."""
+    def block_fn(i, x, n_valid):
+        return _int8_block(x, qtower["blocks"][i], model.cfg.vision.heads,
+                           n_valid, model.cfg.quick_gelu)
+
+    return _encode_image(model, images, block_fn, normalize, dtype,
+                         cls_fast_last, output_tokens)
+
+
+def fused_encode_text_int8(
+    model,
+    qtower: Dict[str, List],      # prepare_int8_text_tower output
+    text_ids: torch.Tensor,
+    normalize: bool = True,
+    dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """encode_text with W8A8 fused causal blocks."""
+    def block_fn(i, x, n_valid, causal):
+        return _int8_block(x, qtower["blocks"][i], model.cfg.text.heads,
+                           n_valid, model.cfg.quick_gelu, causal)
+
+    return _encode_text(model, text_ids, block_fn, normalize, dtype)

@@ -15,6 +15,7 @@ from torch import nn
 
 from ..core.config import TextConfig
 from .layers import Transformer
+from .quant import Quant
 
 
 def text_global_pool(x: torch.Tensor, text_ids: torch.Tensor,
@@ -47,14 +48,14 @@ def encode_text_tower(tower, cfg: TextConfig, text_ids: torch.Tensor
 
 class TextTransformer(nn.Module):
     def __init__(self, cfg: TextConfig, embed_dim: int,
-                 quick_gelu: bool = False):
+                 quick_gelu: bool = False, quant: Quant = False):
         super().__init__()
         self.cfg = cfg
         self.token_embedding = nn.Embedding(cfg.vocab_size, cfg.width)
         self.positional_embedding = nn.Parameter(
             torch.empty(cfg.context_length, cfg.width))
         self.transformer = Transformer(cfg.width, cfg.layers, cfg.heads,
-                                       cfg.mlp_ratio, quick_gelu)
+                                       cfg.mlp_ratio, quick_gelu, quant)
         self.ln_final = nn.LayerNorm(cfg.width)
         self.text_projection = nn.Parameter(
             torch.empty(cfg.width, embed_dim))

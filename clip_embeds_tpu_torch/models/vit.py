@@ -16,6 +16,7 @@ from torch import nn
 
 from ..core.config import VisionConfig
 from .layers import Transformer
+from .quant import Quant
 
 
 def patchify(images: torch.Tensor, patch_size: int) -> torch.Tensor:
@@ -39,7 +40,7 @@ def patch_weight(conv1_weight: torch.Tensor) -> torch.Tensor:
 
 class VisionTransformer(nn.Module):
     def __init__(self, cfg: VisionConfig, embed_dim: int,
-                 quick_gelu: bool = False):
+                 quick_gelu: bool = False, quant: Quant = False):
         super().__init__()
         if cfg.tower != "vit":
             raise NotImplementedError(f"tower {cfg.tower!r} is not ported")
@@ -51,7 +52,7 @@ class VisionTransformer(nn.Module):
             torch.empty(cfg.num_patches + 1, w))
         self.ln_pre = None if cfg.no_ln_pre else nn.LayerNorm(w)
         self.transformer = Transformer(w, cfg.layers, cfg.heads,
-                                       cfg.mlp_ratio, quick_gelu)
+                                       cfg.mlp_ratio, quick_gelu, quant)
         self.ln_post = nn.LayerNorm(w)
         self.proj = nn.Parameter(torch.empty(w, embed_dim))
 

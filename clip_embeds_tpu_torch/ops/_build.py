@@ -1,6 +1,7 @@
 """Build and bind the port's CUDA kernels (``clip_embeds_tpu_torch/csrc``).
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a``, one
+process per source, all started together, and links the objects into one
 shared library with a plain C interface, which is loaded with ``ctypes``.
 The library's file name carries a hash of the sources and the compiler
 flags, so an edit rebuilds; the output goes to ``clip_embeds_tpu_torch/
@@ -28,7 +29,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 ]
 
 _p, _i, _f, _ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
@@ -39,6 +40,9 @@ _ARGTYPES = {
     "cet_gemm": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _p],
     "cet_attention": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _f,
                       _ll, _ll, _ll, _ll, _ll, _ll, _p],
+    "cet_layernorm_s8": [_p, _p, _p, _p, _i, _p, _i, _i, _f, _p],
+    "cet_quantize_s8": [_p, _p, _i, _p, _ll, _p],
+    "cet_gemm_s8": [_p, _p, _p, _p, _p, _i, _p, _p, _i, _i, _i, _i, _i, _p],
 }
 
 _LOCK = threading.Lock()
@@ -74,17 +78,29 @@ def build() -> str:
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in _sources():
+            obj = os.path.join(tmp, os.path.basename(src) + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs = [(cmd, proc.communicate()[0], proc.returncode)
+                for cmd, proc in procs]
+        so = os.path.join(tmp, "lib.so")
+        if all(rc == 0 for _, _, rc in logs):
+            cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", so, *objs]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            logs.append((cmd, proc.stdout + proc.stderr, proc.returncode))
+        failed = [(cmd, log, rc) for cmd, log, rc in logs if rc != 0]
+        if failed:
+            raise RuntimeError("\n".join(
+                f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{log}"
+                for cmd, log, rc in failed))
+        os.replace(so, out)  # atomic: a concurrent build sees all or nothing
     return out
 
 

@@ -17,6 +17,14 @@ out of device memory. Rounding points are the Pallas kernel's: qkv, the
 attention output and each projection's ``(dot + bias)`` are rounded to
 bf16, the activation is taken in fp32 and then rounded.
 
+:func:`fused_block_int8` is the W8A8 block (``fused_block_int8``,
+``_kernel_int8``, ``_qdot``): int8 weights with fp32 per-output-channel
+scales and fp32 biases, activations quantised with four static fp32 scales
+(qkv, out, fc, proj), exact int8 x int8 -> int32 products dequantised to
+fp32; attention stays bf16. On the card it is a chain of eight launches of
+``csrc/fused_block_int8.cu`` (int8 tensor-core GEMMs) and
+``csrc/attention.cu``.
+
 TPU-only parts are not ported: the rows-per-program choice, VMEM budgets,
 cost estimates, ``interpret``, the k/v zero-padding to ``n_kv`` (the
 kernel masks its ragged edge) and the clamped no-max softmax.
@@ -32,6 +40,8 @@ from . import _build
 
 _ACTS = {"quick": 0, "erf": 1, "tanh": 2}
 _EPI_BIAS, _EPI_ACT, _EPI_RESIDUAL = 0, 1, 2
+# csrc/fused_block_int8.cu epilogues
+_EPI_Q_BF16, _EPI_Q_ACT_Q8, _EPI_Q_RESIDUAL = 0, 1, 2
 _KERNEL_HEAD_DIMS = (32, 64, 128)
 
 
@@ -58,6 +68,26 @@ def _linear32(a: torch.Tensor, w: torch.Tensor,
     return torch.matmul(a.float(), w.float().t()) + b.float()
 
 
+def _attention_reference(qkv: torch.Tensor, heads: int, kv_valid: int,
+                         causal: bool) -> torch.Tensor:
+    """Per-head attention over the packed qkv [B, n, 3d]; returns [B, n, d]
+    in qkv's dtype (fp32 logits and sums, P rounded to that dtype)."""
+    dt = qkv.dtype
+    b, n, d3 = qkv.shape
+    d = d3 // 3
+    hd = d // heads
+    q, k, v = qkv.view(b, n, 3, heads, hd).permute(2, 0, 3, 1, 4)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * hd ** -0.5
+    col = torch.arange(n, device=qkv.device)
+    keep = (col < kv_valid)[None, :]
+    if causal:
+        keep = keep & (col[None, :] <= col[:, None])
+    s = s.masked_fill(~keep, float("-inf"))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    att = torch.matmul(p.to(dt).float(), v.float()) / p.sum(-1, keepdim=True)
+    return att.to(dt).transpose(1, 2).reshape(b, n, d)
+
+
 def fused_block_reference(
     x, wqkv, bqkv, wo, bo, w1, b1, w2, b2, ln1, ln2, heads: int,
     kv_valid: int, quick_gelu: bool = False, ln_eps: float = 1e-5,
@@ -66,28 +96,53 @@ def fused_block_reference(
     """Plain PyTorch version of :func:`fused_block`, same arguments."""
     act = act or ("quick" if quick_gelu else "erf")
     dt = x.dtype
-    b, n, d = x.shape
-    hd = d // heads
     wqkv, bqkv, wo, bo, w1, b1, w2, b2, ln1, ln2 = (
         t.to(dt) for t in (wqkv, bqkv, wo, bo, w1, b1, w2, b2, ln1, ln2))
 
     h = _ln(x, ln1[0], ln1[1], ln_eps)
     qkv = _linear32(h, wqkv, bqkv).to(dt)
-    q, k, v = qkv.view(b, n, 3, heads, hd).permute(2, 0, 3, 1, 4)
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * hd ** -0.5
-    col = torch.arange(n, device=x.device)
-    keep = (col < kv_valid)[None, :]
-    if causal:
-        keep = keep & (col[None, :] <= col[:, None])
-    s = s.masked_fill(~keep, float("-inf"))
-    p = torch.exp(s - s.amax(-1, keepdim=True))
-    att = torch.matmul(p.to(dt).float(), v.float()) / p.sum(-1, keepdim=True)
-    att = att.to(dt).transpose(1, 2).reshape(b, n, d)
-
+    att = _attention_reference(qkv, heads, kv_valid, causal)
     x = x + _linear32(att, wo, bo).to(dt)
     h = _ln(x, ln2[0], ln2[1], ln_eps)
     m = _apply_act(_linear32(h, w1, b1), act).to(dt)
     return x + _linear32(m, w2, b2).to(dt)
+
+
+def qdot(x32: torch.Tensor, a_scale: torch.Tensor, wq: torch.Tensor,
+         scale: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """W8A8 product (the Pallas ``_qdot``): fp32 activations -> int8 codes
+    ``clip(round(x / a), -127, 127)`` (true division, round half to even)
+    -> exact int8 x int8 sums -> ``acc * (a * scale) + bias`` in fp32.
+
+    ``wq`` is int8 [out, in]; ``a_scale`` a 0-d fp32 tensor (no host
+    sync). The sums go through a float64 matmul of the int8 values, exact
+    on any device (|sum| <= 127^2 * in < 2^53)."""
+    xq = torch.clamp(torch.round(x32 / a_scale), -127, 127)
+    acc = torch.matmul(xq.double(), wq.double().t()).float()
+    y = acc * (a_scale * scale.float())
+    return y if bias is None else y + bias.float()
+
+
+def fused_block_int8_reference(
+    x, wqkv_q, sqkv, bqkv, wo_q, so, bo, w1_q, s1, b1, w2_q, s2, b2,
+    ln1, ln2, act_scales, heads: int, kv_valid: int,
+    quick_gelu: bool = False, ln_eps: float = 1e-5, causal: bool = False,
+    act: Optional[str] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_block_int8`, same arguments."""
+    act = act or ("quick" if quick_gelu else "erf")
+    dt = x.dtype
+    a = act_scales.float()
+    ln1, ln2 = ln1.to(dt), ln2.to(dt)
+
+    h32 = _ln(x, ln1[0], ln1[1], ln_eps).float()
+    qkv = qdot(h32, a[0], wqkv_q, sqkv, bqkv).to(dt)
+    att = _attention_reference(qkv, heads, kv_valid, causal)
+    x = x + qdot(att.float(), a[1], wo_q, so, bo).to(dt)
+    h32 = _ln(x, ln2[0], ln2[1], ln_eps).float()
+    # the activation is quantised from fp32, without a round to dt
+    m = _apply_act(qdot(h32, a[2], w1_q, s1, b1), act)
+    return x + qdot(m, a[3], w2_q, s2, b2).to(dt)
 
 
 def fused_block_supported(n: int, d: int, heads: int,
@@ -108,6 +163,21 @@ def _gemm(a, w, bias, res, out, epi: int, act: int) -> None:
         "cet_gemm", a.data_ptr(), w.data_ptr(), bias.data_ptr(),
         res.data_ptr() if res is not None else None, out.data_ptr(),
         m, w.shape[0], k, epi, act,
+    )
+
+
+def _attention(qkv, out, heads: int, kv_valid: int, causal: bool) -> None:
+    """cet_attention straight out of the packed [B, n, 3d] qkv buffer."""
+    b, n, d3 = qkv.shape
+    d = d3 // 3
+    hd = d // heads
+    step = d * qkv.element_size()
+    _build.launch(
+        "cet_attention", qkv.data_ptr(), qkv.data_ptr() + step,
+        qkv.data_ptr() + 2 * step, out.data_ptr(), b, heads, n, hd,
+        kv_valid, int(causal), hd ** -0.5,
+        n * d3, hd, d3,            # q/k/v strides: batch, head, row
+        n * d, hd, d,              # output strides ([B, n, d])
     )
 
 
@@ -167,7 +237,6 @@ def fused_block(
         raise ValueError("fused_block weights must be in [out, in] layout")
     x, wqkv, bqkv, wo, bo, w1, b1, w2, b2, ln1, ln2 = (
         t.contiguous() for t in args)
-    hd = d // heads
     a = _ACTS[act]
 
     h = torch.empty_like(x)
@@ -175,14 +244,7 @@ def fused_block(
     qkv = torch.empty(b, n, 3 * d, dtype=x.dtype, device=x.device)
     _gemm(h, wqkv, bqkv, None, qkv, _EPI_BIAS, a)
     att = torch.empty_like(x)
-    step = d * qkv.element_size()
-    _build.launch(
-        "cet_attention", qkv.data_ptr(), qkv.data_ptr() + step,
-        qkv.data_ptr() + 2 * step, att.data_ptr(), b, heads, n, hd,
-        kv_valid, int(causal), hd ** -0.5,
-        n * 3 * d, hd, 3 * d,      # q/k/v strides: batch, head, row
-        n * d, hd, d,              # output strides ([B, n, d])
-    )
+    _attention(qkv, att, heads, kv_valid, causal)
     x1 = torch.empty_like(x)
     _gemm(att, wo, bo, x, x1, _EPI_RESIDUAL, a)
     _layernorm(x1, ln2, ln_eps, h)
@@ -195,3 +257,107 @@ def fused_block(
 
 
 fused_block.launches = 0
+
+
+def _gemm_s8(a, w, scale, bias, act_scales, a_idx: int, res, out, epi: int,
+             act: int) -> None:
+    m, k = a.numel() // a.shape[-1], a.shape[-1]
+    _build.launch(
+        "cet_gemm_s8", a.data_ptr(), w.data_ptr(), scale.data_ptr(),
+        bias.data_ptr(), act_scales.data_ptr(), a_idx,
+        res.data_ptr() if res is not None else None, out.data_ptr(),
+        m, w.shape[0], k, epi, act,
+    )
+
+
+def _layernorm_s8(x, ln, eps: float, act_scales, a_idx: int, out) -> None:
+    d = x.shape[-1]
+    _build.launch(
+        "cet_layernorm_s8", x.data_ptr(), ln.data_ptr(),
+        ln.data_ptr() + d * ln.element_size(), act_scales.data_ptr(), a_idx,
+        out.data_ptr(), x.numel() // d, d, eps,
+    )
+
+
+def fused_block_int8(
+    x: torch.Tensor,           # [B, n, d] bf16
+    wqkv_q: torch.Tensor,      # int8 [3d, d] ([out, in]: the JAX kernel^T)
+    sqkv: torch.Tensor,        # fp32 [3d] per-output-channel scale
+    bqkv: torch.Tensor,        # fp32 [3d]
+    wo_q: torch.Tensor, so: torch.Tensor, bo: torch.Tensor,   # [d, d]
+    w1_q: torch.Tensor, s1: torch.Tensor, b1: torch.Tensor,   # [mlp, d]
+    w2_q: torch.Tensor, s2: torch.Tensor, b2: torch.Tensor,   # [d, mlp]
+    ln1: torch.Tensor,         # [2, d] (scale, bias), cast to x's dtype
+    ln2: torch.Tensor,
+    act_scales: torch.Tensor,  # fp32 [4]: qkv, out, fc, proj
+    heads: int,
+    kv_valid: int,
+    quick_gelu: bool = False,
+    ln_eps: float = 1e-5,
+    causal: bool = False,
+    act: Optional[str] = None,
+) -> torch.Tensor:
+    """One W8A8 pre-LN transformer block; returns [B, n, d] in x's dtype.
+
+    Argument order is the JAX ``fused_block_int8``'s; weights are in the
+    ``[out, in]`` layout with per-row scales. CPU tensors take
+    :func:`fused_block_int8_reference`. CUDA tensors must be bf16 ``x``,
+    int8 weights, fp32 scales, biases and ``act_scales`` on the card, must
+    not require grad, and must pass :func:`fused_block_supported`; they
+    launch the kernels.
+    """
+    args = (x, wqkv_q, sqkv, bqkv, wo_q, so, bo, w1_q, s1, b1, w2_q, s2, b2,
+            ln1, ln2, act_scales)
+    if x.device.type == "cpu":
+        return fused_block_int8_reference(*args, heads, kv_valid, quick_gelu,
+                                          ln_eps, causal, act)
+    act = act or ("quick" if quick_gelu else "erf")
+    b, n, d = x.shape
+    mlp = w1_q.shape[0]
+    if not all(t.is_cuda for t in args):
+        raise TypeError("fused_block_int8 kernels take CUDA tensors")
+    if (x.dtype != torch.bfloat16
+            or any(w.dtype != torch.int8 for w in (wqkv_q, wo_q, w1_q, w2_q))
+            or any(t.dtype != torch.float32 for t in
+                   (sqkv, bqkv, so, bo, s1, b1, s2, b2, act_scales))):
+        raise TypeError("fused_block_int8 kernels take bf16 x, int8 weights "
+                        "and fp32 scales, biases and act_scales")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        raise RuntimeError("fused_block_int8 is forward-only")
+    if not fused_block_supported(n, d, heads, mlp / d):
+        raise ValueError(f"fused_block_int8 kernels do not take n={n} d={d} "
+                         f"heads={heads} mlp={mlp}")
+    if (wqkv_q.shape != (3 * d, d) or wo_q.shape != (d, d)
+            or w1_q.shape != (mlp, d) or w2_q.shape != (d, mlp)
+            or sqkv.shape != (3 * d,) or bqkv.shape != (3 * d,)
+            or so.shape != (d,) or bo.shape != (d,) or s1.shape != (mlp,)
+            or b1.shape != (mlp,) or s2.shape != (d,) or b2.shape != (d,)
+            or ln1.shape != (2, d) or ln2.shape != (2, d)
+            or act_scales.shape != (4,)):
+        raise ValueError("fused_block_int8 weights must be in [out, in] "
+                         "layout with one scale and bias per output")
+    (x, wqkv_q, sqkv, bqkv, wo_q, so, bo, w1_q, s1, b1, w2_q, s2, b2, ln1,
+     ln2, act_scales) = (t.contiguous() for t in args)
+    ln1, ln2 = ln1.to(x.dtype), ln2.to(x.dtype)
+    a = _ACTS[act]
+
+    h = torch.empty(b, n, d, dtype=torch.int8, device=x.device)
+    _layernorm_s8(x, ln1, ln_eps, act_scales, 0, h)
+    qkv = torch.empty(b, n, 3 * d, dtype=x.dtype, device=x.device)
+    _gemm_s8(h, wqkv_q, sqkv, bqkv, act_scales, 0, None, qkv, _EPI_Q_BF16, a)
+    att = torch.empty_like(x)
+    _attention(qkv, att, heads, kv_valid, causal)
+    _build.launch("cet_quantize_s8", att.data_ptr(), act_scales.data_ptr(), 1,
+                  h.data_ptr(), att.numel())
+    x1 = torch.empty_like(x)
+    _gemm_s8(h, wo_q, so, bo, act_scales, 1, x, x1, _EPI_Q_RESIDUAL, a)
+    _layernorm_s8(x1, ln2, ln_eps, act_scales, 2, h)
+    m = torch.empty(b, n, mlp, dtype=torch.int8, device=x.device)
+    _gemm_s8(h, w1_q, s1, b1, act_scales, 2, None, m, _EPI_Q_ACT_Q8, a)
+    y = torch.empty_like(x)
+    _gemm_s8(m, w2_q, s2, b2, act_scales, 3, x1, y, _EPI_Q_RESIDUAL, a)
+    fused_block_int8.launches += 1
+    return y
+
+
+fused_block_int8.launches = 0

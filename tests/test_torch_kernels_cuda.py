@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at edge shapes the main path does not reach: ragged tiles, every head dim,
-strided views, and the errors a wrapper raises. Marked ``cuda``; without a
-card they skip. On the card: ``python -m pytest -m cuda tests/ -q``."""
+strided views, a zero weight row (int8), and the errors a wrapper raises.
+Marked ``cuda``; without a card they skip. On the card:
+``python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py``."""
 
 import numpy as np
 import pytest
@@ -11,8 +12,19 @@ from clip_embeds_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_reference,
 )
+from clip_embeds_tpu_torch.models.layers import ResidualAttentionBlock
+from clip_embeds_tpu_torch.models.quant import (
+    calibrate_act_scales,
+    quantize_state_dict,
+)
+from clip_embeds_tpu_torch.models.serving import (
+    INT8_BLOCK_ARGS,
+    int8_block_args,
+)
 from clip_embeds_tpu_torch.ops.fused_block import (
     fused_block,
+    fused_block_int8,
+    fused_block_int8_reference,
     fused_block_reference,
 )
 
@@ -32,14 +44,15 @@ def _bf16(rng, *shape, std=1.0, mean=0.0):
     return torch.from_numpy(a).to("cuda", torch.bfloat16)
 
 
-def _block_args(rng, b, n, d, mlp):
+def _block_args(rng, b, n, d, mlp, bias_std=0.02):
     ln = lambda: torch.stack([_bf16(rng, d, std=0.1, mean=1.0),
                               _bf16(rng, d, std=0.1)])
     return (_bf16(rng, b, n, d), _bf16(rng, 3 * d, d, std=d ** -0.5),
-            _bf16(rng, 3 * d, std=0.02), _bf16(rng, d, d, std=0.05),
-            _bf16(rng, d, std=0.02), _bf16(rng, mlp, d, std=(2 * d) ** -0.5),
-            _bf16(rng, mlp, std=0.02), _bf16(rng, d, mlp, std=0.05),
-            _bf16(rng, d, std=0.02), ln(), ln())
+            _bf16(rng, 3 * d, std=bias_std), _bf16(rng, d, d, std=0.05),
+            _bf16(rng, d, std=bias_std),
+            _bf16(rng, mlp, d, std=(2 * d) ** -0.5),
+            _bf16(rng, mlp, std=bias_std), _bf16(rng, d, mlp, std=0.05),
+            _bf16(rng, d, std=bias_std), ln(), ln())
 
 
 @pytest.mark.parametrize("act", ["quick", "erf", "tanh"])
@@ -108,3 +121,70 @@ def test_kernel_wrappers_reject_what_they_cannot_run(cuda):
         fused_block(*args, heads=4, kv_valid=16)
     with pytest.raises(TypeError):
         fused_block(*(a.float() for a in args), heads=2, kv_valid=16)
+
+
+def _int8_block_args(rng, b, n, d, heads, kv_valid, causal):
+    """fused_block_int8 inputs: bf16 x, weights quantised from random fp32
+    ones (c_proj row 0 all zero), biases of std 0.5 (a dropped one would
+    move the mean |diff| by ~0.4), static scales calibrated by a dynamic
+    pass of the quantised composable block over x."""
+    x, wqkv, bqkv, wo, bo, w1, b1, w2, b2, ln1, ln2 = _block_args(
+        rng, b, n, d, 4 * d, bias_std=0.5)
+    w2[0] = 0
+    sd = {"ln_1.weight": ln1[0], "ln_1.bias": ln1[1],
+          "attn.in_proj_weight": wqkv, "attn.in_proj_bias": bqkv,
+          "attn.out_proj.weight": wo, "attn.out_proj.bias": bo,
+          "ln_2.weight": ln2[0], "ln_2.bias": ln2[1],
+          "mlp.c_fc.weight": w1, "mlp.c_fc.bias": b1,
+          "mlp.c_proj.weight": w2, "mlp.c_proj.bias": b2}
+    with torch.device("meta"):
+        block = ResidualAttentionBlock(d, heads, quant="dynamic")
+    block.load_state_dict(quantize_state_dict(sd), assign=True)
+    with torch.inference_mode():
+        calibrate_act_scales(block, [(x[:, :kv_valid], causal)])
+    p = int8_block_args(block)
+    assert p["s2"][0] == 1.0 and not p["w2_q"][0].any()
+    return [x] + [p[k] for k in INT8_BLOCK_ARGS]
+
+
+@pytest.mark.parametrize("act", ["quick", "erf", "tanh"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("b, n, d, heads, kv_valid", [
+    (3, 37, 64, 2, 37),     # ragged M tile, head dim 32
+    (2, 50, 128, 2, 45),    # head dim 64, M = 100
+    (2, 144, 96, 3, 131),   # N = 288 and K = 96: ragged N and K tiles
+    (1, 80, 256, 2, 77),    # head dim 128
+])
+def test_fused_block_int8_kernel_matches_plain(cuda, b, n, d, heads,
+                                               kv_valid, causal, act):
+    rng = np.random.default_rng(4)
+    args = _int8_block_args(rng, b, n, d, heads, kv_valid, causal)
+    kw = dict(heads=heads, kv_valid=kv_valid, causal=causal, act=act)
+    with torch.inference_mode():
+        before = fused_block_int8.launches
+        got = fused_block_int8(*args, **kw)
+        want = fused_block_int8_reference(*args, **kw)
+    assert fused_block_int8.launches == before + 1
+    diff = (got.float() - want.float())[:, :kv_valid].abs()
+    # max as chip_smoke.py: bf16 rounding flips of outputs below 8, and
+    # int8 codes the two sides round apart (each a * max|w|) spreading.
+    # Mean: 2x the worst sound reading over these cases on the H100
+    # (0.0022), far under a dropped bias (>= 0.18) and under two swapped
+    # act scales (>= 0.009)
+    assert diff.max().item() <= 0.125, diff.max().item()
+    assert diff.mean().item() <= 0.005, diff.mean().item()
+
+
+def test_fused_block_int8_wrapper_rejects(cuda):
+    rng = np.random.default_rng(5)
+    args = _int8_block_args(rng, 1, 16, 64, 2, 16, False)
+    with pytest.raises(TypeError):  # fp32 activations
+        fused_block_int8(args[0].float(), *args[1:], heads=2, kv_valid=16)
+    with pytest.raises(TypeError):  # fp weights where int8 belong
+        fused_block_int8(args[0], args[1].bfloat16(), *args[2:], heads=2,
+                         kv_valid=16)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        fused_block_int8(args[0].clone().requires_grad_(), *args[1:],
+                         heads=2, kv_valid=16)
+    with pytest.raises(ValueError):  # head dim 16
+        fused_block_int8(*args, heads=4, kv_valid=16)
