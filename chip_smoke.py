@@ -18,7 +18,21 @@ Phases, each of which raises on failure:
      be finite, unit-norm, and agree with the plain fp32 path (bf16) or
      with the bf16 embeddings (int8, the JAX package's 0.99 gate);
   5. timings with CUDA events: img/s per image route, texts/s (bf16 and
-     int8), and each kernel against its plain version.
+     int8), and each kernel against its plain version, its bound (the
+     larger of its bytes over 3.35 TB/s and its operations over 989 bf16
+     TFLOP/s / 1,979 int8 TOP/s) and, where one PyTorch call computes the
+     same function, that call (scaled_dot_product_attention, timed only);
+  6. training at full width and depth: ViT-L/14-336 (OpenAI config,
+     seeded random fp32 master weights, bf16 compute, synthetic batches)
+     through the training CLI's main(argv), 3 steps at batch 32 on each
+     block route (composable, --fused-train-blocks, --fused-train-blocks
+     --fused-train-backward residual), each with the launch counts set to 0
+     just before and held to the counts the route gives per step; finite
+     losses and moved parameters; at batch 8 each route's gradients
+     against the plain fp32 composable path (one cosine over all, held
+     also to a witness, the bf16 composable model with no kernel; and the
+     least per tensor); train samples/s at batch 32 and 64 with peak
+     device memory.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device it exits
@@ -27,17 +41,74 @@ with code 2 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
+import logging
 import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 MODEL = "ViT-L-14-336"
 REQUESTS, REQUEST_SIZE = 3, 8
 SOT, EOT = 49406, 49407
+TRAIN_STEPS, TRAIN_BATCH, GRAD_BATCH = 3, 32, 8
+# the training CLI's block routes: flags, and the launches of each kernel
+# wrapper per step (24 vision + 12 text blocks; the 77-token text tower
+# takes plain attention, the 577-token vision tower the flash kernels)
+ROUTES = {
+    "composable": ([], {"flash_attention": 24, "flash_attention_bwd": 24}),
+    "fused-train": (["--fused-train-blocks"],
+                    {"fused_block": 36, "flash_attention": 24,
+                     "flash_attention_bwd": 24}),
+    "fused-train-res": (["--fused-train-blocks", "--fused-train-backward",
+                         "residual"],
+                        {"fused_block": 36, "fused_block_residuals": 36,
+                         "flash_attention_bwd": 24}),
+}
+# gradient agreement with the plain fp32 composable path at batch 8
+# (readings on the H100, scripts/chip_probe_train.py, PERF.md). The sound
+# routes read 0.99455-0.99476 over all and >= 0.990 per tensor, the
+# witness (bf16, no kernel) 0.99452: bf16 compute alone costs that much.
+# The attention backward without its delta term reads 0.9930 / 0.9932
+# over all (0.0013-0.0015 under the witness) and 0.786 on one vision
+# in_proj bias; m1 stored after the activation (residual route) 0.916 over
+# all and 0.847 per tensor. Limits: over all, 0.99 and at most
+# GRAD_COS_BELOW_WITNESS under the witness; per tensor, 0.95
+GRAD_COS_MIN, GRAD_TENSOR_COS_MIN, GRAD_COS_BELOW_WITNESS = 0.99, 0.95, 5e-4
+# phase 3, blocks: (b, n, d, heads, kv_valid, causal) and the limits on the
+# mean |kernel - plain| of fused_block, fused_block_residuals (the worst of
+# its five outputs) and fused_block_int8 (None: not on an int8 path). The
+# serving shapes (the image tower at batch 4, padded to 592 rows; texts at
+# 8, padded to 80) and the training shapes (batch 32, unpadded: the vision
+# and text blocks of the fused training routes). Each limit is about 2-5x
+# the sound reading on the H100 (bf16 0.0013 / 0.0005 at either batch,
+# int8 0.0076 / 0.0004), far under a dropped bias (>= 0.26), m1 stored
+# after the activation (>= 0.34) and two swapped int8 act scales (0.020 /
+# 0.015)
+BLOCK_CASES = (
+    ((4, 592, 1024, 16, 577, False), 0.004, 0.004, 0.012),
+    ((8, 80, 768, 12, 77, True), 0.002, 0.002, 0.002),
+    ((32, 577, 1024, 16, 577, False), 0.004, 0.004, None),
+    ((32, 77, 768, 12, 77, True), 0.002, 0.002, None),
+)
+# phase 3, attention: [B, H, N, D], causal, and the limit on the mean
+# |kernel - plain| of the backward's worst output: 90-230x the sound
+# reading on the H100 (2.1e-7 / 4e-8 causal), far under a dropped delta
+# term (0.0062 / 0.079), one Q tile left out of dK and dV (0.017 / 0.055)
+# and a causal mask left out (0.17). 32x16x577x64 is the vision tower's
+# attention in a b32 train step
+FLASH_CASES = (
+    ((4, 16, 577, 64), False, 2e-5),
+    ((32, 16, 577, 64), False, 2e-5),
+    ((2, 12, 77, 64), True, 1e-5),
+)
+# H100 SXM data-sheet peaks (dense): bf16 and int8 tensor cores, HBM3
+PEAK_BF16, PEAK_INT8, HBM_BYTES_PER_S = 989e12, 1979e12, 3.35e12
 
 
 def gpu_line() -> str:
@@ -60,6 +131,40 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound_ms(flops=0.0, int8_ops=0.0, nbytes=0.0):
+    """The least time the card could take: the larger of the operations
+    over their type's peak and the bytes over the memory rate; and which
+    of the two bounds it."""
+    t_ops = flops / PEAK_BF16 + int8_ops / PEAK_INT8
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def attention_pairs(n, causal):
+    """(query, key) pairs attention computes: N^2, or N(N+1)/2 causal."""
+    return n * (n + 1) // 2 if causal else n * n
+
+
+def block_cost(b, n, d, mlp, heads, kv, causal, extra_out=0, int8=False):
+    """Operations and bytes of one block: the four projections over all n
+    rows, attention over the kept (query, key) pairs; x, the weights and
+    the biases read once, y (and ``extra_out`` more values per row)
+    written once."""
+    proj = 2 * b * n * (4 * d * d + 2 * d * mlp)
+    pairs = (attention_pairs(kv, True) + (n - kv) * kv if causal
+             else n * kv)
+    attn = 4 * b * heads * pairs * (d // heads)
+    vectors = 3 * d + d + mlp + d  # biases (and int8 scales), per output
+    weights = 4 * d * d + 2 * d * mlp
+    wbytes = (weights + vectors * 8 + 16 if int8  # int8, fp32 scale + bias
+              else weights * 2 + vectors * 2)
+    nbytes = 2 * b * n * d * 2 + wbytes + 4 * d * 2 + 2 * b * n * extra_out
+    if int8:
+        return bound_ms(flops=attn, int8_ops=proj, nbytes=nbytes)
+    return bound_ms(flops=proj + attn, nbytes=nbytes)
 
 
 def block_inputs(rng, b, n, d, mlp, bias_std=0.5):
@@ -105,64 +210,111 @@ def int8_block_inputs(args, heads, kv, causal):
 
 
 def check_kernels(rng):
-    """Phase 3: every kernel against its plain version on the same inputs."""
+    """Phase 3: every kernel against its plain version on the same inputs;
+    their times, the bound, and the library call's time where there is
+    one."""
     from clip_embeds_tpu_torch.ops.flash_attention import (
-        flash_attention, flash_attention_reference)
+        _flash_forward, flash_attention, flash_attention_bwd,
+        flash_attention_bwd_reference, flash_attention_reference)
     from clip_embeds_tpu_torch.ops.fused_block import (
         fused_block, fused_block_int8, fused_block_int8_reference,
-        fused_block_reference)
+        fused_block_reference, fused_block_residuals,
+        fused_block_residuals_reference)
 
     cases = []
     # (name, kernel call, plain call, tolerance on max |kernel - plain|,
-    #  rows compared, tolerance on the mean |kernel - plain|)
+    #  rows compared (axis 1), tolerance on the mean |kernel - plain|,
+    #  (bound_ms, bound_by), library call or None)
     # Max: bf16 outputs below 8, where a rounding flip is <= 1/32; an int8
     # code that the two sides round apart moves its projection by
-    # a * max|w| and later codes with it. Mean, per shape: about 2-5x the
-    # sound reading (H100: bf16 0.0012 / 0.0005, int8 0.0076 / 0.0004),
-    # far under a dropped bias (>= 0.26) and under two swapped int8 act
-    # scales (0.020 / 0.015)
-    for (b, n, d, heads, kv, causal), mean_tol, mean_tol8 in (
-            ((4, 592, 1024, 16, 577, False), 0.004, 0.012),
-            ((8, 80, 768, 12, 77, True), 0.002, 0.002)):
-        args = block_inputs(rng, b, n, d, 4 * d)
+    # a * max|w| and later codes with it. Mean limits: BLOCK_CASES.
+    for (b, n, d, heads, kv, causal), mean_tol, mean_tol_res, mean_tol8 in \
+            BLOCK_CASES:
+        mlp = 4 * d
+        args = block_inputs(rng, b, n, d, mlp)
         kw = dict(heads=heads, kv_valid=kv, quick_gelu=True, causal=causal)
-        cases.append((f"fused_block {b}x{n}x{d} causal={causal}",
+        shape = f"{b}x{n}x{d} causal={causal}"
+        cases.append((f"fused_block {shape}",
                       lambda a=args, k=kw: fused_block(*a, **k),
                       lambda a=args, k=kw: fused_block_reference(*a, **k),
-                      0.125, kv, mean_tol))
+                      0.125, kv, mean_tol,
+                      block_cost(b, n, d, mlp, heads, kv, causal), None))
+        cases.append((f"fused_block_residuals {shape}",
+                      lambda a=args, k=kw: fused_block_residuals(*a, **k),
+                      lambda a=args, k=kw:
+                      fused_block_residuals_reference(*a, **k),
+                      0.125, kv, mean_tol_res,
+                      block_cost(b, n, d, mlp, heads, kv, causal,
+                                 extra_out=5 * d + mlp), None))
+        if mean_tol8 is None:
+            continue
         args8 = int8_block_inputs(args, heads, kv, causal)
-        cases.append((f"fused_block_int8 {b}x{n}x{d} causal={causal}",
+        cases.append((f"fused_block_int8 {shape}",
                       lambda a=args8, k=kw: fused_block_int8(*a, **k),
                       lambda a=args8, k=kw:
                       fused_block_int8_reference(*a, **k),
-                      0.125, kv, mean_tol8))
-    for shape, causal in (((4, 16, 577, 64), False), ((2, 12, 77, 64), True)):
-        q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
-            np.float32)).to("cuda", torch.bfloat16) for _ in range(3))
-        cases.append((f"flash_attention {'x'.join(map(str, shape))} "
-                      f"causal={causal}",
+                      0.125, kv, mean_tol8,
+                      block_cost(b, n, d, mlp, heads, kv, causal, int8=True),
+                      None))
+    # the attention backward: max as the edge tests (bf16 rounding flips of
+    # P and dS, which the online (kernel) and two-pass (plain) softmax
+    # round apart). Mean limits: FLASH_CASES.
+    for shape, causal, mean_tol_bwd in FLASH_CASES:
+        q, k, v, g = (torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to("cuda", torch.bfloat16) for _ in range(4))
+        bh, n, hd = shape[0] * shape[1], shape[2], shape[3]
+        pairs = bh * attention_pairs(n, causal) * hd
+        io = bh * n * hd * 2
+        name = f"{'x'.join(map(str, shape))} causal={causal}"
+        cases.append((f"flash_attention {name}",
                       lambda q=q, k=k, v=v, c=causal: flash_attention(q, k, v, c),
                       lambda q=q, k=k, v=v, c=causal:
                       flash_attention_reference(q, k, v, c),
-                      0.02, shape[2], 0.02))
+                      0.02, n, 0.02,
+                      bound_ms(flops=4 * pairs, nbytes=4 * io),
+                      lambda q=q, k=k, v=v, c=causal:
+                      F.scaled_dot_product_attention(q, k, v, is_causal=c)))
+        o, lse = _flash_forward(q, k, v, causal, with_lse=True)
+        with torch.enable_grad():
+            lq, lk, lv = (t.clone().requires_grad_() for t in (q, k, v))
+            lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal)
+        cases.append((f"flash_attention_bwd {name}",
+                      lambda a=(q, k, v, o, g, lse), c=causal:
+                      flash_attention_bwd(*a, c),
+                      lambda a=(q, k, v, o, g), c=causal:
+                      flash_attention_bwd_reference(*a, c),
+                      0.0625, n, mean_tol_bwd,
+                      bound_ms(flops=10 * pairs,
+                               nbytes=8 * io + bh * n * 4),
+                      lambda t=(lq, lk, lv), lo=lo, g=g:
+                      torch.autograd.grad(lo, t, g, retain_graph=True)))
     results = {}
-    for name, kernel, plain, tol, n_valid, mean_tol in cases:
+    for name, kernel, plain, tol, n_valid, mean_tol, bound, library in cases:
         got, want = kernel(), plain()
         torch.cuda.synchronize()
-        if got.shape != want.shape:
-            raise AssertionError(f"{name}: shape {got.shape} != {want.shape}")
-        # padded query rows (fused_block) are not part of the contract
-        diff = (got.float() - want.float())[..., :n_valid, :].abs()
-        err = float(diff.max())
-        mean = float(diff.mean())
+        got, want = ((x,) if torch.is_tensor(x) else x for x in (got, want))
+        err = mean = 0.0
+        for a, w in zip(got, want, strict=True):
+            if a.shape != w.shape:
+                raise AssertionError(f"{name}: shape {a.shape} != {w.shape}")
+            # padded query rows (fused_block) are not part of the contract
+            diff = (a.float() - w.float())
+            diff = (diff[:, :n_valid] if a.dim() == 3 else diff).abs()
+            err, mean = max(err, float(diff.max())), max(mean,
+                                                         float(diff.mean()))
         if not (err <= tol and mean <= mean_tol):
             raise AssertionError(f"{name}: max|diff| {err} (tol {tol}), "
                                  f"mean|diff| {mean} (tol {mean_tol})")
         ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+        lib_ms = None if library is None else cuda_ms(library)
         print(f"[kernel] {name}: max|diff| {err:.6g} (tol {tol}), "
               f"mean|diff| {mean:.3g} (tol {mean_tol}); "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        results[name] = (err, ms, plain_ms)
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound[0]:.4f} ms ({bound[1]}), library "
+              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+        results[name] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound[0], bound_by=bound[1],
+                             library_ms=lib_ms)
     return results
 
 
@@ -187,6 +339,190 @@ def row_cos(a: np.ndarray, b: np.ndarray) -> np.ndarray:
                               * np.linalg.norm(b, axis=-1))
 
 
+class _StepLog(logging.Handler):
+    """Collects the training CLI's per-step log records (loss, lr,
+    samples/s)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.losses = []
+
+    def emit(self, record):
+        if str(record.msg).startswith("epoch %d step %d loss"):
+            self.losses.append(float(record.args[2]))
+
+
+def route_model(block_impl, compute_dtype=torch.bfloat16):
+    """ViT-L/14-336 (OpenAI config) with the seed-0 weights in fp32 on the
+    card, computing in ``compute_dtype``, on one block route."""
+    from clip_embeds_tpu_torch.core.factory import create_model
+
+    return create_model(MODEL, pretrained="openai", seed=0,
+                        dtype=torch.float32, device="cuda",
+                        block_impl=block_impl, compute_dtype=compute_dtype,
+                        train=True)
+
+
+def train_batch(batch_size, seed):
+    """One synthetic batch (the CLI's data) on the card."""
+    from clip_embeds_tpu_torch.cli.train import _to_device
+    from clip_embeds_tpu_torch.core.config import get_model_config
+    from clip_embeds_tpu_torch.data.synthetic import synthetic_batches
+
+    cfg = get_model_config(MODEL, "openai")
+    batch = next(synthetic_batches(batch_size, cfg.vision.image_size,
+                                   cfg.text.context_length, seed=seed))
+    return _to_device(batch, torch.device("cuda"))
+
+
+def train_grads(model, batch):
+    """Gradients of one batch's InfoNCE loss, fp32, by parameter name."""
+    from clip_embeds_tpu_torch.train.steps import clip_train_loss
+
+    model.zero_grad(set_to_none=True)
+    loss, _ = clip_train_loss(model, batch)
+    loss.backward()
+    grads = {k: p.grad.float() for k, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return grads, loss.item()
+
+
+@contextlib.contextmanager
+def patched(module, name, value):
+    """``module.name`` replaced by ``value`` inside the block."""
+    real = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield real
+    finally:
+        setattr(module, name, real)
+
+
+def plain_attention():
+    """Every attention on its plain path, no kernel: the 'auto' gate of
+    ops/attention.py closed."""
+    from clip_embeds_tpu_torch.ops import attention
+
+    return patched(attention, "flash_eligible", lambda q, mask=None: False)
+
+
+def grad_agreement(grads, ref):
+    """(cosine over all gradients, least per-tensor cosine and its name)."""
+    dot = sum(float((grads[k] * ref[k]).sum()) for k in ref)
+    na = sum(float(grads[k].square().sum()) for k in ref) ** 0.5
+    nb = sum(float(ref[k].square().sum()) for k in ref) ** 0.5
+    per = {k: float(F.cosine_similarity(grads[k].flatten(),
+                                        ref[k].flatten(), dim=0))
+           for k in ref}
+    worst = min(per, key=per.get)
+    return dot / (na * nb), per[worst], worst
+
+
+def check_training(counters, gpu):
+    """Phase 6. Returns each route's launch counts from its CLI run."""
+    from clip_embeds_tpu_torch.cli.train import main as train_main
+    from clip_embeds_tpu_torch.train.optim import adamw
+    from clip_embeds_tpu_torch.train.schedules import const_lr
+    from clip_embeds_tpu_torch.train.steps import (
+        TrainState, make_clip_train_step)
+
+    base = {k: v.detach().cpu() for k, v in
+            route_model("composable").state_dict().items()}
+    logging.getLogger().setLevel(logging.INFO)
+    launches = {}
+    for route, (flags, per_step) in ROUTES.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        log = _StepLog()
+        logging.getLogger().addHandler(log)
+        for fn in counters.values():
+            fn.launches = 0
+        try:
+            t0 = time.perf_counter()
+            state = train_main([
+                "--model", MODEL, "--pretrained", "openai", "--seed", "0",
+                "--batch-size", str(TRAIN_BATCH), "--train-num-samples",
+                str(TRAIN_STEPS * TRAIN_BATCH), "--lr", "1e-5",
+                "--warmup", "1", "--log-every", "1", *flags])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            logging.getLogger().removeHandler(log)
+        counts = {k: fn.launches for k, fn in counters.items()}
+        want = {k: TRAIN_STEPS * per_step.get(k, 0) for k in counters}
+        after = state.model.state_dict()
+        moved = sum(not torch.equal(after[k].cpu(), v)
+                    for k, v in base.items())
+        print(f"[train] {route}: {TRAIN_STEPS} steps of {TRAIN_BATCH} "
+              f"through cli.train.main in {wall:.1f} s; losses "
+              f"{log.losses}; launches {counts}; {moved} of {len(base)} "
+              f"parameter tensors moved")
+        if counts != want:
+            raise AssertionError(f"{route}: launches {counts} != {want}")
+        if len(log.losses) != TRAIN_STEPS or not np.isfinite(
+                log.losses).all():
+            raise AssertionError(f"{route}: losses {log.losses}")
+        if moved != len(base):
+            raise AssertionError(f"{route}: only {moved} of {len(base)} "
+                                 f"parameter tensors moved")
+        launches[route] = counts
+        del state, after
+
+    # gradients against the plain fp32 composable path, one batch of 8
+    batch = train_batch(GRAD_BATCH, seed=1)
+    ref_model = route_model("composable", compute_dtype=None)
+    ref, ref_loss = train_grads(ref_model, batch)
+    del ref_model
+    # the witness: the bf16 composable model with no kernel at all, what
+    # bf16 compute alone costs the gradients
+    with plain_attention():
+        witness, _ = train_grads(route_model("composable"), batch)
+    cos, worst, worst_name = grad_agreement(witness, ref)
+    del witness
+    print(f"[train] witness (bf16 composable, plain attention) gradients "
+          f"vs plain fp32 at batch {GRAD_BATCH}: cosine {cos:.6f}, least "
+          f"per tensor {worst:.6f} ({worst_name})")
+    cos_min = max(GRAD_COS_MIN, cos - GRAD_COS_BELOW_WITNESS)
+    for route in ROUTES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = route_model(route)
+        grads, loss = train_grads(model, batch)
+        cos, worst, worst_name = grad_agreement(grads, ref)
+        print(f"[train] {route} gradients vs plain fp32 at batch "
+              f"{GRAD_BATCH}: cosine {cos:.6f} (limit {cos_min:.6f}), "
+              f"least per tensor {worst:.6f} ({worst_name}; limit "
+              f"{GRAD_TENSOR_COS_MIN}); loss {loss:.6f} vs {ref_loss:.6f}")
+        if not (cos >= cos_min and worst >= GRAD_TENSOR_COS_MIN):
+            raise AssertionError(f"{route}: gradients disagree")
+
+        # throughput: CUDA events over 3 steps after 1 warm-up
+        opt = adamw(model, 1e-5)
+        state = TrainState(model, opt, const_lr(1e-5))
+        step = make_clip_train_step(model)
+        for bs in (TRAIN_BATCH, 64):
+            tb = train_batch(bs, seed=2)
+            torch.cuda.reset_peak_memory_stats()
+            step(state, tb)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(3):
+                metrics = step(state, tb)
+            end.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(end) / 3
+            if not np.isfinite(float(metrics["loss"])):
+                raise AssertionError(f"{route} b{bs}: loss not finite")
+            print(f"[throughput] train_samples_per_s {route} b{bs}: "
+                  f"{bs / ms * 1e3:.1f} ({ms:.2f} ms/step, peak "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB) "
+                  f"on {gpu}")
+            del tb
+        del model, opt, state, step, grads
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card",
@@ -201,9 +537,10 @@ def main() -> int:
         fused_encode_text_int8, fused_path_available, prepare_int8_text_tower,
         prepare_int8_tower)
     from clip_embeds_tpu_torch.ops import _build
-    from clip_embeds_tpu_torch.ops.flash_attention import flash_attention
+    from clip_embeds_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_bwd)
     from clip_embeds_tpu_torch.ops.fused_block import (
-        fused_block, fused_block_int8)
+        fused_block, fused_block_int8, fused_block_residuals)
 
     # 1. device
     gpu = gpu_line()
@@ -220,7 +557,7 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     rng = np.random.default_rng(0)
-    with torch.inference_mode():
+    with torch.no_grad():
         kernel_results = check_kernels(rng)
 
     # 4. the main path at full width and depth
@@ -244,7 +581,9 @@ def main() -> int:
         raise AssertionError("the main paths would not reach the kernels")
     images, texts = synthetic_requests(rng, cfg)
     counters = {"flash_attention": flash_attention,
+                "flash_attention_bwd": flash_attention_bwd,
                 "fused_block": fused_block,
+                "fused_block_residuals": fused_block_residuals,
                 "fused_block_int8": fused_block_int8}
 
     def drive(label, serve):
@@ -337,22 +676,46 @@ def main() -> int:
             print(f"[throughput] {name}: {count / ms * 1e3:.1f} "
                   f"(batch {count}, {ms:.2f} ms) on {gpu}")
 
-    def entry(name, source, replaces, path_launches):
-        rows = [v for k, v in kernel_results.items()
+    del model, ref, routes, q_img, q_txt, px, ids
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 6. training at full width and depth, through the CLI
+    train_launches = check_training(counters, gpu)
+
+    def entry(name, source, replaces, path_launches, shape):
+        """One kernel's line: the largest max |diff| over its shapes, and
+        the times at ``shape``."""
+        errs = [v["err"] for k, v in kernel_results.items()
                 if k.split(" ")[0] == name]
+        row = kernel_results[f"{name} {shape}"]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": path_launches[name],
-                "max_abs_err": max(r[0] for r in rows),
-                "ms": rows[0][1], "plain_ms": rows[0][2]}
+                "max_abs_err": max(errs),
+                **{k: row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")}}
 
+    # times at the first serving shape for the serving kernels, at the b32
+    # train step's vision shape for the training ones
     print(json.dumps({"kernels": [
         entry("fused_block", "clip_embeds_tpu_torch/csrc/fused_block.cu",
-              "clip_embeds_tpu/ops/fused_block.py:170", launches),
-        entry("flash_attention", "clip_embeds_tpu_torch/csrc/attention.cu",
-              "clip_embeds_tpu/ops/flash_attention.py:144", launches),
+              "clip_embeds_tpu/ops/fused_block.py:170", launches,
+              "4x592x1024 causal=False"),
+        entry("fused_block_residuals",
+              "clip_embeds_tpu_torch/csrc/fused_block.cu",
+              "clip_embeds_tpu/ops/fused_block.py:286",
+              train_launches["fused-train-res"], "32x577x1024 causal=False"),
         entry("fused_block_int8",
               "clip_embeds_tpu_torch/csrc/fused_block_int8.cu",
-              "clip_embeds_tpu/ops/fused_block.py:442", launches8),
+              "clip_embeds_tpu/ops/fused_block.py:442", launches8,
+              "4x592x1024 causal=False"),
+        entry("flash_attention", "clip_embeds_tpu_torch/csrc/attention.cu",
+              "clip_embeds_tpu/ops/flash_attention.py:144", launches,
+              "4x16x577x64 causal=False"),
+        entry("flash_attention_bwd",
+              "clip_embeds_tpu_torch/csrc/attention_bwd.cu",
+              "clip_embeds_tpu/ops/flash_attention.py:160",
+              train_launches["composable"], "32x16x577x64 causal=False"),
     ]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

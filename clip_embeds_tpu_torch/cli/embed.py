@@ -20,7 +20,7 @@ TPU. The JSON line names the route.
 Usage:
   python -m clip_embeds_tpu_torch.cli.embed --model ViT-L-14-336 \
       --pretrained /ckpt.pt --input /data/images --output emb.npy \
-      [--batch-size 256] [--fp32] [--int8]
+      [--batch-size 256] [--fp32] [--int8] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -226,15 +226,14 @@ def _device_name(device: torch.device) -> str:
 
 def _embed_texts(args, model, dtype: torch.dtype) -> int:
     """One caption per line -> [N, D] .npy."""
-    from ..shared import load_shared
+    from ..text.tokenizer import get_tokenizer
 
     with open(args.input_texts) as fh:
         texts = [ln.rstrip("\n") for ln in fh if ln.strip()]
     if not texts:
         print(f"no texts in {args.input_texts}", file=sys.stderr)
         return 1
-    tokenizer = load_shared("text/tokenizer.py").get_tokenizer(
-        model.cfg.text.context_length)
+    tokenizer = get_tokenizer(model.cfg.text.context_length)
     bs = args.batch_size
     t0 = time.perf_counter()
     embs = embed_text_batches(
@@ -270,6 +269,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--fp32", dest="bf16", action="store_false")
     ap.add_argument("--int8", action="store_true",
                     help="int8 W8A8 serving path (models/quant.py)")
+    ap.add_argument("--device", default="cuda",
+                    help="'cuda' (the default: exits if there is no card) "
+                    "or 'cpu'")
     args = ap.parse_args(argv)
 
     if (args.input is None) == (args.input_texts is None):
@@ -277,10 +279,10 @@ def main(argv: Optional[List[str]] = None) -> int:
               file=sys.stderr)
         return 1
 
-    from ..core.factory import create_model
+    from ..core.factory import create_model, resolve_device
     from ..image import load_image
 
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = resolve_device(args.device)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     # --int8 quantises from fp32 weights, as the JAX package does
     model = create_model(args.model, pretrained=args.pretrained,

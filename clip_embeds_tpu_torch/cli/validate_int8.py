@@ -27,9 +27,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..shared import load_shared
-
-_constants = load_shared("core/constants.py")
+from ..core.constants import OPENAI_DATASET_MEAN, OPENAI_DATASET_STD
 
 
 def parse_args(argv=None):
@@ -45,17 +43,46 @@ def parse_args(argv=None):
     p.add_argument("--min-agreement", type=float, default=0.98)
     p.add_argument("--out", default=None)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda",
+                   help="'cuda' (the default: exits if there is no card) "
+                   "or 'cpu'")
     return p.parse_args(argv)
 
 
 def make_batch(dist: str, n: int, size: int, rng,
                image_dir=None) -> np.ndarray:
-    """uint8 [n, size, size, 3] samples of the named distribution: the JAX
-    command's own ``make_batch`` (numpy), with 'photos' read through this
-    package's ``list_images``."""
+    """uint8 [n, size, size, 3] samples of the named distribution: the
+    port's own copy of the JAX command's ``make_batch`` (same numpy draws,
+    so one seed gives both commands the same images)."""
+    if dist == "noise":
+        return rng.integers(0, 255, (n, size, size, 3), np.uint8)
+    if dist == "smooth":
+        # natural-image-like 1/f spectrum: a sum of low-frequency gradients
+        yy, xx = np.mgrid[0:size, 0:size] / size
+        out = np.zeros((n, size, size, 3), np.float32)
+        for i in range(n):
+            for c in range(3):
+                img = np.zeros((size, size), np.float32)
+                for k in range(1, 6):
+                    fx, fy = rng.uniform(0, 3, 2)
+                    ph = rng.uniform(0, 2 * np.pi)
+                    img += np.sin(2 * np.pi * (fx * xx + fy * yy) + ph) / k
+                out[i, :, :, c] = img
+        out -= out.min(axis=(1, 2, 3), keepdims=True)
+        out /= out.max(axis=(1, 2, 3), keepdims=True) + 1e-8
+        return (out * 255).astype(np.uint8)
+    if dist == "charts":
+        # hard edges and flat regions (text- and diagram-like statistics)
+        out = np.full((n, size, size, 3), 255, np.uint8)
+        for i in range(n):
+            for _ in range(12):
+                x0, y0 = rng.integers(0, size - 4, 2)
+                w, h = rng.integers(2, size // 2, 2)
+                color = rng.integers(0, 255, 3)
+                out[i, y0:y0 + h, x0:x0 + w] = color
+        return out
     if dist != "photos":
-        return load_shared("cli/validate_int8.py").make_batch(dist, n, size,
-                                                              rng)
+        raise KeyError(dist)
     from PIL import Image
 
     from .embed import list_images
@@ -82,9 +109,8 @@ def preprocess(batch_u8: torch.Tensor, image_size: int,
     if tuple(batch_u8.shape[1:3]) != (image_size, image_size):
         raise ValueError(f"images must be {image_size}x{image_size}, got "
                          f"{tuple(batch_u8.shape[1:3])}")
-    mean = torch.tensor(_constants.OPENAI_DATASET_MEAN,
-                        device=batch_u8.device)
-    std = torch.tensor(_constants.OPENAI_DATASET_STD, device=batch_u8.device)
+    mean = torch.tensor(OPENAI_DATASET_MEAN, device=batch_u8.device)
+    std = torch.tensor(OPENAI_DATASET_STD, device=batch_u8.device)
     x = batch_u8.float() / 255.0
     return ((x - mean) / std).to(dtype)
 
@@ -98,7 +124,7 @@ def _cosine(a: np.ndarray, b: np.ndarray) -> np.ndarray:
 def main(argv=None):
     args = parse_args(argv)
 
-    from ..core.factory import create_model
+    from ..core.factory import create_model, resolve_device
     from ..models.quant import (
         calibrate_act_scales,
         cast_floating,
@@ -111,7 +137,7 @@ def main(argv=None):
         prepare_int8_tower,
     )
 
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = resolve_device(args.device)
     dtype = torch.bfloat16
     model = create_model(args.model, pretrained=args.pretrained,
                          seed=args.seed, device=device)   # fp32

@@ -12,6 +12,7 @@ import torch
 from torch import nn
 
 from ..models.clip import CLIP
+from ..models.layers import Remat
 from .config import get_model_config
 from .convert import load_open_clip_state_dict
 
@@ -56,21 +57,43 @@ def init_params(model: CLIP, seed: int = 0) -> None:
     model.logit_scale.fill_(math.log(1 / 0.07))
 
 
+def resolve_device(name: str) -> torch.device:
+    """The device an entry point runs on. ``'cuda'`` (the entry points'
+    default) must exist: without a card the command exits with an error
+    instead of running on the CPU unasked."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"--device {name}: no CUDA device is available; "
+                         "pass --device cpu to run on the CPU")
+    return device
+
+
 def create_model(
     name: str,
     pretrained: Optional[str] = None,
     seed: int = 0,
     dtype: torch.dtype = torch.float32,
     device: Union[str, torch.device] = "cpu",
+    remat: Remat = False,
+    block_impl: str = "composable",
+    compute_dtype: Optional[torch.dtype] = None,
+    force_quick_gelu: bool = False,
+    train: bool = False,
 ) -> CLIP:
-    """Build the port's CLIP in eval mode on ``device`` in ``dtype``.
+    """Build the port's CLIP on ``device`` with parameters in ``dtype``.
 
     ``pretrained`` may be None, a tag ('openai' selects QuickGELU; the
     weights are still seeded random), or the path of a torch checkpoint
     (``.pt``/``.pth``/``.bin``) holding an open_clip state dict.
+    ``remat``, ``block_impl`` and ``compute_dtype`` (default: ``dtype``)
+    are the training options of :class:`~..models.clip.CLIP`; the model is
+    returned in train mode when ``train``, else in eval mode.
     """
     cfg = get_model_config(name, pretrained)
-    model = CLIP(cfg)
+    if force_quick_gelu:
+        cfg = cfg.replace(quick_gelu=True)
+    model = CLIP(cfg, block_impl=block_impl, remat=remat,
+                 compute_dtype=compute_dtype)
     if pretrained and os.path.exists(pretrained):
         sd = torch.load(pretrained, map_location="cpu", weights_only=True)
         if "state_dict" in sd:
@@ -80,4 +103,4 @@ def create_model(
         raise FileNotFoundError(pretrained)
     else:
         init_params(model, seed)
-    return model.to(device=device, dtype=dtype).eval()
+    return model.to(device=device, dtype=dtype).train(train)

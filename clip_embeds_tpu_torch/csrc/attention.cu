@@ -1,4 +1,5 @@
-// Exact softmax attention, forward only, bf16 in and out.
+// Exact softmax attention forward, bf16 in and out (the backward is
+// attention_bwd.cu).
 //
 // Replaces the Pallas kernels clip_embeds_tpu/ops/flash_attention.py
 // `flash_attention` forward (`_attn_kernel`) and the attention step of
@@ -18,7 +19,10 @@
 // last row are skipped). Strides let one kernel read Q, K and V out of the
 // packed [B, n, 3d] qkv buffer of the fused block (head g at columns g*hd,
 // d + g*hd, 2d + g*hd) or out of [B, H, N, D] tensors, and write either
-// [B, n, d] or [B, H, N, D].
+// [B, n, d] or [B, H, N, D]. With a non-null `lse` the kernel also writes
+// each row's log-sum-exp of its scaled logits (fp32 [B*H, n]), which the
+// backward reads to recompute P without a second pass; the serving chain of
+// fused_block passes null and skips the store.
 
 #include <mma.h>
 
@@ -49,8 +53,9 @@ struct AttnSmem {
 template <int D>
 __global__ void __launch_bounds__(kWarps * 32)
 attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, int H,
-                 int n, int kv_valid, int causal, float scale, long long sb,
+                 const bf16* __restrict__ v, bf16* __restrict__ o,
+                 float* __restrict__ lse, int H, int n, int kv_valid,
+                 int causal, float scale, long long sb,
                  long long sh, long long sn, long long ob, long long oh,
                  long long on) {
   using L = AttnSmem<D>;
@@ -176,14 +181,18 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int e = 0; e < 8; ++e) out[e] = f2bf(src[c + e] * inv);
       *reinterpret_cast<uint4*>(orow + c) = *reinterpret_cast<uint4*>(out);
     }
+    // a row with no valid key gets +inf, so exp(s - lse) = 0 in the backward
+    if (lse != nullptr && half == 0)
+      lse[static_cast<long long>(blockIdx.x) * n + qrow] =
+          l_i > 0.f ? m_i + logf(l_i) : INFINITY;
   }
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-           int n, int kv_valid, int causal, float scale, long long sb,
-           long long sh, long long sn, long long ob, long long oh,
-           long long on, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           int B, int H, int n, int kv_valid, int causal, float scale,
+           long long sb, long long sh, long long sn, long long ob,
+           long long oh, long long on, cudaStream_t stream) {
   const int bytes = static_cast<int>(AttnSmem<D>::bytes);
   cudaError_t err = cudaFuncSetAttribute(
       attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -191,8 +200,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
   dim3 grid(B * H, (n + kBQ - 1) / kBQ);  // b*h on x: no 65535 limit
   attention_kernel<D><<<grid, kWarps * 32, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), H, n, kv_valid,
-      causal, scale, sb, sh, sn, ob, oh, on);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o),
+      static_cast<float*>(lse), H, n, kv_valid, causal, scale, sb, sh, sn, ob,
+      oh, on);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -200,21 +210,21 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
 }  // namespace cet
 
 extern "C" int cet_attention(const void* q, const void* k, const void* v,
-                             void* o, int B, int H, int n, int D, int kv_valid,
-                             int causal, float scale, long long sb,
+                             void* o, void* lse, int B, int H, int n, int D,
+                             int kv_valid, int causal, float scale, long long sb,
                              long long sh, long long sn, long long ob,
                              long long oh, long long on, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 32:
-      return cet::launch<32>(q, k, v, o, B, H, n, kv_valid, causal, scale, sb,
-                             sh, sn, ob, oh, on, s);
+      return cet::launch<32>(q, k, v, o, lse, B, H, n, kv_valid, causal,
+                             scale, sb, sh, sn, ob, oh, on, s);
     case 64:
-      return cet::launch<64>(q, k, v, o, B, H, n, kv_valid, causal, scale, sb,
-                             sh, sn, ob, oh, on, s);
+      return cet::launch<64>(q, k, v, o, lse, B, H, n, kv_valid, causal,
+                             scale, sb, sh, sn, ob, oh, on, s);
     case 128:
-      return cet::launch<128>(q, k, v, o, B, H, n, kv_valid, causal, scale, sb,
-                              sh, sn, ob, oh, on, s);
+      return cet::launch<128>(q, k, v, o, lse, B, H, n, kv_valid, causal,
+                              scale, sb, sh, sn, ob, oh, on, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

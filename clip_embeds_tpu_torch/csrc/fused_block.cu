@@ -16,6 +16,12 @@
 //   m   = bf16(act(h W1^T + b1))          gemm_kernel, EPI_BIAS_ACT
 //   y   = x' + bf16(m W2^T + b2)          gemm_kernel, EPI_BIAS_RESIDUAL
 //
+// fused_block_residuals (the Pallas `fused_block_residuals`, `_kernel_res`)
+// is the same chain, which keeps qkv, the attention output and x' in device
+// memory anyway; on c_fc it takes EPI_BIAS_ACT_PRE, which stores both the
+// pre-activation m1 = bf16(h W1^T + b1) and bf16(act(h W1^T + b1)), the
+// activation taken from the fp32 sum as in `_kernel_res`.
+//
 // The rounding points are the Pallas kernel's, so bf16 results compare
 // tightly with the plain PyTorch version.
 //
@@ -42,7 +48,12 @@ constexpr int kBM = 128, kBN = 128, kBK = 32;
 constexpr int kLds = kBK + 8;  // padded smem row (80 bytes), fewer conflicts
 constexpr int kThreads = 256;
 
-enum Epilogue { EPI_BIAS = 0, EPI_BIAS_ACT = 1, EPI_BIAS_RESIDUAL = 2 };
+enum Epilogue {
+  EPI_BIAS = 0,
+  EPI_BIAS_ACT = 1,
+  EPI_BIAS_RESIDUAL = 2,
+  EPI_BIAS_ACT_PRE = 3,  // EPI_BIAS_ACT, and bf16(sum + bias) into `pre`
+};
 
 // y[m, :] = bf16(LN(x[m, :]) * gamma + beta): one warp per row, fp32 stats.
 __global__ void __launch_bounds__(256)
@@ -60,13 +71,17 @@ layernorm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
     yr[c] = f2bf((bf2f(xr[c]) - mu) * rstd * bf2f(gamma[c]) + bf2f(beta[c]));
 }
 
-// C[M, N] = epilogue(A[M, K] W[N, K]^T + bias[N]).
+// C[M, N] = epilogue(A[M, K] W[N, K]^T + bias[N]); `pre` [M, N] is written
+// only by the kPre instance, which EPI_BIAS_ACT_PRE launches (so the serving
+// epilogues compile as they did without it).
 // Requires K % 32 == 0 and N % 8 == 0 (checked by the wrapper); ragged M and
 // N tile edges are zero-filled on load and masked on store.
+template <bool kPre>
 __global__ void __launch_bounds__(kThreads)
 gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
             const bf16* __restrict__ bias, const bf16* __restrict__ res,
-            bf16* __restrict__ C, int M, int N, int K, int epi, int act) {
+            bf16* __restrict__ C, bf16* __restrict__ pre, int M, int N, int K,
+            int epi, int act) {
   __shared__ __align__(128) bf16 smem[2 * (kBM + kBN) * kLds];
   bf16* As[2] = {smem, smem + kBM * kLds};
   bf16* Ws[2] = {smem + 2 * kBM * kLds, smem + 2 * kBM * kLds + kBN * kLds};
@@ -149,17 +164,21 @@ gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
         const size_t off = static_cast<size_t>(gr) * N + gc;
         __align__(16) bf16 out[8];
         __align__(16) bf16 rv[8];
+        __align__(16) bf16 pv[8];  // unused (compiled out) unless kPre
         if (epi == EPI_BIAS_RESIDUAL)
           *reinterpret_cast<uint4*>(rv) =
               *reinterpret_cast<const uint4*>(res + off);
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
           float v = stage[r * 16 + c + e] + bf2f(bias[gc + e]);
-          if (epi == EPI_BIAS_ACT) v = apply_act(v, act);
+          if (kPre) pv[e] = f2bf(v);
+          if (kPre || epi == EPI_BIAS_ACT) v = apply_act(v, act);
           if (epi == EPI_BIAS_RESIDUAL) v = bf2f(rv[e]) + bf2f(f2bf(v));
           out[e] = f2bf(v);
         }
         *reinterpret_cast<uint4*>(C + off) = *reinterpret_cast<uint4*>(out);
+        if (kPre)
+          *reinterpret_cast<uint4*>(pre + off) = *reinterpret_cast<uint4*>(pv);
       }
       __syncwarp();
     }
@@ -182,15 +201,22 @@ int cet_layernorm(const void* x, const void* gamma, const void* beta, void* y,
 }
 
 int cet_gemm(const void* a, const void* w, const void* bias, const void* res,
-             void* c, int m, int n, int k, int epi, int act, void* stream) {
+             void* c, void* pre, int m, int n, int k, int epi, int act,
+             void* stream) {
   using cet::bf16;
   // row tiles on x (no 65535 limit), column tiles on y
   dim3 grid((m + cet::kBM - 1) / cet::kBM, (n + cet::kBN - 1) / cet::kBN);
-  cet::gemm_kernel<<<grid, cet::kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(a), static_cast<const bf16*>(w),
-      static_cast<const bf16*>(bias), static_cast<const bf16*>(res),
-      static_cast<bf16*>(c), m, n, k, epi, act);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16 *A = static_cast<const bf16*>(a), *W = static_cast<const bf16*>(w);
+  const bf16 *B = static_cast<const bf16*>(bias);
+  const bf16* R = static_cast<const bf16*>(res);
+  bf16 *C = static_cast<bf16*>(c), *P = static_cast<bf16*>(pre);
+  if (epi == cet::EPI_BIAS_ACT_PRE)
+    cet::gemm_kernel<true><<<grid, cet::kThreads, 0, s>>>(A, W, B, R, C, P, m,
+                                                          n, k, epi, act);
+  else
+    cet::gemm_kernel<false><<<grid, cet::kThreads, 0, s>>>(A, W, B, R, C, P,
+                                                           m, n, k, epi, act);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -9,9 +9,7 @@ from typing import Optional
 
 import numpy as np
 
-from .shared import load_shared
-
-_constants = load_shared("core/constants.py")
+from .core.constants import OPENAI_DATASET_MEAN, OPENAI_DATASET_STD
 
 
 def preprocess_clip(image, image_size: int) -> np.ndarray:
@@ -36,8 +34,8 @@ def preprocess_clip(image, image_size: int) -> np.ndarray:
     top = int(round((h - image_size) / 2.0))
     img = img.crop((left, top, left + image_size, top + image_size))
     arr = np.asarray(img, dtype=np.float32) / 255.0
-    mean = np.asarray(_constants.OPENAI_DATASET_MEAN, np.float32)
-    std = np.asarray(_constants.OPENAI_DATASET_STD, np.float32)
+    mean = np.asarray(OPENAI_DATASET_MEAN, np.float32)
+    std = np.asarray(OPENAI_DATASET_STD, np.float32)
     return (arr - mean) / std
 
 

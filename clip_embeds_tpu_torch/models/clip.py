@@ -5,7 +5,10 @@ Parameter names are open_clip's (``open_clip/model.py`` CLIP): the vision
 tower under ``visual.``, the text tower's modules at top level, so an
 open_clip state dict loads with ``load_state_dict``. ``quant`` ('dynamic' /
 'static') builds both towers' block projections as int8 QuantLinear (the
-W8A8 serving path, ``models/quant.py``).
+W8A8 serving path, ``models/quant.py``). ``block_impl`` and ``remat`` go to
+both towers' transformers (the training routes, ``models/layers.py``);
+``compute_dtype`` (default: the parameters' dtype) is the dtype the towers
+compute in, so fp32 master weights can train in bf16.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch
 from torch import nn
 
 from ..core.config import CLIPConfig
+from .layers import Remat
 from .quant import Quant
 from .text_transformer import TextTransformer, encode_text_tower
 from .vit import VisionTransformer
@@ -27,12 +31,17 @@ def l2_normalize(x: torch.Tensor, dim: int = -1,
 
 
 class CLIP(nn.Module):
-    def __init__(self, cfg: CLIPConfig, quant: Quant = False):
+    def __init__(self, cfg: CLIPConfig, quant: Quant = False,
+                 block_impl: str = "composable", remat: Remat = False,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.cfg = cfg
+        self.compute_dtype = compute_dtype
         self.visual = VisionTransformer(cfg.vision, cfg.embed_dim,
-                                        cfg.quick_gelu, quant)
-        text = TextTransformer(cfg.text, cfg.embed_dim, cfg.quick_gelu, quant)
+                                        cfg.quick_gelu, quant, block_impl,
+                                        remat, compute_dtype)
+        text = TextTransformer(cfg.text, cfg.embed_dim, cfg.quick_gelu, quant,
+                               block_impl, remat, compute_dtype)
         # open_clip keeps the text tower's modules at top level
         self.token_embedding = text.token_embedding
         self.positional_embedding = text.positional_embedding

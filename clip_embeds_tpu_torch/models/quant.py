@@ -21,6 +21,7 @@ from __future__ import annotations
 from typing import Dict, Iterable, Mapping, Optional, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.fused_block import qdot
@@ -77,13 +78,23 @@ class QuantLinear(nn.Module):
         return qdot(x32, a, self.weight_q, self.scale, self.bias).to(x.dtype)
 
 
+class CastLinear(nn.Linear):
+    """``nn.Linear`` that computes in its input's dtype: the weight and bias
+    are cast to it (flax's ``Dense(dtype=...)`` over fp32 params), so fp32
+    master weights train in bf16 and the gradient flows back through the
+    cast. When the dtypes already agree the cast is a no-op."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
 def linear(quant: Quant, in_features: int, out_features: int) -> nn.Module:
-    """``nn.Linear``, or :class:`QuantLinear` when ``quant`` is True /
+    """:class:`CastLinear`, or :class:`QuantLinear` when ``quant`` is True /
     'dynamic' / 'static' (counterpart of ``quant.dense``)."""
     if quant:
         mode = "static" if quant == "static" else "dynamic"
         return QuantLinear(in_features, out_features, mode)
-    return nn.Linear(in_features, out_features)
+    return CastLinear(in_features, out_features)
 
 
 def quant_layers(model: nn.Module):

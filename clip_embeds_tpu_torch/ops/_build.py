@@ -37,9 +37,10 @@ _p, _i, _f, _ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
 # C signature of each entry; the trailing pointer is the CUDA stream.
 _ARGTYPES = {
     "cet_layernorm": [_p, _p, _p, _p, _i, _i, _f, _p],
-    "cet_gemm": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _p],
-    "cet_attention": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _f,
+    "cet_gemm": [_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _p],
+    "cet_attention": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _f,
                       _ll, _ll, _ll, _ll, _ll, _ll, _p],
+    "cet_attention_bwd": [_p] * 10 + [_i] * 6 + [_f] + [_ll] * 12 + [_p],
     "cet_layernorm_s8": [_p, _p, _p, _p, _i, _p, _i, _i, _f, _p],
     "cet_quantize_s8": [_p, _p, _i, _p, _ll, _p],
     "cet_gemm_s8": [_p, _p, _p, _p, _p, _i, _p, _p, _i, _i, _i, _i, _i, _p],

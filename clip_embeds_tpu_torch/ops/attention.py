@@ -33,14 +33,15 @@ def reference_attention(
 
 def flash_eligible(q: torch.Tensor, mask: Optional[torch.Tensor] = None
                    ) -> bool:
-    """The 'auto' gate for the flash kernel: the JAX package's gates (no
-    mask, D <= 128, N >= 128) with "on the TPU" read as "a bf16 CUDA tensor
-    that does not require grad" (the kernel is bf16 and forward-only).
-    Routing follows the inputs, never a failure."""
+    """The 'auto' gate for the flash kernels: the JAX package's gates (no
+    mask, D <= 128, N >= 128) with "on the TPU" read as "a bf16 CUDA
+    tensor" (the kernels are bf16; with grad, the backward kernel runs).
+    So, as in JAX, the 77-token text tower takes plain attention and the
+    577-token vision tower the kernels. Routing follows the inputs, never a
+    failure."""
     return (
         q.is_cuda
         and q.dtype == torch.bfloat16
-        and not (torch.is_grad_enabled() and q.requires_grad)
         and mask is None
         and q.shape[-1] <= 128
         and q.shape[-2] >= 128

@@ -17,6 +17,13 @@ out of device memory. Rounding points are the Pallas kernel's: qkv, the
 attention output and each projection's ``(dot + bias)`` are rounded to
 bf16, the activation is taken in fp32 and then rounded.
 
+:func:`fused_block_residuals` is the training variant (the Pallas
+``fused_block_residuals``, ``_kernel_res``): the same chain, returning
+``(y, qkv, att, m1, x_mid)``. The chain writes qkv, the attention output
+and ``x_mid`` to device memory between launches anyway, so they are
+returned instead of dropped; the c_fc launch takes an epilogue that also
+stores the pre-activation ``m1`` (the fp32 ``dot + bias`` rounded to bf16).
+
 :func:`fused_block_int8` is the W8A8 block (``fused_block_int8``,
 ``_kernel_int8``, ``_qdot``): int8 weights with fp32 per-output-channel
 scales and fp32 biases, activations quantised with four static fp32 scales
@@ -32,14 +39,14 @@ kernel masks its ragged edge) and the clamped no-max softmax.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from . import _build
 
 _ACTS = {"quick": 0, "erf": 1, "tanh": 2}
-_EPI_BIAS, _EPI_ACT, _EPI_RESIDUAL = 0, 1, 2
+_EPI_BIAS, _EPI_ACT, _EPI_RESIDUAL, _EPI_ACT_PRE = 0, 1, 2, 3
 # csrc/fused_block_int8.cu epilogues
 _EPI_Q_BF16, _EPI_Q_ACT_Q8, _EPI_Q_RESIDUAL = 0, 1, 2
 _KERNEL_HEAD_DIMS = (32, 64, 128)
@@ -88,12 +95,13 @@ def _attention_reference(qkv: torch.Tensor, heads: int, kv_valid: int,
     return att.to(dt).transpose(1, 2).reshape(b, n, d)
 
 
-def fused_block_reference(
+def fused_block_residuals_reference(
     x, wqkv, bqkv, wo, bo, w1, b1, w2, b2, ln1, ln2, heads: int,
     kv_valid: int, quick_gelu: bool = False, ln_eps: float = 1e-5,
     causal: bool = False, act: Optional[str] = None,
-) -> torch.Tensor:
-    """Plain PyTorch version of :func:`fused_block`, same arguments."""
+) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of :func:`fused_block_residuals`, same
+    arguments: (y, qkv, att, m1, x_mid), all in x's dtype."""
     act = act or ("quick" if quick_gelu else "erf")
     dt = x.dtype
     wqkv, bqkv, wo, bo, w1, b1, w2, b2, ln1, ln2 = (
@@ -102,10 +110,23 @@ def fused_block_reference(
     h = _ln(x, ln1[0], ln1[1], ln_eps)
     qkv = _linear32(h, wqkv, bqkv).to(dt)
     att = _attention_reference(qkv, heads, kv_valid, causal)
-    x = x + _linear32(att, wo, bo).to(dt)
-    h = _ln(x, ln2[0], ln2[1], ln_eps)
-    m = _apply_act(_linear32(h, w1, b1), act).to(dt)
-    return x + _linear32(m, w2, b2).to(dt)
+    x_mid = x + _linear32(att, wo, bo).to(dt)
+    h = _ln(x_mid, ln2[0], ln2[1], ln_eps)
+    m1 = _linear32(h, w1, b1)
+    m = _apply_act(m1, act).to(dt)
+    y = x_mid + _linear32(m, w2, b2).to(dt)
+    return y, qkv, att, m1.to(dt), x_mid
+
+
+def fused_block_reference(
+    x, wqkv, bqkv, wo, bo, w1, b1, w2, b2, ln1, ln2, heads: int,
+    kv_valid: int, quick_gelu: bool = False, ln_eps: float = 1e-5,
+    causal: bool = False, act: Optional[str] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_block`, same arguments."""
+    return fused_block_residuals_reference(
+        x, wqkv, bqkv, wo, bo, w1, b1, w2, b2, ln1, ln2, heads, kv_valid,
+        quick_gelu, ln_eps, causal, act)[0]
 
 
 def qdot(x32: torch.Tensor, a_scale: torch.Tensor, wq: torch.Tensor,
@@ -157,24 +178,29 @@ def fused_block_supported(n: int, d: int, heads: int,
             and d // heads in _KERNEL_HEAD_DIMS)
 
 
-def _gemm(a, w, bias, res, out, epi: int, act: int) -> None:
+def _gemm(a, w, bias, res, out, epi: int, act: int, pre=None) -> None:
     m, k = a.numel() // a.shape[-1], a.shape[-1]
     _build.launch(
         "cet_gemm", a.data_ptr(), w.data_ptr(), bias.data_ptr(),
         res.data_ptr() if res is not None else None, out.data_ptr(),
+        pre.data_ptr() if pre is not None else None,
         m, w.shape[0], k, epi, act,
     )
 
 
-def _attention(qkv, out, heads: int, kv_valid: int, causal: bool) -> None:
-    """cet_attention straight out of the packed [B, n, 3d] qkv buffer."""
+def _attention(qkv, out, heads: int, kv_valid: int, causal: bool,
+               lse=None) -> None:
+    """cet_attention straight out of the packed [B, n, 3d] qkv buffer;
+    with ``lse`` (fp32 [B*heads, n]) it also stores the log-sum-exp the
+    attention backward reads."""
     b, n, d3 = qkv.shape
     d = d3 // 3
     hd = d // heads
     step = d * qkv.element_size()
     _build.launch(
         "cet_attention", qkv.data_ptr(), qkv.data_ptr() + step,
-        qkv.data_ptr() + 2 * step, out.data_ptr(), b, heads, n, hd,
+        qkv.data_ptr() + 2 * step, out.data_ptr(),
+        lse.data_ptr() if lse is not None else None, b, heads, n, hd,
         kv_valid, int(causal), hd ** -0.5,
         n * d3, hd, d3,            # q/k/v strides: batch, head, row
         n * d, hd, d,              # output strides ([B, n, d])
@@ -188,6 +214,52 @@ def _layernorm(x, ln, eps: float, out) -> None:
         ln.data_ptr() + d * ln.element_size(), out.data_ptr(),
         x.numel() // d, d, eps,
     )
+
+
+def _check_block(name: str, args, heads: int) -> Tuple[int, int, int, int]:
+    """The bf16 block kernels' input checks; returns (b, n, d, mlp)."""
+    x, wqkv, _, wo, _, w1, _, w2, _, ln1, ln2 = args
+    b, n, d = x.shape
+    mlp = w1.shape[0]
+    if any(t.dtype != torch.bfloat16 or not t.is_cuda for t in args):
+        raise TypeError(f"{name} kernels take bf16 CUDA tensors")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        raise RuntimeError(f"{name} is forward-only")
+    if not fused_block_supported(n, d, heads, mlp / d):
+        raise ValueError(f"{name} kernels do not take n={n} d={d} "
+                         f"heads={heads} mlp={mlp}")
+    if (wqkv.shape != (3 * d, d) or wo.shape != (d, d)
+            or w1.shape != (mlp, d) or w2.shape != (d, mlp)
+            or ln1.shape != (2, d) or ln2.shape != (2, d)):
+        raise ValueError(f"{name} weights must be in [out, in] layout")
+    return b, n, d, mlp
+
+
+def _block_chain(args, heads: int, kv_valid: int, ln_eps: float,
+                 causal: bool, act: str, residuals: bool, lse=None):
+    """The seven launches of one block; returns (y, qkv, att, m1, x_mid),
+    with m1 None unless ``residuals``."""
+    b, n, d, mlp = _check_block(
+        "fused_block_residuals" if residuals else "fused_block", args, heads)
+    x, wqkv, bqkv, wo, bo, w1, b1, w2, b2, ln1, ln2 = (
+        t.contiguous() for t in args)
+    a = _ACTS[act]
+
+    h = torch.empty_like(x)
+    _layernorm(x, ln1, ln_eps, h)
+    qkv = torch.empty(b, n, 3 * d, dtype=x.dtype, device=x.device)
+    _gemm(h, wqkv, bqkv, None, qkv, _EPI_BIAS, a)
+    att = torch.empty_like(x)
+    _attention(qkv, att, heads, kv_valid, causal, lse)
+    x1 = torch.empty_like(x)
+    _gemm(att, wo, bo, x, x1, _EPI_RESIDUAL, a)
+    _layernorm(x1, ln2, ln_eps, h)
+    m = torch.empty(b, n, mlp, dtype=x.dtype, device=x.device)
+    m1 = torch.empty_like(m) if residuals else None
+    _gemm(h, w1, b1, None, m, _EPI_ACT_PRE if residuals else _EPI_ACT, a, m1)
+    y = torch.empty_like(x)
+    _gemm(m, w2, b2, x1, y, _EPI_RESIDUAL, a)
+    return y, qkv, att, m1, x1
 
 
 def fused_block(
@@ -222,41 +294,51 @@ def fused_block(
         return fused_block_reference(*args, heads, kv_valid, quick_gelu,
                                      ln_eps, causal, act)
     act = act or ("quick" if quick_gelu else "erf")
-    b, n, d = x.shape
-    mlp = w1.shape[0]
-    if any(t.dtype != torch.bfloat16 or not t.is_cuda for t in args):
-        raise TypeError("fused_block kernels take bf16 CUDA tensors")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        raise RuntimeError("fused_block is forward-only")
-    if not fused_block_supported(n, d, heads, mlp / d):
-        raise ValueError(f"fused_block kernels do not take n={n} d={d} "
-                         f"heads={heads} mlp={mlp}")
-    if (wqkv.shape != (3 * d, d) or wo.shape != (d, d)
-            or w1.shape != (mlp, d) or w2.shape != (d, mlp)
-            or ln1.shape != (2, d) or ln2.shape != (2, d)):
-        raise ValueError("fused_block weights must be in [out, in] layout")
-    x, wqkv, bqkv, wo, bo, w1, b1, w2, b2, ln1, ln2 = (
-        t.contiguous() for t in args)
-    a = _ACTS[act]
-
-    h = torch.empty_like(x)
-    _layernorm(x, ln1, ln_eps, h)
-    qkv = torch.empty(b, n, 3 * d, dtype=x.dtype, device=x.device)
-    _gemm(h, wqkv, bqkv, None, qkv, _EPI_BIAS, a)
-    att = torch.empty_like(x)
-    _attention(qkv, att, heads, kv_valid, causal)
-    x1 = torch.empty_like(x)
-    _gemm(att, wo, bo, x, x1, _EPI_RESIDUAL, a)
-    _layernorm(x1, ln2, ln_eps, h)
-    m = torch.empty(b, n, mlp, dtype=x.dtype, device=x.device)
-    _gemm(h, w1, b1, None, m, _EPI_ACT, a)
-    y = torch.empty_like(x)
-    _gemm(m, w2, b2, x1, y, _EPI_RESIDUAL, a)
+    y = _block_chain(args, heads, kv_valid, ln_eps, causal, act, False)[0]
     fused_block.launches += 1
     return y
 
 
 fused_block.launches = 0
+
+
+def fused_block_residuals(
+    x, wqkv, bqkv, wo, bo, w1, b1, w2, b2, ln1, ln2, heads: int,
+    kv_valid: int, quick_gelu: bool = False, ln_eps: float = 1e-5,
+    causal: bool = False, act: Optional[str] = None,
+) -> Tuple[torch.Tensor, ...]:
+    """:func:`fused_block` that also returns the backward's inputs:
+    ``(y, qkv [B, n, 3d], att [B, n, d], m1 [B, n, mlp], x_mid [B, n, d])``,
+    m1 the pre-activation MLP hidden (fp32 ``dot + bias`` rounded to x's
+    dtype) and x_mid the residual stream after attention. Same arguments
+    and the same checks as :func:`fused_block`; CPU tensors take
+    :func:`fused_block_residuals_reference`."""
+    return _fused_block_residuals(
+        (x, wqkv, bqkv, wo, bo, w1, b1, w2, b2, ln1, ln2), heads, kv_valid,
+        quick_gelu, ln_eps, causal, act)[:5]
+
+
+def _fused_block_residuals(args, heads: int, kv_valid: int,
+                           quick_gelu: bool = False, ln_eps: float = 1e-5,
+                           causal: bool = False, act: Optional[str] = None,
+                           with_lse: bool = False):
+    """:func:`fused_block_residuals` plus, on the card with ``with_lse``,
+    the attention launch's fp32 log-sum-exp [B*heads, n] (else None), which
+    the residual backward hands to the attention backward kernel."""
+    x = args[0]
+    if x.device.type == "cpu":
+        return (*fused_block_residuals_reference(
+            *args, heads, kv_valid, quick_gelu, ln_eps, causal, act), None)
+    act = act or ("quick" if quick_gelu else "erf")
+    b, n = x.shape[:2]
+    lse = (torch.empty(b * heads, n, dtype=torch.float32, device=x.device)
+           if with_lse else None)
+    out = _block_chain(args, heads, kv_valid, ln_eps, causal, act, True, lse)
+    fused_block_residuals.launches += 1
+    return (*out, lse)
+
+
+fused_block_residuals.launches = 0
 
 
 def _gemm_s8(a, w, scale, bias, act_scales, a_idx: int, res, out, epi: int,

@@ -1,0 +1,170 @@
+"""Byte-level BPE tokenizer with CLIP semantics, emitting numpy arrays.
+
+The port's own copy of the CLIP tokenizer of
+``clip_embeds_tpu/text/tokenizer.py`` (``BPETokenizer``, ``get_tokenizer``):
+lower-case whitespace cleanup, byte -> unicode remapping, greedy
+lowest-rank BPE merges with an end-of-word marker, <start_of_text> /
+<end_of_text> specials, fixed context length with zero padding and
+EOT-preserving truncation. The vocabulary ``bpe_simple_vocab_16e6.txt.gz``
+(the public OpenAI CLIP merge table) sits beside this file.
+``tests/test_torch_convert.py`` holds its ids to the JAX package's.
+"""
+
+from __future__ import annotations
+
+import functools
+import gzip
+import html
+import os
+from typing import Iterable, List, Optional, Sequence, Union
+
+import numpy as np
+import regex as re
+
+try:  # optional dependency
+    import ftfy
+
+    _fix_text = ftfy.fix_text
+except ImportError:  # clean ASCII input is unaffected by ftfy
+    def _fix_text(text: str) -> str:
+        return text
+
+DEFAULT_CONTEXT_LENGTH = 77
+
+_WORD_PATTERN = (
+    r"""'s|'t|'re|'ve|'m|'ll|'d|[\p{L}]+|[\p{N}]|[^\s\p{L}\p{N}]+"""
+)
+
+
+def default_bpe_path() -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "bpe_simple_vocab_16e6.txt.gz")
+
+
+@functools.lru_cache()
+def byte_to_unicode() -> dict:
+    """Invertible map from the 256 byte values to printable unicode chars:
+    printable bytes map to themselves, the rest are shifted past 0x100."""
+    printable = (
+        list(range(ord("!"), ord("~") + 1))
+        + list(range(ord("\xa1"), ord("\xac") + 1))
+        + list(range(ord("\xae"), ord("\xff") + 1))
+    )
+    # insertion order fixes the vocab ids: printable bytes first, then the
+    # shifted remainder in ascending byte order
+    ordered = {b: chr(b) for b in printable}
+    shifted = 0
+    for b in range(256):
+        if b not in ordered:
+            ordered[b] = chr(256 + shifted)
+            shifted += 1
+    return ordered
+
+
+def _clean_lower(text: str) -> str:
+    text = html.unescape(html.unescape(_fix_text(text))).strip()
+    return " ".join(text.split()).strip().lower()
+
+
+class BPETokenizer:
+    """CLIP byte-BPE tokenizer (vocab 49408, context 77 by default).
+
+    Vocabulary ids: [0, 256) byte units, [256, 512) byte units + '</w>',
+    [512, 49406) merge results in merge-rank order, 49406 / 49407
+    <start_of_text> / <end_of_text>.
+    """
+
+    def __init__(self, bpe_path: Optional[str] = None,
+                 context_length: Optional[int] = DEFAULT_CONTEXT_LENGTH):
+        self.byte_encoder = byte_to_unicode()
+        self.byte_decoder = {v: k for k, v in self.byte_encoder.items()}
+        with gzip.open(bpe_path or default_bpe_path(), "rt",
+                       encoding="utf-8") as fh:
+            lines = fh.read().split("\n")
+        # a header line, then the merges that fill a 49152-sized space less
+        # the 256 byte slots and the 2 specials
+        merges = [tuple(line.split())
+                  for line in lines[1: 49152 - 256 - 2 + 1]]
+        vocab: List[str] = list(self.byte_encoder.values())
+        vocab += [ch + "</w>" for ch in self.byte_encoder.values()]
+        vocab += ["".join(pair) for pair in merges]
+        specials = ["<start_of_text>", "<end_of_text>"]
+        vocab += specials
+        self.encoder = {tok: i for i, tok in enumerate(vocab)}
+        self.decoder = {i: tok for tok, i in self.encoder.items()}
+        self.merge_ranks = {pair: i for i, pair in enumerate(merges)}
+        self._cache = {tok: tok for tok in specials}
+        self.pattern = re.compile("|".join(specials) + "|" + _WORD_PATTERN,
+                                  re.IGNORECASE)
+        self.vocab_size = len(vocab)
+        self.sot_token_id = self.encoder["<start_of_text>"]
+        self.eot_token_id = self.encoder["<end_of_text>"]
+        self.context_length = context_length
+
+    def _bpe(self, token: str) -> List[str]:
+        """Greedy lowest-rank merge loop over one pre-tokenized word."""
+        cached = self._cache.get(token)
+        if cached is not None:
+            return cached.split(" ")
+        parts: List[str] = list(token[:-1]) + [token[-1] + "</w>"]
+        while len(parts) > 1:
+            best_rank, best_idx = None, -1
+            for i in range(len(parts) - 1):
+                rank = self.merge_ranks.get((parts[i], parts[i + 1]))
+                if rank is not None and (best_rank is None
+                                         or rank < best_rank):
+                    best_rank, best_idx = rank, i
+            if best_rank is None:
+                break
+            # merge every occurrence of this pair, left to right
+            first, second = parts[best_idx], parts[best_idx + 1]
+            out: List[str] = []
+            i = 0
+            while i < len(parts):
+                if (i < len(parts) - 1 and parts[i] == first
+                        and parts[i + 1] == second):
+                    out.append(first + second)
+                    i += 2
+                else:
+                    out.append(parts[i])
+                    i += 1
+            parts = out
+        self._cache[token] = " ".join(parts)
+        return parts
+
+    def encode(self, text: str) -> List[int]:
+        ids: List[int] = []
+        for word in re.findall(self.pattern, _clean_lower(text)):
+            word_bytes = "".join(self.byte_encoder[b]
+                                 for b in word.encode("utf-8"))
+            ids.extend(self.encoder[piece] for piece in self._bpe(word_bytes))
+        return ids
+
+    def decode(self, ids: Iterable[int]) -> str:
+        text = "".join(self.decoder[int(i)] for i in ids)
+        raw = bytearray(self.byte_decoder[c] for c in text)
+        return raw.decode("utf-8", errors="replace").replace("</w>", " ")
+
+    def __call__(self, texts: Union[str, Sequence[str]],
+                 context_length: Optional[int] = None) -> np.ndarray:
+        """Tokenize to a zero-padded int32 array [B, context_length];
+        over-long sequences are cut with EOT forced into the last slot."""
+        if isinstance(texts, str):
+            texts = [texts]
+        context_length = context_length or self.context_length
+        if not context_length:
+            raise ValueError("context_length must be set")
+        result = np.zeros((len(texts), context_length), dtype=np.int32)
+        for row, text in enumerate(texts):
+            ids = [self.sot_token_id] + self.encode(text) + [self.eot_token_id]
+            if len(ids) > context_length:
+                ids = ids[:context_length]
+                ids[-1] = self.eot_token_id
+            result[row, : len(ids)] = ids
+        return result
+
+
+@functools.lru_cache()
+def get_tokenizer(context_length: int = DEFAULT_CONTEXT_LENGTH
+                  ) -> BPETokenizer:
+    return BPETokenizer(context_length=context_length)

@@ -53,7 +53,7 @@ def test_images_match_jax_cli(tmp_path, checkpoint, capsys):
     common = ["--model", "test-tiny", "--pretrained", checkpoint,
               "--input", str(tmp_path), "--batch-size", "4", "--fp32"]
     ours, theirs = tmp_path / "ours.npy", tmp_path / "jax.npy"
-    assert main(common + ["--output", str(ours)]) == 0
+    assert main(common + ["--output", str(ours), "--device", "cpu"]) == 0
     result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert result["images"] == 10 and result["device"] == "cpu"
     assert jax_main(common + ["--output", str(theirs),
@@ -75,7 +75,7 @@ def test_texts_match_jax_cli(tmp_path, checkpoint):
     common = ["--model", "test-tiny", "--pretrained", checkpoint,
               "--input-texts", str(txt), "--batch-size", "2", "--fp32"]
     ours, theirs = tmp_path / "ours.npy", tmp_path / "jax.npy"
-    assert main(common + ["--output", str(ours)]) == 0
+    assert main(common + ["--output", str(ours), "--device", "cpu"]) == 0
     assert jax_main(common + ["--output", str(theirs),
                               "--no-data-parallel"]) == 0
     a, b = np.load(ours), np.load(theirs)
@@ -99,9 +99,24 @@ def test_cli_rejects_bad_inputs(tmp_path, checkpoint):
     (tmp_path / "bad").mkdir()
     (tmp_path / "bad" / "a.jpg").write_bytes(b"\xff\xd8broken")
     assert main(["--model", "test-tiny", "--pretrained", checkpoint,
-                 "--input", str(tmp_path / "bad"), "--output", out]) == 1
+                 "--input", str(tmp_path / "bad"), "--output", out,
+                 "--device", "cpu"]) == 1
     with pytest.raises(FileNotFoundError):
         create_model("test-tiny", pretrained=str(tmp_path / "missing.pt"))
+
+
+def test_cli_runs_on_the_card_unless_asked(tmp_path, checkpoint,
+                                           monkeypatch):
+    """--device defaults to cuda; without a card the command exits with an
+    error instead of running on the CPU unasked."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _mk_images(tmp_path)
+    args = ["--model", "test-tiny", "--pretrained", checkpoint,
+            "--input", str(tmp_path), "--output", str(tmp_path / "x.npy")]
+    with pytest.raises(SystemExit, match="--device cpu"):
+        main(args)
+    assert not (tmp_path / "x.npy").exists()
+    assert main(args + ["--device", "cpu", "--fp32"]) == 0
 
 
 def test_list_images_and_manifest(tmp_path):

@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at edge shapes the main path does not reach: ragged tiles, every head dim,
-strided views, a zero weight row (int8), and the errors a wrapper raises.
+strided views, a zero weight row (int8), the training kernels (attention
+backward, fused_block_residuals) at ViT-L and text shapes, and the errors a
+wrapper raises.
 Marked ``cuda``; without a card they skip. On the card:
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py``."""
 
@@ -9,7 +11,10 @@ import pytest
 import torch
 
 from clip_embeds_tpu_torch.ops.flash_attention import (
+    _flash_forward,
     flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_reference,
     flash_attention_reference,
 )
 from clip_embeds_tpu_torch.models.layers import ResidualAttentionBlock
@@ -26,6 +31,8 @@ from clip_embeds_tpu_torch.ops.fused_block import (
     fused_block_int8,
     fused_block_int8_reference,
     fused_block_reference,
+    fused_block_residuals,
+    fused_block_residuals_reference,
 )
 
 pytestmark = pytest.mark.cuda
@@ -114,8 +121,12 @@ def test_kernel_wrappers_reject_what_they_cannot_run(cuda):
     with pytest.raises(TypeError):
         flash_attention(q.float(), q.float(), q.float())
     w = q.clone().requires_grad_()
+    with pytest.raises(ValueError, match="log-sum-exp"):
+        flash_attention_bwd(q, q, q, q, q, None)
     with pytest.raises(RuntimeError, match="forward-only"):
-        flash_attention(w, q, q)
+        fused_block_residuals(*(a.clone().requires_grad_() for a in
+                                _block_args(rng, 1, 16, 64, 256)),
+                              heads=2, kv_valid=16)
     args = _block_args(rng, 1, 16, 64, 256)
     with pytest.raises(ValueError):  # head dim 16
         fused_block(*args, heads=4, kv_valid=16)
@@ -188,3 +199,101 @@ def test_fused_block_int8_wrapper_rejects(cuda):
                          heads=2, kv_valid=16)
     with pytest.raises(ValueError):  # head dim 16
         fused_block_int8(*args, heads=4, kv_valid=16)
+
+
+def _bwd_inputs(rng, shape, causal):
+    q, k, v, g = (_bf16(rng, *shape) for _ in range(4))
+    with torch.inference_mode():
+        o, lse = _flash_forward(q, k, v, causal, with_lse=True)
+    return q, k, v, o, g, lse
+
+
+def _bwd_diff(got, want):
+    return [(a.float() - b.float()).abs() for a, b in zip(got, want)]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", [
+    (1, 1, 1, 64), (2, 3, 63, 32), (1, 2, 65, 128), (2, 2, 200, 40),
+    (1, 16, 577, 64), (2, 12, 77, 64),
+])
+def test_flash_bwd_kernel_matches_plain(cuda, shape, causal):
+    """Ragged N (1, 63, 65, 77, 200, 577), head dims 32, 64, 128 and a
+    padded 40, causal and not, ViT-L and text shapes."""
+    rng = np.random.default_rng(6)
+    q, k, v, o, g, lse = _bwd_inputs(rng, shape, causal)
+    with torch.inference_mode():
+        before = flash_attention_bwd.launches
+        got = flash_attention_bwd(q, k, v, o, g, lse, causal)
+        want = flash_attention_bwd_reference(q, k, v, o, g, causal)
+        torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    for name, d in zip("qkv", _bwd_diff(got, want)):
+        # |dq|, |dk|, |dv| <~ 8 here: a bf16 rounding flip is <= 1/32, and
+        # P and dS are rounded to bf16 on both sides from fp32 values that
+        # the online (kernel) and two-pass (plain) softmax round apart.
+        # Mean: the chip_smoke.py limit (sound 2.3e-7 at ViT-L and text
+        # shapes on the H100; a dropped delta term reads >= 0.006)
+        assert d.max().item() <= 0.0625, (name, d.max().item())
+        assert d.mean().item() <= 2e-5, (name, d.mean().item())
+
+
+def test_flash_bwd_kernel_reads_packed_views(cuda):
+    """q, k, v as strided views of one [B, N, 3, H, D] buffer and dO as a
+    strided view, as the composable training path passes them."""
+    rng = np.random.default_rng(7)
+    qkv = _bf16(rng, 2, 300, 3, 4, 64)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+    g = _bf16(rng, 2, 300, 4, 64).transpose(1, 2)
+    with torch.inference_mode():
+        o, lse = _flash_forward(q, k, v, False, with_lse=True)
+        got = flash_attention_bwd(q, k, v, o, g, lse)
+        want = flash_attention_bwd(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), o, g.contiguous(), lse)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_autograd_on_card(cuda, causal):
+    """The autograd Function on the card: forward kernel with its
+    log-sum-exp, backward kernel; gradients as the plain versions."""
+    rng = np.random.default_rng(8)
+    q, k, v = (_bf16(rng, 2, 4, 130, 64).requires_grad_() for _ in range(3))
+    g = _bf16(rng, 2, 4, 130, 64)
+    before = (flash_attention.launches, flash_attention_bwd.launches)
+    out = flash_attention(q, k, v, causal)
+    grads = torch.autograd.grad(out, (q, k, v), g)
+    assert (flash_attention.launches, flash_attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    with torch.no_grad():
+        want = flash_attention_bwd_reference(q, k, v, out, g, causal)
+    for d in _bwd_diff(grads, want):
+        assert d.max().item() <= 0.0625 and d.mean().item() <= 2e-5
+
+
+@pytest.mark.parametrize("act", ["quick", "erf"])
+@pytest.mark.parametrize("b, n, d, heads, kv_valid, causal", [
+    (3, 37, 64, 2, 37, False),     # ragged M tile, head dim 32
+    (2, 144, 96, 3, 131, True),    # N = 288 not a multiple of 128
+    (1, 80, 256, 2, 77, False),    # head dim 128
+    (2, 577, 1024, 16, 577, False),  # ViT-L/14-336 vision block
+    (4, 77, 768, 12, 77, True),    # its text block
+])
+def test_fused_block_residuals_kernel_matches_plain(cuda, b, n, d, heads,
+                                                    kv_valid, causal, act):
+    rng = np.random.default_rng(9)
+    args = _block_args(rng, b, n, d, 4 * d, bias_std=0.5)
+    kw = dict(heads=heads, kv_valid=kv_valid, causal=causal, act=act)
+    with torch.inference_mode():
+        before = fused_block_residuals.launches
+        got = fused_block_residuals(*args, **kw)
+        want = fused_block_residuals_reference(*args, **kw)
+        y = fused_block(*args, **kw)
+    assert fused_block_residuals.launches == before + 1
+    assert torch.equal(got[0], y)  # the same chain as fused_block
+    for name, a, w in zip(("y", "qkv", "att", "m1", "x_mid"), got, want):
+        assert a.shape == w.shape, name
+        diff = (a.float() - w.float())[:, :kv_valid].abs()
+        assert diff.max().item() <= 0.125, (name, diff.max().item())
+        assert diff.mean().item() <= 4e-3, (name, diff.mean().item())

@@ -100,7 +100,7 @@ def _fake(shape, is_cuda=True, dtype=torch.bfloat16, requires_grad=False):
     (_fake((2, 2, 128, 256)), None, False),         # head dim > 128
     (_fake((2, 16, 577, 64)), object(), False),     # explicit mask
     (_fake((2, 16, 577, 64), dtype=torch.float32), None, False),
-    (_fake((2, 16, 577, 64), requires_grad=True), None, False),
+    (_fake((2, 16, 577, 64), requires_grad=True), None, True),  # training
     (_fake((2, 16, 577, 64), is_cuda=False), None, False),
 ])
 def test_dot_product_attention_routes_by_shape(q, mask, want):

@@ -225,7 +225,8 @@ def test_embed_cli_int8_images_match_jax(tmp_path, checkpoint, capsys):
               "--input", str(tmp_path), "--batch-size", "4", "--fp32",
               "--int8"]
     ours, theirs = tmp_path / "ours.npy", tmp_path / "jax.npy"
-    assert embed_main(common + ["--output", str(ours)]) == 0
+    assert embed_main(common + ["--output", str(ours), "--device",
+                                 "cpu"]) == 0
     result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert result["route"] == "composable_int8" and result["images"] == 10
     assert jax_embed_main(common + ["--output", str(theirs),
@@ -245,7 +246,8 @@ def test_embed_cli_int8_texts_match_jax(tmp_path, checkpoint, capsys):
               "--input-texts", str(txt), "--batch-size", "2", "--fp32",
               "--int8"]
     ours, theirs = tmp_path / "ours.npy", tmp_path / "jax.npy"
-    assert embed_main(common + ["--output", str(ours)]) == 0
+    assert embed_main(common + ["--output", str(ours), "--device",
+                                 "cpu"]) == 0
     result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert result["route"] == "composable"  # off the card: the fp tower
     assert jax_embed_main(common + ["--output", str(theirs),
@@ -261,7 +263,7 @@ def test_validate_int8_cli(tmp_path):
         "--model", "test-tiny", "--batch-size", "8",
         "--distributions", "noise,smooth",
         "--min-cos", "0.95", "--min-agreement", "0.5",
-        "--out", str(out),
+        "--out", str(out), "--device", "cpu",
     ])
     assert report["fused_path"] is False and len(report["pairs"]) == 4
     for row in report["pairs"]:
