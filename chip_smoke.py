@@ -8,7 +8,9 @@ Phases, each of which raises on failure:
   2. build the CUDA kernels from clip_embeds_tpu_torch/csrc with nvcc;
   3. each kernel against its plain PyTorch version, bf16 (int8 weights
      and static scales for fused_block_int8), at the main paths' shapes,
-     with the tolerance stated;
+     with the tolerance stated; for the attention kernels also the TFLOP/s
+     achieved on the counted work (4 and 10 N^2 D per head) and the share
+     of the bound;
   4. the main paths: ViT-L/14-336 (OpenAI config, seeded random weights,
      all 24 + 12 layers) serves 3 image and 3 text requests of 8 through
      embed_image_batches / embed_text_batches, the CLI's helpers: first in
@@ -224,7 +226,7 @@ def check_kernels(rng):
     cases = []
     # (name, kernel call, plain call, tolerance on max |kernel - plain|,
     #  rows compared (axis 1), tolerance on the mean |kernel - plain|,
-    #  (bound_ms, bound_by), library call or None)
+    #  (bound_ms, bound_by), library call or None, counted FLOPs or None)
     # Max: bf16 outputs below 8, where a rounding flip is <= 1/32; an int8
     # code that the two sides round apart moves its projection by
     # a * max|w| and later codes with it. Mean limits: BLOCK_CASES.
@@ -238,14 +240,14 @@ def check_kernels(rng):
                       lambda a=args, k=kw: fused_block(*a, **k),
                       lambda a=args, k=kw: fused_block_reference(*a, **k),
                       0.125, kv, mean_tol,
-                      block_cost(b, n, d, mlp, heads, kv, causal), None))
+                      block_cost(b, n, d, mlp, heads, kv, causal), None, None))
         cases.append((f"fused_block_residuals {shape}",
                       lambda a=args, k=kw: fused_block_residuals(*a, **k),
                       lambda a=args, k=kw:
                       fused_block_residuals_reference(*a, **k),
                       0.125, kv, mean_tol_res,
                       block_cost(b, n, d, mlp, heads, kv, causal,
-                                 extra_out=5 * d + mlp), None))
+                                 extra_out=5 * d + mlp), None, None))
         if mean_tol8 is None:
             continue
         args8 = int8_block_inputs(args, heads, kv, causal)
@@ -255,7 +257,7 @@ def check_kernels(rng):
                       fused_block_int8_reference(*a, **k),
                       0.125, kv, mean_tol8,
                       block_cost(b, n, d, mlp, heads, kv, causal, int8=True),
-                      None))
+                      None, None))
     # the attention backward: max as the edge tests (bf16 rounding flips of
     # P and dS, which the online (kernel) and two-pass (plain) softmax
     # round apart). Mean limits: FLASH_CASES.
@@ -273,7 +275,8 @@ def check_kernels(rng):
                       0.02, n, 0.02,
                       bound_ms(flops=4 * pairs, nbytes=4 * io),
                       lambda q=q, k=k, v=v, c=causal:
-                      F.scaled_dot_product_attention(q, k, v, is_causal=c)))
+                      F.scaled_dot_product_attention(q, k, v, is_causal=c),
+                      4 * pairs))
         o, lse = _flash_forward(q, k, v, causal, with_lse=True)
         with torch.enable_grad():
             lq, lk, lv = (t.clone().requires_grad_() for t in (q, k, v))
@@ -287,9 +290,11 @@ def check_kernels(rng):
                       bound_ms(flops=10 * pairs,
                                nbytes=8 * io + bh * n * 4),
                       lambda t=(lq, lk, lv), lo=lo, g=g:
-                      torch.autograd.grad(lo, t, g, retain_graph=True)))
+                      torch.autograd.grad(lo, t, g, retain_graph=True),
+                      10 * pairs))
     results = {}
-    for name, kernel, plain, tol, n_valid, mean_tol, bound, library in cases:
+    for (name, kernel, plain, tol, n_valid, mean_tol, bound, library,
+         flops) in cases:
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         got, want = ((x,) if torch.is_tensor(x) else x for x in (got, want))
@@ -311,7 +316,10 @@ def check_kernels(rng):
               f"mean|diff| {mean:.3g} (tol {mean_tol}); "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
               f"{bound[0]:.4f} ms ({bound[1]}), library "
-              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}"
+              + ("" if flops is None else
+                 f"; {flops / ms / 1e9:.1f} TFLOP/s on the counted work, "
+                 f"{100 * bound[0] / ms:.1f}% of the bound"))
         results[name] = dict(err=err, ms=ms, plain_ms=plain_ms,
                              bound_ms=bound[0], bound_by=bound[1],
                              library_ms=lib_ms)
@@ -523,6 +531,38 @@ def check_training(counters, gpu):
     return launches
 
 
+def serving_routes(model, ref, images, texts, rng):
+    """Phase 5's serving routes: name -> (items per call, call). Images b32
+    through the CLI's bf16 route (composable + flash) and
+    fused_encode_image, texts b256 through fused_encode_text, and the
+    --int8 twins (calibrated on the first request, the fp parts read from
+    the fp32 model ``ref``, as the CLI does). Call under inference mode."""
+    from clip_embeds_tpu_torch.models.serving import (
+        fused_encode_image, fused_encode_image_int8, fused_encode_text,
+        fused_encode_text_int8, prepare_int8_text_tower, prepare_int8_tower)
+
+    cfg, bs, bf16 = model.cfg, 32, torch.bfloat16
+    px = torch.from_numpy(rng.standard_normal(
+        (bs, cfg.vision.image_size, cfg.vision.image_size, 3)).astype(
+            np.float32)).cuda()
+    ids = torch.from_numpy(np.concatenate(texts * 11)[:256]).long().cuda()
+    q_img = prepare_int8_tower(ref, torch.from_numpy(images[0]).cuda(), bf16)
+    q_txt = prepare_int8_text_tower(
+        ref, torch.from_numpy(texts[0]).long().cuda(), bf16)
+    return {
+        "images_per_s composable+flash": (
+            bs, lambda: model.encode_image(px.bfloat16(), normalize=True)),
+        "images_per_s fused_encode_image": (
+            bs, lambda: fused_encode_image(model, px)),
+        "texts_per_s fused_encode_text": (
+            len(ids), lambda: fused_encode_text(model, ids)),
+        "images_per_s fused_encode_image_int8": (
+            bs, lambda: fused_encode_image_int8(ref, q_img, px)),
+        "texts_per_s fused_encode_text_int8": (
+            len(ids), lambda: fused_encode_text_int8(ref, q_txt, ids)),
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card",
@@ -533,9 +573,7 @@ def main() -> int:
         embed_image_batches, embed_text_batches, image_route, text_route)
     from clip_embeds_tpu_torch.core.factory import create_model
     from clip_embeds_tpu_torch.models.serving import (
-        fused_encode_image, fused_encode_image_int8, fused_encode_text,
-        fused_encode_text_int8, fused_path_available, prepare_int8_text_tower,
-        prepare_int8_tower)
+        fused_encode_image, fused_path_available)
     from clip_embeds_tpu_torch.ops import _build
     from clip_embeds_tpu_torch.ops.flash_attention import (
         flash_attention, flash_attention_bwd)
@@ -648,35 +686,13 @@ def main() -> int:
 
     # 5. throughput (device name and power limit beside every number)
     with torch.inference_mode():
-        bs = 32
-        px = torch.from_numpy(rng.standard_normal(
-            (bs, cfg.vision.image_size, cfg.vision.image_size, 3)).astype(
-                np.float32)).cuda()
-        ids = torch.from_numpy(np.concatenate(texts * 11)[:256]).long().cuda()
-        # the CLI's --int8 towers: calibrated on the first request, and
-        # the fp parts read from the fp32 model
-        q_img = prepare_int8_tower(ref, torch.from_numpy(images[0]).cuda(),
-                                   bf16)
-        q_txt = prepare_int8_text_tower(
-            ref, torch.from_numpy(texts[0]).long().cuda(), bf16)
-        routes = {
-            "images_per_s composable+flash": (
-                bs, lambda: model.encode_image(px.bfloat16(), normalize=True)),
-            "images_per_s fused_encode_image": (
-                bs, lambda: fused_encode_image(model, px)),
-            "texts_per_s fused_encode_text": (
-                len(ids), lambda: fused_encode_text(model, ids)),
-            "images_per_s fused_encode_image_int8": (
-                bs, lambda: fused_encode_image_int8(ref, q_img, px)),
-            "texts_per_s fused_encode_text_int8": (
-                len(ids), lambda: fused_encode_text_int8(ref, q_txt, ids)),
-        }
+        routes = serving_routes(model, ref, images, texts, rng)
         for name, (count, fn) in routes.items():
             ms = cuda_ms(fn, iters=5, warmup=1)
             print(f"[throughput] {name}: {count / ms * 1e3:.1f} "
                   f"(batch {count}, {ms:.2f} ms) on {gpu}")
 
-    del model, ref, routes, q_img, q_txt, px, ids
+    del model, ref, routes, fn  # fn: the last route's call holds ref
     gc.collect()
     torch.cuda.empty_cache()
 

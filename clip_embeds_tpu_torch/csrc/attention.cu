@@ -7,184 +7,218 @@
 // kernel holds all of K/V for one (batch, head) in VMEM and takes one exact
 // row softmax per Q tile; the fused block's non-causal path also skips the
 // row max behind a logit clamp at 75. Neither carries over: here one block
-// of four warps owns one (b*h, 64-row Q tile) and walks 64-key K/V tiles
-// with the standard online-max softmax (fp32 logits and running sums, P
-// rounded to bf16 for P.V, fp32 accumulation), which is exact for any
-// logit and needs no clamp.
+// owns one (b*h, 128-row Q tile) and walks 64-key K/V tiles with the online
+// max softmax (fp32 logits and running sums, P rounded to bf16 for P.V,
+// fp32 accumulation), which is exact for any logit and needs no clamp.
 //
-// Bound: at ViT-L (N = 577, D = 64) the kernel does 4*N*N*D FLOPs per head
-// on 4*N*D*2 bytes of IO, far above the bf16 ridge, so it is compute- and
-// latency-bound; the logits never leave shared memory. Masking: keys with
-// col >= kv_valid, and col > row when causal (K/V tiles past the Q tile's
-// last row are skipped). Strides let one kernel read Q, K and V out of the
-// packed [B, n, 3d] qkv buffer of the fused block (head g at columns g*hd,
+// Bound: at ViT-L (N = 577, D = 64) the kernel does 4 N^2 D FLOPs per head
+// on 4 N D bf16 values of IO, far above the bf16 ridge, so it is bound by
+// the tensor cores and by how well their work overlaps the softmax. Design:
+// - two consumer warpgroups of 64 query rows each; thread 0 also produces:
+//   it loads the Q tile once and a ring of kStages K/V tiles by TMA
+//   (128-byte swizzle at D = 64, two 128-byte panels at D = 128, 64-byte at
+//   D = 32), one "full" and one "empty" mbarrier per stage, so the loads of
+//   the next tiles are in flight while one computes;
+// - S = Q K^T by wgmma m64n64k16 from shared memory (both K-major); the
+//   online softmax runs on the accumulator registers (each thread holds two
+//   rows; row max and sum over the quad by two shuffles), exp2 with a
+//   log2(e)-prescaled scale; masks only on the last key tile and on tiles
+//   that cross the diagonal; tiles wholly above it are skipped;
+// - O += P V by wgmma m64nDk16 with P packed to bf16 straight from the S
+//   accumulator (A from registers) and V MN-major from the same tile; O
+//   stays in registers for the whole key loop, is normalised once and goes
+//   out by TMA store through the Q tile's shared memory.
+// Masking: keys at or past kv_valid (the K/V maps end there, so TMA
+// zero-fills them and padded activations never enter P V), and key > query
+// when causal. Strides let one kernel read Q, K and V out of the packed
+// [B, n, 3d] qkv buffer of the fused block (head g at columns g*hd,
 // d + g*hd, 2d + g*hd) or out of [B, H, N, D] tensors, and write either
 // [B, n, d] or [B, H, N, D]. With a non-null `lse` the kernel also writes
-// each row's log-sum-exp of its scaled logits (fp32 [B*H, n]), which the
-// backward reads to recompute P without a second pass; the serving chain of
-// fused_block passes null and skips the store.
+// each row's natural log-sum-exp of its scaled logits (fp32 [B*H, n], +inf
+// for a row with no valid key), which the backward reads to recompute P;
+// the serving chain of fused_block passes null and skips the store.
 
-#include <mma.h>
-
-#include "common.cuh"
-
-using namespace nvcuda;
+#include "hopper.cuh"
 
 namespace cet {
 namespace {
 
-constexpr int kBQ = 64, kBKV = 64, kWarps = 4;
-constexpr int kLdS = kBKV + 4;  // fp32 logits row
-constexpr int kLdP = kBKV + 8;  // bf16 probabilities row
+constexpr int kBM = 128, kBN = 64;  // query rows of a block, keys of a tile
+constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
 
-template <int D>
-struct AttnSmem {
-  static constexpr int kLdB = D + 8;  // bf16 Q/K/V row
-  static constexpr int kLdO = D + 4;  // fp32 output accumulator row
-  static constexpr size_t q = 0;
-  static constexpr size_t k = q + sizeof(bf16) * kBQ * kLdB;
-  static constexpr size_t v = k + sizeof(bf16) * kBKV * kLdB;
-  static constexpr size_t s = v + sizeof(bf16) * kBKV * kLdB;
-  static constexpr size_t p = s + sizeof(float) * kWarps * 16 * kLdS;
-  static constexpr size_t o = p + sizeof(bf16) * kWarps * 16 * kLdP;
-  static constexpr size_t bytes = o + sizeof(float) * kWarps * 16 * kLdO;
+struct FwdMaps {
+  CUtensorMap q, k, v, o;
 };
 
 template <int D>
-__global__ void __launch_bounds__(kWarps * 32)
-attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o,
-                 float* __restrict__ lse, int H, int n, int kv_valid,
-                 int causal, float scale, long long sb,
-                 long long sh, long long sn, long long ob, long long oh,
-                 long long on) {
-  using L = AttnSmem<D>;
-  constexpr int kLdB = L::kLdB, kLdO = L::kLdO, kChunks = D / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L::q);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L::k);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L::v);
+struct FwdSmem {
+  static constexpr int kStages = D <= 64 ? 3 : 2;
+  static constexpr uint32_t kKV = Tile<D>::bytes(kBN);
+  static constexpr uint32_t q = 0;
+  static constexpr uint32_t k = q + Tile<D>::bytes(kBM);
+  static constexpr uint32_t v = k + kStages * kKV;
+  static constexpr uint32_t bar = v + kStages * kKV;  // full, empty, Q
+  static constexpr uint32_t bytes = bar + (2 * kStages + 1) * 8 + 1024;
+};
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  float* Sw = reinterpret_cast<float*>(smem + L::s) + warp * 16 * kLdS;
-  bf16* Pw = reinterpret_cast<bf16*>(smem + L::p) + warp * 16 * kLdP;
-  float* Ow = reinterpret_cast<float*>(smem + L::o) + warp * 16 * kLdO;
+template <int D>
+__global__ void __launch_bounds__(256, D <= 64 ? 2 : 1)
+attention_kernel(const __grid_constant__ FwdMaps maps, float* __restrict__ lse,
+                 int H, int n, int kv_lim, int causal, float scale_log2,
+                 int q_tiles) {
+  using L = FwdSmem<D>;
+  using T = Tile<D>;
+  constexpr int S = L::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_aligned(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bar);
+  uint64_t* empty = full + S;
+  uint64_t* qbar = empty + S;
 
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int q0 = blockIdx.y * kBQ;
-  const long long base = b * sb + h * sh;
-  const bf16* qb = q + base;
-  const bf16* kb = k + base;
-  const bf16* vb = v + base;
+  const int tid = threadIdx.x, wg = tid / 128, t = tid % 128;
+  const int lane = t % 32, warp = t / 32;
+  const int bh = blockIdx.x / q_tiles, b = bh / H, h = bh % H;
+  const int q0 = (blockIdx.x % q_tiles) * kBM;
+  const int kv_end = causal ? min(kv_lim, q0 + kBM) : kv_lim;
+  const int tiles = kv_end > 0 ? (kv_end + kBN - 1) / kBN : 0;
 
-  for (int c = tid; c < kBQ * kChunks; c += kWarps * 32) {
-    int r = c / kChunks, cc = (c % kChunks) * 8;
-    int gr = q0 + r;
-    bool ok = gr < n;
-    cp_async16(&Qs[r * kLdB + cc], qb + (ok ? gr : 0) * sn + cc, ok);
+  auto load_kv = [&](int j) {  // thread 0: tile j into stage j % S
+    const int s = j % S;
+    mbar_expect_tx(&full[s], 2 * L::kKV);
+#pragma unroll
+    for (int p = 0; p < T::kPanels; ++p) {
+      tma_load(smem + L::k + s * L::kKV + p * T::panel(kBN), &maps.k,
+               &full[s], p * T::kPW, j * kBN, h, b);
+      tma_load(smem + L::v + s * L::kKV + p * T::panel(kBN), &maps.v,
+               &full[s], p * T::kPW, j * kBN, h, b);
+    }
+  };
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
+    }
+    mbar_init(qbar, 1);
+    mbar_fence_init();
   }
-  cp_async_commit();
-  for (int e = lane; e < 16 * kLdO; e += 32) Ow[e] = 0.f;
-
-  // Softmax state of one query row, kept by the two lanes that share it.
-  const int r = lane / 2, half = lane % 2;
-  const int qrow = q0 + warp * 16 + r;
-  float m_i = -INFINITY, l_i = 0.f;
-
-  const int kv_lim = min(n, kv_valid);  // keys at or past this are masked
-  const int kv_end = causal ? min(kv_lim, q0 + kBQ) : kv_lim;
-  for (int k0 = 0; k0 < kv_end; k0 += kBKV) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    for (int c = tid; c < kBKV * kChunks; c += kWarps * 32) {
-      int rr = c / kChunks, cc = (c % kChunks) * 8;
-      int gr = k0 + rr;
-      bool ok = gr < kv_end;
-      long long off = (ok ? gr : 0) * sn + cc;
-      cp_async16(&Ks[rr * kLdB + cc], kb + off, ok);
-      cp_async16(&Vs[rr * kLdB + cc], vb + off, ok);
-    }
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 query rows.
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(qbar, T::bytes(kBM));
 #pragma unroll
-    for (int j = 0; j < kBKV / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> s_acc;
-      wmma::fill_fragment(s_acc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
-        wmma::load_matrix_sync(qa, &Qs[(warp * 16) * kLdB + kk * 16], kLdB);
-        wmma::load_matrix_sync(kf, &Ks[(j * 16) * kLdB + kk * 16], kLdB);
-        wmma::mma_sync(s_acc, qa, kf, s_acc);
-      }
-      wmma::store_matrix_sync(Sw + j * 16, s_acc, kLdS, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // Online softmax on row r; each lane of the pair takes 32 columns.
-    float mx = -INFINITY;
-#pragma unroll 8
-    for (int c = 0; c < 32; ++c) {
-      const int col = half * 32 + c, kc = k0 + col;
-      const bool ok = kc < kv_lim && (!causal || kc <= qrow);
-      const float s = ok ? Sw[r * kLdS + col] * scale : -INFINITY;
-      Sw[r * kLdS + col] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m_i, mx);
-    const bool none = m_new == -INFINITY;  // no valid key seen yet
-    const float alpha = none ? 1.f : expf(m_i - m_new);
-    float sum = 0.f;
-#pragma unroll 8
-    for (int c = 0; c < 32; ++c) {
-      const int col = half * 32 + c;
-      const float p = none ? 0.f : expf(Sw[r * kLdS + col] - m_new);
-      Pw[r * kLdP + col] = f2bf(p);
-      sum += p;
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    l_i = l_i * alpha + sum;
-    m_i = m_new;
-    for (int c = 0; c < D / 2; ++c) Ow[r * kLdO + half * (D / 2) + c] *= alpha;
-    __syncwarp();
-
-    // O += P V
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> o_acc;
-      wmma::load_matrix_sync(o_acc, Ow + j * 16, kLdO, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < kBKV / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
-        wmma::load_matrix_sync(pa, Pw + kk * 16, kLdP);
-        wmma::load_matrix_sync(vf, &Vs[(kk * 16) * kLdB + j * 16], kLdB);
-        wmma::mma_sync(o_acc, pa, vf, o_acc);
-      }
-      wmma::store_matrix_sync(Ow + j * 16, o_acc, kLdO, wmma::mem_row_major);
-    }
-    __syncwarp();
+    for (int p = 0; p < T::kPanels; ++p)
+      tma_load(smem + L::q + p * T::panel(kBM), &maps.q, qbar, p * T::kPW, q0,
+               h, b);
+    for (int j = 0; j < min(S, tiles); ++j) load_kv(j);
   }
 
-  if (qrow < n) {
-    const float inv = l_i > 0.f ? 1.f / l_i : 0.f;
-    bf16* orow = o + b * ob + h * oh + qrow * on + half * (D / 2);
-    const float* src = Ow + r * kLdO + half * (D / 2);
+  // this warpgroup's rows: row0 + r and row0 + r + 8 for each thread
+  const int row0 = q0 + 64 * wg, r = 16 * warp + lane / 4, c = 2 * (lane % 4);
+  const int wg_end = causal ? min(kv_lim, row0 + 64) : kv_lim;
+  const uint32_t sq = smem_u32(smem + L::q);
+  float o[D / 2];
 #pragma unroll
-    for (int c = 0; c < D / 2; c += 8) {
-      __align__(16) bf16 out[8];
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // log2 units
+
+  mbar_wait(qbar, 0);
+  for (int j = 0; j < tiles; ++j) {
+    const int s = j % S, k0 = j * kBN;
+    const uint32_t sk = smem_u32(smem + L::k + s * L::kKV);
+    const uint32_t sv = smem_u32(smem + L::v + s * L::kKV);
+    mbar_wait(&full[s], (j / S) & 1);
+    if (k0 < wg_end) {  // else every key of the tile is above the diagonal
+      float sc[32];
+      wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 8; ++e) out[e] = f2bf(src[c + e] * inv);
-      *reinterpret_cast<uint4*>(orow + c) = *reinterpret_cast<uint4*>(out);
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<kBN>(sc, desc_k<D>(sq, kBM, 64 * wg, kk),
+                      desc_k<D>(sk, kBN, 0, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+
+      const bool edge = k0 + kBN > kv_lim || (causal && k0 + kBN - 1 > row0);
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        float x = sc[i] * scale_log2;
+        if (edge) {
+          const int col = k0 + 8 * (i >> 2) + c + (i & 1);
+          const int row = row0 + r + 8 * ((i >> 1) & 1);
+          if (col >= kv_lim || (causal && col > row)) x = -INFINITY;
+        }
+        sc[i] = x;
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+      }
+      float sub[2], alpha[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 1));
+        mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 2));
+        sub[e] = mx[e] == -INFINITY ? 0.f : mx[e];  // no valid key yet
+        alpha[e] = exp2f(m[e] - sub[e]);
+        m[e] = mx[e];
+        l[e] *= alpha[e];  // this thread's share of the row sum
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int e = (i >> 1) & 1;
+        sc[i] = exp2f(sc[i] - sub[e]);
+        l[e] += sc[i];
+      }
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+      uint32_t pa[kBN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk) acc_to_a(sc, kk, pa[kk]);
+      fence_regs(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk)
+        wgmma_rs<D>(o, pa[kk], desc_mn<D>(sv, kBN, kk), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(pa);
+      fence_regs(o);
     }
-    // a row with no valid key gets +inf, so exp(s - lse) = 0 in the backward
-    if (lse != nullptr && half == 0)
-      lse[static_cast<long long>(blockIdx.x) * n + qrow] =
-          l_i > 0.f ? m_i + logf(l_i) : INFINITY;
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+    if (tid == 0 && j + S < tiles) {
+      mbar_wait(&empty[s], (j / S) & 1);  // both warpgroups are done with it
+      load_kv(j + S);
+    }
+    __syncwarp();
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    l[e] += __shfl_xor_sync(0xffffffffu, l[e], 1);
+    l[e] += __shfl_xor_sync(0xffffffffu, l[e], 2);
+    inv[e] = l[e] > 0.f ? 1.f / l[e] : 0.f;
+  }
+  // O through this warpgroup's own rows of the Q tile (its last wgmma that
+  // read them has completed), then one TMA store per panel
+  acc_to_tile<D>(smem + L::q, kBM, 64 * wg, o, inv[0], inv[1]);
+  fence_async_smem();
+  warpgroup_sync(1 + wg);
+  if (t == 0 && row0 < n) {
+#pragma unroll
+    for (int p = 0; p < T::kPanels; ++p)
+      tma_store(&maps.o, smem + L::q + p * T::panel(kBM) + 64 * wg * T::kSwz,
+                p * T::kPW, row0, h, b);
+    tma_store_wait();
+  }
+  if (lse != nullptr && lane % 4 == 0) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int row = row0 + r + 8 * e;
+      // a row with no valid key gets +inf, so exp(s - lse) = 0 backward
+      if (row < n)
+        lse[static_cast<long long>(bh) * n + row] =
+            l[e] > 0.f ? m[e] * kLn2 + logf(l[e]) : INFINITY;
+    }
   }
 }
 
@@ -193,16 +227,27 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            int B, int H, int n, int kv_valid, int causal, float scale,
            long long sb, long long sh, long long sn, long long ob,
            long long oh, long long on, cudaStream_t stream) {
-  const int bytes = static_cast<int>(AttnSmem<D>::bytes);
-  cudaError_t err = cudaFuncSetAttribute(
+  using T = Tile<D>;
+  const int bytes = static_cast<int>(FwdSmem<D>::bytes);
+  cudaError_t e = cudaFuncSetAttribute(
       attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(B * H, (n + kBQ - 1) / kBQ);  // b*h on x: no 65535 limit
-  attention_kernel<D><<<grid, kWarps * 32, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o),
-      static_cast<float*>(lse), H, n, kv_valid, causal, scale, sb, sh, sn, ob,
-      oh, on);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int kv_lim = std::max(0, std::min(n, kv_valid));
+  const int kvr = std::max(kv_lim, 1);
+  const int w = T::kPW, sw = T::kSwz;
+  FwdMaps maps;
+  int err = make_map(&maps.q, q, D, n, H, B, sn, sh, sb, w, kBM, sw);
+  // K/V end at kv_lim: TMA zero-fills the keys past it
+  if (!err) err = make_map(&maps.k, k, D, kvr, H, B, sn, sh, sb, w, kBN, sw);
+  if (!err) err = make_map(&maps.v, v, D, kvr, H, B, sn, sh, sb, w, kBN, sw);
+  if (!err) err = make_map(&maps.o, o, D, n, H, B, on, oh, ob, w, 64, sw);
+  if (err) return err;
+  const int q_tiles = (n + kBM - 1) / kBM;
+  // b*h and the Q tile folded into x: no 65535 limit, and the blocks that
+  // share one head's K/V run side by side
+  attention_kernel<D><<<B * H * q_tiles, 256, bytes, stream>>>(
+      maps, static_cast<float*>(lse), H, n, kv_lim, causal, scale * kLog2e,
+      q_tiles);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,338 +5,434 @@
 // custom VJP's `_bwd`). Per (b*h, Q tile) the TPU kernel recomputes P from
 // (q, k), and accumulates dK and dV across Q tiles in output blocks that
 // the sequential TPU grid revisits. Blocks of a Hopper grid run in parallel
-// and in no order, so here the work is three launches with no atomics,
-// which also makes the result deterministic:
+// and in no order, so here the work is two launches with no atomics, which
+// also makes the result deterministic:
 //
-//   (a) delta = rowsum(dO * O)                 fp32 [B*H, N], one warp a row
-//   (b) dK, dV: one block per (b*h, 64-key tile), looping over the Q tiles
-//       that see those keys:  S^T = K Q^T,  P^T = exp(S^T * scale - lse),
-//       dV += P^T(bf16) dO,  dP^T = V dO^T,  dS^T = P^T (dP^T - delta) scale,
-//       dK += dS^T(bf16) Q
-//   (c) dQ: one block per (b*h, 64-row Q tile), looping over the key tiles:
-//       the same S, P, dP and dS,  dQ += dS(bf16) K
+//   (1) dQ: one warpgroup per (b*h, 64-row Q tile). Its prologue loads the
+//       Q, dO and O tiles by TMA, takes delta = rowsum(dO * O) for its rows
+//       and stores it, with the forward's log-sum-exp in log2 units, to an
+//       fp32 scratch of 64-row tiles for (2). Then over a TMA ring of K/V
+//       tiles: S = Q K^T and dP = dO V^T, P = exp(S scale - lse),
+//       dS = P (dP - delta) scale, dQ += dS(bf16) K.
+//   (2) dK, dV: one warpgroup per (b*h, 64-key tile). K and V are loaded
+//       once; over a TMA ring of (Q, dO) tiles with their lse and delta
+//       (bulk copies from the scratch), from the key tile on when causal:
+//       S^T = K Q^T and dP^T = V dO^T, P^T and dS^T, dV += P^T(bf16) dO,
+//       dK += dS^T(bf16) Q.
 //
-// P is the normalised fp32 probability exp(s - lse), with lse the forward's
-// log-sum-exp (attention.cu writes it); P and dS are rounded to bf16 before
-// their products, as the Pallas kernel rounds them to the input dtype, and
-// every product accumulates in fp32 WMMA fragments held in registers, cast
-// to bf16 once at the end. Masked (q, k) pairs (key >= kv_valid, key > query
-// when causal, padded rows) get P = 0. Q, K, V, O and dO are read through
-// their strides, so views of the packed [B, n, 3d] qkv buffer cost no copy.
+// Every product is a wgmma: the first two of a tile read both operands
+// from shared memory (B K-major), the accumulating ones take A (P or dS,
+// packed to bf16 straight from the fp32 accumulator) from registers and B
+// MN-major from the same swizzled tile; S, P, dP, dS and the dQ, dK and dV
+// accumulators never leave registers, and the results go out by TMA store
+// once. At D = 128 the Q sub-tile of (2) is 32 rows (wgmma n = 32), so
+// that dK, dV, S^T and dP^T fit the register file. P and dS are rounded to
+// bf16 before their products, as the Pallas kernel rounds them to the input
+// dtype; sums are fp32, cast to bf16 once. Masked (q, k) pairs (key >=
+// kv_valid, key > query when causal, padded rows) get P = 0; the maps of K
+// and V end at kv_valid, so TMA zero-fills the keys past it. Q, K, V, O and
+// dO are read through their strides, so views of the packed [B, n, 3d] qkv
+// buffer cost no copy.
 //
-// Bound: 10 * N^2 * D FLOPs per head (the Pallas cost estimate: 2 N^2 D
-// for each of S, dP, dV, dK and dQ) against 8 * N * D * 2 bytes of IO; at
-// ViT-L (N = 577, D = 64) that is far above the bf16 ridge, so the kernel is
-// compute- and latency-bound. S and dP are computed in both (b) and (c)
-// (14 N^2 D FLOPs done for the 10 counted) in exchange for no atomics and no
-// cross-block reduction; wgmma and a fused (b)+(c) come in a later change.
+// Bound: 10 N^2 D FLOPs per head (the Pallas cost estimate: 2 N^2 D for
+// each of S, dP, dV, dK and dQ) against 8 N D bf16 values of IO; at ViT-L
+// (N = 577, D = 64) far above the bf16 ridge, so the tensor cores bound it.
+// S and dP are computed in both launches (14 N^2 D FLOPs done for the 10
+// counted) in exchange for no atomics and no cross-block reduction.
 
-#include <mma.h>
-
-#include "common.cuh"
-
-using namespace nvcuda;
+#include "hopper.cuh"
 
 namespace cet {
 namespace {
 
-constexpr int kBT = 64;        // rows of a Q tile and of a K/V tile
-constexpr int kBwdWarps = 4;   // each warp owns 16 rows of the block's tile
-constexpr int kLdF = kBT + 4;  // fp32 [16 x 64] scratch row
-constexpr int kLdH = kBT + 8;  // bf16 [16 x 64] scratch row
+constexpr int kBT = 64;  // rows of a dQ tile, of a key tile, of a scratch tile
+constexpr float kLog2e = 1.4426950408889634f;
 
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-    FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-    FragB;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>
-    FragBt;
-
-template <int D>
-struct BwdSmem {
-  static constexpr int kLdB = D + 8;  // bf16 [64 x D] tile row
-  static constexpr size_t tile = sizeof(bf16) * kBT * kLdB;
-  static constexpr size_t t0 = 0, t1 = tile, t2 = 2 * tile, t3 = 3 * tile;
-  static constexpr size_t lse = 4 * tile;                       // fp32 [64]
-  static constexpr size_t delta = lse + sizeof(float) * kBT;    // fp32 [64]
-  static constexpr size_t s = delta + sizeof(float) * kBT;      // per warp
-  static constexpr size_t dp = s + sizeof(float) * kBwdWarps * 16 * kLdF;
-  static constexpr size_t p = dp + sizeof(float) * kBwdWarps * 16 * kLdF;
-  static constexpr size_t bytes = p + sizeof(bf16) * kBwdWarps * 16 * kLdH;
+struct BwdMaps {
+  CUtensorMap q, g, o, k, v;  // 64-row boxes (g = dO); k, v end at kv_valid
+  CUtensorMap qs, gs;         // the dK/dV launch's Q and dO sub-tiles
+  CUtensorMap dq, dk, dv;     // stores
 };
-
-// Copy rows [r0, r0 + 64) of a [n, D] head slice (row stride `sr`) into a
-// padded shared tile; rows at or past `lim` are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long long sr, int r0, int lim) {
-  constexpr int kChunks = D / 8, kLdB = D + 8;
-  for (int c = threadIdx.x; c < kBT * kChunks; c += kBwdWarps * 32) {
-    const int r = c / kChunks, cc = (c % kChunks) * 8;
-    const int gr = r0 + r;
-    const bool ok = gr < lim;
-    cp_async16(&dst[r * kLdB + cc], src + (ok ? gr : 0) * sr + cc, ok);
-  }
-}
-
-// out[16 x 64] (fp32, ld kLdF) = A_rows[16 x D] B_rows[64 x D]^T, where A
-// is this warp's 16 rows of one tile and B the 64 rows of another.
-template <int D>
-__device__ __forceinline__ void rows_times_rows_t(float* out, const bf16* a,
-                                                  const bf16* b) {
-  constexpr int kLdB = D + 8;
-#pragma unroll
-  for (int j = 0; j < kBT / 16; ++j) {
-    Acc acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      FragA fa;
-      FragBt fb;
-      wmma::load_matrix_sync(fa, a + kk * 16, kLdB);
-      wmma::load_matrix_sync(fb, b + (j * 16) * kLdB + kk * 16, kLdB);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(out + j * 16, acc, kLdF, wmma::mem_row_major);
-  }
-}
-
-// acc[D / 16] += P[16 x 64] (bf16, ld kLdH) T[64 x D] (a shared tile).
-template <int D>
-__device__ __forceinline__ void accumulate(Acc* acc, const bf16* p,
-                                           const bf16* t) {
-  constexpr int kLdB = D + 8;
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) {
-#pragma unroll
-    for (int kk = 0; kk < kBT / 16; ++kk) {
-      FragA fa;
-      FragB fb;
-      wmma::load_matrix_sync(fa, p + kk * 16, kLdH);
-      wmma::load_matrix_sync(fb, t + (kk * 16) * kLdB + j * 16, kLdB);
-      wmma::mma_sync(acc[j], fa, fb, acc[j]);
-    }
-  }
-}
-
-// Store a warp's [16 x D] fp32 accumulators as bf16 rows of `out` (row
-// stride `so`), staged one 16x16 fragment at a time through `stage`; rows
-// whose global index is >= n are dropped.
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* out, long long so,
-                                           const Acc* acc, float* stage,
-                                           int row0, int n) {
-  const int lane = threadIdx.x % 32, r = lane / 2, c = (lane % 2) * 8;
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) {
-    wmma::store_matrix_sync(stage, acc[j], kLdF, wmma::mem_row_major);
-    __syncwarp();
-    if (row0 + r < n) {
-      __align__(16) bf16 vals[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) vals[e] = f2bf(stage[r * kLdF + c + e]);
-      *reinterpret_cast<uint4*>(out + (row0 + r) * so + j * 16 + c) =
-          *reinterpret_cast<uint4*>(vals);
-    }
-    __syncwarp();
-  }
-}
-
-// (a) delta[row] = sum_d dO[row, d] * O[row, d], one warp per row; batch b
-// on grid y, the H * n rows of one batch on x.
-__global__ void __launch_bounds__(256)
-attention_bwd_delta_kernel(const bf16* __restrict__ o,
-                           const bf16* __restrict__ g,
-                           float* __restrict__ delta, int H, int n, int D,
-                           long long ob, long long oh, long long on,
-                           long long gb, long long gh, long long gn) {
-  const int hi = blockIdx.x * 8 + threadIdx.x / 32;  // h * n + i
-  const int lane = threadIdx.x % 32, b = blockIdx.y;
-  if (hi >= H * n) return;
-  const int h = hi / n, i = hi % n;
-  const bf16* orow = o + b * ob + h * oh + i * on;
-  const bf16* grow = g + b * gb + h * gh + i * gn;
-  float s = 0.f;
-  for (int c = lane; c < D; c += 32) s += bf2f(orow[c]) * bf2f(grow[c]);
-  s = warp_sum(s);
-  if (lane == 0) delta[(static_cast<long long>(b) * H) * n + hi] = s;
-}
 
 struct BwdArgs {
-  const bf16 *q, *k, *v, *g;      // g = dO
-  const float *lse, *delta;       // fp32 [B*H, n]
-  bf16 *dq, *dk, *dv;
-  int H, n, kv_valid, causal;
-  float scale;
-  long long sb, sh, sn;           // q, k, v strides
-  long long gb, gh, gn;           // dO strides
-  long long xb, xh, xn;           // dq, dk, dv strides
+  float* scratch;  // fp32 [B*H, tiles, 2, 64]: lse (log2 units), delta
+  const float* lse;
+  int H, n, kv_lim, causal, tiles;
+  float scale, scale_log2;
 };
 
-// (b) dK and dV of one (b*h, 64-key tile).
 template <int D>
-__global__ void __launch_bounds__(kBwdWarps * 32)
-attention_bwd_dkdv_kernel(BwdArgs a) {
-  using L = BwdSmem<D>;
-  constexpr int kLdB = L::kLdB;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L::t0);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L::t1);
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L::t2);
-  bf16* Gs = reinterpret_cast<bf16*>(smem + L::t3);
-  float* Ls = reinterpret_cast<float*>(smem + L::lse);
-  float* Ds = reinterpret_cast<float*>(smem + L::delta);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  float* Sw = reinterpret_cast<float*>(smem + L::s) + warp * 16 * kLdF;
-  float* DPw = reinterpret_cast<float*>(smem + L::dp) + warp * 16 * kLdF;
-  bf16* Pw = reinterpret_cast<bf16*>(smem + L::p) + warp * 16 * kLdH;
+struct DqSmem {
+  static constexpr int kStages = D <= 64 ? 3 : 2;
+  static constexpr uint32_t kTile = Tile<D>::bytes(kBT);
+  static constexpr uint32_t q = 0, g = kTile, o = 2 * kTile;  // o: then dQ
+  static constexpr uint32_t k = 3 * kTile;
+  static constexpr uint32_t v = k + kStages * kTile;
+  static constexpr uint32_t lse = v + kStages * kTile;  // fp32 [64]
+  static constexpr uint32_t delta = lse + 4 * kBT;       // fp32 [64]
+  static constexpr uint32_t bar = delta + 4 * kBT;       // full, empty, QdO
+  static constexpr uint32_t bytes = bar + (2 * kStages + 1) * 8 + 1024;
+};
 
-  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
-  const int k0 = blockIdx.y * kBT, n = a.n;
-  const long long base = b * a.sb + h * a.sh;
-  const bf16* qb = a.q + base;
-  const bf16* gb = a.g + b * a.gb + h * a.gh;
-  const float* lse = a.lse + static_cast<long long>(bh) * n;
-  const float* delta = a.delta + static_cast<long long>(bh) * n;
-  const int kv_lim = min(n, a.kv_valid);
+template <int D>
+struct DkvSmem {
+  static constexpr int kBQ = D == 128 ? 32 : 64;  // Q rows of a ring tile
+  static constexpr int kStages = 3;
+  static constexpr uint32_t kKV = Tile<D>::bytes(kBT);
+  static constexpr uint32_t kQ = Tile<D>::bytes(kBQ);
+  static constexpr uint32_t k = 0, v = kKV;  // then dK, dV
+  static constexpr uint32_t q = 2 * kKV;
+  static constexpr uint32_t g = q + kStages * kQ;
+  static constexpr uint32_t ld = g + kStages * kQ;  // per stage lse, delta
+  static constexpr uint32_t bar = ld + kStages * 8 * kBQ;  // full, empty, KV
+  static constexpr uint32_t bytes = bar + (2 * kStages + 1) * 8 + 1024;
+};
 
-  load_tile<D>(Ks, a.k + base, a.sn, k0, kv_lim);
-  load_tile<D>(Vs, a.v + base, a.sn, k0, kv_lim);
-  cp_async_commit();
+// (1) dQ of one (b*h, 64-row Q tile), and the scratch for (2).
+template <int D>
+__global__ void __launch_bounds__(128, 2)
+attention_bwd_dq_kernel(const __grid_constant__ BwdMaps maps, BwdArgs a) {
+  using L = DqSmem<D>;
+  using T = Tile<D>;
+  constexpr int S = L::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_aligned(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bar);
+  uint64_t* empty = full + S;
+  uint64_t* qbar = empty + S;
+  float* lse_s = reinterpret_cast<float*>(smem + L::lse);
+  float* delta_s = reinterpret_cast<float*>(smem + L::delta);
 
-  Acc dk[D / 16], dv[D / 16];
+  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+  const int bh = blockIdx.x / a.tiles, b = bh / a.H, h = bh % a.H;
+  const int qt = blockIdx.x % a.tiles, q0 = qt * kBT, n = a.n;
+  const int kv_end = a.causal ? min(a.kv_lim, q0 + kBT) : a.kv_lim;
+  const int tiles = kv_end > 0 ? (kv_end + kBT - 1) / kBT : 0;
+
+  auto load_kv = [&](int j) {  // thread 0: key tile j into stage j % S
+    const int s = j % S;
+    mbar_expect_tx(&full[s], 2 * L::kTile);
 #pragma unroll
-  for (int j = 0; j < D / 16; ++j) {
-    wmma::fill_fragment(dk[j], 0.f);
-    wmma::fill_fragment(dv[j], 0.f);
+    for (int p = 0; p < T::kPanels; ++p) {
+      tma_load(smem + L::k + s * L::kTile + p * T::panel(kBT), &maps.k,
+               &full[s], p * T::kPW, j * kBT, h, b);
+      tma_load(smem + L::v + s * L::kTile + p * T::panel(kBT), &maps.v,
+               &full[s], p * T::kPW, j * kBT, h, b);
+    }
+  };
+  if (t == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);
+    }
+    mbar_init(qbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (t == 0) {
+    mbar_expect_tx(qbar, 3 * L::kTile);
+#pragma unroll
+    for (int p = 0; p < T::kPanels; ++p) {
+      const int c0 = p * T::kPW, off = p * T::panel(kBT);
+      tma_load(smem + L::q + off, &maps.q, qbar, c0, q0, h, b);
+      tma_load(smem + L::g + off, &maps.g, qbar, c0, q0, h, b);
+      tma_load(smem + L::o + off, &maps.o, qbar, c0, q0, h, b);
+    }
+    for (int j = 0; j < min(S, tiles); ++j) load_kv(j);
+  }
+  if (t < kBT) {
+    const int row = q0 + t;
+    lse_s[t] = row < n ? a.lse[static_cast<long long>(bh) * n + row] * kLog2e
+                       : INFINITY;  // padded rows: P = 0
+  }
+  mbar_wait(qbar, 0);
+  {  // delta = rowsum(dO * O): two threads a row (padded rows read zeros)
+    const int row = t / 2, part = t % 2;
+    float sum = 0.f;
+#pragma unroll
+    for (int ch = part * D / 16; ch < (part + 1) * D / 16; ++ch) {
+      const uint32_t off = T::offset(kBT, row, ch * 8);
+      const uint4 gv = *reinterpret_cast<const uint4*>(smem + L::g + off);
+      const uint4 ov = *reinterpret_cast<const uint4*>(smem + L::o + off);
+      const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
+      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 gf = __bfloat1622float2(g2[e]);
+        const float2 of = __bfloat1622float2(o2[e]);
+        sum += gf.x * of.x + gf.y * of.y;
+      }
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    if (part == 0) delta_s[row] = sum;
+  }
+  __syncthreads();  // O is read: its tile takes dQ at the end
+  if (t < kBT) {
+    float* out =
+        a.scratch + (static_cast<long long>(bh) * a.tiles + qt) * 2 * kBT;
+    out[t] = lse_s[t];
+    out[kBT + t] = delta_s[t];
   }
 
-  // the softmax element (key row r of this warp, query column) of a lane
-  const int r = lane / 2, half = lane % 2;
-  const int key = k0 + warp * 16 + r;
-  // causal: the Q tiles before k0 see none of these keys
+  const int r = 16 * warp + lane / 4, c = 2 * (lane % 4);
+  const float lse_r[2] = {lse_s[r], lse_s[r + 8]};
+  const float delta_r[2] = {delta_s[r], delta_s[r + 8]};
+  const uint32_t sq = smem_u32(smem + L::q), sg = smem_u32(smem + L::g);
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+
+  for (int j = 0; j < tiles; ++j) {
+    const int s = j % S, k0 = j * kBT;
+    const uint32_t sk = smem_u32(smem + L::k + s * L::kTile);
+    const uint32_t sv = smem_u32(smem + L::v + s * L::kTile);
+    mbar_wait(&full[s], (j / S) & 1);
+    float sc[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<kBT>(sc, desc_k<D>(sq, kBT, 0, kk), desc_k<D>(sk, kBT, 0, kk),
+                    kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<kBT>(dp, desc_k<D>(sg, kBT, 0, kk), desc_k<D>(sv, kBT, 0, kk),
+                    kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    const bool edge =
+        k0 + kBT > a.kv_lim || (a.causal && k0 + kBT - 1 > q0);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int e = (i >> 1) & 1;
+      float p = exp2f(sc[i] * a.scale_log2 - lse_r[e]);
+      if (edge) {
+        const int col = k0 + 8 * (i >> 2) + c + (i & 1);
+        if (col >= a.kv_lim || (a.causal && col > q0 + r + 8 * e)) p = 0.f;
+      }
+      sc[i] = p * (dp[i] - delta_r[e]) * a.scale;  // dS
+    }
+    uint32_t da[kBT / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kBT / 16; ++kk) acc_to_a(sc, kk, da[kk]);
+    fence_regs(dq);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBT / 16; ++kk)
+      wgmma_rs<D>(dq, da[kk], desc_mn<D>(sk, kBT, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(da);
+    fence_regs(dq);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+    if (t == 0 && j + S < tiles) {
+      mbar_wait(&empty[s], (j / S) & 1);
+      load_kv(j + S);
+    }
+    __syncwarp();
+  }
+
+  acc_to_tile<D>(smem + L::o, kBT, 0, dq, 1.f, 1.f);
+  fence_async_smem();
+  __syncthreads();
+  if (t == 0) {
+#pragma unroll
+    for (int p = 0; p < T::kPanels; ++p)
+      tma_store(&maps.dq, smem + L::o + p * T::panel(kBT), p * T::kPW, q0, h,
+                b);
+    tma_store_wait();
+  }
+}
+
+// (2) dK and dV of one (b*h, 64-key tile).
+template <int D>
+__global__ void __launch_bounds__(128, 2)
+attention_bwd_dkdv_kernel(const __grid_constant__ BwdMaps maps, BwdArgs a) {
+  using L = DkvSmem<D>;
+  using T = Tile<D>;
+  constexpr int S = L::kStages, BQ = L::kBQ;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_aligned(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bar);
+  uint64_t* empty = full + S;
+  uint64_t* kvbar = empty + S;
+
+  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+  const int bh = blockIdx.x / a.tiles, b = bh / a.H, h = bh % a.H;
+  const int k0 = (blockIdx.x % a.tiles) * kBT, n = a.n;
+  // causal: the Q rows before k0 see none of these keys
   const int q_begin = a.causal ? k0 : 0;
-  for (int q0 = q_begin; k0 < kv_lim && q0 < n; q0 += kBT) {
-    __syncthreads();  // every warp is done with the previous Q/dO tile
-    load_tile<D>(Qs, qb, a.sn, q0, n);
-    load_tile<D>(Gs, gb, a.gn, q0, n);
-    cp_async_commit();
-    for (int i = tid; i < kBT; i += kBwdWarps * 32) {
-      const int gr = q0 + i;
-      Ls[i] = gr < n ? lse[gr] : INFINITY;
-      Ds[i] = gr < n ? delta[gr] : 0.f;
-    }
-    cp_async_wait<0>();
-    __syncthreads();
+  const int steps = k0 < a.kv_lim ? (n - q_begin + BQ - 1) / BQ : 0;
+  const float* scratch =
+      a.scratch + static_cast<long long>(bh) * a.tiles * 2 * kBT;
 
-    rows_times_rows_t<D>(Sw, Ks + warp * 16 * kLdB, Qs);   // S^T
-    rows_times_rows_t<D>(DPw, Vs + warp * 16 * kLdB, Gs);  // dP^T
-    __syncwarp();
-#pragma unroll 8
-    for (int c = 0; c < 32; ++c) {
-      const int col = half * 32 + c, qr = q0 + col;
-      const bool ok = key < kv_lim && qr < n && (!a.causal || key <= qr);
-      const float p = ok ? expf(Sw[r * kLdF + col] * a.scale - Ls[col]) : 0.f;
-      Pw[r * kLdH + col] = f2bf(p);
-      Sw[r * kLdF + col] = p * (DPw[r * kLdF + col] - Ds[col]) * a.scale;
-    }
-    __syncwarp();
-    accumulate<D>(dv, Pw, Gs);  // dV += P^T dO
-    __syncwarp();
-#pragma unroll 8
-    for (int c = 0; c < 32; ++c) {
-      const int col = half * 32 + c;
-      Pw[r * kLdH + col] = f2bf(Sw[r * kLdF + col]);
-    }
-    __syncwarp();
-    accumulate<D>(dk, Pw, Qs);  // dK += dS^T Q
-  }
-  cp_async_wait<0>();  // a block with no Q tile still drains its K/V copy
-
-  const int row0 = k0 + warp * 16;
-  store_rows<D>(a.dk + b * a.xb + h * a.xh, a.xn, dk, Sw, row0, n);
-  store_rows<D>(a.dv + b * a.xb + h * a.xh, a.xn, dv, Sw, row0, n);
-}
-
-// (c) dQ of one (b*h, 64-row Q tile).
-template <int D>
-__global__ void __launch_bounds__(kBwdWarps * 32)
-attention_bwd_dq_kernel(BwdArgs a) {
-  using L = BwdSmem<D>;
-  constexpr int kLdB = L::kLdB;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L::t0);
-  bf16* Gs = reinterpret_cast<bf16*>(smem + L::t1);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L::t2);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L::t3);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  float* Sw = reinterpret_cast<float*>(smem + L::s) + warp * 16 * kLdF;
-  float* DPw = reinterpret_cast<float*>(smem + L::dp) + warp * 16 * kLdF;
-  bf16* Pw = reinterpret_cast<bf16*>(smem + L::p) + warp * 16 * kLdH;
-
-  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
-  const int q0 = blockIdx.y * kBT, n = a.n;
-  const long long base = b * a.sb + h * a.sh;
-  load_tile<D>(Qs, a.q + base, a.sn, q0, n);
-  load_tile<D>(Gs, a.g + b * a.gb + h * a.gh, a.gn, q0, n);
-  cp_async_commit();
-
-  const int r = lane / 2, half = lane % 2;
-  const int qrow = q0 + warp * 16 + r;
-  const long long row = static_cast<long long>(bh) * n + qrow;
-  const float lse_r = qrow < n ? a.lse[row] : INFINITY;
-  const float delta_r = qrow < n ? a.delta[row] : 0.f;
-
-  Acc dq[D / 16];
+  auto load_q = [&](int j) {  // thread 0: Q/dO sub-tile j into stage j % S
+    const int s = j % S, q0 = q_begin + j * BQ;
+    mbar_expect_tx(&full[s], 2 * L::kQ + 8 * BQ);
 #pragma unroll
-  for (int j = 0; j < D / 16; ++j) wmma::fill_fragment(dq[j], 0.f);
+    for (int p = 0; p < T::kPanels; ++p) {
+      const int off = s * L::kQ + p * T::panel(BQ);
+      tma_load(smem + L::q + off, &maps.qs, &full[s], p * T::kPW, q0, h, b);
+      tma_load(smem + L::g + off, &maps.gs, &full[s], p * T::kPW, q0, h, b);
+    }
+    const float* src = scratch + (q0 / kBT) * 2 * kBT + q0 % kBT;
+    float* dst = reinterpret_cast<float*>(smem + L::ld) + s * 2 * BQ;
+    bulk_load(dst, src, 4 * BQ, &full[s]);                 // lse
+    bulk_load(dst + BQ, src + kBT, 4 * BQ, &full[s]);      // delta
+  };
+  if (t == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);
+    }
+    mbar_init(kvbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (t == 0 && steps > 0) {
+    mbar_expect_tx(kvbar, 2 * L::kKV);
+#pragma unroll
+    for (int p = 0; p < T::kPanels; ++p) {
+      const int off = p * T::panel(kBT);
+      tma_load(smem + L::k + off, &maps.k, kvbar, p * T::kPW, k0, h, b);
+      tma_load(smem + L::v + off, &maps.v, kvbar, p * T::kPW, k0, h, b);
+    }
+    for (int j = 0; j < min(S, steps); ++j) load_q(j);
+  }
 
-  const int kv_lim = min(n, a.kv_valid);
-  const int kv_end = a.causal ? min(kv_lim, q0 + kBT) : kv_lim;
-  for (int k0 = 0; k0 < kv_end; k0 += kBT) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<D>(Ks, a.k + base, a.sn, k0, kv_end);
-    load_tile<D>(Vs, a.v + base, a.sn, k0, kv_end);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
+  const int r = 16 * warp + lane / 4, c = 2 * (lane % 4);
+  const uint32_t sk = smem_u32(smem + L::k), sv = smem_u32(smem + L::v);
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  if (steps > 0) mbar_wait(kvbar, 0);
 
-    rows_times_rows_t<D>(Sw, Qs + warp * 16 * kLdB, Ks);   // S
-    rows_times_rows_t<D>(DPw, Gs + warp * 16 * kLdB, Vs);  // dP
+  for (int j = 0; j < steps; ++j) {
+    const int s = j % S, q0 = q_begin + j * BQ;
+    const uint32_t sq = smem_u32(smem + L::q + s * L::kQ);
+    const uint32_t sg = smem_u32(smem + L::g + s * L::kQ);
+    const float* lse_s =
+        reinterpret_cast<const float*>(smem + L::ld) + s * 2 * BQ;
+    const float* delta_s = lse_s + BQ;
+    mbar_wait(&full[s], (j / S) & 1);
+    float st[BQ / 2], dpt[BQ / 2];  // S^T and dP^T: keys x queries
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<BQ>(st, desc_k<D>(sk, kBT, 0, kk), desc_k<D>(sq, BQ, 0, kk),
+                   kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<BQ>(dpt, desc_k<D>(sv, kBT, 0, kk), desc_k<D>(sg, BQ, 0, kk),
+                   kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    const bool edge =
+        k0 + kBT > a.kv_lim || (a.causal && q0 < k0 + kBT - 1);
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) {
+      const int col = 8 * (i >> 2) + c + (i & 1);  // query within the tile
+      float p = exp2f(st[i] * a.scale_log2 - lse_s[col]);
+      if (edge) {
+        const int key = k0 + r + 8 * ((i >> 1) & 1);
+        if (key >= a.kv_lim || (a.causal && key > q0 + col)) p = 0.f;
+      }
+      st[i] = p;
+      dpt[i] = p * (dpt[i] - delta_s[col]) * a.scale;  // dS^T
+    }
+    uint32_t pa[BQ / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) acc_to_a(st, kk, pa[kk]);
+    fence_regs(dv);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      wgmma_rs<D>(dv, pa[kk], desc_mn<D>(sg, BQ, kk), 1);
+    wgmma_commit();
+    // dS^T while dV's products run (their A registers, pa, stay untouched)
+    uint32_t da[BQ / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) acc_to_a(dpt, kk, da[kk]);
+    fence_regs(dk);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      wgmma_rs<D>(dk, da[kk], desc_mn<D>(sq, BQ, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(pa);
+    fence_regs(da);
+    fence_regs(dv);
+    fence_regs(dk);
     __syncwarp();
-#pragma unroll 8
-    for (int c = 0; c < 32; ++c) {
-      const int col = half * 32 + c, kc = k0 + col;
-      const bool ok = kc < kv_lim && qrow < n && (!a.causal || kc <= qrow);
-      const float p = ok ? expf(Sw[r * kLdF + col] * a.scale - lse_r) : 0.f;
-      Pw[r * kLdH + col] =
-          f2bf(p * (DPw[r * kLdF + col] - delta_r) * a.scale);
+    if (lane == 0) mbar_arrive(&empty[s]);
+    if (t == 0 && j + S < steps) {
+      mbar_wait(&empty[s], (j / S) & 1);
+      load_q(j + S);
     }
     __syncwarp();
-    accumulate<D>(dq, Pw, Ks);  // dQ += dS K
   }
-  cp_async_wait<0>();  // a block with no key tile still drains its Q copy
 
-  store_rows<D>(a.dq + b * a.xb + h * a.xh, a.xn, dq, Sw, q0 + warp * 16, n);
+  // dK and dV through the K and V tiles (keys past kv_valid store zeros)
+  acc_to_tile<D>(smem + L::k, kBT, 0, dk, 1.f, 1.f);
+  acc_to_tile<D>(smem + L::v, kBT, 0, dv, 1.f, 1.f);
+  fence_async_smem();
+  __syncthreads();
+  if (t == 0) {
+#pragma unroll
+    for (int p = 0; p < T::kPanels; ++p) {
+      const int off = p * T::panel(kBT);
+      tma_store(&maps.dk, smem + L::k + off, p * T::kPW, k0, h, b);
+      tma_store(&maps.dv, smem + L::v + off, p * T::kPW, k0, h, b);
+    }
+    tma_store_wait();
+  }
 }
 
 template <int D>
-int launch_bwd(const BwdArgs& a, int B, cudaStream_t stream) {
-  const int bytes = static_cast<int>(BwdSmem<D>::bytes);
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_bwd_dkdv_kernel<D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(attention_bwd_dq_kernel<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(B * a.H, (a.n + kBT - 1) / kBT);  // b*h on x: no 65535 limit
-  attention_bwd_dkdv_kernel<D><<<grid, kBwdWarps * 32, bytes, stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  attention_bwd_dq_kernel<D><<<grid, kBwdWarps * 32, bytes, stream>>>(a);
+int launch_bwd(const void* q, const void* k, const void* v, const void* o,
+               const void* g, void* dq, void* dk, void* dv, BwdArgs a, int B,
+               long long sb, long long sh, long long sn, long long ob,
+               long long oh, long long on, long long gb, long long gh,
+               long long gn, long long xb, long long xh, long long xn,
+               cudaStream_t stream) {
+  using T = Tile<D>;
+  const int dq_bytes = static_cast<int>(DqSmem<D>::bytes);
+  const int dkv_bytes = static_cast<int>(DkvSmem<D>::bytes);
+  cudaError_t e = cudaFuncSetAttribute(
+      attention_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dq_bytes);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(attention_bwd_dkdv_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             dkv_bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int H = a.H, n = a.n, kvr = std::max(a.kv_lim, 1), bq = DkvSmem<D>::kBQ;
+  const int w = T::kPW, sw = T::kSwz;
+  BwdMaps m;
+  int err = make_map(&m.q, q, D, n, H, B, sn, sh, sb, w, kBT, sw);
+  if (!err) err = make_map(&m.g, g, D, n, H, B, gn, gh, gb, w, kBT, sw);
+  if (!err) err = make_map(&m.o, o, D, n, H, B, on, oh, ob, w, kBT, sw);
+  if (!err) err = make_map(&m.k, k, D, kvr, H, B, sn, sh, sb, w, kBT, sw);
+  if (!err) err = make_map(&m.v, v, D, kvr, H, B, sn, sh, sb, w, kBT, sw);
+  if (!err) err = make_map(&m.qs, q, D, n, H, B, sn, sh, sb, w, bq, sw);
+  if (!err) err = make_map(&m.gs, g, D, n, H, B, gn, gh, gb, w, bq, sw);
+  if (!err) err = make_map(&m.dq, dq, D, n, H, B, xn, xh, xb, w, kBT, sw);
+  if (!err) err = make_map(&m.dk, dk, D, n, H, B, xn, xh, xb, w, kBT, sw);
+  if (!err) err = make_map(&m.dv, dv, D, n, H, B, xn, xh, xb, w, kBT, sw);
+  if (err) return err;
+  // b*h and the tile folded into x: no 65535 limit
+  const int grid = B * H * a.tiles;
+  attention_bwd_dq_kernel<D><<<grid, 128, dq_bytes, stream>>>(m, a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  attention_bwd_dkdv_kernel<D><<<grid, 128, dkv_bytes, stream>>>(m, a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -344,37 +440,30 @@ int launch_bwd(const BwdArgs& a, int B, cudaStream_t stream) {
 }  // namespace cet
 
 // q, k, v: [B, H, n, D] through strides (sb, sh, sn); o, dO through
-// (ob, oh, on) and (gb, gh, gn); lse: the forward's fp32 [B*H, n]; delta:
-// fp32 [B*H, n] scratch; dq, dk, dv: bf16 outputs through (xb, xh, xn).
+// (ob, oh, on) and (gb, gh, gn); lse: the forward's fp32 [B*H, n]; scratch:
+// fp32 [B*H, 2 * 64 * ceil(n / 64)]; dq, dk, dv: bf16 outputs through
+// (xb, xh, xn).
 extern "C" int cet_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const void* lse, void* delta, void* dq, void* dk,
+    const void* dout, const void* lse, void* scratch, void* dq, void* dk,
     void* dv, int B, int H, int n, int D, int kv_valid, int causal,
     float scale, long long sb, long long sh, long long sn, long long ob,
     long long oh, long long on, long long gb, long long gh, long long gn,
     long long xb, long long xh, long long xn, void* stream) {
-  using cet::bf16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid_delta((H * n + 7) / 8, B);
-  cet::attention_bwd_delta_kernel<<<grid_delta, 256, 0, s>>>(
-      static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
-      static_cast<float*>(delta), H, n, D, ob, oh, on, gb, gh, gn);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cet::BwdArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                 static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-                 static_cast<const float*>(lse),
-                 static_cast<const float*>(delta), static_cast<bf16*>(dq),
-                 static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, n,
-                 kv_valid, causal, scale, sb, sh, sn, gb, gh, gn, xb, xh,
-                 xn};
+  cet::BwdArgs a{static_cast<float*>(scratch), static_cast<const float*>(lse),
+                 H, n, std::max(0, std::min(n, kv_valid)), causal,
+                 (n + cet::kBT - 1) / cet::kBT, scale, scale * cet::kLog2e};
   switch (D) {
     case 32:
-      return cet::launch_bwd<32>(a, B, s);
+      return cet::launch_bwd<32>(q, k, v, o, dout, dq, dk, dv, a, B, sb, sh,
+                                 sn, ob, oh, on, gb, gh, gn, xb, xh, xn, s);
     case 64:
-      return cet::launch_bwd<64>(a, B, s);
+      return cet::launch_bwd<64>(q, k, v, o, dout, dq, dk, dv, a, B, sb, sh,
+                                 sn, ob, oh, on, gb, gh, gn, xb, xh, xn, s);
     case 128:
-      return cet::launch_bwd<128>(a, B, s);
+      return cet::launch_bwd<128>(q, k, v, o, dout, dq, dk, dv, a, B, sb, sh,
+                                  sn, ob, oh, on, gb, gh, gn, xb, xh, xn, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -3,16 +3,18 @@ plain PyTorch on the CPU.
 
 Replaces the Pallas TPU kernel ``clip_embeds_tpu/ops/flash_attention.py``
 ``flash_attention``: its forward (``_attn_kernel``) and its custom-VJP
-backward (``_attn_bwd_kernel``). The forward kernel is
-``csrc/attention.cu``: one block per (b*h, 64-row Q tile), online-max
-softmax over 64-key tiles, fp32 logits, P rounded to bf16 for P.V, fp32
-accumulation; when a gradient is needed it also writes each row's fp32
-log-sum-exp. The backward is ``csrc/attention_bwd.cu``: delta =
-rowsum(dO * O), then dK/dV per 64-key tile and dQ per 64-row Q tile, with
-P recomputed from (q, k) and that log-sum-exp, in three launches with no
-atomics. At ViT-L (N = 577, D = 64) both are compute-bound (4 and 10
-N^2 D FLOPs per head on 4 and 8 N D bf16 values of IO); logits and
-probabilities stay in shared memory.
+backward (``_attn_bwd_kernel``). At ViT-L (N = 577, D = 64) both are bound
+by the tensor cores (4 and 10 N^2 D FLOPs per head on 4 and 8 N D bf16
+values of IO), so both are written for Hopper's: tiles arrive by TMA in a
+ring of shared-memory stages on mbarriers, every product is a ``wgmma``,
+and logits, probabilities and accumulators stay in registers. The forward
+kernel is ``csrc/attention.cu``: one block of two warpgroups per (b*h,
+128-row Q tile), online-max softmax over 64-key tiles, fp32 logits, P
+rounded to bf16 for P.V, fp32 accumulation; when a gradient is needed it
+also writes each row's fp32 log-sum-exp. The backward is
+``csrc/attention_bwd.cu``: dQ per 64-row Q tile (its prologue also takes
+delta = rowsum(dO * O)), then dK/dV per 64-key tile, with P recomputed from
+(q, k) and that log-sum-exp, in two launches with no atomics.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch.nn.functional as F
 from . import _build
 
 _KERNEL_D = (32, 64, 128)  # head dims the kernels are instantiated for
+_TILE = 64                 # rows of the backward kernels' tiles
 NEG_INF = -1e30            # the Pallas kernels' mask value
 
 
@@ -152,10 +155,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o, do = (t if _aligned(t) else t.contiguous() for t in (o, do))
     dq, dkk, dv = (torch.empty(b, h, n, dk, dtype=q.dtype, device=q.device)
                    for _ in range(3))
-    delta = torch.empty(b * h, n, dtype=torch.float32, device=q.device)
+    # the kernels' fp32 scratch: lse and delta = rowsum(dO * O) of each
+    # 64-row tile, written by the dQ launch for the dK/dV one
+    scratch = torch.empty(b * h, 2 * _TILE * -(-n // _TILE),
+                          dtype=torch.float32, device=q.device)
     _build.launch(
         "cet_attention_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        o.data_ptr(), do.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
         dq.data_ptr(), dkk.data_ptr(), dv.data_ptr(), b, h, n, dk, n,
         int(causal), d ** -0.5, *q.stride()[:3], *o.stride()[:3],
         *do.stride()[:3], *dq.stride()[:3],

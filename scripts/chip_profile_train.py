@@ -32,6 +32,9 @@ import chip_smoke as cs  # noqa: E402
 _GROUPS = (
     ("attention_bwd", "our attention backward (#5)"),
     ("attention_kernel", "our attention forward (#4)"),
+    ("gemm_s8_kernel", "our int8 GEMM (#3)"),
+    ("layernorm_s8_kernel", "our int8 LayerNorm and quantise (#3)"),
+    ("quantize_s8_kernel", "our int8 LayerNorm and quantise (#3)"),
     ("gemm_kernel", "our GEMM (#1/#2)"),
     ("layernorm_kernel", "our LayerNorm (#1/#2)"),
     ("gemm", "cuBLAS GEMM"),
@@ -52,11 +55,40 @@ def group(name: str) -> str:
     return "elementwise and other"
 
 
+def report(label: str, prof, wall: float, gpu: str) -> None:
+    """Print the device time of a profiled window summed by kernel name and
+    grouped, beside the window's wall time (``wall``, seconds) and idle
+    share, and the top kernels."""
+    from torch.autograd import DeviceType
+
+    by_name = defaultdict(float)
+    for ev in prof.key_averages():
+        # kernels only: an operator's row, and a user annotation on the
+        # device timeline (Optimizer.step), repeat their kernels'
+        if (ev.device_type == DeviceType.CUDA
+                and not getattr(ev, "is_user_annotation", False)
+                and "#" not in ev.key
+                and ev.key != "Command Buffer Full"):
+            by_name[ev.key] += ev.self_device_time_total / 1e3  # ms
+    total = sum(by_name.values())
+    groups = defaultdict(float)
+    for name, ms in by_name.items():
+        groups[group(name)] += ms
+    parts = ", ".join(f"{g} {ms:.2f} ms ({100 * ms / total:.1f}%)"
+                      for g, ms in sorted(groups.items(),
+                                          key=lambda kv: -kv[1]))
+    print(f"[profile] {label}: device {total:.2f} ms, wall "
+          f"{wall * 1e3:.2f} ms, idle share {1 - total / (wall * 1e3):.3f}; "
+          f"{parts} on {gpu}")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    print(f"[profile] {label} top kernels: " + "; ".join(
+        f"{name[:90]} {ms:.2f} ms" for name, ms in top))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_profile_train: no CUDA device", file=sys.stderr)
         return 2
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from clip_embeds_tpu_torch.train.optim import adamw
@@ -80,28 +112,7 @@ def main() -> int:
             step(state, batch)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        by_name = defaultdict(float)
-        for ev in prof.key_averages():
-            # kernels only: an operator's row, and a user annotation on
-            # the device timeline (Optimizer.step), repeat their kernels'
-            if (ev.device_type == DeviceType.CUDA
-                    and not getattr(ev, "is_user_annotation", False)
-                    and "#" not in ev.key
-                    and ev.key != "Command Buffer Full"):
-                by_name[ev.key] += ev.self_device_time_total / 1e3  # ms
-        total = sum(by_name.values())
-        groups = defaultdict(float)
-        for name, ms in by_name.items():
-            groups[group(name)] += ms
-        parts = ", ".join(f"{g} {ms:.2f} ms ({100 * ms / total:.1f}%)"
-                          for g, ms in sorted(groups.items(),
-                                              key=lambda kv: -kv[1]))
-        print(f"[profile] {route} b{batch_size}: device {total:.2f} ms, "
-              f"wall {wall * 1e3:.2f} ms, idle share "
-              f"{1 - total / (wall * 1e3):.3f}; {parts} on {gpu}")
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-        print(f"[profile] {route} top kernels: " + "; ".join(
-            f"{name[:90]} {ms:.2f} ms" for name, ms in top))
+        report(f"{route} b{batch_size}", prof, wall, gpu)
         del model, state, step
         torch.cuda.empty_cache()
     return 0

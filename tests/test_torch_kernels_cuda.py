@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at edge shapes the main path does not reach: ragged tiles, every head dim,
 strided views, a zero weight row (int8), the training kernels (attention
-backward, fused_block_residuals) at ViT-L and text shapes, and the errors a
-wrapper raises.
+backward, fused_block_residuals) at ViT-L and text shapes, inf and NaN in
+the keys past kv_valid, a backward that repeats bit for bit, and the errors
+a wrapper raises.
 Marked ``cuda``; without a card they skip. On the card:
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py``."""
 
@@ -215,11 +216,13 @@ def _bwd_diff(got, want):
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("shape", [
     (1, 1, 1, 64), (2, 3, 63, 32), (1, 2, 65, 128), (2, 2, 200, 40),
-    (1, 16, 577, 64), (2, 12, 77, 64),
+    (1, 16, 577, 64), (2, 12, 77, 64), (1, 4, 577, 32), (1, 4, 577, 128),
 ])
 def test_flash_bwd_kernel_matches_plain(cuda, shape, causal):
     """Ragged N (1, 63, 65, 77, 200, 577), head dims 32, 64, 128 and a
-    padded 40, causal and not, ViT-L and text shapes."""
+    padded 40, causal and not, ViT-L and text shapes; N = 577 also at the
+    head dims whose accumulators press the register file hardest (D = 128
+    takes 32-row Q sub-tiles in the dK/dV launch)."""
     rng = np.random.default_rng(6)
     q, k, v, o, g, lse = _bwd_inputs(rng, shape, causal)
     with torch.inference_mode():
@@ -255,19 +258,24 @@ def test_flash_bwd_kernel_reads_packed_views(cuda):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-def test_flash_attention_autograd_on_card(cuda, causal):
-    """The autograd Function on the card: forward kernel with its
-    log-sum-exp, backward kernel; gradients as the plain versions."""
+@pytest.mark.parametrize("n", [130, 577])
+def test_flash_attention_autograd_on_card(cuda, n, causal):
+    """The autograd Function on the card (its backward runs on autograd's
+    own thread): forward kernel with its log-sum-exp, backward kernel;
+    output and gradients as the plain versions. At N = 577 the causal
+    diagonal crosses ten key tiles."""
     rng = np.random.default_rng(8)
-    q, k, v = (_bf16(rng, 2, 4, 130, 64).requires_grad_() for _ in range(3))
-    g = _bf16(rng, 2, 4, 130, 64)
+    q, k, v = (_bf16(rng, 2, 4, n, 64).requires_grad_() for _ in range(3))
+    g = _bf16(rng, 2, 4, n, 64)
     before = (flash_attention.launches, flash_attention_bwd.launches)
     out = flash_attention(q, k, v, causal)
     grads = torch.autograd.grad(out, (q, k, v), g)
     assert (flash_attention.launches, flash_attention_bwd.launches) == (
         before[0] + 1, before[1] + 1)
     with torch.no_grad():
+        want_out = flash_attention_reference(q, k, v, causal)
         want = flash_attention_bwd_reference(q, k, v, out, g, causal)
+    assert (out.float() - want_out.float()).abs().max().item() <= 0.02
     for d in _bwd_diff(grads, want):
         assert d.max().item() <= 0.0625 and d.mean().item() <= 2e-5
 
@@ -297,3 +305,42 @@ def test_fused_block_residuals_kernel_matches_plain(cuda, b, n, d, heads,
         diff = (a.float() - w.float())[:, :kv_valid].abs()
         assert diff.max().item() <= 0.125, (name, diff.max().item())
         assert diff.mean().item() <= 4e-3, (name, diff.mean().item())
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_attention_ignores_keys_past_kv_valid(cuda, causal):
+    """The fused chain's packed call at n = 592, kv_valid = 577: inf in the
+    K rows and NaN in the V rows past kv_valid change no output and no
+    log-sum-exp (the K/V tensor maps end at kv_valid), and the 15 padded
+    query rows stay finite."""
+    from clip_embeds_tpu_torch.ops.fused_block import _attention
+
+    rng = np.random.default_rng(10)
+    b, n, kv, heads, d = 2, 592, 577, 16, 1024
+    qkv = _bf16(rng, b, n, 3 * d)
+    qkv[:, kv:, d:] = 0
+    runs = []
+    for fill in (None, (float("inf"), float("nan"))):
+        x = qkv.clone()
+        if fill is not None:
+            x[:, kv:, d:2 * d] = fill[0]
+            x[:, kv:, 2 * d:] = fill[1]
+        out = torch.empty(b, n, d, dtype=torch.bfloat16, device="cuda")
+        lse = torch.empty(b * heads, n, dtype=torch.float32, device="cuda")
+        _attention(x, out, heads, kv, causal, lse)
+        torch.cuda.synchronize()
+        runs.append((out, lse))
+    (out0, lse0), (out1, lse1) = runs
+    assert torch.isfinite(out1).all() and torch.isfinite(lse1).all()
+    assert torch.equal(out0, out1) and torch.equal(lse0, lse1)
+
+
+def test_flash_bwd_kernel_is_deterministic(cuda):
+    """No atomics: two backward calls on the same inputs are bit-equal."""
+    rng = np.random.default_rng(11)
+    q, k, v, o, g, lse = _bwd_inputs(rng, (4, 16, 577, 64), False)
+    with torch.inference_mode():
+        first = flash_attention_bwd(q, k, v, o, g, lse)
+        second = flash_attention_bwd(q, k, v, o, g, lse)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
