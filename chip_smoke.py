@@ -10,7 +10,11 @@ Phases, each of which raises on failure:
      and static scales for fused_block_int8), at the main paths' shapes,
      with the tolerance stated; for the attention kernels also the TFLOP/s
      achieved on the counted work (4 and 10 N^2 D per head) and the share
-     of the bound;
+     of the bound; then the bf16 GEMM behind fused_block and
+     fused_block_residuals alone ([gemm] lines), each projection of a
+     block at the main paths' rows against its plain version, with its
+     TFLOP/s, share of the bound and torch.nn.functional.linear's time at
+     the same shape (the yardstick, timed only);
   4. the main paths: ViT-L/14-336 (OpenAI config, seeded random weights,
      all 24 + 12 layers) serves 3 image and 3 text requests of 8 through
      embed_image_batches / embed_text_batches, the CLI's helpers: first in
@@ -109,6 +113,22 @@ FLASH_CASES = (
     ((32, 16, 577, 64), False, 2e-5),
     ((2, 12, 77, 64), True, 1e-5),
 )
+# phase 3, the bf16 GEMM (cet_gemm) alone: (name, M, N, K, epilogue) for
+# each projection of a block at the b32 train step's vision rows (18464 =
+# 32 x 577, d 1024), the image serving rows (2368 = 4 x 592) and
+# fused_encode_text's b256 rows (20480 = 256 x 80, d 768); epilogues as
+# gemm_call names them. Limits on |kernel - gemm_reference|: the fp32 sums
+# differ in order only, so outputs (|out| < 16) round apart by a bf16 step,
+# rarely (two where the residual rounds again): max 0.125; mean 1e-3, far
+# under a dropped bias (~0.4: biases of std 0.5)
+GEMM_CASES = tuple(
+    (f"{name} {m}x{n}x{k}", m, n, k, epilogue)
+    for m, d in ((18464, 1024), (2368, 1024), (20480, 768))
+    for name, n, k, epilogue in (
+        ("qkv", 3 * d, d, "bias"), ("out", d, d, "residual"),
+        ("fc", 4 * d, d, "act"), ("fc+pre", 4 * d, d, "act_pre"),
+        ("proj", d, 4 * d, "residual")))
+GEMM_MAX_DIFF, GEMM_MEAN_DIFF = 0.125, 1e-3
 # H100 SXM data-sheet peaks (dense): bf16 and int8 tensor cores, HBM3
 PEAK_BF16, PEAK_INT8, HBM_BYTES_PER_S = 989e12, 1979e12, 3.35e12
 
@@ -324,6 +344,72 @@ def check_kernels(rng):
                              bound_ms=bound[0], bound_by=bound[1],
                              library_ms=lib_ms)
     return results
+
+
+def gemm_inputs(rng, m, n, k):
+    """cet_gemm operands on the card, bf16: a [m, k], w [n, k] of std
+    k^-1/2 (sums of std 1), a bias of std 0.5, a residual [m, n]."""
+    def t(*shape, std=1.0):
+        return torch.from_numpy((std * rng.standard_normal(shape)).astype(
+            np.float32)).to("cuda", torch.bfloat16)
+
+    return t(m, k), t(n, k, std=k ** -0.5), t(n, std=0.5), t(m, n)
+
+
+def gemm_call(epilogue, a, w, bias, res, act="quick"):
+    """The kernel and plain calls of one cet_gemm launch with the named
+    epilogue ("bias", "act", "residual" or "act_pre"), and the bytes it
+    moves (operands read once, outputs written once)."""
+    from clip_embeds_tpu_torch.ops.fused_block import (
+        _EPI_ACT, _EPI_BIAS, _EPI_RESIDUAL, _gemm, gemm_reference)
+
+    epi = {"bias": _EPI_BIAS, "act": _EPI_ACT, "act_pre": _EPI_ACT,
+           "residual": _EPI_RESIDUAL}[epilogue]
+    pre = epilogue == "act_pre"
+    res = res if epi == _EPI_RESIDUAL else None
+    m, n = a.shape[0], w.shape[0]
+
+    def kernel():
+        out = torch.empty(m, n, dtype=a.dtype, device=a.device)
+        p = torch.empty_like(out) if pre else None
+        _gemm(a, w, bias, res, out, epi, act, p)
+        return (out, p) if pre else out
+
+    outs = 1 + pre + (res is not None)  # C, pre, and the residual read
+    nbytes = 2 * (a.numel() + w.numel() + bias.numel() + outs * m * n)
+    return (kernel, lambda: gemm_reference(a, w, bias, res, epi, act, pre),
+            nbytes)
+
+
+def check_gemms(rng, gpu):
+    """Phase 3, the bf16 GEMM alone at GEMM_CASES: |kernel - plain|,
+    kernel ms, TFLOP/s, share of the bound, F.linear ms."""
+    for name, m, n, k, epilogue in GEMM_CASES:
+        a, w, bias, res = gemm_inputs(rng, m, n, k)
+        kernel, plain, nbytes = gemm_call(epilogue, a, w, bias, res)
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        got, want = ((x,) if torch.is_tensor(x) else x for x in (got, want))
+        diffs = [(g.float() - p.float()).abs() for g, p in
+                 zip(got, want, strict=True)]
+        err = max(float(d.max()) for d in diffs)
+        mean = max(float(d.mean()) for d in diffs)
+        del got, want, diffs
+        if not (err <= GEMM_MAX_DIFF and mean <= GEMM_MEAN_DIFF):
+            raise AssertionError(
+                f"gemm {name}: max|diff| {err} (tol {GEMM_MAX_DIFF}), "
+                f"mean|diff| {mean} (tol {GEMM_MEAN_DIFF})")
+        flops = 2 * m * n * k
+        bound, bound_by = bound_ms(flops=flops, nbytes=nbytes)
+        ms = cuda_ms(kernel)
+        linear_ms = cuda_ms(lambda: F.linear(a, w, bias))
+        print(f"[gemm] {name} {epilogue}: max|diff| {err:.6g} (tol "
+              f"{GEMM_MAX_DIFF}), mean|diff| {mean:.3g} (tol "
+              f"{GEMM_MEAN_DIFF}); kernel {ms:.4f} ms, "
+              f"{flops / ms / 1e9:.1f} TFLOP/s, {100 * bound / ms:.1f}% of "
+              f"the bound {bound:.4f} ms ({bound_by}); F.linear "
+              f"{linear_ms:.4f} ms (kernel / F.linear {ms / linear_ms:.2f})"
+              f" on {gpu}")
 
 
 def synthetic_requests(rng, cfg):
@@ -597,6 +683,8 @@ def main() -> int:
     rng = np.random.default_rng(0)
     with torch.no_grad():
         kernel_results = check_kernels(rng)
+        # its own inputs: the main path's requests below stay as they were
+        check_gemms(np.random.default_rng(1), gpu)
 
     # 4. the main path at full width and depth
     t0 = time.perf_counter()

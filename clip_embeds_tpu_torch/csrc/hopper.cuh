@@ -1,6 +1,7 @@
 // Hopper building blocks of the attention kernels (attention.cu and
-// attention_bwd.cu): TMA tensor maps built on the host, mbarriers, TMA and
-// bulk copies, and warpgroup MMA (wgmma) on swizzled shared-memory tiles.
+// attention_bwd.cu) and of the bf16 GEMM (fused_block.cu): TMA tensor maps
+// built on the host, mbarriers, TMA and bulk copies, warpgroup MMA (wgmma)
+// on swizzled shared-memory tiles, and register hand-over (setmaxnreg).
 //
 // Tile layout. A bf16 tile of R rows by D columns sits in shared memory as
 // the TMA writes it with a 128-byte swizzle (64 columns a row, D = 64 and
@@ -236,6 +237,19 @@ __device__ __forceinline__ void warpgroup_sync(int id) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
 }
 
+// Hand registers between warpgroups (warp specialisation): a producer
+// lowers its limit, consumers raise theirs, and ptxas allocates the code
+// after each within its new limit; all 128 threads execute it.
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
 // ------------------------------------------------------------------- wgmma
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -290,13 +304,27 @@ __device__ __forceinline__ void acc_to_a(const float (&d)[R], int kk,
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),          \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 
-// d (+)= A B, A and B from shared memory, both K-major; N = 32 or 64.
-// scale_d = 0 overwrites d.
+// d (+)= A B, A and B from shared memory, both K-major; N = 32, 64 or
+// 128 (the GEMM's W tile, desc_k over `rows` = N). scale_d = 0
+// overwrites d.
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
                                          uint64_t b, int scale_d) {
-  static_assert(N == 32 || N == 64, "wgmma_ss: N");
-  if constexpr (N == 32) {
+  static_assert(N == 32 || N == 64 || N == 128, "wgmma_ss: N");
+  if constexpr (N == 128) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, "
+        "1, 1, 0, 0;\n}\n"
+        : CET_D8(0), CET_D8(8), CET_D8(16), CET_D8(24), CET_D8(32),
+          CET_D8(40), CET_D8(48), CET_D8(56)
+        : "l"(a), "l"(b), "r"(scale_d));
+  } else if constexpr (N == 32) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"

@@ -108,14 +108,13 @@ def fused_block_residuals_reference(
         t.to(dt) for t in (wqkv, bqkv, wo, bo, w1, b1, w2, b2, ln1, ln2))
 
     h = _ln(x, ln1[0], ln1[1], ln_eps)
-    qkv = _linear32(h, wqkv, bqkv).to(dt)
+    qkv = gemm_reference(h, wqkv, bqkv, None, _EPI_BIAS, act)
     att = _attention_reference(qkv, heads, kv_valid, causal)
-    x_mid = x + _linear32(att, wo, bo).to(dt)
+    x_mid = gemm_reference(att, wo, bo, x, _EPI_RESIDUAL, act)
     h = _ln(x_mid, ln2[0], ln2[1], ln_eps)
-    m1 = _linear32(h, w1, b1)
-    m = _apply_act(m1, act).to(dt)
-    y = x_mid + _linear32(m, w2, b2).to(dt)
-    return y, qkv, att, m1.to(dt), x_mid
+    m, m1 = gemm_reference(h, w1, b1, None, _EPI_ACT, act, pre=True)
+    y = gemm_reference(m, w2, b2, x_mid, _EPI_RESIDUAL, act)
+    return y, qkv, att, m1, x_mid
 
 
 def fused_block_reference(
@@ -178,13 +177,49 @@ def fused_block_supported(n: int, d: int, heads: int,
             and d // heads in _KERNEL_HEAD_DIMS)
 
 
-def _gemm(a, w, bias, res, out, epi: int, act: int, pre=None) -> None:
+def gemm_reference(a, w, bias, res, epi: int, act: str, pre: bool = False):
+    """Plain PyTorch version of one :func:`_gemm` launch, in a's dtype:
+    ``bf16(a W^T + bias)`` from fp32 sums (``_EPI_BIAS``), the activation
+    taken in fp32 first (``_EPI_ACT``), or ``res`` plus the rounded sum
+    (``_EPI_RESIDUAL``). With ``pre`` it returns ``(out, bf16(a W^T +
+    bias))``, the pre-activation that ``_gemm``'s ``pre`` receives."""
+    v = _linear32(a, w, bias)
+    dt = a.dtype
+    if epi == _EPI_ACT:
+        out = _apply_act(v, act).to(dt)
+    elif epi == _EPI_RESIDUAL:
+        out = res + v.to(dt)
+    else:
+        out = v.to(dt)
+    return (out, v.to(dt)) if pre else out
+
+
+def _gemm(a, w, bias, res, out, epi: int, act: str, pre=None) -> None:
+    """cet_gemm: ``out`` = the epilogue ``epi`` of ``a W^T + bias`` (see
+    :func:`gemm_reference`); with a ``pre`` tensor (``_EPI_ACT`` only) it
+    also stores the pre-activation there. The kernel reads ``a`` and ``w``
+    by TMA and stores 16-byte rows, so every operand must be contiguous
+    and 16-byte aligned, with K and N multiples of 8."""
     m, k = a.numel() // a.shape[-1], a.shape[-1]
+    n = w.shape[0]
+    if pre is not None:
+        if epi != _EPI_ACT:
+            raise ValueError("cet_gemm stores a pre-activation only with "
+                             "the activation epilogue")
+        epi = _EPI_ACT_PRE
+    rows = [t for t in (a, w, res, out, pre) if t is not None]
+    if k % 8 or n % 8:
+        raise ValueError(f"cet_gemm needs K and N multiples of 8 (TMA's "
+                         f"16-byte rows), not K={k} N={n}")
+    if not all(t.is_contiguous() for t in (*rows, bias)):
+        raise ValueError("cet_gemm takes contiguous operands")
+    if any(t.data_ptr() % 16 for t in rows):  # the bias is read by element
+        raise ValueError("cet_gemm takes 16-byte aligned operands")
     _build.launch(
         "cet_gemm", a.data_ptr(), w.data_ptr(), bias.data_ptr(),
         res.data_ptr() if res is not None else None, out.data_ptr(),
         pre.data_ptr() if pre is not None else None,
-        m, w.shape[0], k, epi, act,
+        m, n, k, epi, _ACTS[act],
     )
 
 
@@ -243,22 +278,21 @@ def _block_chain(args, heads: int, kv_valid: int, ln_eps: float,
         "fused_block_residuals" if residuals else "fused_block", args, heads)
     x, wqkv, bqkv, wo, bo, w1, b1, w2, b2, ln1, ln2 = (
         t.contiguous() for t in args)
-    a = _ACTS[act]
 
     h = torch.empty_like(x)
     _layernorm(x, ln1, ln_eps, h)
     qkv = torch.empty(b, n, 3 * d, dtype=x.dtype, device=x.device)
-    _gemm(h, wqkv, bqkv, None, qkv, _EPI_BIAS, a)
+    _gemm(h, wqkv, bqkv, None, qkv, _EPI_BIAS, act)
     att = torch.empty_like(x)
     _attention(qkv, att, heads, kv_valid, causal, lse)
     x1 = torch.empty_like(x)
-    _gemm(att, wo, bo, x, x1, _EPI_RESIDUAL, a)
+    _gemm(att, wo, bo, x, x1, _EPI_RESIDUAL, act)
     _layernorm(x1, ln2, ln_eps, h)
     m = torch.empty(b, n, mlp, dtype=x.dtype, device=x.device)
     m1 = torch.empty_like(m) if residuals else None
-    _gemm(h, w1, b1, None, m, _EPI_ACT_PRE if residuals else _EPI_ACT, a, m1)
+    _gemm(h, w1, b1, None, m, _EPI_ACT, act, m1)
     y = torch.empty_like(x)
-    _gemm(m, w2, b2, x1, y, _EPI_RESIDUAL, a)
+    _gemm(m, w2, b2, x1, y, _EPI_RESIDUAL, act)
     return y, qkv, att, m1, x1
 
 

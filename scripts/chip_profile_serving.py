@@ -8,8 +8,10 @@ fp32 (the --int8 routes read it, as the CLI does), then for each of
 chip_smoke.py's phase-5 serving routes (images b32 composable + flash and
 fused_encode_image, texts b256 fused_encode_text, and the --int8 twins)
 runs one warm-up call and profiles one call with torch.profiler: device
-time summed by kernel name and grouped, wall time, idle share, top kernels.
-Exits with code 2 without a CUDA device.
+time summed by kernel name and grouped, wall time, idle share, top kernels;
+then times the route as chip_smoke.py's phase 5 does (CUDA events over 5
+calls after 1 warm-up) for its items per second. Exits with code 2 without
+a CUDA device.
 """
 
 from __future__ import annotations
@@ -56,6 +58,9 @@ def main() -> int:
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
             report(f"{name} (batch {count})", prof, wall, gpu)
+            ms = cs.cuda_ms(fn, iters=5, warmup=1)
+            print(f"[throughput] {name}: {count / ms * 1e3:.1f} (batch "
+                  f"{count}, {ms:.2f} ms) on {gpu}")
     return 0
 
 

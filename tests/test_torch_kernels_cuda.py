@@ -2,8 +2,9 @@
 at edge shapes the main path does not reach: ragged tiles, every head dim,
 strided views, a zero weight row (int8), the training kernels (attention
 backward, fused_block_residuals) at ViT-L and text shapes, inf and NaN in
-the keys past kv_valid, a backward that repeats bit for bit, and the errors
-a wrapper raises.
+the keys past kv_valid, a backward that repeats bit for bit, the bf16 GEMM
+alone over ragged M, N and K and every epilogue, the residual block inside
+an autograd backward, and the errors a wrapper raises.
 Marked ``cuda``; without a card they skip. On the card:
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py``."""
 
@@ -28,12 +29,21 @@ from clip_embeds_tpu_torch.models.serving import (
     int8_block_args,
 )
 from clip_embeds_tpu_torch.ops.fused_block import (
+    _EPI_ACT,
+    _EPI_BIAS,
+    _EPI_RESIDUAL,
+    _gemm,
     fused_block,
     fused_block_int8,
     fused_block_int8_reference,
     fused_block_reference,
     fused_block_residuals,
     fused_block_residuals_reference,
+    gemm_reference,
+)
+from clip_embeds_tpu_torch.ops.fused_block_ad import (
+    BLOCK_PARAMS,
+    make_fused_block_ad,
 )
 
 pytestmark = pytest.mark.cuda
@@ -344,3 +354,121 @@ def test_flash_bwd_kernel_is_deterministic(cuda):
         second = flash_attention_bwd(q, k, v, o, g, lse)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+# cet_gemm's four epilogues as (epi, pre): EPI_BIAS_ACT_PRE is the
+# activation epilogue with a pre-activation tensor
+GEMM_EPILOGUES = {"bias": (_EPI_BIAS, False), "act": (_EPI_ACT, False),
+                  "residual": (_EPI_RESIDUAL, False),
+                  "act_pre": (_EPI_ACT, True)}
+
+
+def _gemm_inputs(rng, m, n, k):
+    """a [m, k], w [n, k] (sums of std 1), bias of std 0.5, res [m, n]."""
+    return (_bf16(rng, m, k), _bf16(rng, n, k, std=k ** -0.5),
+            _bf16(rng, n, std=0.5), _bf16(rng, m, n))
+
+
+def _run_gemm(a, w, bias, res, epi, act, pre):
+    out = torch.empty(a.shape[0], w.shape[0], dtype=torch.bfloat16,
+                      device="cuda")
+    p = torch.empty_like(out) if pre else None
+    _gemm(a, w, bias, res if epi == _EPI_RESIDUAL else None, out, epi, act,
+          p)
+    return (out, p) if pre else (out,)
+
+
+@pytest.mark.parametrize("epilogue", list(GEMM_EPILOGUES))
+@pytest.mark.parametrize("k", [32, 96, 1024, 4096])
+@pytest.mark.parametrize("n", [40, 136, 288, 3072])
+@pytest.mark.parametrize("m", [1, 63, 129, 2368])
+def test_gemm_kernel_matches_plain(cuda, m, n, k, epilogue):
+    """cet_gemm alone: ragged M (1, 63, 129) and N (40, 136, 288) tile
+    edges, a K tail of half a 64-wide stage (32, 96), the serving image
+    rows (2368) and the projections' widths and depths; every epilogue,
+    the activation cycling over the three."""
+    epi, pre = GEMM_EPILOGUES[epilogue]
+    act = ("quick", "erf", "tanh")[(m + n + k) % 3]
+    rng = np.random.default_rng(12)
+    args = _gemm_inputs(rng, m, n, k)
+    with torch.inference_mode():
+        got = _run_gemm(*args, epi, act, pre)
+        want = gemm_reference(*args, epi, act, pre=pre)
+        torch.cuda.synchronize()
+    want = want if pre else (want,)
+    for g, w in zip(got, want, strict=True):
+        diff = (g.float() - w.float()).abs()
+        # the fp32 sums differ from the plain ones in order only: outputs
+        # (|out| < 16) round apart by a bf16 step, rarely; the residual
+        # rounds twice, so two steps
+        assert diff.max().item() <= 0.125, diff.max().item()
+        assert diff.mean().item() <= 1e-3, diff.mean().item()
+
+
+def test_gemm_kernel_is_deterministic(cuda):
+    """No split-K and no atomics: two calls are bit-equal, at a b32
+    training shape and at the text serving rows (other tile widths)."""
+    rng = np.random.default_rng(13)
+    for m, n, k in ((18464, 1024, 1024), (640, 2304, 768)):
+        args = _gemm_inputs(rng, m, n, k)
+        with torch.inference_mode():
+            first = _run_gemm(*args, _EPI_ACT, "quick", True)
+            second = _run_gemm(*args, _EPI_ACT, "quick", True)
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+
+
+def test_gemm_wrapper_rejects(cuda):
+    """What TMA cannot read: N or K not a multiple of 8 (16-byte rows), a
+    base off 16 bytes; and a pre-activation without the act epilogue."""
+    rng = np.random.default_rng(14)
+    a, w, bias, _ = _gemm_inputs(rng, 64, 64, 64)
+    out = torch.empty(64, 64, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="multiples of 8"):  # N = 60
+        _gemm(a, w[:60], bias[:60], None, out[:, :60].contiguous(),
+              _EPI_BIAS, "quick")
+    with pytest.raises(ValueError, match="multiples of 8"):  # K = 60
+        _gemm(_bf16(rng, 64, 60), _bf16(rng, 64, 60), bias, None, out,
+              _EPI_BIAS, "quick")
+    shifted = _bf16(rng, 64 * 64 + 1)[1:].view(64, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        _gemm(shifted, w, bias, None, out, _EPI_BIAS, "quick")
+    with pytest.raises(ValueError, match="pre-activation"):
+        _gemm(a, w, bias, None, out, _EPI_BIAS, "quick", out.clone())
+
+
+def test_fused_block_residuals_in_autograd_backward(cuda):
+    """The residual route's backward runs on autograd's own thread, where
+    fused_block_residuals encodes its GEMM tensor maps: it launches, and
+    its gradients agree with the vjp route's."""
+    rng = np.random.default_rng(15)
+    b, n, d, heads, mlp = 2, 144, 128, 2, 512
+    shapes = {"ln_1.weight": (d,), "ln_1.bias": (d,),
+              "attn.in_proj_weight": (3 * d, d), "attn.in_proj_bias": (3 * d,),
+              "attn.out_proj.weight": (d, d), "attn.out_proj.bias": (d,),
+              "ln_2.weight": (d,), "ln_2.bias": (d,),
+              "mlp.c_fc.weight": (mlp, d), "mlp.c_fc.bias": (mlp,),
+              "mlp.c_proj.weight": (d, mlp), "mlp.c_proj.bias": (d,)}
+    params = [_bf16(rng, *shapes[k], std=0.05,
+                    mean=1.0 if k.startswith("ln") and "weight" in k else 0.0)
+              for k in BLOCK_PARAMS]
+    x = _bf16(rng, b, n, d)
+    g = _bf16(rng, b, n, d)
+    grads = {}
+    for impl in ("residual", "vjp"):
+        leaves = [t.clone().requires_grad_() for t in (x, *params)]
+        before = fused_block_residuals.launches
+        y = make_fused_block_ad(heads, "quick", 1e-5, False,
+                                impl).apply(*leaves)
+        grads[impl] = torch.autograd.grad(y, leaves, g)
+        torch.cuda.synchronize()
+        assert fused_block_residuals.launches == before + (
+            impl == "residual")
+    for name, r, v in zip(("x", *BLOCK_PARAMS), grads["residual"],
+                          grads["vjp"]):
+        assert torch.isfinite(r).all(), name
+        cos = torch.nn.functional.cosine_similarity(
+            r.float().flatten(), v.float().flatten(), dim=0).item()
+        # two bf16 backward formulas of one block (the training routes
+        # agree with each other to >= 0.99 per tensor at ViT-L)
+        assert cos >= 0.99, (name, cos)
