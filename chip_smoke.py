@@ -14,7 +14,9 @@ Phases, each of which raises on failure:
      fused_block_residuals alone ([gemm] lines), each projection of a
      block at the main paths' rows against its plain version, with its
      TFLOP/s, share of the bound and torch.nn.functional.linear's time at
-     the same shape (the yardstick, timed only);
+     the same shape (the yardstick, timed only); and the int8 GEMM behind
+     fused_block_int8 alone ([gemm_s8] lines) the same way, against
+     gemm_s8_reference, with TOP/s and torch._int_mm's time;
   4. the main paths: ViT-L/14-336 (OpenAI config, seeded random weights,
      all 24 + 12 layers) serves 3 image and 3 text requests of 8 through
      embed_image_batches / embed_text_batches, the CLI's helpers: first in
@@ -129,6 +131,25 @@ GEMM_CASES = tuple(
         ("fc", 4 * d, d, "act"), ("fc+pre", 4 * d, d, "act_pre"),
         ("proj", d, 4 * d, "residual")))
 GEMM_MAX_DIFF, GEMM_MEAN_DIFF = 0.125, 1e-3
+# phase 3, the int8 GEMM (cet_gemm_s8) alone: (name, M, N, K, epilogue,
+# act scale index) for each projection of an int8 block at the b32 image
+# rows (18944 = 32 x 592, d 1024), the b4 image request's (2368),
+# fused_encode_text_int8's b256 rows (20480 = 256 x 80, d 768) and the
+# CLI's b8 text request's (640). Limits against gemm_s8_reference: bf16 and
+# residual outputs bit-equal (exact int32 sums, the same unfused fp32
+# steps); int8 codes within one of it, and apart in at most GEMM_S8_FLIPS
+# of the entries (the activation's exp and division round apart from
+# torch's, which moves a code at a .5 boundary)
+GEMM_S8_CASES = tuple(
+    (f"{name} {m}x{n}x{k}", m, n, k, epilogue, a_idx)
+    for m, d in ((18944, 1024), (2368, 1024), (20480, 768), (640, 768))
+    for name, n, k, epilogue, a_idx in (
+        ("qkv", 3 * d, d, "bf16", 0), ("out", d, d, "residual", 1),
+        ("fc", 4 * d, d, "act_q8", 2), ("proj", d, 4 * d, "residual", 3)))
+GEMM_S8_FLIPS = 1e-4
+# the act scales of the int8 GEMM's inputs: a[2] * s gives sums of std
+# ~1.6, and a[3] spreads act(v) over the int8 codes
+GEMM_S8_ACT_SCALES = (0.021, 0.034, 0.027, 0.0315)
 # H100 SXM data-sheet peaks (dense): bf16 and int8 tensor cores, HBM3
 PEAK_BF16, PEAK_INT8, HBM_BYTES_PER_S = 989e12, 1979e12, 3.35e12
 
@@ -412,6 +433,90 @@ def check_gemms(rng, gpu):
               f" on {gpu}")
 
 
+def gemm_s8_inputs(rng, m, n, k):
+    """cet_gemm_s8 operands on the card: int8 codes a [m, k] and w [n, k]
+    (std 40), fp32 column scales and biases (std 0.5), the four fp32 act
+    scales, a bf16 residual [m, n]."""
+    def codes(*shape):
+        q = np.clip(np.round(40 * rng.standard_normal(shape)), -127, 127)
+        return torch.from_numpy(q.astype(np.int8)).cuda()
+
+    def f32(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).cuda()
+
+    wscale = (1 + 0.1 * rng.standard_normal(n)) / (30 * k ** 0.5)
+    return (codes(m, k), codes(n, k), f32(wscale),
+            f32(0.5 * rng.standard_normal(n)), f32(GEMM_S8_ACT_SCALES),
+            torch.from_numpy(rng.standard_normal((m, n)).astype(
+                np.float32)).to("cuda", torch.bfloat16))
+
+
+def gemm_s8_call(epilogue, a_idx, a, w, wscale, bias, act_scales, res,
+                 act="quick"):
+    """The kernel and plain calls of one cet_gemm_s8 launch with the named
+    epilogue ("bf16", "residual" or "act_q8"), and the bytes it moves
+    (operands read once, the output written once)."""
+    from clip_embeds_tpu_torch.ops.fused_block import (
+        _ACTS, _EPI_Q_ACT_Q8, _EPI_Q_BF16, _EPI_Q_RESIDUAL, _gemm_s8,
+        gemm_s8_reference)
+
+    epi = {"bf16": _EPI_Q_BF16, "residual": _EPI_Q_RESIDUAL,
+           "act_q8": _EPI_Q_ACT_Q8}[epilogue]
+    res = res if epi == _EPI_Q_RESIDUAL else None
+    m, n = a.shape[0], w.shape[0]
+    out_dtype = torch.int8 if epi == _EPI_Q_ACT_Q8 else torch.bfloat16
+
+    def kernel():
+        out = torch.empty(m, n, dtype=out_dtype, device=a.device)
+        _gemm_s8(a, w, wscale, bias, act_scales, a_idx, res, out, epi,
+                 _ACTS[act])
+        return out
+
+    nbytes = (a.numel() + w.numel() + 8 * n + 4 * act_scales.numel()
+              + (0 if res is None else 2 * m * n)
+              + m * n * (1 if epi == _EPI_Q_ACT_Q8 else 2))
+    return (kernel, lambda: gemm_s8_reference(
+        a, w, wscale, bias, act_scales, a_idx, res, epi, act), nbytes)
+
+
+def int_mm_ms(a, w):
+    """ms of torch._int_mm(a, w^T), cuBLASLt's int8 -> int32 product with
+    no epilogue (the yardstick, timed only), or "none" and why."""
+    try:
+        return f"{cuda_ms(lambda: torch._int_mm(a, w.t())):.4f} ms"
+    except (RuntimeError, AttributeError) as e:
+        return f"none ({type(e).__name__}: {str(e).splitlines()[0]})"
+
+
+def check_gemms_s8(rng, gpu):
+    """Phase 3, the int8 GEMM alone at GEMM_S8_CASES: the outputs against
+    the plain version, kernel ms, TOP/s, share of the bound, _int_mm ms."""
+    for name, m, n, k, epilogue, a_idx in GEMM_S8_CASES:
+        a, w, wscale, bias, scales, res = gemm_s8_inputs(rng, m, n, k)
+        kernel, plain, nbytes = gemm_s8_call(epilogue, a_idx, a, w, wscale,
+                                             bias, scales, res)
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        err, flips = float(diff.max()), int((diff > 0).sum())
+        del got, want, diff
+        exact = epilogue != "act_q8"
+        limit = 0 if exact else int(GEMM_S8_FLIPS * m * n)
+        if not (err <= (0 if exact else 1) and flips <= limit):
+            raise AssertionError(
+                f"gemm_s8 {name} {epilogue}: max|diff| {err}, {flips} of "
+                f"{m * n} entries apart (limit {limit})")
+        ops = 2 * m * n * k
+        bound, bound_by = bound_ms(int8_ops=ops, nbytes=nbytes)
+        ms = cuda_ms(kernel)
+        print(f"[gemm_s8] {name} {epilogue}: max|diff| {err:.6g}, "
+              f"{flips} of {m * n} entries apart (limit {limit}); kernel "
+              f"{ms:.4f} ms, {ops / ms / 1e9:.1f} TOP/s, "
+              f"{100 * bound / ms:.1f}% of the bound {bound:.4f} ms "
+              f"({bound_by}); torch._int_mm {int_mm_ms(a, w)} on {gpu}")
+        del a, w, wscale, bias, scales, res, kernel, plain
+
+
 def synthetic_requests(rng, cfg):
     size, ctx = cfg.vision.image_size, cfg.text.context_length
     images = [rng.standard_normal((REQUEST_SIZE, size, size, 3)).astype(
@@ -685,6 +790,7 @@ def main() -> int:
         kernel_results = check_kernels(rng)
         # its own inputs: the main path's requests below stay as they were
         check_gemms(np.random.default_rng(1), gpu)
+        check_gemms_s8(np.random.default_rng(2), gpu)
 
     # 4. the main path at full width and depth
     t0 = time.perf_counter()

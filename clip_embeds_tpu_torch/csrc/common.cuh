@@ -15,25 +15,6 @@ typedef __nv_bfloat16 bf16;
 __device__ __forceinline__ float bf2f(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ bf16 f2bf(float x) { return __float2bfloat16(x); }
 
-// 16-byte global -> shared async copy. When `valid` is false nothing is read
-// and the 16 destination bytes are zero-filled (ragged tile edges).
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

@@ -111,13 +111,6 @@ struct GemmSmem {
   static constexpr uint32_t bytes = bar + (2 * kStages + 4) * 8 + 1024;
 };
 
-// bf16(r + v) of two bf16 pairs
-__device__ __forceinline__ uint32_t add_bf16x2(uint32_t r, uint32_t v) {
-  const float2 a = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&r));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
-  return pack_bf16(a.x + b.x, a.y + b.y);
-}
-
 // The activation in fp32, one instance per kind so that an epilogue holds
 // only its own. Quick GELU takes the fast exp and divide: a relative error
 // near 1e-6, far under the 2^-9 of the bf16 rounding that follows; erf and

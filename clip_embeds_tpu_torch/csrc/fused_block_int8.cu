@@ -19,34 +19,56 @@
 // q8(v, a) = clip(rint(v / a), -127, 127): a true fp32 division and
 // round-half-even, as jnp.round(x / a) (a multiply by 1/a moves codes near
 // the .5 boundaries). The MLP activation is quantised straight from fp32,
-// not rounded to bf16 first (`_kernel_int8`, unlike the bf16 block). The
+// not rounded to bf16 first (`_kernel_int8`, unlike the bf16 block), and
+// taken with common.cuh's apply_act (IEEE exp and division, not the bf16
+// GEMM's fast quick GELU: a code that flips moves every later sum). The
 // dequantisation is (float(acc) * (a * s)) + b with no fused multiply-add,
-// the plain version's order. `a` is the block's four static activation
-// scales (qkv, out, fc, proj), read from device memory: no host sync.
+// the plain version's order (ops/fused_block.py gemm_s8_reference). `a` is
+// the block's four static activation scales (qkv, out, fc, proj), read
+// from device memory: no host sync. The int32 sums are exact, so the bf16
+// and residual epilogues are bit-equal to the plain version on the card.
 //
 // Bound: the four projections are 24 * n * d^2 int8 ops per sequence, far
 // above the H100's ridge (1,979 TOPS int8 dense, twice the bf16 rate, on
-// 3.35 TB/s), so the GEMM is compute-bound; the LN and quantise passes are
-// bandwidth-bound (one bf16 read, one int8 write).
-// Design: int8 weights stay in the [out, in] layout, K-major, which is the
-// col-major B operand of mma.sync.m16n8k32.s8.s8.s32, so no per-call
-// transpose. 128x128x64 block tiles, eight warps of 64x32, a three-stage
-// cp.async pipeline (16 int8 values per 16-byte copy), ldmatrix from padded
-// (80-byte) shared rows, int32 accumulators, and an epilogue that
-// dequantises, adds the bias (and the residual, or the activation and the
-// next quantisation) before the one store. wgmma/TMA come in a later change.
+// 3.35 TB/s), so the GEMM is compute-bound (the out-projection, with its
+// bf16 residual read and bf16 output, is bound by its bytes); the LN and
+// quantise passes are bandwidth-bound (one bf16 read, one int8 write).
+// Design of the GEMM, C[M, N] = epilogue(A[M, K] W[N, K]^T), the bf16
+// GEMM's (fused_block.cu) on 8-bit operands. A (int8 activation rows) and
+// W (the int8 [out, in] weight) are both K-major, the only layout 8-bit
+// wgmma takes, so each arrives by TMA as 128-byte-wide K tiles (128 int8
+// values) with the 128-byte swizzle and feeds wgmma m64nBNk32 .s32.s8.s8
+// straight from shared memory. Output tiles are 128 x BN (BN = 128, or 64
+// for int8 output and where tiles of 128 would leave most SMs idle), K in
+// stages of 128:
+// - warpgroup 2 produces: one thread keeps a ring of (A, W) tile pairs in
+//   flight on full/empty mbarriers, tile after tile, and the warpgroup
+//   hands most of its registers to the consumers (setmaxnreg);
+// - warpgroups 0 and 1 take the block's tiles in turn (ping-pong, a turn
+//   barrier passes the products), so one tile's epilogue runs under the
+//   other's products: four k32 steps of two 64-row halves a stage, then
+//   wgmma_wait<1>, and the stage before goes back to the producer;
+// - the epilogue works on the int32 accumulators in registers: the column
+//   factors a * s and the biases (fp32) sit in shared memory, the
+//   residual's 64 x 64 bf16 pieces come by TMA into the staging buffers
+//   during the products; bf16 results go out as 64 x 64 pieces (128-byte
+//   swizzle), int8 codes as pieces of 64 rows of 64 bytes (64-byte
+//   swizzle), by TMA. The int8 codes are computed branch-free and the few
+//   near a rounding boundary recomputed exactly (store_tile_s8);
+// - the grid is persistent, one block per SM walking the output tiles with
+//   N fastest.
+// TMA zero-fills rows past M and N and columns past K (zeros add nothing to
+// the sum) and drops stores past them. No split-K and no atomics: two calls
+// are bit-equal.
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace cet {
 namespace {
 
-constexpr int kBM = 128, kBN = 128, kBK = 64;  // kBK in int8 values (bytes)
-constexpr int kLd = kBK + 16;                   // padded smem row: 80 bytes
-constexpr int kStages = 3;
-constexpr int kThreads = 256;
-constexpr int kStageBytes = (kBM + kBN) * kLd;
-constexpr int kSmemBytes = kStages * kStageBytes;  // 61,440: dynamic smem
+constexpr int kBM = 128, kBK = 128;  // tile rows; K of a stage (int8 = bytes)
+constexpr int kThreads = 384;        // two consumer warpgroups, one producer
+constexpr uint32_t kSmemMax = 232448;  // dynamic shared memory of a block
 
 enum Epilogue { EPI_BF16 = 0, EPI_ACT_Q8 = 1, EPI_RESIDUAL = 2 };
 
@@ -57,24 +79,6 @@ __device__ __forceinline__ int8_t quantize(float v, float a) {
 
 __device__ __forceinline__ float dequantize(int acc, float scale, float b) {
   return __fadd_rn(__fmul_rn(static_cast<float>(acc), scale), b);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-// c += A(16x32, row) . B(32x8, col), int8 in, int32 accumulate.
-__device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4],
-                                       unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // y[m, :] = q8(bf16(LN(x[m, :]) * gamma + beta), act_scales[a_idx]): one
@@ -112,137 +116,362 @@ quantize_s8_kernel(const bf16* __restrict__ x,
     y[i] = quantize(bf2f(x[i]), a);
 }
 
-// C[M, N] = epilogue(A[M, K] W[N, K]^T), A and W int8, int32 accumulation.
-// Requires K % 16 == 0 (16-byte rows) and N % 16 == 0 (checked by the
-// wrapper); ragged M, N and K tile edges are zero-filled on load (zeros add
-// nothing to the sum) and M, N edges are masked on store.
-__global__ void __launch_bounds__(kThreads)
-gemm_s8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ W,
-               const float* __restrict__ wscale, const float* __restrict__ bias,
-               const float* __restrict__ act_scales, int a_idx,
-               const bf16* __restrict__ res, void* __restrict__ C, int M,
-               int N, int K, int epi, int act) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = warp / 4;  // 2 warps along M, 64 rows each
-  const int wn = warp % 4;  // 4 warps along N, 32 cols each
-  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
-  constexpr int kChunks = kBK / 16;  // 16-byte chunks per tile row
+struct GemmS8Maps {
+  CUtensorMap a, w, c, res;  // c: bf16 or int8 output; res only where given
+};
 
-  auto load_tile = [&](int stage, int k0) {
-    unsigned char* As = smem + stage * kStageBytes;
-    unsigned char* Ws = As + kBM * kLd;
-    for (int c = tid; c < kBM * kChunks; c += kThreads) {
-      const int r = c / kChunks, cc = (c % kChunks) * 16;
-      const int gr = m0 + r, gk = k0 + cc;
-      const bool ok = gr < M && gk < K;
-      cp_async16(As + r * kLd + cc,
-                 A + (ok ? static_cast<size_t>(gr) * K + gk : 0), ok);
+// Shared memory of a block: the ring (4 to 6 stages of a 128-row A tile
+// and a BN-row W tile, 128 bytes of K each: as many as fit beside the
+// rest), four 8 KB staging pieces a consumer warpgroup (64 x 64 bf16 in
+// the 128-byte swizzle; an int8 piece, 64 rows of 64 bytes, takes the
+// first 4 KB of one), the fp32 column factors a * s and biases of each
+// consumer's tile, the barriers.
+template <int BN>
+struct GemmS8Smem {
+  using T = Tile128B;
+  static constexpr uint32_t kA = T::bytes(kBM);
+  static constexpr uint32_t kW = T::bytes(BN);
+  static constexpr uint32_t kPiece = T::bytes(64);
+  static constexpr uint32_t kOut = 8 * kPiece;
+  static constexpr uint32_t kVec = 2 * 2 * BN * 4;
+  static constexpr int kStages =
+      (kSmemMax - kOut - kVec - (2 * 8 + 4) * 8 - 1024) / (kA + kW);
+  static constexpr uint32_t a = 0;
+  static constexpr uint32_t w = a + kStages * kA;
+  static constexpr uint32_t out = w + kStages * kW;
+  static constexpr uint32_t vec = out + kOut;
+  static constexpr uint32_t bar = vec + kVec;  // full, empty, turn, res
+  static constexpr uint32_t bytes = bar + (2 * kStages + 4) * 8 + 1024;
+  static_assert(kStages >= 4 && kStages <= 8 && bytes <= kSmemMax, "smem");
+};
+
+// a / b to within 2 ulp over the full range, without the branch to the
+// slow path that an IEEE division takes (div.full.f32)
+__device__ __forceinline__ float div_full(float a, float b) {
+  float d;
+  asm("div.full.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+// act(v) / a branch-free, so that the epilogue's codes are computed side
+// by side: quick GELU as v / ((1 + e) a) in one div_full, the others as
+// div_full(apply_act(v), a). Within 4 ulp of the quotient that
+// quantize(apply_act(v), a) rounds (the exponential is the same).
+template <int kAct>
+__device__ __forceinline__ float act_quotient_fast(float v, float a) {
+  if constexpr (kAct == ACT_QUICK)
+    return div_full(v, (1.0f + expf(-1.702f * v)) * a);
+  else
+    return div_full(apply_act(v, kAct), a);
+}
+
+// The int8 code of quotient t as quantize gives it; sets `near` where t
+// lies within 2^-18 |t| (far above the 4 ulp) of a rounding boundary, the
+// only place the exact quotient can round to another code
+__device__ __forceinline__ int8_t code_of(float t, bool& near) {
+  const float r = rintf(t);
+  near = fabsf(fabsf(t - r) - 0.5f) <= fabsf(t) * 0x1p-18f;
+  return static_cast<int8_t>(fminf(fmaxf(r, -127.f), 127.f));
+}
+
+// Byte offset of the int8 code at (row, col), col even, in a staging piece
+// of 64 rows of 64 bytes with the 64-byte swizzle: byte for byte the
+// layout of a 64 x 32 bf16 tile, column col / 2.
+__device__ __forceinline__ uint32_t s8_piece_offset(int row, int col) {
+  return Tile<32>::offset(64, row, col / 2);
+}
+
+// One warpgroup's epilogue of a 128 x BN tile at (m0, n0), in 64 x 64
+// pieces u (row half u % 2, columns 64 (u / 2)): each int32 sum
+// dequantised with its column's factor and bias (sc_s, bias_s), then
+// rounded to bf16 (EPI_BF16), added to the residual that TMA has put in the
+// staging piece (EPI_RESIDUAL: bf16(r + bf16(v)), the sum replaces it), or
+// taken through the activation kAct and quantised with a_next
+// (EPI_ACT_Q8, int8 pieces); then out by TMA stores. EPI_ACT_Q8 computes
+// a piece's 32 codes of a thread branch-free (act_quotient_fast), which
+// with one warp per scheduler is what keeps it from waiting on each
+// division in turn, and then recomputes exactly (quantize(apply_act))
+// the few whose quotient lies near a rounding boundary: the codes are
+// those of the exact expression.
+template <int BN, int kEpi, int kAct>
+__device__ __forceinline__ void store_tile_s8(
+    const int32_t (&acc)[2][BN / 2], unsigned char* staging,
+    const float* __restrict__ sc_s, const float* __restrict__ bias_s,
+    float a_next,
+    const GemmS8Maps& maps, int M, int N, int m0, int n0, int wg) {
+  using T = Tile128B;
+  constexpr int kPieces = BN / 32;  // 4 or 2
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+  // this thread's accumulator rows r, r + 8 and column pairs c + 8 q
+  const int r = 16 * warp + lane / 4, c = 2 * (lane % 4);
+#pragma unroll
+  for (int u = 0; u < kPieces; ++u) {
+    const int h = u % 2, p = u / 2;
+    if (m0 + 64 * h >= M || n0 + 64 * p >= N) continue;  // outside C
+    unsigned char* buf = staging + u * T::bytes(64);
+    uint32_t near_mask = 0;  // bit 4 q + 2 e + j: code (r + 8 e, 8 q + c + j)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int col = 64 * p + 8 * q + c;
+      const float2 s = *reinterpret_cast<const float2*>(sc_s + col);
+      const float2 b = *reinterpret_cast<const float2*>(bias_s + col);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int k = 32 * p + 4 * q + 2 * e;
+        const float v0 = dequantize(acc[h][k], s.x, b.x);
+        const float v1 = dequantize(acc[h][k + 1], s.y, b.y);
+        if constexpr (kEpi == EPI_ACT_Q8) {
+          bool near0, near1;
+          const uint8_t c0 = code_of(act_quotient_fast<kAct>(v0, a_next),
+                                     near0);
+          const uint8_t c1 = code_of(act_quotient_fast<kAct>(v1, a_next),
+                                     near1);
+          near_mask |= (near0 ? 1u : 0u) << (4 * q + 2 * e);
+          near_mask |= (near1 ? 2u : 0u) << (4 * q + 2 * e);
+          // a 16-bit store: unlike a char one, it cannot alias the fp32
+          // factors, so the next ones load while these codes compute
+          *reinterpret_cast<uint16_t*>(
+              buf + s8_piece_offset(r + 8 * e, 8 * q + c)) = c0 | c1 << 8;
+        } else {
+          uint32_t* out = reinterpret_cast<uint32_t*>(
+              buf + T::offset(64, r + 8 * e, 8 * q + c));
+          *out = kEpi == EPI_RESIDUAL ? add_bf16x2(*out, pack_bf16(v0, v1))
+                                      : pack_bf16(v0, v1);
+        }
+      }
     }
-    for (int c = tid; c < kBN * kChunks; c += kThreads) {
-      const int r = c / kChunks, cc = (c % kChunks) * 16;
-      const int gn = n0 + r, gk = k0 + cc;
-      const bool ok = gn < N && gk < K;
-      cp_async16(Ws + r * kLd + cc,
-                 W + (ok ? static_cast<size_t>(gn) * K + gk : 0), ok);
+    if constexpr (kEpi == EPI_ACT_Q8) {
+      while (near_mask) {  // rare: 2^-17 |t| of the codes, under 1e-3
+        const int i = __ffs(near_mask) - 1;
+        near_mask &= near_mask - 1;
+        int32_t sum = 0;  // acc[h][32 p + i], with no dynamic register index
+#pragma unroll
+        for (int x = 0; x < 32; ++x) sum = x == i ? acc[h][32 * p + x] : sum;
+        const int q = i >> 2, e = (i >> 1) & 1, j = i & 1;
+        const int col = 64 * p + 8 * q + c + j;
+        buf[s8_piece_offset(r + 8 * e, 8 * q + c) + j] = quantize(
+            apply_act(dequantize(sum, sc_s[col], bias_s[col]), kAct), a_next);
+      }
     }
-  };
+  }
+  fence_async_smem();  // the stores below read what these threads wrote
+  warpgroup_sync(1 + wg);
+  if (t == 0) {
+#pragma unroll
+    for (int u = 0; u < kPieces; ++u) {
+      const int row0 = m0 + 64 * (u % 2), nc = n0 + 64 * (u / 2);
+      if (row0 < M && nc < N)
+        tma_store(&maps.c, staging + u * T::bytes(64), nc, row0, 0, 0);
+    }
+  }
+}
 
-  int acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
+// C[M, N] = epilogue(A[M, K] W[N, K]^T) over `tiles` output tiles of
+// 128 x BN (`n_tiles` along N), A, W, C and the residual through their
+// tensor maps; the column scales, biases and activation scales are read by
+// element. Requires K % 16 == 0, N % 16 == 0 for int8 output (% 8 for
+// bf16) and 16-byte aligned bases (checked by the wrapper).
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 1)
+gemm_s8_kernel(const __grid_constant__ GemmS8Maps maps,
+               const float* __restrict__ wscale,
+               const float* __restrict__ bias,
+               const float* __restrict__ act_scales, int a_idx, int M, int N,
+               int K, int epi, int act, int n_tiles, int tiles) {
+  using L = GemmS8Smem<BN>;
+  constexpr int S = L::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_aligned(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bar);
+  uint64_t* empty = full + S;
+  uint64_t* turn = empty + S;     // turn[w]: warpgroup w may run its products
+  uint64_t* res_full = turn + 2;  // res_full[w]: w's residual pieces are in
+  const int tid = threadIdx.x, wg = tid / 128, t = tid % 128;
   const int nk = (K + kBK - 1) / kBK;
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nk) load_tile(s, s * kBK);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<kStages - 2>();  // tile kt has landed (this thread's part)
-    __syncthreads();  // ... every thread's part, and stage kt-1 is free
-    const int pre = kt + kStages - 1;
-    if (pre < nk) load_tile(pre % kStages, pre * kBK);
-    cp_async_commit();
-
-    const unsigned char* As = smem + (kt % kStages) * kStageBytes;
-    const unsigned char* Ws = As + kBM * kLd;
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 32) {
-      // A fragments: matrices (rows 0-7, k 0-15), (8-15, 0-15), (0-7,
-      // 16-31), (8-15, 16-31) are mma's a0..a3.
-      unsigned af[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = wm * 64 + i * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        ldmatrix_x4(af[i], As + r * kLd + kk + (lane >> 4) * 16);
-      }
-      // B fragments of two n8 tiles: matrices (n 0-7, k 0-15), (n 0-7,
-      // k 16-31), (n 8-15, k 0-15), (n 8-15, k 16-31).
-      unsigned bfr[4][2];
-#pragma unroll
-      for (int j = 0; j < 4; j += 2) {
-        const int r = wn * 32 + j * 8 + (lane & 7) + (lane >> 4) * 8;
-        unsigned t[4];
-        ldmatrix_x4(t, Ws + r * kLd + kk + ((lane >> 3) & 1) * 16);
-        bfr[j][0] = t[0];
-        bfr[j][1] = t[1];
-        bfr[j + 1][0] = t[2];
-        bfr[j + 1][1] = t[3];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          mma_s8(acc[i][j], af[i], bfr[j][0], bfr[j][1]);
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);  // lane 0 of each warp of the consumer
     }
+    mbar_init(&turn[0], 4);
+    mbar_init(&turn[1], 4);
+    mbar_init(&res_full[0], 1);
+    mbar_init(&res_full[1], 1);
+    mbar_fence_init();
   }
-  cp_async_wait<0>();
+  __syncthreads();
 
-  // Epilogue straight from registers: accumulator e of tile (i, j) sits at
-  // row g (+8 for e >= 2), columns 2 * t4 + (e & 1).
-  const int g = lane >> 2, t4 = lane & 3;
-  const float a = act_scales[a_idx];
-  const float a_next = epi == EPI_ACT_Q8 ? act_scales[a_idx + 1] : 1.f;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int col = n0 + wn * 32 + j * 8 + t4 * 2;
-    if (col >= N) continue;  // N % 16 == 0, so col + 1 < N as well
-    const float sc0 = __fmul_rn(a, wscale[col]);
-    const float sc1 = __fmul_rn(a, wscale[col + 1]);
-    const float b0 = bias[col], b1 = bias[col + 1];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm * 64 + i * 16 + g + h * 8;
-        if (row >= M) continue;
-        const size_t off = static_cast<size_t>(row) * N + col;
-        float v0 = dequantize(acc[i][j][2 * h], sc0, b0);
-        float v1 = dequantize(acc[i][j][2 * h + 1], sc1, b1);
-        if (epi == EPI_ACT_Q8) {
-          char2 q;
-          q.x = quantize(apply_act(v0, act), a_next);
-          q.y = quantize(apply_act(v1, act), a_next);
-          *reinterpret_cast<char2*>(static_cast<int8_t*>(C) + off) = q;
-          continue;
+  if (wg == 2) {  // the producer
+    setmaxnreg_dec<40>();
+    if (t == 0) {
+      int it = 0;  // stages issued, over all of this block's tiles
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = tile / n_tiles * kBM, n0 = tile % n_tiles * BN;
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          const int s = it % S;
+          // the consumer's release of this stage's previous use
+          if (it >= S) mbar_wait(&empty[s], (it / S - 1) & 1);
+          mbar_expect_tx(&full[s], L::kA + L::kW);
+          tma_load(smem + L::a + s * L::kA, &maps.a, &full[s], kt * kBK, m0,
+                   0, 0);
+          tma_load(smem + L::w + s * L::kW, &maps.w, &full[s], kt * kBK, n0,
+                   0, 0);
         }
-        if (epi == EPI_RESIDUAL) {
-          const __nv_bfloat162 r =
-              *reinterpret_cast<const __nv_bfloat162*>(res + off);
-          v0 = bf2f(r.x) + bf2f(f2bf(v0));
-          v1 = bf2f(r.y) + bf2f(f2bf(v1));
-        }
-        __nv_bfloat162 o;
-        o.x = f2bf(v0);
-        o.y = f2bf(v1);
-        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(C) + off) = o;
       }
     }
+  } else {  // the consumers: the block's tiles i = wg, wg + 2, ...
+    setmaxnreg_inc<232>();
+    using T = Tile128B;
+    const int lane = t % 32;
+    unsigned char* staging = smem + L::out + wg * 4 * L::kPiece;
+    float* sc_s = reinterpret_cast<float*>(smem + L::vec) + wg * 2 * BN;
+    float* bias_s = sc_s + BN;
+    const bool residual = epi == EPI_RESIDUAL;
+    const float a = act_scales[a_idx];
+    const float a_next = epi == EPI_ACT_Q8 ? act_scales[a_idx + 1] : 1.f;
+    int32_t acc[2][BN / 2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[h][i] = 0;
+    for (int i = wg, j = 0; blockIdx.x + i * gridDim.x < tiles; i += 2, ++j) {
+      const int tile = blockIdx.x + i * gridDim.x;
+      const int m0 = tile / n_tiles * kBM, n0 = tile % n_tiles * BN;
+      // The staging buffers are free once the last tile's stores have read
+      // them (the barrier before the epilogue passes that on); the
+      // residual's pieces arrive there during the products.
+      if (t == 0) {
+        tma_store_wait();
+        if (residual) {
+          uint32_t bytes = 0;
+          for (int u = 0; u < BN / 32; ++u)
+            if (m0 + 64 * (u % 2) < M && n0 + 64 * (u / 2) < N)
+              bytes += T::bytes(64);
+          mbar_expect_tx(res_full + wg, bytes);
+          for (int u = 0; u < BN / 32; ++u)
+            if (m0 + 64 * (u % 2) < M && n0 + 64 * (u / 2) < N)
+              tma_load(staging + u * T::bytes(64), &maps.res, res_full + wg,
+                       n0 + 64 * (u / 2), m0 + 64 * (u % 2), 0, 0);
+        }
+      }
+      if (t < BN) {
+        const bool in = n0 + t < N;
+        sc_s[t] = in ? __fmul_rn(a, wscale[n0 + t]) : 0.f;
+        bias_s[t] = in ? bias[n0 + t] : 0.f;
+      }
+      // the turn: the other warpgroup has passed its waits on the block's
+      // previous tile, so every earlier phase of the full barriers is done
+      // and the parities below name this tile's stages
+      if (i > 0) mbar_wait(&turn[wg], (wg == 0 ? j - 1 : j) & 1);
+      for (int kt = 0; kt < nk; ++kt) {
+        const int it = i * nk + kt, s = it % S;
+        const uint32_t sa = smem_u32(smem + L::a + s * L::kA);
+        const uint32_t sw = smem_u32(smem + L::w + s * L::kW);
+        mbar_wait(&full[s], (it / S) & 1);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBK / 32; ++kk) {
+          const uint64_t b = desc_k_128b(sw, BN, 0, kk);
+          wgmma_ss_s8<BN>(acc[0], desc_k_128b(sa, kBM, 0, kk), b,
+                          kt > 0 || kk > 0);
+          wgmma_ss_s8<BN>(acc[1], desc_k_128b(sa, kBM, 64, kk), b,
+                          kt > 0 || kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous stage's products are done
+        if (kt > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % S]);
+      }
+      if (lane == 0) mbar_arrive(&turn[1 - wg]);
+      wgmma_wait<0>();
+      fence_regs(acc[0]);
+      fence_regs(acc[1]);
+      if (lane == 0) mbar_arrive(&empty[(i * nk + nk - 1) % S]);
+
+      warpgroup_sync(1 + wg);  // the factors, and the staging buffers free
+      if (residual) mbar_wait(res_full + wg, j & 1);
+#define CET_STORE(EPI, ACT)                                                \
+  store_tile_s8<BN, EPI, ACT>(acc, staging, sc_s, bias_s, a_next, maps, M, \
+                              N, m0, n0, wg)
+      if (epi == EPI_ACT_Q8) {
+        if (act == ACT_QUICK)
+          CET_STORE(EPI_ACT_Q8, ACT_QUICK);
+        else if (act == ACT_TANH)
+          CET_STORE(EPI_ACT_Q8, ACT_TANH);
+        else
+          CET_STORE(EPI_ACT_Q8, ACT_ERF);
+      } else if (residual) {
+        CET_STORE(EPI_RESIDUAL, -1);
+      } else {
+        CET_STORE(EPI_BF16, -1);
+      }
+#undef CET_STORE
+    }
+    if (t == 0) tma_store_wait();  // the staging outlives the stores' reads
+  }
+}
+
+template <int BN>
+int launch_gemm_s8(const void* a, const void* w, const float* wscale,
+                   const float* bias, const float* act_scales, int a_idx,
+                   const void* res, void* C, int m, int n, int k, int epi,
+                   int act, int sms, cudaStream_t stream) {
+  using L = GemmS8Smem<BN>;
+  const int bytes = static_cast<int>(L::bytes);
+  // also binds the device's context on this thread before the tensor maps
+  // are encoded
+  cudaError_t e = cudaFuncSetAttribute(
+      gemm_s8_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  constexpr CUtensorMapDataType kS8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  GemmS8Maps maps;
+  const long long mk = static_cast<long long>(m) * k;
+  const long long nk = static_cast<long long>(n) * k;
+  const long long mn = static_cast<long long>(m) * n;
+  int err = make_map(&maps.a, a, k, m, 1, 1, k, mk, mk, kBK, kBM, 128, kS8);
+  if (!err)
+    err = make_map(&maps.w, w, k, n, 1, 1, k, nk, nk, kBK, BN, 128, kS8);
+  if (!err)
+    err = epi == EPI_ACT_Q8
+              ? make_map(&maps.c, C, n, m, 1, 1, n, mn, mn, 64, 64, 64, kS8)
+              : make_map(&maps.c, C, n, m, 1, 1, n, mn, mn, 64, 64, 128);
+  if (!err && res != nullptr)
+    err = make_map(&maps.res, res, n, m, 1, 1, n, mn, mn, 64, 64, 128);
+  if (err) return err;
+  const int n_tiles = (n + BN - 1) / BN;
+  const int tiles = (m + kBM - 1) / kBM * n_tiles;
+  gemm_s8_kernel<BN><<<std::min(tiles, sms), kThreads, bytes, stream>>>(
+      maps, wscale, bias, act_scales, a_idx, m, n, k, epi, act, n_tiles,
+      tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tile width: 128, or 64 where tiles of 128 would leave more than half
+// of the SMs idle (the bf16 GEMM's rule), and for int8 output, whose
+// epilogue costs more than a tile's products: its halves interleave more
+// finely with the other consumer's products (the --tiles sweep, PERF.md).
+int pick_bn(int m, int n, int epi, int sms) {
+  const long long tiles =
+      static_cast<long long>((m + kBM - 1) / kBM) * ((n + 127) / 128);
+  return epi == EPI_ACT_Q8 || 2 * tiles < sms ? 64 : 128;
+}
+
+int dispatch_gemm_s8(const void* a, const void* w, const float* wscale,
+                     const float* bias, const float* act_scales, int a_idx,
+                     const void* res, void* C, int m, int n, int k, int epi,
+                     int act, cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  switch (pick_bn(m, n, epi, sms)) {
+    case 128:
+      return launch_gemm_s8<128>(a, w, wscale, bias, act_scales, a_idx, res,
+                                 C, m, n, k, epi, act, sms, stream);
+    default:
+      return launch_gemm_s8<64>(a, w, wscale, bias, act_scales, a_idx, res,
+                                C, m, n, k, epi, act, sms, stream);
   }
 }
 
@@ -281,20 +510,13 @@ int cet_gemm_s8(const void* a, const void* w, const void* wscale,
                 const void* bias, const void* act_scales, int a_idx,
                 const void* res, void* c, int m, int n, int k, int epi,
                 int act, void* stream) {
-  using cet::bf16;
-  cudaError_t err = cudaFuncSetAttribute(
-      cet::gemm_s8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      cet::kSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // row tiles on x (no 65535 limit), column tiles on y
-  dim3 grid((m + cet::kBM - 1) / cet::kBM, (n + cet::kBN - 1) / cet::kBN);
-  cet::gemm_s8_kernel<<<grid, cet::kThreads, cet::kSmemBytes,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(a), static_cast<const int8_t*>(w),
-      static_cast<const float*>(wscale), static_cast<const float*>(bias),
+  if (m <= 0 || n <= 0 || k <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return cet::dispatch_gemm_s8(
+      a, w, static_cast<const float*>(wscale), static_cast<const float*>(bias),
       static_cast<const float*>(act_scales), a_idx,
-      static_cast<const bf16*>(res), c, m, n, k, epi, act);
-  return static_cast<int>(cudaGetLastError());
+      epi == cet::EPI_RESIDUAL ? res : nullptr, c, m, n, k, epi, act,
+      static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,7 +1,8 @@
 // Hopper building blocks of the attention kernels (attention.cu and
-// attention_bwd.cu) and of the bf16 GEMM (fused_block.cu): TMA tensor maps
-// built on the host, mbarriers, TMA and bulk copies, warpgroup MMA (wgmma)
-// on swizzled shared-memory tiles, and register hand-over (setmaxnreg).
+// attention_bwd.cu), the bf16 GEMM (fused_block.cu) and the int8 GEMM
+// (fused_block_int8.cu): TMA tensor maps built on the host, mbarriers, TMA
+// and bulk copies, warpgroup MMA (wgmma) on swizzled shared-memory tiles,
+// and register hand-over (setmaxnreg).
 //
 // Tile layout. A bf16 tile of R rows by D columns sits in shared memory as
 // the TMA writes it with a 128-byte swizzle (64 columns a row, D = 64 and
@@ -46,31 +47,35 @@ inline EncodeTiledFn lookup_encode_tiled() {
   return reinterpret_cast<EncodeTiledFn>(fn);
 }
 
-// A rank-4 map of a bf16 [B, H, rows, cols] tensor read through element
-// strides (sb, sh, sn), last dim contiguous, with a box of (box_cols,
-// box_rows) and a swizzle of `swizzle` bytes (64 or 128). Rows at or past
-// `rows` read as zeros and are dropped on a store. Returns 0 or a
-// cudaError_t. The libcuda call needs the device's context current on this
-// thread (autograd runs the backward on a thread of its own): call a
-// runtime function first, as the launchers' cudaFuncSetAttribute does.
-inline int make_map(CUtensorMap* map, const void* base, int cols, int rows,
-                    int H, int B, long long sn, long long sh, long long sb,
-                    int box_cols, int box_rows, int swizzle) {
+// A rank-4 map of a [B, H, rows, cols] tensor of `type` (bf16, or UINT8
+// for int8: TMA moves the bytes either way) read through element strides
+// (sb, sh, sn), last dim contiguous, with a box of (box_cols, box_rows) and
+// a swizzle of `swizzle` bytes (64 or 128). Rows at or past `rows` read as
+// zeros and are dropped on a store. Returns 0 or a cudaError_t. The
+// libcuda call needs the device's context current on this thread (autograd
+// runs the backward on a thread of its own): call a runtime function
+// first, as the launchers' cudaFuncSetAttribute does.
+inline int make_map(
+    CUtensorMap* map, const void* base, int cols, int rows, int H, int B,
+    long long sn, long long sh, long long sb, int box_cols, int box_rows,
+    int swizzle,
+    CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   static const EncodeTiledFn encode = lookup_encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t esize = type == CU_TENSOR_MAP_DATA_TYPE_UINT8 ? 1 : 2;
   const cuuint64_t dim[4] = {static_cast<cuuint64_t>(cols),
                              static_cast<cuuint64_t>(rows),
                              static_cast<cuuint64_t>(H),
                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t stride[3] = {static_cast<cuuint64_t>(sn) * 2,
-                                static_cast<cuuint64_t>(sh) * 2,
-                                static_cast<cuuint64_t>(sb) * 2};
+  const cuuint64_t stride[3] = {static_cast<cuuint64_t>(sn) * esize,
+                                static_cast<cuuint64_t>(sh) * esize,
+                                static_cast<cuuint64_t>(sb) * esize};
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_cols),
                              static_cast<cuuint32_t>(box_rows), 1, 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dim,
-      stride, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      map, type, 4, const_cast<void*>(base), dim, stride, box, step,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
       swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
@@ -132,6 +137,17 @@ __device__ __forceinline__ uint64_t desc_k(uint32_t tile, int rows, int r0,
   return make_desc<D>(tile + (col / T::kPW) * T::panel(rows) + r0 * T::kSwz +
                           (col % T::kPW) * 2,
                       16, T::kAtom);
+}
+
+// 8-bit operands in byte terms: a tile of 128 int8 columns has the rows of
+// a bf16 tile of 64 (128 bytes, one panel, the 128-byte swizzle), and a k32
+// step of 8-bit wgmma is the 32 bytes of a bf16 k16 step. So the K-major
+// descriptor of k32 step kk over such a tile is the bf16 one of step kk.
+using Tile128B = Tile<64>;
+
+__device__ __forceinline__ uint64_t desc_k_128b(uint32_t tile, int rows,
+                                                int r0, int kk) {
+  return desc_k<64>(tile, rows, r0, kk);
 }
 
 // MN-major operand: rows [16 kk, 16 kk + 16) of a tile as K, all D columns
@@ -273,6 +289,13 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// The same for int32 accumulators (8-bit products).
+template <int R>
+__device__ __forceinline__ void fence_regs(int32_t (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
 // The same for A fragments: keeps them live (unreused) until after the wait.
 template <int K>
 __device__ __forceinline__ void fence_regs(uint32_t (&a)[K][4]) {
@@ -286,6 +309,13 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[K][4]) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// bf16(r + v) of two bf16 pairs (the GEMMs' residual epilogues)
+__device__ __forceinline__ uint32_t add_bf16x2(uint32_t r, uint32_t v) {
+  const float2 a = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&r));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
+  return pack_bf16(a.x + b.x, a.y + b.y);
 }
 
 // The m64nNk16 fp32 accumulator of a warpgroup: thread (warp w, lane l)
@@ -387,6 +417,43 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
   }
 }
 
+#define CET_S8(i)                                                      \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]),          \
+      "+r"(d[i + 4]), "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+
+// d (+)= A B for 8-bit operands, int32 sums: A and B int8 from shared
+// memory, both K-major (the only layout 8-bit wgmma takes: no transpose
+// bits, no operand scales); N = 64 or 128; desc_k_128b descriptors.
+// scale_d = 0 overwrites d. The accumulator layout is acc_to_a's.
+template <int N>
+__device__ __forceinline__ void wgmma_ss_s8(int32_t (&d)[N / 2], uint64_t a,
+                                            uint64_t b, int scale_d) {
+  static_assert(N == 64 || N == 128, "wgmma_ss_s8: N");
+  if constexpr (N == 128) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p;\n}\n"
+        : CET_S8(0), CET_S8(8), CET_S8(16), CET_S8(24), CET_S8(32),
+          CET_S8(40), CET_S8(48), CET_S8(56)
+        : "l"(a), "l"(b), "r"(scale_d));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31}, %32, %33, p;\n}\n"
+        : CET_S8(0), CET_S8(8), CET_S8(16), CET_S8(24)
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+}
+
+#undef CET_S8
 #undef CET_D8
 
 // Store a warpgroup's [64 x D] fp32 accumulator, times the per-row factor

@@ -29,8 +29,8 @@ stores the pre-activation ``m1`` (the fp32 ``dot + bias`` rounded to bf16).
 scales and fp32 biases, activations quantised with four static fp32 scales
 (qkv, out, fc, proj), exact int8 x int8 -> int32 products dequantised to
 fp32; attention stays bf16. On the card it is a chain of eight launches of
-``csrc/fused_block_int8.cu`` (int8 tensor-core GEMMs) and
-``csrc/attention.cu``.
+``csrc/fused_block_int8.cu`` (int8 ``wgmma`` GEMMs on a TMA ring, whose
+plain version is :func:`gemm_s8_reference`) and ``csrc/attention.cu``.
 
 TPU-only parts are not ported: the rows-per-program choice, VMEM budgets,
 cost estimates, ``interpret``, the k/v zero-padding to ``n_kv`` (the
@@ -375,14 +375,50 @@ def _fused_block_residuals(args, heads: int, kv_valid: int,
 fused_block_residuals.launches = 0
 
 
+def gemm_s8_reference(a_q, w_q, wscale, bias, act_scales, a_idx: int, res,
+                      epi: int, act: str) -> torch.Tensor:
+    """Plain PyTorch version of one :func:`_gemm_s8` launch, from ``qdot``'s
+    pieces: int8 codes ``a_q`` [..., K] and ``w_q`` [N, K], exact sums,
+    ``v = acc * (a * wscale) + bias`` in fp32 with ``a =
+    act_scales[a_idx]``, then ``bf16(v)`` (``_EPI_Q_BF16``), ``res +
+    bf16(v)`` (``_EPI_Q_RESIDUAL``, res bf16), or the int8 codes of
+    ``act(v)`` at the next scale ``act_scales[a_idx + 1]``
+    (``_EPI_Q_ACT_Q8``). The products and sums go through float64, exact
+    on any device (|sum| <= 127^2 * K < 2^53)."""
+    acc = torch.matmul(a_q.double(), w_q.double().t()).float()
+    v = acc * (act_scales[a_idx].float() * wscale.float()) + bias.float()
+    if epi == _EPI_Q_ACT_Q8:
+        q = torch.round(_apply_act(v, act) / act_scales[a_idx + 1].float())
+        return torch.clamp(q, -127, 127).to(torch.int8)
+    if epi == _EPI_Q_RESIDUAL:
+        return res + v.to(res.dtype)
+    return v.to(torch.bfloat16)
+
+
 def _gemm_s8(a, w, scale, bias, act_scales, a_idx: int, res, out, epi: int,
              act: int) -> None:
+    """cet_gemm_s8: ``out`` = the epilogue ``epi`` of the int8 product
+    ``a W^T`` (see :func:`gemm_s8_reference`). The kernel reads ``a``,
+    ``w`` and ``res`` and writes ``out`` by TMA in 16-byte rows, so those
+    must be contiguous with 16-byte aligned bases, K a multiple of 16, and
+    N of 16 for int8 output (8 for bf16); the scales and biases are read
+    by element."""
     m, k = a.numel() // a.shape[-1], a.shape[-1]
+    n = w.shape[0]
+    rows = [t for t in (a, w, res, out) if t is not None]
+    n_step = 16 if epi == _EPI_Q_ACT_Q8 else 8
+    if k % 16 or n % n_step:
+        raise ValueError(f"cet_gemm_s8 needs K a multiple of 16 and N of "
+                         f"{n_step} (TMA's 16-byte rows), not K={k} N={n}")
+    if not all(t.is_contiguous() for t in (*rows, scale, bias, act_scales)):
+        raise ValueError("cet_gemm_s8 takes contiguous operands")
+    if any(t.data_ptr() % 16 for t in rows):
+        raise ValueError("cet_gemm_s8 takes 16-byte aligned operands")
     _build.launch(
         "cet_gemm_s8", a.data_ptr(), w.data_ptr(), scale.data_ptr(),
         bias.data_ptr(), act_scales.data_ptr(), a_idx,
         res.data_ptr() if res is not None else None, out.data_ptr(),
-        m, w.shape[0], k, epi, act,
+        m, n, k, epi, act,
     )
 
 

@@ -2,9 +2,9 @@
 at edge shapes the main path does not reach: ragged tiles, every head dim,
 strided views, a zero weight row (int8), the training kernels (attention
 backward, fused_block_residuals) at ViT-L and text shapes, inf and NaN in
-the keys past kv_valid, a backward that repeats bit for bit, the bf16 GEMM
-alone over ragged M, N and K and every epilogue, the residual block inside
-an autograd backward, and the errors a wrapper raises.
+the keys past kv_valid, a backward that repeats bit for bit, the bf16 and
+int8 GEMMs alone over ragged M, N and K and every epilogue, the residual
+block inside an autograd backward, and the errors a wrapper raises.
 Marked ``cuda``; without a card they skip. On the card:
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py``."""
 
@@ -29,10 +29,15 @@ from clip_embeds_tpu_torch.models.serving import (
     int8_block_args,
 )
 from clip_embeds_tpu_torch.ops.fused_block import (
+    _ACTS,
     _EPI_ACT,
     _EPI_BIAS,
+    _EPI_Q_ACT_Q8,
+    _EPI_Q_BF16,
+    _EPI_Q_RESIDUAL,
     _EPI_RESIDUAL,
     _gemm,
+    _gemm_s8,
     fused_block,
     fused_block_int8,
     fused_block_int8_reference,
@@ -40,6 +45,7 @@ from clip_embeds_tpu_torch.ops.fused_block import (
     fused_block_residuals,
     fused_block_residuals_reference,
     gemm_reference,
+    gemm_s8_reference,
 )
 from clip_embeds_tpu_torch.ops.fused_block_ad import (
     BLOCK_PARAMS,
@@ -472,3 +478,112 @@ def test_fused_block_residuals_in_autograd_backward(cuda):
         # two bf16 backward formulas of one block (the training routes
         # agree with each other to >= 0.99 per tensor at ViT-L)
         assert cos >= 0.99, (name, cos)
+
+
+# cet_gemm_s8's three epilogues as (epi, a_idx): the projection whose
+# activation scale each reads in the block (qkv, out, fc)
+GEMM_S8_EPILOGUES = {"bf16": (_EPI_Q_BF16, 0),
+                     "residual": (_EPI_Q_RESIDUAL, 1),
+                     "act_q8": (_EPI_Q_ACT_Q8, 2)}
+# a[2] * s makes the sums of std ~1.6; a[3] puts act(v) over the codes
+GEMM_S8_ACT_SCALES = (0.021, 0.034, 0.027, 0.0315)
+
+
+def _gemm_s8_inputs(rng, m, n, k):
+    """int8 codes a [m, k] and w [n, k] (std 40), fp32 column scales and
+    biases (std 0.5), the four act scales, a bf16 residual [m, n]."""
+    def codes(*shape):
+        q = np.clip(np.round(40 * rng.standard_normal(shape)), -127, 127)
+        return torch.from_numpy(q.astype(np.int8)).cuda()
+
+    def f32(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).cuda()
+
+    wscale = (1 + 0.1 * rng.standard_normal(n)) / (30 * k ** 0.5)
+    return (codes(m, k), codes(n, k), f32(wscale),
+            f32(0.5 * rng.standard_normal(n)), f32(GEMM_S8_ACT_SCALES),
+            _bf16(rng, m, n))
+
+
+def _run_gemm_s8(a, w, wscale, bias, act_scales, res, epi, a_idx, act):
+    out = torch.empty(a.shape[0], w.shape[0], device="cuda",
+                      dtype=torch.int8 if epi == _EPI_Q_ACT_Q8
+                      else torch.bfloat16)
+    _gemm_s8(a, w, wscale, bias, act_scales, a_idx,
+             res if epi == _EPI_Q_RESIDUAL else None, out, epi, _ACTS[act])
+    return out
+
+
+def _check_gemm_s8(got, want, epi):
+    """bf16 and residual outputs bit-equal (exact int32 sums, the same
+    unfused fp32 steps); int8 codes equal but for +-1 flips in at most
+    1e-4 of the entries (the activation's exp and division round apart
+    from torch's, which moves a code at a .5 boundary)."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if epi != _EPI_Q_ACT_Q8:
+        assert torch.equal(got, want), (got.float() - want.float()).abs().max()
+        return
+    diff = (got.int() - want.int()).abs()
+    assert diff.max().item() <= 1, diff.max().item()
+    assert (diff > 0).sum().item() <= 1e-4 * diff.numel(), (
+        (diff > 0).sum().item(), diff.numel())
+
+
+@pytest.mark.parametrize("epilogue", list(GEMM_S8_EPILOGUES))
+@pytest.mark.parametrize("k", [32, 96, 1024, 4096])
+@pytest.mark.parametrize("n", [48, 144, 288, 3072])
+@pytest.mark.parametrize("m", [1, 63, 129, 2368])
+def test_gemm_s8_kernel_matches_plain(cuda, m, n, k, epilogue):
+    """cet_gemm_s8 alone: ragged M (1, 63, 129) and N (48, 144, 288) tile
+    edges, K tails under one 128-wide stage (32, 96), the serving image
+    rows (2368) and the projections' widths and depths; every epilogue,
+    the activation cycling over the three."""
+    epi, a_idx = GEMM_S8_EPILOGUES[epilogue]
+    act = ("quick", "erf", "tanh")[(m + n + k) % 3]
+    rng = np.random.default_rng(16)
+    args = _gemm_s8_inputs(rng, m, n, k)
+    with torch.inference_mode():
+        got = _run_gemm_s8(*args, epi, a_idx, act)
+        want = gemm_s8_reference(*args[:5], a_idx, args[5], epi, act)
+        torch.cuda.synchronize()
+    _check_gemm_s8(got, want, epi)
+
+
+def test_gemm_s8_kernel_is_deterministic(cuda):
+    """No split-K and no atomics: two calls are bit-equal, at the b32 image
+    rows' proj and at the text serving rows' qkv (the narrower tiles)."""
+    rng = np.random.default_rng(17)
+    for m, n, k in ((18944, 1024, 4096), (640, 2304, 768)):
+        args = _gemm_s8_inputs(rng, m, n, k)
+        for epi, a_idx in GEMM_S8_EPILOGUES.values():
+            with torch.inference_mode():
+                first = _run_gemm_s8(*args, epi, a_idx, "quick")
+                second = _run_gemm_s8(*args, epi, a_idx, "quick")
+            assert torch.equal(first, second)
+
+
+def test_gemm_s8_wrapper_rejects(cuda):
+    """What TMA cannot read or write: K not a multiple of 16, N not a
+    multiple of 16 for int8 output (8 for bf16), a base off 16 bytes, a
+    strided operand."""
+    rng = np.random.default_rng(18)
+    a, w, wscale, bias, scales, res = _gemm_s8_inputs(rng, 64, 64, 64)
+    out = torch.empty(64, 64, dtype=torch.bfloat16, device="cuda")
+    q8 = torch.empty(64, 56, dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError, match="multiple of 16"):  # K = 56
+        _gemm_s8(a[:, :56].contiguous(), w[:, :56].contiguous(), wscale,
+                 bias, scales, 0, None, out, _EPI_Q_BF16, 0)
+    with pytest.raises(ValueError, match="N of 16"):  # int8 N = 56
+        _gemm_s8(a, w[:56].contiguous(), wscale[:56], bias[:56], scales, 2,
+                 None, q8, _EPI_Q_ACT_Q8, 0)
+    with pytest.raises(ValueError, match="N of 8"):  # bf16 N = 60
+        _gemm_s8(a, w[:60].contiguous(), wscale[:60], bias[:60], scales, 0,
+                 None, out[:, :60].contiguous(), _EPI_Q_BF16, 0)
+    shifted = torch.empty(64 * 64 + 1, dtype=torch.int8,
+                          device="cuda")[1:].view(64, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        _gemm_s8(shifted, w, wscale, bias, scales, 0, None, out,
+                 _EPI_Q_BF16, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        _gemm_s8(a, w, wscale, bias, scales, 1, res.t(), out,
+                 _EPI_Q_RESIDUAL, 0)
