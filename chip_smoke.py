@@ -40,7 +40,22 @@ Phases, each of which raises on failure:
      against the plain fp32 composable path (one cosine over all, held
      also to a witness, the bf16 composable model with no kernel; and the
      least per tensor); train samples/s at batch 32 and 64 with peak
-     device memory.
+     device memory;
+  7. (run after 5, before 6) the eval and host-pipeline entry points at
+     full width and depth, on fixtures written from the seed into a
+     temporary directory (640x480 JPEGs of smooth fields with mild noise):
+     (a) cli/eval.py main, --scorer clip in bf16 on the card, on a
+     What'sUp-A fixture of 102 object pairs x 4 prepositions (--dataset a
+     and a4) and an MMVP-VLM fixture of 135 pairs (--dataset mmvpvlm),
+     each with its exact fused_block launches and samples/s; the scorer's
+     image and text embeddings against the plain fp32 composable path
+     (least row cosine >= 0.99), and its decisions against that path's on
+     every sample whose fp32 margin exceeds twice the largest score
+     difference; (b) cli/embed.py main --workers <cores> on 1024 JPEGs,
+     bf16 (composable + flash) and --int8 (fused_block_int8), each with its
+     exact launches, end-to-end img/s beside phase 5's device-only img/s
+     of the same route, on the decoder the card's machine provides
+     (EXPECTED_DECODER).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device it exits
@@ -51,11 +66,16 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import io
 import json
 import logging
+import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -150,6 +170,23 @@ GEMM_S8_FLIPS = 1e-4
 # the act scales of the int8 GEMM's inputs: a[2] * s gives sums of std
 # ~1.6, and a[3] spreads act(v) over the int8 codes
 GEMM_S8_ACT_SCALES = (0.021, 0.034, 0.027, 0.0315)
+# phase 7: the image decoder the card's machine gives the port. It has g++
+# and PIL but not the libjpeg / libpng / libwebp headers, so the native
+# library does not build there and images decode with PIL (probe on NVIDIA
+# H100 80GB HBM3, 700.00 W; PERF.md). Held exactly, so a build that starts
+# or stops working shows here.
+EXPECTED_DECODER = "pil"
+# What'sUp subset A's size, MMVP-VLM's (9 categories x 15 pairs), the
+# end-to-end image count and the fixtures' photo size (h, w)
+WHATSUP_PAIRS, MMVP_PAIRS, E2E_IMAGES, PHOTO = 102, 135, 1024, (480, 640)
+EVAL_BATCH, E2E_BATCH = 64, 32
+# the part of each fixture on which decisions are held to the fp32 path's
+AGREE_SAMPLES, AGREE_PAIRS = 128, 45
+WHATSUP_KEYS = ("left", "right", "on", "under")
+OPPOSITE = {"left": "right", "right": "left", "on": "under", "under": "on"}
+OBJECTS = ("mug", "book", "cup", "bowl", "can", "box", "plate", "lamp",
+           "phone", "shoe", "ball", "vase", "key", "pen", "clock", "hat",
+           "bottle")
 # H100 SXM data-sheet peaks (dense): bf16 and int8 tensor cores, HBM3
 PEAK_BF16, PEAK_INT8, HBM_BYTES_PER_S = 989e12, 1979e12, 3.35e12
 
@@ -754,6 +791,265 @@ def serving_routes(model, ref, images, texts, rng):
     }
 
 
+def write_photos(paths, seed):
+    """640x480 JPEGs of smooth random fields with mild noise, one seed a
+    file (pure noise decodes atypically slowly), written on all cores."""
+    from PIL import Image
+
+    def one(i):
+        rng = np.random.default_rng([seed, i])
+        low = Image.fromarray(rng.integers(0, 256, (6, 8, 3), np.uint8))
+        img = np.asarray(low.resize(PHOTO[::-1], Image.BICUBIC), np.int16)
+        img = img + rng.integers(-6, 7, img.shape, np.int16)
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+            paths[i], quality=90)
+
+    os.makedirs(os.path.dirname(paths[0]), exist_ok=True)
+    with ThreadPoolExecutor(os.cpu_count()) as pool:
+        list(pool.map(one, range(len(paths))))
+
+
+def write_whatsup(root, seed):
+    """What'sUp-A format: object pairs x 4 prepositions, captions ground
+    truth first (2 of the 4 options are kept for --dataset a)."""
+    dataset, paths = [], []
+    for p in range(WHATSUP_PAIRS):
+        o1, o2 = f"{OBJECTS[p % len(OBJECTS)]}{p}", f"table{p}"
+        for key in WHATSUP_KEYS:
+            name = f"{o1}_{key}_of_the_{o2}.jpeg"
+            gt = (f"A {o1} {key} of a {o2}" if key in ("left", "right")
+                  else f"A {o1} {key} a {o2}")
+            others = [k for k in WHATSUP_KEYS if k not in (key, OPPOSITE[key])]
+            dataset.append({
+                "image_path": f"data/controlled_images/{name}",
+                "caption_options": [gt, gt.replace(key, OPPOSITE[key])]
+                + [gt.replace(key, o) for o in others]})
+            paths.append(os.path.join(root, "controlled_images", name))
+    write_photos(paths, seed)
+    with open(os.path.join(root, "controlled_images_dataset.json"), "w") as fh:
+        json.dump(dataset, fh)
+
+
+def write_mmvp_vlm(root, seed):
+    """MMVP-VLM format: Questions.csv and MLLM_VLM_Images/<category>/."""
+    import csv
+
+    from clip_embeds_tpu_torch.evals.mmvp import MMVP_VLM_CATEGORIES
+
+    rows, paths = [["qid", "type", "statement"]], []
+    rng = np.random.default_rng(seed)
+    for qid in range(1, 2 * MMVP_PAIRS + 1):
+        cat = MMVP_VLM_CATEGORIES[(qid - 1) // 30]
+        rows.append([str(qid), cat, f"the {OBJECTS[rng.integers(17)]} is "
+                     f"{('left', 'open', 'red', 'two')[rng.integers(4)]}"])
+        paths.append(os.path.join(root, "MLLM_VLM_Images", cat, f"{qid}.jpg"))
+    for cat in MMVP_VLM_CATEGORIES:
+        os.makedirs(os.path.join(root, "MLLM_VLM_Images", cat), exist_ok=True)
+    write_photos(paths, seed)
+    with open(os.path.join(root, "Questions.csv"), "w", newline="") as fh:
+        csv.writer(fh).writerows(rows)
+
+
+def run_main(fn, argv):
+    """An entry point's main(argv), its return value and the JSON line it
+    prints last (its output is also echoed)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ret = fn(argv)
+    out = buf.getvalue()
+    sys.stdout.write(out)
+    return ret, json.loads(out.strip().splitlines()[-1])
+
+
+def recorded(fn, log):
+    def wrapped(*args):
+        out = fn(*args)
+        log.append(np.asarray(out, np.float64))
+        return out
+    return wrapped
+
+
+def check_eval(model, ref, drive, gpu):
+    """Phase 7 (a): the eval CLI on the card, then its scorer against the
+    plain fp32 path."""
+    from clip_embeds_tpu_torch.cli.eval import main as eval_main
+    from clip_embeds_tpu_torch.evals.mmvp import read_question_pairs
+    from clip_embeds_tpu_torch.evals.whatsup import (
+        eval_whatsup, load_annotation)
+    from clip_embeds_tpu_torch.scores.scorers import CLIPScorer
+
+    cfg = model.cfg
+    blocks = cfg.vision.layers - 1, cfg.text.layers  # CLS-only last: plain
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_whatsup(os.path.join(tmp, "whatsup"), 7)
+        write_mmvp_vlm(os.path.join(tmp, "mmvp"), 8)
+        print(f"[eval] fixtures: {4 * WHATSUP_PAIRS} What'sUp-A and "
+              f"{2 * MMVP_PAIRS} MMVP-VLM JPEGs at {PHOTO[1]}x{PHOTO[0]} "
+              f"in {time.perf_counter() - t0:.1f} s on {gpu}'s host")
+        n_img = 4 * WHATSUP_PAIRS
+        runs = {  # dataset: (root, the one call's fused_block launches)
+            "a": ("whatsup", math.ceil(n_img / EVAL_BATCH) * blocks[0]
+                  + math.ceil(2 * n_img / EVAL_BATCH) * blocks[1]),
+            "a4": ("whatsup", math.ceil(n_img / EVAL_BATCH) * blocks[0]
+                   + math.ceil(4 * n_img / EVAL_BATCH) * blocks[1]),
+            # one pair_score call a pair: 2 images, 2 statements
+            "mmvpvlm": ("mmvp", MMVP_PAIRS * sum(blocks)),
+        }
+        for dataset, (sub, want) in runs.items():
+            root = os.path.join(tmp, sub)
+            t0 = time.perf_counter()
+            (results, info), counts = drive(f"eval --dataset {dataset}", (
+                lambda: run_main(eval_main, [
+                    "--scorer", "clip", "--model", MODEL, "--pretrained",
+                    "openai", "--dataset", dataset, "--root-dir", root,
+                    "--results-file", os.path.join(tmp, "results.txt"),
+                    "--batch-size", str(EVAL_BATCH)])))
+            expect = {k: (want if k == "fused_block" else 0) for k in counts}
+            if counts != expect or info["route"] != "fused":
+                raise AssertionError(f"eval {dataset}: route {info['route']},"
+                                     f" launches {counts} != {expect}")
+            if not all(0 <= v <= 100 for v in results.values()):
+                raise AssertionError(f"eval {dataset}: {results}")
+            print(f"[eval] --dataset {dataset}: {info['samples_per_s']} "
+                  f"samples/s ({info['samples']} samples, {info['decoder']} "
+                  f"decode, bf16 fused route; main took "
+                  f"{time.perf_counter() - t0:.1f} s with its model build) "
+                  f"on {gpu}")
+            if info["decoder"] != EXPECTED_DECODER:
+                raise AssertionError(f"decoder {info['decoder']} != "
+                                     f"{EXPECTED_DECODER}")
+
+        # the scorer (bf16, fused) against the plain fp32 composable path
+        t0 = time.perf_counter()
+        ours = CLIPScorer(model, batch_size=EVAL_BATCH)
+        plain = CLIPScorer(ref, batch_size=EVAL_BATCH)
+        root, mroot = os.path.join(tmp, "whatsup"), os.path.join(tmp, "mmvp")
+        data, _ = load_annotation(root, "a")
+        paths = [os.path.join(root, d["image_path"][5:]) for d in data[:64]]
+        texts = [t for d in data[:32] for t in d["caption_options"]]
+        cos = {"image": float(row_cos(ours.encode_images(paths),
+                                      plain.encode_images(paths)).min()),
+               "text": float(row_cos(ours.encode_texts(texts),
+                                     plain.encode_texts(texts)).min())}
+        print(f"[eval] scorer min row cosine vs plain fp32 (limit 0.99): "
+              f"{cos}")
+        if min(cos.values()) < 0.99:
+            raise AssertionError(f"scorer embeddings disagree: {cos}")
+        # the fp32 path decodes and encodes every image again: the check is
+        # cut to a part of each fixture to keep phase 7 near its budget
+        pairs = read_question_pairs(os.path.join(mroot, "Questions.csv"))
+        pairs = pairs[:AGREE_PAIRS]
+        print(f"[eval] decisions against fp32: the first "
+              f"{min(AGREE_SAMPLES, len(data))} of {len(data)} What'sUp-A "
+              f"samples and {len(pairs)} of "
+              f"{MMVP_PAIRS} MMVP-VLM pairs (cut for time)")
+
+        def mmvp_pairs(scorer, log):
+            """eval_mmvp's pair_score calls, on the first pairs."""
+            for (q1, cat, t1), (q2, _, t2) in pairs:
+                log.append(scorer.pair_score(
+                    [os.path.join(mroot, "MLLM_VLM_Images", cat, f"{q}.jpg")
+                     for q in (q1, q2)],
+                    ["a photo of " + t1, "a photo of " + t2]))
+
+        for dataset, run in (
+                ("a", lambda s, log: eval_whatsup(
+                    recorded(s.score_batch, log), data[:AGREE_SAMPLES],
+                    root)),
+                ("mmvpvlm", mmvp_pairs)):
+            logs = [], []
+            for scorer, log in zip((ours, plain), logs):
+                run(scorer, log)
+            # "a": one score_batch call of [2] rows; mmvpvlm: a [2, 2]
+            # matrix a call
+            got, want = (np.concatenate(log) if dataset == "a"
+                         else np.stack(log) for log in logs)
+            if dataset == "a":  # option 0 against option 1
+                margin = want[:, 0] - want[:, 1]
+                agree = (got[:, 0] > got[:, 1]) == (margin > 0)
+            else:  # P(image 1) of each statement against 0.5
+                margin = (want[:, :, 0] - 0.5).ravel()
+                agree = ((got[:, :, 0] > 0.5).ravel() == (margin > 0))
+            diff = float(np.abs(got - want).max())
+            clear = np.abs(margin) > 2 * diff
+            print(f"[eval] --dataset {dataset}: largest score difference "
+                  f"bf16 vs fp32 {diff:.3g}; decisions agree on "
+                  f"{int(agree[clear].sum())} of {int(clear.sum())} samples "
+                  f"with margin > 2x it ({int(agree.sum())} of {agree.size} "
+                  f"in all)")
+            if not agree[clear].all():
+                raise AssertionError(f"eval {dataset}: a clear decision "
+                                     "differs from the fp32 path's")
+        print(f"[eval] scorer checks took {time.perf_counter() - t0:.1f} s "
+              f"on {gpu}")
+
+
+def check_end_to_end(drive, device_ips, embed_dim, gpu):
+    """Phase 7 (b): cli/embed.py main from JPEG files, bf16 and --int8."""
+    from clip_embeds_tpu_torch.cli.embed import main as embed_main
+
+    cores = os.cpu_count()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, "img", f"{i:04d}.jpg")
+                 for i in range(E2E_IMAGES)]
+        t0 = time.perf_counter()
+        write_photos(paths, 9)
+        print(f"[e2e] {E2E_IMAGES} JPEGs at {PHOTO[1]}x{PHOTO[0]} written in "
+              f"{time.perf_counter() - t0:.1f} s on {gpu}'s host")
+        n_batches = math.ceil(E2E_IMAGES / E2E_BATCH)
+        embs = {}
+        for label, flags, route, device_key, want in (
+                ("bf16", [], "composable",
+                 "images_per_s composable+flash",
+                 {"flash_attention": 24 * n_batches}),
+                ("int8", ["--int8"], "fused_int8",
+                 "images_per_s fused_encode_image_int8",
+                 # the int8 blocks (the last image block is CLS-only
+                 # bf16), and the calibration pass of a dynamic-quant copy
+                 # on the first 16 images, whose attention is the kernel
+                 {"fused_block_int8": 23 * n_batches,
+                  "flash_attention": 24})):
+            out = os.path.join(tmp, f"{label}.npy")
+            t0 = time.perf_counter()
+            (rc, info), counts = drive(f"e2e {label}", lambda: run_main(
+                embed_main, ["--model", MODEL, "--pretrained", "openai",
+                             "--input", os.path.join(tmp, "img"),
+                             "--output", out, "--batch-size",
+                             str(E2E_BATCH), "--workers", str(cores),
+                             *flags]))
+            expect = {k: want.get(k, 0) for k in counts}
+            if rc != 0 or info["route"] != route or counts != expect:
+                raise AssertionError(f"e2e {label}: rc {rc}, route "
+                                     f"{info['route']}, launches {counts} "
+                                     f"!= {expect}")
+            if info["decoder"] != EXPECTED_DECODER:
+                raise AssertionError(f"decoder {info['decoder']} != "
+                                     f"{EXPECTED_DECODER}")
+            emb = np.load(out)
+            with open(out + ".paths.json") as fh:
+                kept = json.load(fh)
+            norms = np.linalg.norm(emb, axis=-1)
+            if kept != paths or emb.shape != (E2E_IMAGES, embed_dim) \
+                    or not np.isfinite(emb).all() \
+                    or np.abs(norms - 1).max() > 2e-2:
+                raise AssertionError(f"e2e {label}: {emb.shape}, norms "
+                                     f"{norms.min()}..{norms.max()}")
+            embs[label] = emb
+            e2e, dev = info["images_per_sec"], device_ips[device_key]
+            print(f"[e2e] {label} ({route}): {e2e} img/s end to end from "
+                  f"JPEG files ({info['decoder']} decode, --workers {cores}, "
+                  f"{cores} cores, batch {E2E_BATCH}) against {dev:.1f} img/s "
+                  f"device-only (phase 5, b32); device idle share ~ "
+                  f"{1 - e2e / dev:.3f} (1 - end-to-end / device-only); main "
+                  f"took {time.perf_counter() - t0:.1f} s with its model "
+                  f"build, on {gpu}")
+        cos8 = float(row_cos(embs["int8"], embs["bf16"]).min())
+        print(f"[e2e] int8 vs bf16 min row cosine (limit 0.99): {cos8}")
+        if cos8 < 0.99:
+            raise AssertionError(f"e2e int8 embeddings disagree: {cos8}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card",
@@ -825,8 +1121,7 @@ def main() -> int:
         out = serve()
         torch.cuda.synchronize()
         counts = {k: fn.launches for k, fn in counters.items()}
-        print(f"[main path] {label}: {REQUESTS} image + {REQUESTS} text "
-              f"requests of {REQUEST_SIZE}; launches {counts}")
+        print(f"[main path] {label}: launches {counts}")
         return out, counts
 
     n = REQUESTS * REQUEST_SIZE
@@ -840,7 +1135,9 @@ def main() -> int:
                                      f"{emb.shape}, norms {norms.min()}.."
                                      f"{norms.max()}")
 
-    (img, txt), launches = drive("bf16", lambda: (
+    requests = (f"{REQUESTS} image + {REQUESTS} text requests of "
+                f"{REQUEST_SIZE}")
+    (img, txt), launches = drive(f"bf16, {requests}", lambda: (
         embed_image_batches(model, images, REQUEST_SIZE),
         embed_text_batches(model, texts, REQUEST_SIZE)))
     if launches["flash_attention"] == 0 or launches["fused_block"] == 0:
@@ -860,7 +1157,7 @@ def main() -> int:
     if min(cos.values()) < 0.99:
         raise AssertionError(f"embeddings disagree: {cos}")
 
-    (img8, txt8), launches8 = drive("int8", lambda: (
+    (img8, txt8), launches8 = drive(f"int8, {requests}", lambda: (
         embed_image_batches(ref, images, REQUEST_SIZE, int8=True,
                             dtype=bf16),
         embed_text_batches(ref, texts, REQUEST_SIZE, int8=True,
@@ -879,14 +1176,25 @@ def main() -> int:
         raise AssertionError(f"int8 embeddings disagree: {cos8}")
 
     # 5. throughput (device name and power limit beside every number)
+    device_ips = {}
     with torch.inference_mode():
         routes = serving_routes(model, ref, images, texts, rng)
         for name, (count, fn) in routes.items():
             ms = cuda_ms(fn, iters=5, warmup=1)
+            device_ips[name] = count / ms * 1e3
             print(f"[throughput] {name}: {count / ms * 1e3:.1f} "
                   f"(batch {count}, {ms:.2f} ms) on {gpu}")
+    del routes, fn  # fn: the last route's call holds ref
+    gc.collect()
 
-    del model, ref, routes, fn  # fn: the last route's call holds ref
+    # 7. the eval CLI and the host image pipeline, end to end
+    t0 = time.perf_counter()
+    check_eval(model, ref, drive, gpu)
+    del model, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_end_to_end(drive, device_ips, cfg.embed_dim, gpu)
+    print(f"[phase 7] {time.perf_counter() - t0:.1f} s on {gpu}")
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -1,12 +1,22 @@
 """Batch image / text embedding on the card (counterpart of
 ``clip_embeds_tpu/cli/embed.py``).
 
-Images are decoded on the host with PIL (corrupt files are skipped) and go
-through the composable ``encode_image``, whose attention takes the CUDA
-flash kernel for bf16 on the card. Texts go through ``fused_encode_text``
-(the fused-block kernels) on the card in bf16 when the shapes allow, else
-through the composable ``encode_text``. On the CPU both run the plain
-PyTorch paths. The tail batch is padded to the batch size and sliced after.
+Images are read and decoded ahead of the card by ``image/loader.py``'s
+``PrefetchLoader``: a background thread runs the native C++ pipeline
+(``native/decode.cpp``; JPEG/PNG/WebP decode, resize, crop and normalize on
+``--workers`` threads) where its library builds, else PIL on as many
+threads. Undecodable files are skipped and device batches repack across
+loader batches. ``--fast-jpeg`` (DCT-domain downscaled JPEG decode) needs
+the native library, since its pixels differ from PIL's. Each batch is
+copied to the card from pinned host memory without blocking, and the
+embeddings stay on the card until one fetch at the end.
+
+Images go through the composable ``encode_image``, whose attention takes
+the CUDA flash kernel for bf16 on the card. Texts go through
+``fused_encode_text`` (the fused-block kernels) on the card in bf16 when
+the shapes allow, else through the composable ``encode_text``. On the CPU
+both run the plain PyTorch paths. The tail batch is padded to the batch
+size and sliced after.
 
 ``--int8`` serves W8A8 (``models/quant.py``), with int8 weights quantised
 from the fp32 weights and static activation scales calibrated on the first
@@ -15,12 +25,13 @@ where the shapes allow, both towers run ``fused_encode_*_int8`` (the
 ``fused_block_int8`` kernels, which compute in bf16: ``--int8 --fp32``
 raises there). Elsewhere images take the composable static-quant model
 and texts stay on the composable fp tower, as the JAX CLI routes off the
-TPU. The JSON line names the route.
+TPU. The JSON line names the route and the image decoder that ran.
 
 Usage:
   python -m clip_embeds_tpu_torch.cli.embed --model ViT-L-14-336 \
       --pretrained /ckpt.pt --input /data/images --output emb.npy \
-      [--batch-size 256] [--fp32] [--int8] [--device cuda|cpu]
+      [--batch-size 256] [--fp32] [--int8] [--workers N] [--fast-jpeg] \
+      [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -36,6 +47,8 @@ from typing import Iterable, List, Optional
 
 import numpy as np
 import torch
+
+from ..core.factory import create_model, device_name, resolve_device
 
 IMAGE_EXTS = {".jpg", ".jpeg", ".png", ".bmp", ".webp"}
 
@@ -63,12 +76,24 @@ def _pad_tail(arr: np.ndarray, batch_size: int) -> np.ndarray:
         [arr, np.repeat(arr[-1:], batch_size - len(arr), axis=0)])
 
 
+def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host batch on ``device``. To the card it is copied from pinned
+    memory without blocking; the pinned buffer comes from PyTorch's caching
+    host allocator, which records an event for the copy and hands the
+    buffer out again only after that copy has finished, so the host can
+    stage the next batch while this one is in flight."""
+    x = torch.from_numpy(arr)
+    if device.type != "cuda":
+        return x.to(device)
+    return x.pin_memory().to(device, non_blocking=True)
+
+
 def _run(encode, batches: Iterable[np.ndarray], batch_size: int,
          device: torch.device) -> np.ndarray:
     outputs = []
     with torch.inference_mode():
         for arr in batches:
-            x = torch.from_numpy(_pad_tail(arr, batch_size)).to(device)
+            x = _to_device(_pad_tail(arr, batch_size), device)
             outputs.append(encode(x)[: len(arr)])
     if not outputs:
         return np.zeros((0, 0), np.float32)
@@ -84,15 +109,6 @@ def _as_dtype(model, dtype: torch.dtype):
 
 def _on_card(model) -> bool:
     return model.visual.proj.is_cuda
-
-
-def _fused_ok(model, dtype: torch.dtype) -> bool:
-    """The fused-block kernels take bf16 on the card, at the fused
-    shapes."""
-    from ..models.serving import fused_path_available
-
-    return (_on_card(model) and dtype == torch.bfloat16
-            and fused_path_available(model))
 
 
 def _int8_fused(model, dtype: torch.dtype) -> bool:
@@ -173,7 +189,9 @@ def text_route(model, int8: bool = False,
     dtype = dtype or model.text_projection.dtype
     if int8:
         return "fused_int8" if _int8_fused(model, dtype) else "composable"
-    return "fused" if _fused_ok(model, dtype) else "composable"
+    from ..models.serving import fused_route
+
+    return "fused" if fused_route(model, dtype) else "composable"
 
 
 def embed_text_batches(model, batches: Iterable[np.ndarray],
@@ -219,11 +237,6 @@ def embed_text_batches(model, batches: Iterable[np.ndarray],
                 itertools.chain([first], batches), batch_size, device)
 
 
-def _device_name(device: torch.device) -> str:
-    return torch.cuda.get_device_name(device) if device.type == "cuda" \
-        else "cpu"
-
-
 def _embed_texts(args, model, dtype: torch.dtype) -> int:
     """One caption per line -> [N, D] .npy."""
     from ..text.tokenizer import get_tokenizer
@@ -248,7 +261,7 @@ def _embed_texts(args, model, dtype: torch.dtype) -> int:
         "seconds": round(elapsed, 3),
         "texts_per_sec": round(len(texts) / elapsed, 2),
         "route": text_route(model, args.int8, dtype),
-        "device": _device_name(model.text_projection.device),
+        "device": device_name(model.text_projection.device),
         "output": args.output,
     }))
     return 0
@@ -269,6 +282,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--fp32", dest="bf16", action="store_false")
     ap.add_argument("--int8", action="store_true",
                     help="int8 W8A8 serving path (models/quant.py)")
+    ap.add_argument("--workers", type=int, default=os.cpu_count() or 8,
+                    help="image decode threads")
+    ap.add_argument("--fast-jpeg", action="store_true",
+                    help="DCT-domain downscaled JPEG decode (faster host "
+                    "pipeline; pixels deviate slightly from PIL-exact; "
+                    "needs the native library)")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (the default: exits if there is no card) "
                     "or 'cpu'")
@@ -279,11 +298,17 @@ def main(argv: Optional[List[str]] = None) -> int:
               file=sys.stderr)
         return 1
 
-    from ..core.factory import create_model, resolve_device
-    from ..image import load_image
+    from ..image.loader import PrefetchLoader
+    from ..native.build import decoder_name
 
     device = resolve_device(args.device)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
+    decoder = decoder_name() if args.input is not None else None
+    if args.fast_jpeg and decoder == "pil":
+        print("--fast-jpeg needs the native image library, which did not "
+              "build (see the error above); PIL's pixels differ from it",
+              file=sys.stderr)
+        return 1
     # --int8 quantises from fp32 weights, as the JAX package does
     model = create_model(args.model, pretrained=args.pretrained,
                          dtype=torch.float32 if args.int8 else dtype,
@@ -298,19 +323,25 @@ def main(argv: Optional[List[str]] = None) -> int:
     size = model.cfg.vision.image_size
     bs = args.batch_size
     kept_paths: List[str] = []
+    # The loader decodes batch i+1 in a background thread while the card
+    # runs batch i; undecodable files are dropped (wds log_and_continue
+    # semantics), so device batches repack across loader batches.
+    loader = PrefetchLoader(paths, batch_size=bs, image_size=size,
+                            fast_jpeg=args.fast_jpeg,
+                            num_threads=args.workers)
 
     def batches():
         batch: List[np.ndarray] = []
-        for path in paths:
-            arr = load_image(path, size)
-            if arr is None:
-                print(f"skip {path}: undecodable", file=sys.stderr)
-                continue
-            kept_paths.append(path)
-            batch.append(arr)
-            if len(batch) == bs:
-                yield np.stack(batch)
-                batch = []
+        for chunk, arrs, ok in loader:
+            for path, arr, good in zip(chunk, arrs, ok):
+                if not good:
+                    print(f"skip {path}: undecodable", file=sys.stderr)
+                    continue
+                kept_paths.append(path)
+                batch.append(arr)
+                if len(batch) == bs:
+                    yield np.stack(batch)
+                    batch = []
         if batch:
             yield np.stack(batch)
 
@@ -330,7 +361,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         "seconds": round(elapsed, 3),
         "images_per_sec": round(len(kept_paths) / elapsed, 2),
         "route": image_route(model, args.int8, dtype),
-        "device": _device_name(device),
+        "decoder": decoder,
+        "workers": args.workers,
+        "device": device_name(device),
         "output": args.output,
     }))
     return 0

@@ -1,0 +1,138 @@
+"""Evaluation CLI (counterpart of ``clip_embeds_tpu/cli/eval.py``): the
+reference's per-family drivers behind one dispatcher, with ``--scorer clip``
+on What'sUp A/B (2 and 4 options), COCO/VG-spatial one/two objects, MMVP
+and MMVP-VLM.
+
+  python -m clip_embeds_tpu_torch.cli.eval --scorer clip \
+      --model ViT-L-14-336 --pretrained /path/ckpt.pt --dataset a \
+      --root-dir /data/whatsup [--precision bf16|fp32] [--device cuda|cpu]
+
+It takes the JAX CLI's arguments, and ``--device`` (default ``cuda``: an
+error without a card unless given ``--device cpu``). The other scorers,
+and the PACL/SPARC heads' flags, exit naming the ROADMAP.md item that
+will port them. Images decode on the
+native C++ pipeline where its library builds, else with PIL. The results
+table is printed as the JAX CLI prints it, then one JSON line naming the
+scorer's route, the decoder that ran, the device and the samples/s.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import time
+
+# scorers and JAX flags this CLI does not take yet, by the ROADMAP.md item
+# that will port them
+_PACL = "queue 1 item 9 (PACL/SPARC)"
+_UNPORTED_SCORERS = {
+    "siglip": "queue 1 item 10 (SigLIP)",
+    "pacl": _PACL,
+    "sparc": _PACL,
+    "embedding": "queue 1 item 12 (VLM2Vec)",
+}
+_UNPORTED_FLAGS = ("--rope", "--sparc-local")  # the PACL/SPARC heads'
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser("clip_embeds_tpu_torch eval")
+    p.add_argument("--scorer", default="clip",
+                   choices=["clip", "siglip", "pacl", "sparc", "embedding"])
+    p.add_argument("--model", default="ViT-L-14-336")
+    p.add_argument("--pretrained", default=None)
+    p.add_argument("--model-path", default=None,
+                   help="PACL/SPARC head checkpoint or LLaVA params (named "
+                   "in the results file; the scorers that read it are not "
+                   "ported yet)")
+    p.add_argument("--dataset", default="a",
+                   choices=["a", "b", "a4", "b4", "cocoone", "cocotwo",
+                            "vgone", "vgtwo", "mmvp", "mmvpvlm"])
+    p.add_argument("--root-dir", required=True)
+    p.add_argument("--results-file", default="evaluation_results.txt")
+    p.add_argument("--batch-size", type=int, default=64)
+    p.add_argument("--precision", default="bf16", choices=["bf16", "fp32"])
+    p.add_argument("--device", default="cuda",
+                   help="'cuda' (the default: exits if there is no card) "
+                   "or 'cpu'")
+    for flag in _UNPORTED_FLAGS:
+        p.add_argument(flag, nargs="*", default=argparse.SUPPRESS,
+                       help=f"not ported yet: ROADMAP.md {_PACL}")
+    args = p.parse_args(argv)
+    for flag in _UNPORTED_FLAGS:
+        if hasattr(args, flag[2:].replace("-", "_")):
+            p.error(f"{flag} is not ported yet: ROADMAP.md {_PACL}")
+    if args.scorer in _UNPORTED_SCORERS:
+        p.error(f"--scorer {args.scorer} is not ported yet: ROADMAP.md "
+                f"{_UNPORTED_SCORERS[args.scorer]}")
+    return args
+
+
+def build_scorer(args):
+    import torch
+
+    from ..core.factory import create_model, resolve_device
+    from ..scores.scorers import CLIPScorer
+
+    device = resolve_device(args.device)
+    dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
+    model = create_model(args.model, args.pretrained, dtype=dtype,
+                         device=device)
+    return CLIPScorer(model, batch_size=args.batch_size)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    logging.basicConfig(level=logging.INFO)
+
+    from ..core.factory import device_name
+    from ..evals.mmvp import eval_mmvp
+    from ..evals.whatsup import eval_coco_vg, eval_whatsup, load_annotation
+    from ..native.build import decoder_name
+
+    scorer = build_scorer(args)
+    with open(args.results_file, "a") as f:
+        f.write("Model path: {} ".format(args.model_path or args.model))
+        f.write("Dataset: {}\n".format(args.dataset))
+
+    t0 = time.perf_counter()
+    if args.dataset in ("mmvp", "mmvpvlm"):
+        pairs = []
+
+        def pair_score(images, texts):
+            pairs.append(images)
+            return scorer.pair_score(images, texts)
+
+        results = eval_mmvp(
+            pair_score, args.root_dir, args.dataset,
+            results_file=args.results_file,
+        )
+        samples = len(pairs)
+    else:
+        dataset, _ = load_annotation(args.root_dir, args.dataset)
+        if args.dataset in ("a", "b", "a4", "b4"):
+            results = eval_whatsup(
+                scorer.score_batch, dataset, args.root_dir,
+                four_option=args.dataset.endswith("4"),
+                results_file=args.results_file,
+            )
+        else:
+            results = eval_coco_vg(
+                scorer.score_batch, dataset, args.root_dir,
+                "coco" if args.dataset.startswith("coco") else "vg",
+                results_file=args.results_file,
+            )
+        samples = len(dataset)
+    seconds = time.perf_counter() - t0
+    print(json.dumps(results, indent=2))
+    print(json.dumps({
+        "scorer": args.scorer, "route": scorer.route,
+        "decoder": decoder_name(), "device": device_name(scorer.device),
+        "samples": samples, "seconds": round(seconds, 3),
+        "samples_per_s": round(samples / seconds, 2),
+    }))
+    return results
+
+
+if __name__ == "__main__":
+    main()

@@ -68,6 +68,12 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
+def device_name(device: torch.device) -> str:
+    """The card's name, or 'cpu', for an entry point's output."""
+    return torch.cuda.get_device_name(device) if device.type == "cuda" \
+        else "cpu"
+
+
 def create_model(
     name: str,
     pretrained: Optional[str] = None,

@@ -220,6 +220,15 @@ def fused_path_available(model) -> bool:
     )
 
 
+def fused_route(model, dtype: torch.dtype) -> bool:
+    """Whether serving in ``dtype`` takes the fused-block kernels: on the
+    card, in bf16 (the kernels' type), at shapes
+    :func:`fused_path_available` takes. Elsewhere the composable towers
+    serve, as the JAX package serves off the TPU."""
+    return (model.visual.proj.is_cuda and dtype == torch.bfloat16
+            and fused_path_available(model))
+
+
 # -- W8A8 fused serving path -------------------------------------------------
 
 # fused_block_int8's weight arguments, in order (the JAX package's)

@@ -126,3 +126,89 @@ def test_list_images_and_manifest(tmp_path):
     manifest = tmp_path / "list.txt"
     manifest.write_text("\n".join(paths[:3]))
     assert list_images(str(manifest)) == paths[:3]
+
+
+def _skips(err):
+    return sorted(ln for ln in err.splitlines() if ln.startswith("skip "))
+
+
+def test_workers_rows_match_jax_cli(tmp_path, checkpoint, capsys):
+    """--workers 2 through the prefetch loader: the JAX CLI's rows, the same
+    manifest and the same skip of the corrupt file."""
+    _mk_images(tmp_path)
+    common = ["--model", "test-tiny", "--pretrained", checkpoint,
+              "--input", str(tmp_path), "--batch-size", "4", "--fp32",
+              "--workers", "2"]
+    ours, theirs = tmp_path / "ours.npy", tmp_path / "jax.npy"
+    assert main(common + ["--output", str(ours), "--device", "cpu"]) == 0
+    out, err = capsys.readouterr()
+    result = json.loads(out.strip().splitlines()[-1])
+    assert result["workers"] == 2 and result["decoder"] in ("native", "pil")
+    assert jax_main(common + ["--output", str(theirs),
+                              "--no-data-parallel"]) == 0
+    assert _skips(err) == _skips(capsys.readouterr().err) == [
+        f"skip {tmp_path / 'sub' / 'bad.jpg'}: undecodable"]
+    a, b = np.load(ours), np.load(theirs)
+    assert a.shape == b.shape == (10, 64)
+    assert _cos(a, b).min() >= 0.9999, _cos(a, b)
+    assert json.load(open(str(ours) + ".paths.json")) == \
+        json.load(open(str(theirs) + ".paths.json"))
+
+
+def _mk_photos(root, n=6):
+    """Smooth fields with mild noise, large enough (240 x 320 against the
+    32-pixel crop) that --fast-jpeg decodes at a reduced DCT scale."""
+    root.mkdir(exist_ok=True)
+    rng = np.random.default_rng(3)
+    y, x = np.mgrid[0:240, 0:320].astype(np.float32)
+    for i in range(n):
+        f = rng.uniform(0.005, 0.03, (3, 2))
+        img = np.stack([128 + 90 * np.sin(x * f[c, 0] + i)
+                        + 30 * np.cos(y * f[c, 1]) for c in range(3)], -1)
+        img += rng.normal(0, 4, img.shape)
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+            root / f"{i}.jpg", quality=90)
+
+
+def test_fast_jpeg_agrees_with_the_pil_path(tmp_path, checkpoint):
+    """--fast-jpeg decodes at a reduced scale, so its rows differ from the
+    PIL-exact path's by a little (row cosine >= 0.9999 here), and equal the
+    JAX CLI's --fast-jpeg rows."""
+    from clip_embeds_tpu_torch.native.build import load_library
+
+    if load_library() is None:
+        pytest.skip("native library unavailable (no g++ or image headers)")
+    _mk_photos(tmp_path / "photos")
+    common = ["--model", "test-tiny", "--pretrained", checkpoint, "--input",
+              str(tmp_path / "photos"), "--batch-size", "4", "--fp32"]
+    exact, fast, theirs = (tmp_path / f"{k}.npy"
+                           for k in ("exact", "fast", "jax"))
+    assert main(common + ["--output", str(exact), "--device", "cpu"]) == 0
+    assert main(common + ["--output", str(fast), "--device", "cpu",
+                          "--fast-jpeg"]) == 0
+    assert jax_main(common + ["--output", str(theirs), "--fast-jpeg",
+                              "--no-data-parallel"]) == 0
+    a, b = np.load(exact), np.load(fast)
+    assert a.shape == b.shape == (6, 64) and not np.array_equal(a, b)
+    assert _cos(a, b).min() >= 0.9999, _cos(a, b)
+    assert _cos(b, np.load(theirs)).min() >= 0.9999
+
+
+def test_fast_jpeg_needs_the_native_library(tmp_path, checkpoint, capsys,
+                                            monkeypatch):
+    """Without the native library images decode with PIL and the JSON line
+    says so; --fast-jpeg, whose pixels PIL cannot give, is an error."""
+    from clip_embeds_tpu_torch.native import build
+
+    monkeypatch.setattr(build, "load_library", lambda: None)
+    _mk_images(tmp_path)
+    args = ["--model", "test-tiny", "--pretrained", checkpoint, "--input",
+            str(tmp_path), "--output", str(tmp_path / "x.npy"), "--device",
+            "cpu", "--fp32", "--batch-size", "4"]
+    assert main(args + ["--fast-jpeg"]) == 1
+    assert "--fast-jpeg needs the native image library" in \
+        capsys.readouterr().err
+    assert not (tmp_path / "x.npy").exists()
+    assert main(args) == 0
+    result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert result["decoder"] == "pil" and result["images"] == 10

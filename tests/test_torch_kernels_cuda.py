@@ -587,3 +587,73 @@ def test_gemm_s8_wrapper_rejects(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         _gemm_s8(a, w, wscale, bias, scales, 1, res.t(), out,
                  _EPI_Q_RESIDUAL, 0)
+
+
+def test_scorer_card_route_matches_plain_path(cuda):
+    """CLIPScorer on the card in bf16 takes the fused-block kernels for both
+    towers (one fused_block launch a block a padded batch) and agrees with
+    the plain fp32 composable path on the same weights; in fp32 on the card
+    it takes the composable route, as cli/embed.py --fp32 does."""
+    from clip_embeds_tpu_torch.core.factory import create_model
+    from clip_embeds_tpu_torch.scores.scorers import CLIPScorer
+
+    rng = np.random.default_rng(19)
+    images = [rng.integers(0, 256, (40, 56, 3), dtype=np.uint8)
+              for _ in range(7)]
+    texts = [f"a photo of {k} things" for k in range(5)]
+    bf16 = CLIPScorer(create_model("test-tiny", seed=3, dtype=torch.bfloat16,
+                                   device=cuda), batch_size=4)
+    fp32 = CLIPScorer(create_model("test-tiny", seed=3, device=cuda),
+                      batch_size=4)
+    assert (bf16.route, fp32.route) == ("fused", "composable")
+    fused_block.launches = 0
+    img, txt = bf16.encode_images(images), bf16.encode_texts(texts)
+    cfg = bf16.model.cfg
+    # 2 padded image batches (the CLS-only last block is plain), 2 text
+    assert fused_block.launches == (2 * (cfg.vision.layers - 1)
+                                    + 2 * cfg.text.layers)
+    for got, want in ((img, fp32.encode_images(images)),
+                      (txt, fp32.encode_texts(texts))):
+        assert got.dtype == np.float32 and got.shape == want.shape
+        cos = (got * want).sum(-1) / (np.linalg.norm(got, axis=-1)
+                                      * np.linalg.norm(want, axis=-1))
+        assert cos.min() >= 0.99, cos
+
+
+def test_pinned_pipeline_equals_a_synchronous_one(cuda):
+    """embed_image_batches / embed_text_batches (non-blocking copies from
+    pinned memory, outputs fetched once) give bit for bit what one blocking
+    copy and one fetch a batch give."""
+    from clip_embeds_tpu_torch.cli.embed import (
+        embed_image_batches,
+        embed_text_batches,
+    )
+    from clip_embeds_tpu_torch.core.factory import create_model
+    from clip_embeds_tpu_torch.models.serving import fused_encode_text
+
+    model = create_model("test-tiny", seed=4, dtype=torch.bfloat16,
+                         device=cuda)
+    rng = np.random.default_rng(20)
+    batches = [rng.standard_normal((n, 32, 32, 3)).astype(np.float32)
+               for n in (8, 8, 8, 3)]
+    ids = [rng.integers(1, 49406, (n, 77)).astype(np.int64)
+           for n in (8, 8, 5)]
+    for row in np.concatenate(ids):
+        row[int(rng.integers(2, 77))] = 49407  # EOT, the pooled position
+
+    def sync(encode, arrs):
+        outs = []
+        with torch.inference_mode():
+            for a in arrs:
+                pad = np.concatenate([a, np.repeat(a[-1:], 8 - len(a), 0)])
+                x = torch.from_numpy(pad).to(cuda)
+                outs.append(encode(x)[: len(a)].float().cpu().numpy())
+        return np.concatenate(outs)
+
+    np.testing.assert_array_equal(
+        embed_image_batches(model, batches, 8),
+        sync(lambda x: model.encode_image(x.bfloat16(), normalize=True),
+             batches))
+    np.testing.assert_array_equal(
+        embed_text_batches(model, ids, 8),
+        sync(lambda x: fused_encode_text(model, x), ids))
