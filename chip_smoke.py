@@ -55,7 +55,22 @@ Phases, each of which raises on failure:
      bf16 (composable + flash) and --int8 (fused_block_int8), each with its
      exact launches, end-to-end img/s beside phase 5's device-only img/s
      of the same route, on the decoder the card's machine provides
-     (EXPECTED_DECODER).
+     (EXPECTED_DECODER);
+  8. (run after 7 (a), on its fixtures and phase 4's models) the PACL/SPARC
+     heads: (a) cli/train_pacl.py main at batch 64 for 3 steps (synthetic
+     batches, fp32 head) on the frozen tower's kernel routes, --objective
+     pacl --frozen-tower fused (fused_block) and int8 (fused_block_int8),
+     --objective sparc --frozen-tower fused, each with its exact launches,
+     the gate's patch-token cosine against the composable fp32 tower
+     (>= 0.999), finite losses, samples/s, peak device memory, and a saved
+     .npz head in the JAX layout whose every tensor moved; (b) cli/eval.py
+     main with those heads in bf16 (composable towers: the flash kernel in
+     the image tower), --scorer pacl on What'sUp-A and MMVP-VLM and
+     --scorer sparc --sparc-local on the first 128 What'sUp-A samples,
+     with exact launches and samples/s; the scorers' image-side head
+     outputs (bf16 towers through the flash kernel, exact launches)
+     against the plain fp32 path (least row cosine >= 0.99) and their
+     clear decisions against that path's, as in 7 (a).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device it exits
@@ -187,6 +202,17 @@ OPPOSITE = {"left": "right", "right": "left", "on": "under", "under": "on"}
 OBJECTS = ("mug", "book", "cup", "bowl", "can", "box", "plate", "lamp",
            "phone", "shoe", "ball", "vase", "key", "pen", "clock", "hat",
            "bottle")
+# phase 8: the PACL/SPARC head trainer (cli/train_pacl.py) at batch 64 for
+# 3 steps on each frozen-tower route, and the eval CLI's PACL and SPARC
+# scorers on phase 7's fixtures (SPARC, one tower call a sample, on the
+# first HEAD_EVAL_SAMPLES What'sUp-A samples)
+HEAD_STEPS, HEAD_BATCH, HEAD_EVAL_SAMPLES = 3, 64, 128
+HEAD_ROUTES = {"pacl fused": ("pacl", "fused"), "pacl int8": ("pacl", "int8"),
+               "sparc fused": ("sparc", "fused")}
+# the limit on the kernel routes' first-batch patch-token cosine against the
+# composable fp32 tower, held here apart from the trainer's own gate
+# (train_pacl.py GATE_MIN_COS), which must not drift below it
+HEAD_GATE_COS = 0.999
 # H100 SXM data-sheet peaks (dense): bf16 and int8 tensor cores, HBM3
 PEAK_BF16, PEAK_INT8, HBM_BYTES_PER_S = 989e12, 1979e12, 3.35e12
 
@@ -869,120 +895,364 @@ def recorded(fn, log):
     return wrapped
 
 
-def check_eval(model, ref, drive, gpu):
-    """Phase 7 (a): the eval CLI on the card, then its scorer against the
-    plain fp32 path."""
-    from clip_embeds_tpu_torch.cli.eval import main as eval_main
+def write_eval_fixtures(tmp, gpu):
+    """Phase 7's fixtures, which phase 8 reads too: What'sUp-A under
+    tmp/whatsup, MMVP-VLM under tmp/mmvp."""
+    t0 = time.perf_counter()
+    write_whatsup(os.path.join(tmp, "whatsup"), 7)
+    write_mmvp_vlm(os.path.join(tmp, "mmvp"), 8)
+    print(f"[eval] fixtures: {4 * WHATSUP_PAIRS} What'sUp-A and "
+          f"{2 * MMVP_PAIRS} MMVP-VLM JPEGs at {PHOTO[1]}x{PHOTO[0]} "
+          f"in {time.perf_counter() - t0:.1f} s on {gpu}'s host")
+
+
+def check_decisions(runs, label):
+    """Each scorer's decisions against the plain fp32 path's on every
+    sample whose fp32 margin exceeds twice the largest score difference.
+    ``runs``: dataset -> (run(scorer, log), ours, plain); "a" logs one
+    score_batch call of [n_options] rows, "mmvpvlm" a [2, 2] probability
+    matrix a pair."""
+    for dataset, (run, ours, plain) in runs.items():
+        logs = [], []
+        for scorer, log in zip((ours, plain), logs):
+            run(scorer, log)
+        got, want = (np.concatenate(log) if dataset == "a"
+                     else np.stack(log) for log in logs)
+        if dataset == "a":  # option 0 against option 1
+            margin = want[:, 0] - want[:, 1]
+            agree = (got[:, 0] > got[:, 1]) == (margin > 0)
+        else:  # P(image 1) of each statement against 0.5
+            margin = (want[:, :, 0] - 0.5).ravel()
+            agree = ((got[:, :, 0] > 0.5).ravel() == (margin > 0))
+        diff = float(np.abs(got - want).max())
+        clear = np.abs(margin) > 2 * diff
+        print(f"[{label}] --dataset {dataset}: largest score difference "
+              f"bf16 vs fp32 {diff:.3g}; decisions agree on "
+              f"{int(agree[clear].sum())} of {int(clear.sum())} samples "
+              f"with margin > 2x it ({int(agree.sum())} of {agree.size} "
+              f"in all)")
+        if not agree[clear].all():
+            raise AssertionError(f"{label} {dataset}: a clear decision "
+                                 "differs from the fp32 path's")
+
+
+def decision_runs(ours, plain, tmp):
+    """check_decisions' runs on the first AGREE_SAMPLES What'sUp-A samples
+    and the first AGREE_PAIRS MMVP-VLM pairs of the fixtures in tmp."""
     from clip_embeds_tpu_torch.evals.mmvp import read_question_pairs
     from clip_embeds_tpu_torch.evals.whatsup import (
         eval_whatsup, load_annotation)
+
+    root, mroot = os.path.join(tmp, "whatsup"), os.path.join(tmp, "mmvp")
+    data, _ = load_annotation(root, "a")
+    pairs = read_question_pairs(os.path.join(mroot, "Questions.csv"))
+    pairs = pairs[:AGREE_PAIRS]
+
+    def mmvp_pairs(scorer, log):
+        """eval_mmvp's pair_score calls, on the first pairs."""
+        for (q1, cat, t1), (q2, _, t2) in pairs:
+            log.append(scorer.pair_score(
+                [os.path.join(mroot, "MLLM_VLM_Images", cat, f"{q}.jpg")
+                 for q in (q1, q2)],
+                ["a photo of " + t1, "a photo of " + t2]))
+
+    return {"a": (lambda s, log: eval_whatsup(
+                recorded(s.score_batch, log), data[:AGREE_SAMPLES], root),
+                  ours, plain),
+            "mmvpvlm": (mmvp_pairs, ours, plain)}
+
+
+def check_eval(model, ref, drive, tmp, gpu):
+    """Phase 7 (a): the eval CLI on the card, then its scorer against the
+    plain fp32 path, on the fixtures in tmp."""
+    from clip_embeds_tpu_torch.cli.eval import main as eval_main
+    from clip_embeds_tpu_torch.evals.whatsup import load_annotation
     from clip_embeds_tpu_torch.scores.scorers import CLIPScorer
 
     cfg = model.cfg
     blocks = cfg.vision.layers - 1, cfg.text.layers  # CLS-only last: plain
-    with tempfile.TemporaryDirectory() as tmp:
+    n_img = 4 * WHATSUP_PAIRS
+    runs = {  # dataset: (root, the one call's fused_block launches)
+        "a": ("whatsup", math.ceil(n_img / EVAL_BATCH) * blocks[0]
+              + math.ceil(2 * n_img / EVAL_BATCH) * blocks[1]),
+        "a4": ("whatsup", math.ceil(n_img / EVAL_BATCH) * blocks[0]
+               + math.ceil(4 * n_img / EVAL_BATCH) * blocks[1]),
+        # one pair_score call a pair: 2 images, 2 statements
+        "mmvpvlm": ("mmvp", MMVP_PAIRS * sum(blocks)),
+    }
+    for dataset, (sub, want) in runs.items():
+        root = os.path.join(tmp, sub)
         t0 = time.perf_counter()
-        write_whatsup(os.path.join(tmp, "whatsup"), 7)
-        write_mmvp_vlm(os.path.join(tmp, "mmvp"), 8)
-        print(f"[eval] fixtures: {4 * WHATSUP_PAIRS} What'sUp-A and "
-              f"{2 * MMVP_PAIRS} MMVP-VLM JPEGs at {PHOTO[1]}x{PHOTO[0]} "
-              f"in {time.perf_counter() - t0:.1f} s on {gpu}'s host")
-        n_img = 4 * WHATSUP_PAIRS
-        runs = {  # dataset: (root, the one call's fused_block launches)
-            "a": ("whatsup", math.ceil(n_img / EVAL_BATCH) * blocks[0]
-                  + math.ceil(2 * n_img / EVAL_BATCH) * blocks[1]),
-            "a4": ("whatsup", math.ceil(n_img / EVAL_BATCH) * blocks[0]
-                   + math.ceil(4 * n_img / EVAL_BATCH) * blocks[1]),
-            # one pair_score call a pair: 2 images, 2 statements
-            "mmvpvlm": ("mmvp", MMVP_PAIRS * sum(blocks)),
-        }
-        for dataset, (sub, want) in runs.items():
-            root = os.path.join(tmp, sub)
-            t0 = time.perf_counter()
-            (results, info), counts = drive(f"eval --dataset {dataset}", (
-                lambda: run_main(eval_main, [
-                    "--scorer", "clip", "--model", MODEL, "--pretrained",
-                    "openai", "--dataset", dataset, "--root-dir", root,
-                    "--results-file", os.path.join(tmp, "results.txt"),
-                    "--batch-size", str(EVAL_BATCH)])))
-            expect = {k: (want if k == "fused_block" else 0) for k in counts}
-            if counts != expect or info["route"] != "fused":
-                raise AssertionError(f"eval {dataset}: route {info['route']},"
-                                     f" launches {counts} != {expect}")
-            if not all(0 <= v <= 100 for v in results.values()):
-                raise AssertionError(f"eval {dataset}: {results}")
-            print(f"[eval] --dataset {dataset}: {info['samples_per_s']} "
-                  f"samples/s ({info['samples']} samples, {info['decoder']} "
-                  f"decode, bf16 fused route; main took "
-                  f"{time.perf_counter() - t0:.1f} s with its model build) "
-                  f"on {gpu}")
-            if info["decoder"] != EXPECTED_DECODER:
-                raise AssertionError(f"decoder {info['decoder']} != "
-                                     f"{EXPECTED_DECODER}")
-
-        # the scorer (bf16, fused) against the plain fp32 composable path
-        t0 = time.perf_counter()
-        ours = CLIPScorer(model, batch_size=EVAL_BATCH)
-        plain = CLIPScorer(ref, batch_size=EVAL_BATCH)
-        root, mroot = os.path.join(tmp, "whatsup"), os.path.join(tmp, "mmvp")
-        data, _ = load_annotation(root, "a")
-        paths = [os.path.join(root, d["image_path"][5:]) for d in data[:64]]
-        texts = [t for d in data[:32] for t in d["caption_options"]]
-        cos = {"image": float(row_cos(ours.encode_images(paths),
-                                      plain.encode_images(paths)).min()),
-               "text": float(row_cos(ours.encode_texts(texts),
-                                     plain.encode_texts(texts)).min())}
-        print(f"[eval] scorer min row cosine vs plain fp32 (limit 0.99): "
-              f"{cos}")
-        if min(cos.values()) < 0.99:
-            raise AssertionError(f"scorer embeddings disagree: {cos}")
-        # the fp32 path decodes and encodes every image again: the check is
-        # cut to a part of each fixture to keep phase 7 near its budget
-        pairs = read_question_pairs(os.path.join(mroot, "Questions.csv"))
-        pairs = pairs[:AGREE_PAIRS]
-        print(f"[eval] decisions against fp32: the first "
-              f"{min(AGREE_SAMPLES, len(data))} of {len(data)} What'sUp-A "
-              f"samples and {len(pairs)} of "
-              f"{MMVP_PAIRS} MMVP-VLM pairs (cut for time)")
-
-        def mmvp_pairs(scorer, log):
-            """eval_mmvp's pair_score calls, on the first pairs."""
-            for (q1, cat, t1), (q2, _, t2) in pairs:
-                log.append(scorer.pair_score(
-                    [os.path.join(mroot, "MLLM_VLM_Images", cat, f"{q}.jpg")
-                     for q in (q1, q2)],
-                    ["a photo of " + t1, "a photo of " + t2]))
-
-        for dataset, run in (
-                ("a", lambda s, log: eval_whatsup(
-                    recorded(s.score_batch, log), data[:AGREE_SAMPLES],
-                    root)),
-                ("mmvpvlm", mmvp_pairs)):
-            logs = [], []
-            for scorer, log in zip((ours, plain), logs):
-                run(scorer, log)
-            # "a": one score_batch call of [2] rows; mmvpvlm: a [2, 2]
-            # matrix a call
-            got, want = (np.concatenate(log) if dataset == "a"
-                         else np.stack(log) for log in logs)
-            if dataset == "a":  # option 0 against option 1
-                margin = want[:, 0] - want[:, 1]
-                agree = (got[:, 0] > got[:, 1]) == (margin > 0)
-            else:  # P(image 1) of each statement against 0.5
-                margin = (want[:, :, 0] - 0.5).ravel()
-                agree = ((got[:, :, 0] > 0.5).ravel() == (margin > 0))
-            diff = float(np.abs(got - want).max())
-            clear = np.abs(margin) > 2 * diff
-            print(f"[eval] --dataset {dataset}: largest score difference "
-                  f"bf16 vs fp32 {diff:.3g}; decisions agree on "
-                  f"{int(agree[clear].sum())} of {int(clear.sum())} samples "
-                  f"with margin > 2x it ({int(agree.sum())} of {agree.size} "
-                  f"in all)")
-            if not agree[clear].all():
-                raise AssertionError(f"eval {dataset}: a clear decision "
-                                     "differs from the fp32 path's")
-        print(f"[eval] scorer checks took {time.perf_counter() - t0:.1f} s "
+        (results, info), counts = drive(f"eval --dataset {dataset}", (
+            lambda: run_main(eval_main, [
+                "--scorer", "clip", "--model", MODEL, "--pretrained",
+                "openai", "--dataset", dataset, "--root-dir", root,
+                "--results-file", os.path.join(tmp, "results.txt"),
+                "--batch-size", str(EVAL_BATCH)])))
+        expect = {k: (want if k == "fused_block" else 0) for k in counts}
+        if counts != expect or info["route"] != "fused":
+            raise AssertionError(f"eval {dataset}: route {info['route']},"
+                                 f" launches {counts} != {expect}")
+        if not all(0 <= v <= 100 for v in results.values()):
+            raise AssertionError(f"eval {dataset}: {results}")
+        print(f"[eval] --dataset {dataset}: {info['samples_per_s']} "
+              f"samples/s ({info['samples']} samples, {info['decoder']} "
+              f"decode, bf16 fused route; main took "
+              f"{time.perf_counter() - t0:.1f} s with its model build) "
               f"on {gpu}")
+        if info["decoder"] != EXPECTED_DECODER:
+            raise AssertionError(f"decoder {info['decoder']} != "
+                                 f"{EXPECTED_DECODER}")
+
+    # the scorer (bf16, fused) against the plain fp32 composable path
+    t0 = time.perf_counter()
+    ours = CLIPScorer(model, batch_size=EVAL_BATCH)
+    plain = CLIPScorer(ref, batch_size=EVAL_BATCH)
+    root = os.path.join(tmp, "whatsup")
+    data, _ = load_annotation(root, "a")
+    paths = [os.path.join(root, d["image_path"][5:]) for d in data[:64]]
+    texts = [t for d in data[:32] for t in d["caption_options"]]
+    cos = {"image": float(row_cos(ours.encode_images(paths),
+                                  plain.encode_images(paths)).min()),
+           "text": float(row_cos(ours.encode_texts(texts),
+                                 plain.encode_texts(texts)).min())}
+    print(f"[eval] scorer min row cosine vs plain fp32 (limit 0.99): "
+          f"{cos}")
+    if min(cos.values()) < 0.99:
+        raise AssertionError(f"scorer embeddings disagree: {cos}")
+    # the fp32 path decodes and encodes every image again: the check is
+    # cut to a part of each fixture to keep phase 7 near its budget
+    print(f"[eval] decisions against fp32: the first "
+          f"{min(AGREE_SAMPLES, len(data))} of {len(data)} What'sUp-A "
+          f"samples and {AGREE_PAIRS} of "
+          f"{MMVP_PAIRS} MMVP-VLM pairs (cut for time)")
+    check_decisions(decision_runs(ours, plain, tmp), "eval")
+    print(f"[eval] scorer checks took {time.perf_counter() - t0:.1f} s "
+          f"on {gpu}")
+
+
+@contextlib.contextmanager
+def shared_models(bf16_model, fp32_model):
+    """The entry points' create_model returns phase 4's models (ViT-L/14-336,
+    OpenAI config, seed 0) instead of building the same weights again:
+    bf16 for the eval CLI, fp32 computing in fp32 for the head trainer
+    (--precision fp32). Any other request is an error."""
+    from clip_embeds_tpu_torch.core import factory
+
+    def create_model(name, pretrained=None, seed=0, dtype=torch.float32,
+                     device="cpu", compute_dtype=None, **kw):
+        if (name, pretrained, seed, torch.device(device).type, kw) != (
+                MODEL, "openai", 0, "cuda", {}) or compute_dtype not in (
+                    None, dtype):
+            raise AssertionError(f"phase 8 shares no model for {name} "
+                                 f"{pretrained} seed {seed} {device} {kw}")
+        return {torch.bfloat16: bf16_model, torch.float32: fp32_model}[dtype]
+
+    with patched(factory, "create_model", create_model):
+        yield
+
+
+def fixture_part(tmp, n):
+    """A What'sUp-A root holding the first n samples of tmp/whatsup."""
+    root = os.path.join(tmp, f"whatsup_{n}")
+    os.makedirs(root)
+    os.symlink(os.path.join(tmp, "whatsup", "controlled_images"),
+               os.path.join(root, "controlled_images"))
+    name = "controlled_images_dataset.json"
+    with open(os.path.join(tmp, "whatsup", name)) as fh:
+        data = json.load(fh)[:n]
+    with open(os.path.join(root, name), "w") as fh:
+        json.dump(data, fh)
+    return root
+
+
+def train_heads(drive, cfg, tmp, gpu):
+    """Phase 8 (a): cli/train_pacl.py main on each frozen-tower route.
+    Returns the saved head of each route."""
+    from clip_embeds_tpu_torch.cli.train_pacl import main as train_pacl
+    from clip_embeds_tpu_torch.core.convert import jax_params_from_head
+    from clip_embeds_tpu_torch.core.factory import (
+        flatten_params, load_params_npz)
+    from clip_embeds_tpu_torch.models.heads import (
+        PACLHead, SPARCHead, init_head)
+
+    v, t = cfg.vision.layers, cfg.text.layers
+    calls = HEAD_STEPS + 1  # the gate's feature call, then one a step
+    saved = {}
+    for label, (objective, route) in HEAD_ROUTES.items():
+        # the launches of the run: the image blocks of each tower call
+        # (fused_block, or fused_block_int8 after a calibration pass whose
+        # bf16 composable image tower takes the flash kernel), and PACL's
+        # fused text blocks; the gate's composable fp32 tower and SPARC's
+        # composable text tower take plain attention
+        want = {"fused_block": calls * (t if objective == "pacl" else 0)}
+        if route == "int8":
+            want.update(flash_attention=v, fused_block_int8=calls * v)
+        else:
+            want["fused_block"] += calls * v
+        out = os.path.join(tmp, f"{label.replace(' ', '_')}.npz")
+        gc.collect()
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, counts = drive(f"train_pacl {label}", lambda: train_pacl([
+            "--objective", objective, "--frozen-tower", route,
+            "--model", MODEL, "--pretrained", "openai", "--seed", "0",
+            "--synthetic", "--batch-size", str(HEAD_BATCH),
+            "--train-num-samples", str(HEAD_STEPS * HEAD_BATCH),
+            "--proj-dim", str(cfg.embed_dim), "--log-every", "1",
+            "--output", out]))
+        wall = time.perf_counter() - t0
+        rep = state.report
+        expect = {k: want.get(k, 0) for k in counts}
+        print(f"[heads] {label}: {HEAD_STEPS} steps of {HEAD_BATCH} through "
+              f"cli.train_pacl.main in {wall:.1f} s; gate cosine "
+              f"{rep['gate_cos']} (limit {HEAD_GATE_COS}); losses "
+              f"{rep['losses']}; {rep['samples_per_s'][-1]} samples/s (the "
+              f"CLI's, over the {HEAD_STEPS} steps); peak "
+              f"{rep['peak_gib']:.2f} GiB ({resident / 2**30:.2f} GiB of it "
+              f"the shared models); launches {counts} on {gpu}")
+        if counts != expect or rep["route"] != route:
+            raise AssertionError(f"{label}: route {rep['route']}, launches "
+                                 f"{counts} != {expect}")
+        if rep["gate_cos"] is None or rep["gate_cos"] < HEAD_GATE_COS:
+            raise AssertionError(f"{label}: gate cosine {rep['gate_cos']}")
+        if len(rep["losses"]) != HEAD_STEPS or not np.isfinite(
+                rep["losses"]).all() or state.step != HEAD_STEPS:
+            raise AssertionError(f"{label}: losses {rep['losses']}")
+        # the .npz has the JAX layout, and every tensor moved from init
+        # (proj_dim = embed_dim, the width the eval CLI's heads take)
+        if objective == "pacl":
+            head = PACLHead(cfg.vision.width, cfg.embed_dim, cfg.embed_dim,
+                            pooling="weighted")
+        else:
+            head = SPARCHead(cfg.vision.width, cfg.text.width, cfg.embed_dim)
+        init = flatten_params(jax_params_from_head(init_head(head, 0)))
+        got = flatten_params(load_params_npz(out))
+        if {k: a.shape for k, a in got.items()} != \
+                {k: a.shape for k, a in init.items()}:
+            raise AssertionError(f"{label}: .npz layout {sorted(got)}")
+        still = [k for k in init if np.array_equal(got[k], init[k])]
+        if still:
+            raise AssertionError(f"{label}: not trained: {still}")
+        saved[label] = out
+        del state
+    return saved
+
+
+def check_heads(model, ref, drive, tmp, gpu):
+    """Phase 8: the PACL/SPARC heads trained on the frozen tower through
+    cli/train_pacl.py, then scored through cli/eval.py on phase 7's
+    fixtures, and the scorers against the plain fp32 path."""
+    from types import SimpleNamespace
+
+    from clip_embeds_tpu_torch.cli.eval import build_head
+    from clip_embeds_tpu_torch.cli.eval import main as eval_main
+    from clip_embeds_tpu_torch.evals.whatsup import load_annotation
+    from clip_embeds_tpu_torch.scores.scorers import PACLScorer, SPARCScorer
+
+    cfg, v = model.cfg, model.cfg.vision.layers
+    with shared_models(model, ref):
+        heads = train_heads(drive, cfg, tmp, gpu)
+        root = os.path.join(tmp, "whatsup")
+        part = fixture_part(tmp, HEAD_EVAL_SAMPLES)
+        n_a = 4 * WHATSUP_PAIRS
+        print(f"[heads] eval fixtures: What'sUp-A {n_a} samples (PACL), its "
+              f"first {HEAD_EVAL_SAMPLES} (SPARC: one tower call a sample; "
+              f"cut for time), MMVP-VLM {MMVP_PAIRS} pairs (PACL)")
+        # bf16 composable towers: the 577-token image tower's attention is
+        # the flash kernel; the text tower's is plain
+        runs = (("pacl", [], "a", root, math.ceil(n_a / EVAL_BATCH) * v),
+                ("pacl", [], "mmvpvlm", os.path.join(tmp, "mmvp"),
+                 MMVP_PAIRS * v),
+                ("sparc", ["--sparc-local"], "a", part,
+                 HEAD_EVAL_SAMPLES * v))
+        for kind, flags, dataset, data_root, want in runs:
+            label = " ".join(["--scorer", kind, *flags, "--dataset",
+                              dataset])
+            t0 = time.perf_counter()
+            (results, info), counts = drive(
+                f"eval {label}", lambda: run_main(eval_main, [
+                    "--scorer", kind, "--model", MODEL, "--pretrained",
+                    "openai", "--model-path", heads[f"{kind} fused"],
+                    "--dataset", dataset, "--root-dir", data_root,
+                    "--results-file", os.path.join(tmp, "results.txt"),
+                    "--batch-size", str(EVAL_BATCH), *flags]))
+            expect = {k: (want if k == "flash_attention" else 0)
+                      for k in counts}
+            if counts != expect or info["route"] != "composable":
+                raise AssertionError(f"eval {kind} {dataset}: route "
+                                     f"{info['route']}, launches {counts} "
+                                     f"!= {expect}")
+            if not all(0 <= x <= 100 for x in results.values()):
+                raise AssertionError(f"eval {kind} {dataset}: {results}")
+            print(f"[heads] eval {label}: {info['samples_per_s']} samples/s "
+                  f"({info['samples']} samples, {info['decoder']} decode, "
+                  f"bf16 composable + flash; main took "
+                  f"{time.perf_counter() - t0:.1f} s) on {gpu}")
+
+    # the scorers (bf16 towers + fp32 head) against the plain fp32 path
+    # (fp32 towers and head, no kernel)
+    t0 = time.perf_counter()
+    data, _ = load_annotation(root, "a")
+    paths = [os.path.join(root, d["image_path"][5:]) for d in data[:64]]
+
+    def scorers(kind, **kw):
+        args = SimpleNamespace(scorer=kind, rope="none",
+                               model_path=heads[f"{kind} fused"])
+        cls = PACLScorer if kind == "pacl" else SPARCScorer
+        return [cls(m, build_head(args, m), batch_size=EVAL_BATCH, **kw)
+                for m in (model, ref)]
+
+    def pacl_image_side(scorer):
+        """The PACL head's pooled image embeddings (uniform pooling: the
+        text does not enter them)."""
+        patches = scorer._image_patches(paths)
+        with torch.inference_mode():
+            img, _ = scorer.head(scorer._to_head(patches), torch.zeros(
+                len(paths), cfg.embed_dim, device=scorer.device))
+        return img.cpu().numpy()
+
+    def sparc_image_side(scorer):
+        """The SPARC head's patch projections [n * P, D] of 16 images."""
+        pixels = scorer._pixels(paths[:16])
+        tokens = scorer.tokenizer([d["caption_options"][0]
+                                   for d in data[:16]])
+        with torch.inference_mode():
+            vproj, _ = scorer.head_outputs(pixels, tokens)
+        return vproj.reshape(-1, vproj.shape[-1]).cpu().numpy()
+
+    pacl, sparc = scorers("pacl"), scorers("sparc", local=True)
+    # the card's scorers (bf16 towers) through the flash kernel: one image
+    # tower call for PACL's batch, one for SPARC's 16 images; the fp32
+    # path's attention is plain (the kernel is bf16), with no launch
+    sides = {}
+    for i, label in enumerate(("bf16", "fp32")):
+        sides[label], counts = drive(
+            f"head scorers' image side, {label}",
+            lambda: (pacl_image_side(pacl[i]), sparc_image_side(sparc[i])))
+        want = (math.ceil(len(paths) / EVAL_BATCH) + 1) * v \
+            if label == "bf16" else 0
+        expect = {k: (want if k == "flash_attention" else 0) for k in counts}
+        if counts != expect:
+            raise AssertionError(f"head scorers' image side, {label}: "
+                                 f"launches {counts} != {expect}")
+    cos = {kind: float(row_cos(got, ref).min()) for kind, got, ref in zip(
+        ("pacl", "sparc"), sides["bf16"], sides["fp32"])}
+    print(f"[heads] image-side head outputs, least row cosine vs plain fp32 "
+          f"(limit 0.99): {cos}")
+    if min(cos.values()) < 0.99:
+        raise AssertionError(f"head scorers disagree: {cos}")
+    print(f"[heads] decisions against fp32: the first {AGREE_SAMPLES} "
+          f"What'sUp-A samples (PACL, SPARC local) and {AGREE_PAIRS} "
+          f"MMVP-VLM pairs (PACL)")
+    pacl_runs = decision_runs(*pacl, tmp)
+    sparc_runs = decision_runs(*sparc, tmp)
+    check_decisions(pacl_runs, "heads pacl")
+    check_decisions({"a": sparc_runs["a"]}, "heads sparc local")
+    print(f"[heads] scorer checks took {time.perf_counter() - t0:.1f} s on "
+          f"{gpu}")
 
 
 def check_end_to_end(drive, device_ips, embed_dim, gpu):
@@ -1187,14 +1457,22 @@ def main() -> int:
     del routes, fn  # fn: the last route's call holds ref
     gc.collect()
 
-    # 7. the eval CLI and the host image pipeline, end to end
-    t0 = time.perf_counter()
-    check_eval(model, ref, drive, gpu)
+    # 7. the eval CLI and the host image pipeline, end to end; and 8. the
+    # PACL/SPARC heads, on 7's fixtures and models
+    with tempfile.TemporaryDirectory() as fixtures:
+        t0 = time.perf_counter()
+        write_eval_fixtures(fixtures, gpu)
+        check_eval(model, ref, drive, fixtures, gpu)
+        t7 = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        check_heads(model, ref, drive, fixtures, gpu)
+        print(f"[phase 8] {time.perf_counter() - t0:.1f} s on {gpu}")
     del model, ref
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     check_end_to_end(drive, device_ips, cfg.embed_dim, gpu)
-    print(f"[phase 7] {time.perf_counter() - t0:.1f} s on {gpu}")
+    print(f"[phase 7] {t7 + time.perf_counter() - t0:.1f} s on {gpu}")
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -1,19 +1,24 @@
 """Evaluation CLI (counterpart of ``clip_embeds_tpu/cli/eval.py``): the
-reference's per-family drivers behind one dispatcher, with ``--scorer clip``
-on What'sUp A/B (2 and 4 options), COCO/VG-spatial one/two objects, MMVP
-and MMVP-VLM.
+reference's per-family evaluation scripts behind one dispatcher, with
+``--scorer clip|pacl|sparc`` on What'sUp A/B (2 and 4 options),
+COCO/VG-spatial one/two objects, MMVP and MMVP-VLM.
 
   python -m clip_embeds_tpu_torch.cli.eval --scorer clip \
       --model ViT-L-14-336 --pretrained /path/ckpt.pt --dataset a \
       --root-dir /data/whatsup [--precision bf16|fp32] [--device cuda|cpu]
+  python -m clip_embeds_tpu_torch.cli.eval --scorer pacl|sparc \
+      --model-path head.npz [--rope none|before|after] [--sparc-local] ...
 
 It takes the JAX CLI's arguments, and ``--device`` (default ``cuda``: an
-error without a card unless given ``--device cpu``). The other scorers,
-and the PACL/SPARC heads' flags, exit naming the ROADMAP.md item that
-will port them. Images decode on the
-native C++ pipeline where its library builds, else with PIL. The results
-table is printed as the JAX CLI prints it, then one JSON line naming the
-scorer's route, the decoder that ran, the device and the samples/s.
+error without a card unless given ``--device cpu``). ``--model-path`` is a
+PACL/SPARC head ``.npz`` of either package (``cli/train_pacl.py
+--output``); without it the head is a fresh init from seed 0. The PACL head
+scores with uniform pooling, the reference's eval override. The SigLIP and
+embedding scorers exit naming the ROADMAP.md item that will port them.
+Images decode on the native C++ pipeline where its library builds, else
+with PIL. The results table is printed as the JAX CLI prints it, then one
+JSON line naming the scorer's route, the decoder that ran, the device and
+the samples/s.
 """
 
 from __future__ import annotations
@@ -23,16 +28,12 @@ import json
 import logging
 import time
 
-# scorers and JAX flags this CLI does not take yet, by the ROADMAP.md item
-# that will port them
-_PACL = "queue 1 item 9 (PACL/SPARC)"
+# scorers this CLI does not take yet, by the ROADMAP.md item that will port
+# them
 _UNPORTED_SCORERS = {
     "siglip": "queue 1 item 10 (SigLIP)",
-    "pacl": _PACL,
-    "sparc": _PACL,
     "embedding": "queue 1 item 12 (VLM2Vec)",
 }
-_UNPORTED_FLAGS = ("--rope", "--sparc-local")  # the PACL/SPARC heads'
 
 
 def parse_args(argv=None):
@@ -42,43 +43,67 @@ def parse_args(argv=None):
     p.add_argument("--model", default="ViT-L-14-336")
     p.add_argument("--pretrained", default=None)
     p.add_argument("--model-path", default=None,
-                   help="PACL/SPARC head checkpoint or LLaVA params (named "
-                   "in the results file; the scorers that read it are not "
-                   "ported yet)")
+                   help="PACL/SPARC head checkpoint (.npz)")
     p.add_argument("--dataset", default="a",
                    choices=["a", "b", "a4", "b4", "cocoone", "cocotwo",
                             "vgone", "vgtwo", "mmvp", "mmvpvlm"])
     p.add_argument("--root-dir", required=True)
     p.add_argument("--results-file", default="evaluation_results.txt")
     p.add_argument("--batch-size", type=int, default=64)
+    p.add_argument("--rope", default="none",
+                   choices=["none", "before", "after"])
+    p.add_argument("--sparc-local", action="store_true")
     p.add_argument("--precision", default="bf16", choices=["bf16", "fp32"])
     p.add_argument("--device", default="cuda",
                    help="'cuda' (the default: exits if there is no card) "
                    "or 'cpu'")
-    for flag in _UNPORTED_FLAGS:
-        p.add_argument(flag, nargs="*", default=argparse.SUPPRESS,
-                       help=f"not ported yet: ROADMAP.md {_PACL}")
     args = p.parse_args(argv)
-    for flag in _UNPORTED_FLAGS:
-        if hasattr(args, flag[2:].replace("-", "_")):
-            p.error(f"{flag} is not ported yet: ROADMAP.md {_PACL}")
     if args.scorer in _UNPORTED_SCORERS:
         p.error(f"--scorer {args.scorer} is not ported yet: ROADMAP.md "
                 f"{_UNPORTED_SCORERS[args.scorer]}")
     return args
 
 
+def build_head(args, model):
+    """The PACL (uniform pooling) or SPARC head of ``--scorer``, fp32 on the
+    model's device: ``--model-path``'s weights, else a fresh init from seed
+    0."""
+    from ..core.convert import head_state_dict_from_jax_params
+    from ..core.factory import load_params_npz
+    from ..models.heads import PACLHead, SPARCHead, init_head
+
+    cfg = model.cfg
+    if args.scorer == "pacl":
+        head = PACLHead(cfg.vision.width, cfg.embed_dim, cfg.embed_dim,
+                        rope=args.rope)
+    else:
+        head = SPARCHead(cfg.vision.width, cfg.text.width, cfg.embed_dim,
+                         rope=args.rope != "none")
+    if args.model_path:
+        head.load_state_dict(head_state_dict_from_jax_params(
+            load_params_npz(args.model_path)))
+    else:
+        init_head(head, seed=0)
+    return head.to(model.visual.proj.device)
+
+
 def build_scorer(args):
     import torch
 
     from ..core.factory import create_model, resolve_device
-    from ..scores.scorers import CLIPScorer
+    from ..scores.scorers import CLIPScorer, PACLScorer, SPARCScorer
 
     device = resolve_device(args.device)
     dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
     model = create_model(args.model, args.pretrained, dtype=dtype,
                          device=device)
-    return CLIPScorer(model, batch_size=args.batch_size)
+    if args.scorer == "clip":
+        return CLIPScorer(model, batch_size=args.batch_size)
+    head = build_head(args, model)
+    if args.scorer == "pacl":
+        return PACLScorer(model, head, batch_size=args.batch_size)
+    return SPARCScorer(model, head, batch_size=args.batch_size,
+                       local=args.sparc_local)
 
 
 def main(argv=None):

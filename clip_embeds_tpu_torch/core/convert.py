@@ -1,5 +1,6 @@
-"""Weights across packages: open_clip state dicts in, and the JAX package's
-flax CLIP params back to an open_clip state dict.
+"""Weights across packages: open_clip state dicts in, the JAX package's
+flax CLIP params back to an open_clip state dict, and the PACL/SPARC heads'
+flax params to and from the port's heads.
 
 :func:`state_dict_from_jax_params` inverts
 ``clip_embeds_tpu/core/torch_convert.py`` ``convert_clip_state_dict`` for
@@ -7,6 +8,11 @@ the plain ViT + text layout: flax Dense kernels are [in, out] and come back
 as ``nn.Linear`` [out, in] weights, ``in_proj`` is repacked into
 ``attn.in_proj_weight``, and the patch kernel, whose rows are ordered
 (kh, kw, cin), is rebuilt into ``visual.conv1.weight`` [W, 3, p, p].
+
+:func:`head_state_dict_from_jax_params` and :func:`jax_params_from_head`
+carry a head (``models/heads.py``, whose submodule names are flax's) across:
+a Dense ``kernel`` [in, out] is ``nn.Linear.weight`` [out, in], a LayerNorm
+``scale`` is its ``weight``.
 """
 
 from __future__ import annotations
@@ -92,3 +98,43 @@ def state_dict_from_jax_params(params: Mapping[str, Any]
     if "logit_bias" in params:
         sd["logit_bias"] = _t(np.asarray(params["logit_bias"]).reshape(()))
     return sd
+
+
+def head_state_dict_from_jax_params(params: Mapping[str, Any], prefix: str = ""
+                                    ) -> Dict[str, torch.Tensor]:
+    """flax params of ``clip_embeds_tpu.models.heads`` PACLHead / SPARCHead
+    (numpy arrays) -> the port's head state dict of fp32 tensors."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, value in params.items():
+        if isinstance(value, Mapping):
+            out.update(head_state_dict_from_jax_params(
+                value, f"{prefix}{name}."))
+        elif name == "kernel":
+            out[prefix + "weight"] = _t(np.asarray(value).T)
+        elif name == "scale":
+            out[prefix + "weight"] = _t(value)
+        elif name == "bias":
+            out[prefix + "bias"] = _t(value)
+        else:
+            raise KeyError(f"unexpected head parameter {prefix}{name}")
+    return out
+
+
+def jax_params_from_head(head: torch.nn.Module) -> Dict[str, Any]:
+    """The port's head -> flax params (nested dicts of float32 numpy
+    arrays), the layout the JAX heads and ``save_params_npz`` use."""
+    tree: Dict[str, Any] = {}
+    for name, module in head.named_modules():
+        if isinstance(module, torch.nn.Linear):
+            leaf = {"kernel": module.weight.detach().float().cpu().numpy().T}
+        elif isinstance(module, torch.nn.LayerNorm):
+            leaf = {"scale": module.weight.detach().float().cpu().numpy()}
+        else:
+            continue
+        leaf["bias"] = module.bias.detach().float().cpu().numpy()
+        node = tree
+        for part in name.split(".")[:-1]:
+            node = node.setdefault(part, {})
+        node[name.split(".")[-1]] = {k: np.ascontiguousarray(v)
+                                     for k, v in leaf.items()}
+    return tree

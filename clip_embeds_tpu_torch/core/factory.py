@@ -1,12 +1,16 @@
 """Model factory: name -> the port's CLIP, with seeded random weights or a
 local open_clip state dict (counterpart of ``clip_embeds_tpu/core/
-factory.py``; nothing is downloaded)."""
+factory.py``; nothing is downloaded); and the JAX package's ``.npz``
+parameter files (``save_params_npz`` / ``load_params_npz``: flax trees
+flattened to "a/b/kernel" keys), in which the PACL/SPARC heads travel."""
 
 from __future__ import annotations
 
 import math
 import os
-from typing import Optional, Union
+from typing import Any, Dict, Optional, Union
+
+import numpy as np
 
 import torch
 from torch import nn
@@ -110,3 +114,41 @@ def create_model(
     else:
         init_params(model, seed)
     return model.to(device=device, dtype=dtype).train(train)
+
+
+def flatten_params(params: Dict[str, Any], prefix: str = ""
+                   ) -> Dict[str, np.ndarray]:
+    """A nested params dict -> {"a/b/kernel": array}, the JAX package's
+    ``flatten_params``."""
+    flat: Dict[str, np.ndarray] = {}
+    for k, v in params.items():
+        key = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            flat.update(flatten_params(v, key))
+        else:
+            flat[key] = np.asarray(v)
+    return flat
+
+
+def unflatten_params(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for key, v in flat.items():
+        parts = key.split("/")
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return tree
+
+
+def save_params_npz(params: Dict[str, Any], path: str) -> None:
+    """Write a params tree as the JAX package's ``save_params_npz`` does
+    (``np.savez``, which adds ".npz" to a path without it)."""
+    np.savez(path, **flatten_params(params))
+
+
+def load_params_npz(path: str) -> Dict[str, Any]:
+    """Read an ``.npz`` params file of either package into a nested dict of
+    numpy arrays."""
+    with np.load(path) as data:
+        return unflatten_params({k: data[k] for k in data.files})

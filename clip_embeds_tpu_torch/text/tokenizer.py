@@ -7,7 +7,10 @@ lowest-rank BPE merges with an end-of-word marker, <start_of_text> /
 <end_of_text> specials, fixed context length with zero padding and
 EOT-preserving truncation. The vocabulary ``bpe_simple_vocab_16e6.txt.gz``
 (the public OpenAI CLIP merge table) sits beside this file.
-``tests/test_torch_convert.py`` holds its ids to the JAX package's.
+``tests/test_torch_convert.py`` holds its ids to the JAX package's. Also a
+copy of the same file's offline POS bucketizer, ``simple_pos_tagger``, which
+the PACL noun-phrase chunker reads (``tests/test_torch_pacl.py`` holds it to
+JAX's).
 """
 
 from __future__ import annotations
@@ -168,3 +171,38 @@ class BPETokenizer:
 def get_tokenizer(context_length: int = DEFAULT_CONTEXT_LENGTH
                   ) -> BPETokenizer:
     return BPETokenizer(context_length=context_length)
+
+
+# A tiny self-contained POS bucketizer so the noun-phrase chunker of
+# data/pacl_data.py runs offline (a copy of the JAX package's). Maps a word
+# to the reference's priority buckets: NN nouns, JJ adjectives, VB verbs,
+# XX everything else. Suffix/lexicon heuristics only.
+_FUNCTION_WORDS = frozenset(
+    "a an the and or but if of in on at to for with by from as is are was "
+    "were be been being am do does did done this that these those it its he "
+    "she they them his her their there here not no nor so than then over "
+    "under into out up down off about after before between during against "
+    "very too also just only".split()
+)
+_VERB_SUFFIXES = ("ing", "ed", "ify", "ize", "ise")
+_ADJ_SUFFIXES = ("ous", "ful", "less", "able", "ible", "ish", "ive", "al",
+                 "ic", "y")
+
+
+def simple_pos_tagger(tokens):
+    """[(token, tag)] with coarse NN/JJ/VB/XX tags (offline fallback)."""
+    out = []
+    for tok in tokens:
+        low = tok.lower()
+        if not tok[:1].isalpha():
+            tag = "XX"
+        elif low in _FUNCTION_WORDS:
+            tag = "XX"
+        elif low.endswith(_VERB_SUFFIXES):
+            tag = "VB"
+        elif low.endswith(_ADJ_SUFFIXES):
+            tag = "JJ"
+        else:
+            tag = "NN"  # content-word default: captions are noun-heavy
+        out.append((tok, tag))
+    return out

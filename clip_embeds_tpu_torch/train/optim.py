@@ -1,5 +1,6 @@
-"""AdamW with the CLIP weight-decay split, and global-norm clipping
-(counterpart of ``clip_embeds_tpu/train/optim.py``).
+"""AdamW with the CLIP weight-decay split, plain Adam for the PACL/SPARC
+heads, and global-norm clipping (counterpart of
+``clip_embeds_tpu/train/optim.py``).
 
 Parameters of rank < 2, biases and LayerNorm gains get no weight decay
 (open_clip ``main.py``; the JAX ``_no_decay``); the rest do. The split is
@@ -47,6 +48,16 @@ def adamw(model: nn.Module, lr: float = 5e-6, beta1: float = 0.9,
         [{"params": groups[0], "weight_decay": weight_decay},
          {"params": groups[1], "weight_decay": 0.0}],
         lr=lr, betas=(beta1, beta2), eps=eps)
+
+
+def adam(model: nn.Module, lr: float = 1e-4) -> torch.optim.Adam:
+    """optax ``adam`` over ``model``'s trainable parameters: b1 0.9, b2
+    0.999, eps 1e-8 added outside the square root (torch's ``Adam`` puts it
+    there too), no weight decay. The PACL/SPARC heads' optimiser; the
+    reference trains them at lr 1e-4 with no schedule."""
+    return torch.optim.Adam([p for p in model.parameters()
+                             if p.requires_grad],
+                            lr=lr, betas=(0.9, 0.999), eps=1e-8)
 
 
 @torch.no_grad()

@@ -1,8 +1,9 @@
-"""The CLIP contrastive train step (counterpart of
-``clip_embeds_tpu/train/steps.py`` ``make_clip_train_step``, open_clip's
-``train_one_epoch``): forward both towers, InfoNCE or hard-text loss,
-backward, AdamW update (optionally after global-norm clipping), then the
-logit scale clamped to ln(100).
+"""The train steps (counterpart of ``clip_embeds_tpu/train/steps.py``):
+``make_clip_train_step``, the CLIP contrastive step (open_clip's
+``train_one_epoch``: forward both towers, InfoNCE or hard-text loss,
+backward, AdamW update, optionally after global-norm clipping, then the
+logit scale clamped to ln(100)); and ``make_frozen_tower_train_step``, the
+PACL/SPARC step that trains a head on a frozen tower's features.
 
 PyTorch updates the parameters in place, so the state is a small mutable
 object: the model, its optimizer, the update count and the learning-rate
@@ -25,6 +26,7 @@ from .schedules import Schedule
 LOGIT_SCALE_MAX = 4.6052  # ln(100)
 
 Batch = Dict[str, torch.Tensor]
+Features = Tuple[torch.Tensor, torch.Tensor]
 
 
 @dataclasses.dataclass
@@ -103,5 +105,28 @@ def make_clip_train_step(model: nn.Module, use_hard_text: bool = False,
         with torch.no_grad():
             model.logit_scale.clamp_(max=LOGIT_SCALE_MAX)
         return dict(metrics, loss=loss)
+
+    return train_step
+
+
+def make_frozen_tower_train_step(
+    loss_of_head: Callable[[nn.Module, Features, Batch],
+                           Tuple[torch.Tensor, Dict]],
+) -> Callable[[TrainState, Features, Batch], Dict]:
+    """A step ``step(state, feats, batch) -> metrics`` where only the head
+    (``state.model``) trains: the PACL/SPARC pattern (reference
+    train_pacl.py / pacl.py:97). ``feats`` are the frozen tower's outputs,
+    computed by the caller under ``torch.no_grad()`` from a model whose
+    parameters do not require grad, so none of the tower's activations is
+    kept for the backward (JAX's ``stop_gradient``).
+
+    loss_of_head(head, feats, batch) -> (loss, metrics)
+    """
+
+    def train_step(state: TrainState, feats: Features, batch: Batch) -> Dict:
+        loss, metrics = loss_of_head(state.model, feats, batch)
+        loss.backward()
+        state.apply_gradients()
+        return dict(metrics, loss=loss.detach())
 
     return train_step

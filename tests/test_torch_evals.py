@@ -1,6 +1,7 @@
-"""The port's eval drivers, CLIPScorer, CLIPScore and eval CLI against the
-JAX package's (CPU, fp32, the test-tiny config with one checkpoint made
-from JAX params): the same dicts, the same results-file text, the same
+"""The port's evaluations, CLIPScorer, PACLScorer, SPARCScorer, CLIPScore
+and eval CLI against the JAX package's (CPU, fp32, the test-tiny config
+with one checkpoint made from JAX params, and PACL/SPARC heads saved by the
+JAX package as .npz): the same dicts, the same results-file text, the same
 scores within 1e-4, and identical tables from both CLIs on fixtures built
 as in tests/test_evals.py."""
 
@@ -16,18 +17,31 @@ from PIL import Image
 
 from clip_embeds_tpu.cli.eval import main as jax_main
 from clip_embeds_tpu.core.factory import create_model as jax_create_model
+from clip_embeds_tpu.core.factory import load_params as jax_load_params
+from clip_embeds_tpu.core.factory import save_params_npz as jax_save_npz
 from clip_embeds_tpu.evals import metrics as jax_metrics
 from clip_embeds_tpu.evals import mmvp as jax_mmvp
 from clip_embeds_tpu.evals import whatsup as jax_whatsup
+from clip_embeds_tpu.models import heads as jax_heads
 from clip_embeds_tpu.scores.score import CLIPScore as JaxCLIPScore
 from clip_embeds_tpu.scores.score import Score as JaxScore
 from clip_embeds_tpu.scores.scorers import CLIPScorer as JaxCLIPScorer
-from clip_embeds_tpu_torch.cli.eval import main, parse_args
-from clip_embeds_tpu_torch.core.convert import state_dict_from_jax_params
+from clip_embeds_tpu.scores.scorers import PACLScorer as JaxPACLScorer
+from clip_embeds_tpu.scores.scorers import SPARCScorer as JaxSPARCScorer
+from clip_embeds_tpu_torch.cli.eval import build_scorer, main, parse_args
+from clip_embeds_tpu_torch.core.convert import (
+    head_state_dict_from_jax_params,
+    state_dict_from_jax_params,
+)
 from clip_embeds_tpu_torch.core.factory import create_model
 from clip_embeds_tpu_torch.evals import metrics, mmvp, whatsup
+from clip_embeds_tpu_torch.models import heads
 from clip_embeds_tpu_torch.scores.score import CLIPScore, Score
-from clip_embeds_tpu_torch.scores.scorers import CLIPScorer
+from clip_embeds_tpu_torch.scores.scorers import (
+    CLIPScorer,
+    PACLScorer,
+    SPARCScorer,
+)
 
 KEYS = ["left", "right", "on", "under"]  # What'sUp A-style
 OPPOSITE = {"left": "right", "right": "left", "on": "under", "under": "on",
@@ -292,6 +306,117 @@ def test_clip_score_matches_jax(tmp_path, checkpoint):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
 
 
+# the PACL/SPARC heads: (scorer, CLI flags, JAX head kwargs)
+HEAD_VARIANTS = {
+    "pacl": ("pacl", [], {}),
+    "pacl-rope-after": ("pacl", ["--rope", "after"], {"rope": "after"}),
+    "sparc": ("sparc", [], {}),
+    "sparc-local": ("sparc", ["--sparc-local"], {}),
+}
+
+
+@pytest.fixture(scope="module")
+def head_npz(tmp_path_factory):
+    """A PACL and a SPARC head for test-tiny (proj_dim = embed_dim, as the
+    eval CLI builds them), initialised and saved by the JAX package, LN
+    params moved off their init so that every parameter matters."""
+    model, _ = jax_create_model("test-tiny", seed=5)
+    cfg = model.cfg
+    patches = np.zeros((1, cfg.vision.num_patches, cfg.vision.width), "f4")
+    text = {"pacl": np.zeros((1, cfg.embed_dim), "f4"),
+            "sparc": np.zeros((1, cfg.text.context_length, cfg.text.width),
+                              "f4")}
+    rng = np.random.default_rng(6)
+    out = {}
+    for kind, cls in (("pacl", jax_heads.PACLHead),
+                      ("sparc", jax_heads.SPARCHead)):
+        params = cls(proj_dim=cfg.embed_dim).init(
+            jax.random.PRNGKey(7), patches, text[kind])["params"]
+        params = jax.tree.map(
+            lambda a: np.asarray(a) + 0.05 * rng.standard_normal(
+                np.shape(a)).astype("f4"), params)
+        out[kind] = str(tmp_path_factory.mktemp("head") / f"{kind}.npz")
+        jax_save_npz(params, out[kind])
+    return out
+
+
+def _head_scorers(checkpoint, head_npz, variant):
+    """(port, JAX) scorers of a HEAD_VARIANTS entry over the same CLIP
+    weights and head .npz, fp32, batch 4; the port's built by the eval
+    CLI."""
+    kind, flags, kw = HEAD_VARIANTS[variant]
+    ours = build_scorer(parse_args([
+        "--scorer", kind, "--model", "test-tiny", "--pretrained", checkpoint,
+        "--model-path", head_npz[kind], "--precision", "fp32", "--device",
+        "cpu", "--batch-size", "4", "--root-dir", "x"] + flags))
+    model, params = jax_create_model("test-tiny", checkpoint)
+    head_params = jax_load_params(head_npz[kind])
+    if kind == "pacl":
+        theirs = JaxPACLScorer(model, params, jax_heads.PACLHead(
+            proj_dim=model.cfg.embed_dim, **kw), head_params, batch_size=4)
+        assert isinstance(ours, PACLScorer) and ours.head.pooling == "uniform"
+        assert ours.head.rope == kw.get("rope", "none")
+        assert ours.per_pair == theirs.per_pair
+    else:
+        theirs = JaxSPARCScorer(model, params, jax_heads.SPARCHead(
+            proj_dim=model.cfg.embed_dim), head_params, batch_size=4,
+            local=variant == "sparc-local")
+        assert isinstance(ours, SPARCScorer)
+        assert (ours.local, ours.sigma) == (theirs.local, 1 / 625)
+    assert ours.route == "composable"
+    return ours, theirs
+
+
+@pytest.mark.parametrize("method", ["score_batch", "pair_score"])
+@pytest.mark.parametrize("variant", list(HEAD_VARIANTS))
+def test_head_scorers_match_jax(tmp_path, checkpoint, head_npz, variant,
+                                method):
+    """PACLScorer (diagonal compare, the image tiled per option) and
+    SPARCScorer (global and local) give JAX's scores within 1e-4."""
+    scorers = _head_scorers(checkpoint, head_npz, variant)
+    samples = _samples(tmp_path)[:5]  # 5 images: a batch of 4 and a tail
+    args = {"score_batch": (samples,),
+            "pair_score": ([s[0] for s in samples[:3]],
+                           samples[0][1][:2])}[method]
+    got, want = (getattr(s, method)(*args) for s in scorers)
+    if method == "score_batch":
+        assert [len(g) for g in got] == [len(w) for w in want] == [4] * 5
+        got, want = np.stack(got), np.stack(want)
+    assert got.shape == np.shape(want) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+    assert np.ptp(got) > 1e-2  # the scores are not all alike
+
+
+def test_pacl_scorer_takes_precomputed_text_embeddings(tmp_path,
+                                                      checkpoint):
+    """``text_encoder`` (texts -> embeddings, the LLM2CLIP-PACL variant's
+    precomputed text side) replaces the CLIP text tower, as in JAX."""
+    model, params = jax_create_model("test-tiny", checkpoint)
+    cfg = model.cfg
+    jhead = jax_heads.PACLHead(proj_dim=32, rope="after")
+    params_h = jhead.init(jax.random.PRNGKey(8), np.zeros(
+        (1, cfg.vision.num_patches, cfg.vision.width), "f4"),
+        np.zeros((1, 24), "f4"))["params"]
+    path = str(tmp_path / "llm_head.npz")
+    jax_save_npz(params_h, path)
+    head = heads.PACLHead(cfg.vision.width, 24, 32, rope="after")
+    head.load_state_dict(head_state_dict_from_jax_params(
+        jax_load_params(path)))
+
+    def encode(texts):  # a fixed 24-wide embedding per text
+        return np.stack([np.random.default_rng(len(t)).standard_normal(24)
+                         .astype("f4") for t in texts])
+
+    ours = PACLScorer(create_model("test-tiny", checkpoint), head,
+                      batch_size=4, text_encoder=encode)
+    theirs = JaxPACLScorer(model, params, jhead, params_h, batch_size=4,
+                           text_encoder=encode)
+    samples = _samples(tmp_path)[:3]
+    got = np.stack(ours.score_batch(samples))
+    want = np.stack(theirs.score_batch(samples))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
 def _mock_forwards():
     """Pair, image-texts and group forwards whose score encodes the call."""
     def pair(images, texts):
@@ -391,17 +516,60 @@ def test_eval_cli_tables_match_jax(tmp_path, checkpoint, scorers, dataset,
     assert info["decoder"] in ("native", "pil") and info["samples"] > 0
 
 
+@pytest.mark.parametrize("dataset", ["a", "a4", "mmvpvlm"])
+@pytest.mark.parametrize("variant", ["pacl-rope-after", "sparc-local"])
+def test_eval_cli_head_tables_match_jax(tmp_path, checkpoint, head_npz,
+                                        variant, dataset, capsys):
+    """--scorer pacl|sparc --model-path <a JAX head .npz> [--rope]
+    [--sparc-local]: the same table and results-file text as JAX's CLI."""
+    _FIXTURES[dataset](tmp_path)
+    root = str(tmp_path)
+    margin, diff = _fp32_margin_and_diff(
+        root, dataset, _head_scorers(checkpoint, head_npz, variant))
+    assert margin >= 10 * diff, (margin, diff)
+    kind, flags, _ = HEAD_VARIANTS[variant]
+    common = ["--scorer", kind, "--model", "test-tiny", "--pretrained",
+              checkpoint, "--model-path", head_npz[kind], "--dataset",
+              dataset, "--root-dir", root, "--precision", "fp32",
+              "--batch-size", "8"] + flags
+    ours, theirs = tmp_path / "ours.txt", tmp_path / "jax.txt"
+    got = main(common + ["--results-file", str(ours), "--device", "cpu"])
+    info = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    want = jax_main(common + ["--results-file", str(theirs)])
+    assert got == want
+    assert ours.read_text() == theirs.read_text()
+    assert info["scorer"] == kind and info["route"] == "composable"
+
+
 @pytest.mark.parametrize("argv,item", [
     (["--scorer", "siglip"], "10"), (["--scorer", "pacl"], "9"),
     (["--scorer", "sparc"], "9"), (["--scorer", "embedding"], "12"),
     (["--rope", "after"], "9"), (["--sparc-local"], "9")])
 def test_unported_scorers_name_their_roadmap_item(tmp_path, capsys, argv,
-                                                  item):
-    with pytest.raises(SystemExit) as exc:
-        main(argv + ["--root-dir", str(tmp_path)])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert f"not ported yet: ROADMAP.md queue 1 item {item} " in err
+                                                  item, checkpoint):
+    """The scorers still to port exit naming their ROADMAP.md item; those of
+    item 9 (PACL/SPARC, ported) and their flags parse and build their
+    scorers."""
+    common = ["--root-dir", str(tmp_path)]
+    if item != "9":
+        with pytest.raises(SystemExit) as exc:
+            main(argv + common)
+        assert exc.value.code == 2
+        err = capsys.readouterr().err
+        assert f"not ported yet: ROADMAP.md queue 1 item {item} " in err
+        return
+    if "--scorer" not in argv:  # the head flags, with their scorer
+        argv = argv + ["--scorer", "pacl" if "--rope" in argv else "sparc"]
+    args = parse_args(argv + common + [
+        "--model", "test-tiny", "--pretrained", checkpoint, "--device",
+        "cpu", "--precision", "fp32"])
+    scorer = build_scorer(args)
+    assert isinstance(scorer, PACLScorer if args.scorer == "pacl"
+                      else SPARCScorer)
+    if args.scorer == "pacl":
+        assert scorer.head.rope == args.rope and not scorer.head.training
+    else:
+        assert scorer.local == ("--sparc-local" in argv)
 
 
 def test_eval_runs_on_the_card_unless_asked(tmp_path, checkpoint,

@@ -4,7 +4,9 @@ strided views, a zero weight row (int8), the training kernels (attention
 backward, fused_block_residuals) at ViT-L and text shapes, inf and NaN in
 the keys past kv_valid, a backward that repeats bit for bit, the bf16 and
 int8 GEMMs alone over ragged M, N and K and every epilogue, the residual
-block inside an autograd backward, and the errors a wrapper raises.
+block inside an autograd backward, the errors a wrapper raises, and the
+PACL/SPARC slice on the card (the frozen-tower routes' patch tokens, a
+head step, the head scorers' route).
 Marked ``cuda``; without a card they skip. On the card:
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py``."""
 
@@ -657,3 +659,154 @@ def test_pinned_pipeline_equals_a_synchronous_one(cuda):
     np.testing.assert_array_equal(
         embed_text_batches(model, ids, 8),
         sync(lambda x: fused_encode_text(model, x), ids))
+
+
+def _vitl2(cuda, dtype=torch.float32):
+    """ViT-L/14-336 widths (577 image tokens, so the flash kernel's gate
+    opens), two blocks a tower, seeded random weights."""
+    from clip_embeds_tpu_torch.core.factory import create_model
+
+    return create_model("test-vitl-2layer", pretrained="openai", seed=0,
+                        dtype=dtype, device=cuda)
+
+
+def test_frozen_tower_routes_match_composable(cuda):
+    """The head trainer's kernel routes (every image block through
+    fused_block / fused_block_int8, tokens cut back to the 576 patches of
+    the 577 rows the 592-row padding holds) against the composable fp32
+    tower's patch tokens: bf16 fused at the trainer's 0.999 gate, int8 at
+    the JAX package's 0.99 int8 gate against bf16."""
+    from clip_embeds_tpu_torch.cli.train_pacl import (
+        _cosine,
+        make_frozen_features,
+    )
+    from clip_embeds_tpu_torch.models.serving import prepare_int8_tower
+
+    model = _vitl2(cuda)
+    rng = np.random.default_rng(21)
+    ids = np.zeros((4, 77), np.int64)
+    ids[:, 0], ids[:, 1:9], ids[:, 9] = 49406, rng.integers(1, 49406, 8), \
+        49407
+    batch = {"images": torch.from_numpy(rng.standard_normal(
+        (4, 336, 336, 3)).astype(np.float32)).to(cuda),
+        "texts": torch.from_numpy(ids).to(cuda)}
+    qtower = prepare_int8_tower(model, batch["images"].bfloat16(),
+                                torch.bfloat16)
+    fused_block.launches = fused_block_int8.launches = 0
+    feats = {route: make_frozen_features(model, "pacl", torch.float32,
+                                         route, q)(batch)
+             for route, q in (("composable", None), ("fused", None),
+                              ("int8", qtower))}
+    assert fused_block.launches == 2 * 2 + 2  # image + text, text
+    assert fused_block_int8.launches == 2
+    ref = feats["composable"][0]
+    assert ref.shape == (4, 576, 1024)
+    cos = {"fused": _cosine(feats["fused"][0], ref),
+           "int8": _cosine(feats["int8"][0], ref),
+           "int8_vs_fused": _cosine(feats["int8"][0], feats["fused"][0]),
+           "text_fused": _cosine(feats["fused"][1], feats["composable"][1])}
+    print(f"frozen-tower patch-token cosines: {cos}")
+    assert all(f[0].shape == ref.shape and f[0].dtype == torch.float32
+               for f in feats.values())
+    assert cos["fused"] >= 0.999 and cos["text_fused"] >= 0.999
+    assert cos["int8_vs_fused"] >= 0.99
+
+
+@pytest.mark.parametrize("kind", ["pacl", "sparc"])
+def test_head_step_on_card_matches_cpu(cuda, kind):
+    """One frozen-tower step with Adam at dropout 0: the card's head params
+    equal the CPU's within 1e-4."""
+    import copy
+
+    from clip_embeds_tpu_torch.losses.clip_loss import pacl_clip_loss
+    from clip_embeds_tpu_torch.losses.sparc import (
+        sparc_group_patches,
+        sparc_loss,
+    )
+    from clip_embeds_tpu_torch.models.clip import l2_normalize
+    from clip_embeds_tpu_torch.models.heads import (
+        PACLHead,
+        SPARCHead,
+        init_head,
+        language_mask_from_ids,
+    )
+    from clip_embeds_tpu_torch.train.optim import adam
+    from clip_embeds_tpu_torch.train.schedules import const_lr
+    from clip_embeds_tpu_torch.train.steps import (
+        TrainState,
+        make_frozen_tower_train_step,
+    )
+
+    rng = np.random.default_rng(22)
+    if kind == "pacl":
+        head = PACLHead(64, 48, 32, pooling="weighted", dropout=0.0)
+        text = rng.standard_normal((8, 48))
+    else:
+        head = SPARCHead(64, 48, 32, dropout=0.0)
+        text = rng.standard_normal((8, 77, 48))
+    feats = (torch.from_numpy(rng.standard_normal((8, 50, 64)).astype("f4")),
+             torch.from_numpy(text.astype("f4")))
+    ids = torch.from_numpy(rng.integers(1, 49406, (8, 77)))
+    ids[:, 20] = 49407
+
+    def loss_of_head(h, f, batch):
+        out = h(*f)
+        if kind == "pacl":
+            return pacl_clip_loss(*out, 0.1), {}
+        tnorm = l2_normalize(out[1])
+        grouped = l2_normalize(sparc_group_patches(out[0], tnorm, 1 / 50))
+        return sparc_loss(out[0], tnorm, grouped,
+                          language_mask_from_ids(batch["texts"]), 0.1), {}
+
+    heads = {}
+    init_head(head, 3)
+    for dev in ("cpu", cuda):
+        h = copy.deepcopy(head).to(dev).train()
+        state = TrainState(h, adam(h, 1e-4), const_lr(1e-4))
+        make_frozen_tower_train_step(loss_of_head)(
+            state, tuple(f.to(dev) for f in feats), {"texts": ids.to(dev)})
+        heads[str(dev)] = h
+    for (name, a), b in zip(heads["cpu"].named_parameters(),
+                            heads["cuda"].parameters()):
+        assert not torch.equal(a, head.get_parameter(name))
+        np.testing.assert_allclose(b.detach().cpu().numpy(),
+                                   a.detach().numpy(), rtol=0, atol=1e-4)
+
+
+def test_head_scorers_card_route_matches_plain_path(cuda):
+    """PACLScorer and SPARCScorer on the card in bf16: the composable image
+    tower takes the flash kernel (one launch a block a batch), and the
+    image-side head outputs agree with the plain fp32 path's (fp32 towers
+    and head, no kernel) at row cosine 0.99."""
+    from clip_embeds_tpu_torch.models.heads import (
+        PACLHead,
+        SPARCHead,
+        init_head,
+    )
+    from clip_embeds_tpu_torch.scores.scorers import PACLScorer, SPARCScorer
+
+    rng = np.random.default_rng(23)
+    images = [rng.integers(0, 256, (40, 56, 3), dtype=np.uint8)
+              for _ in range(5)]
+    models = _vitl2(cuda, torch.bfloat16), _vitl2(cuda)
+    pacl = init_head(PACLHead(1024, 768, 768), 4).to(cuda)
+    sparc = init_head(SPARCHead(1024, 768, 768), 5).to(cuda)
+    text = torch.zeros(5, 768, device=cuda)
+    outs = []
+    for model in models:
+        flash_attention.launches = 0
+        ps = PACLScorer(model, pacl, batch_size=4)
+        patches = ps._image_patches(images)
+        with torch.inference_mode():
+            v = ps.head(ps._to_head(patches), text)[0].cpu().numpy()
+        ss = SPARCScorer(model, sparc, local=True)
+        vproj, _ = ss.head_outputs(ss._pixels(images[:2]),
+                                   ss.tokenizer(["a cat", "a dog"]))
+        outs.append((v, vproj.reshape(-1, 768).cpu().numpy(),
+                     flash_attention.launches))
+    # bf16: 2 batches of PACL patches and 1 SPARC call, 2 blocks each
+    assert [o[2] for o in outs] == [3 * 2, 0]
+    for got, want in zip(outs[0][:2], outs[1][:2]):
+        cos = (got * want).sum(-1) / (np.linalg.norm(got, axis=-1)
+                                      * np.linalg.norm(want, axis=-1))
+        assert cos.min() >= 0.99, cos.min()
