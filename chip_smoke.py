@@ -16,7 +16,12 @@ Phases, each of which raises on failure:
      TFLOP/s, share of the bound and torch.nn.functional.linear's time at
      the same shape (the yardstick, timed only); and the int8 GEMM behind
      fused_block_int8 alone ([gemm_s8] lines) the same way, against
-     gemm_s8_reference, with TOP/s and torch._int_mm's time;
+     gemm_s8_reference, with TOP/s and torch._int_mm's time; each with
+     the SigLIP SO400M shapes too (head dim 72, MLP width 4304, tanh-GELU,
+     eps 1e-6: the blocks at 4x736x1152 and 8x64x1152, the attention
+     forward at 4x16x729x72 beside scaled_dot_product_attention, the fc
+     and fc2 GEMMs at 23552 rows), within limits set by fault probes
+     (scripts/chip_probe_siglip.py);
   4. the main paths: ViT-L/14-336 (OpenAI config, seeded random weights,
      all 24 + 12 layers) serves 3 image and 3 text requests of 8 through
      embed_image_batches / embed_text_batches, the CLI's helpers: first in
@@ -70,7 +75,22 @@ Phases, each of which raises on failure:
      with exact launches and samples/s; the scorers' image-side head
      outputs (bf16 towers through the flash kernel, exact launches)
      against the plain fp32 path (least row cosine >= 0.99) and their
-     clear decisions against that path's, as in 7 (a).
+     clear decisions against that path's, as in 7 (a);
+  9. (run after 8, on 7's fixtures) SigLIP ViT-SO400M-14-SigLIP-384 at
+     full width and depth (27 + 27 layers, seeded random weights): (a)
+     fused_encode_image_siglip at b32, fused_encode_text_siglip at b256,
+     their int8 twins (static scales calibrated on the first 8) and the
+     composable image tower (flash_attention), each with its launches
+     reset before it and held exactly, embeddings finite and unit-norm,
+     bf16 against the plain fp32 path and int8 against bf16 (least row
+     cosine >= 0.99), img/s and texts/s by CUDA events and peak memory;
+     (b) SiglipScorer in bf16 on 7's What'sUp-A fixture through
+     evals/whatsup.py eval_whatsup, with a sentencepiece vocabulary
+     written from the seed: exact fused_block launches, samples/s,
+     image embeddings against plain fp32 and clear decisions as in 7
+     (a); (c) (with phase 6) cli/train.py main --siglip, 3 steps at b32
+     on the composable ViT-L/14-336 route with its exact launches,
+     finite losses and moved parameters.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device it exits
@@ -150,6 +170,27 @@ FLASH_CASES = (
     ((32, 16, 577, 64), False, 2e-5),
     ((2, 12, 77, 64), True, 1e-5),
 )
+# phase 3, SigLIP SO400M (head dim 72, MLP width 4304, tanh-GELU, eps
+# 1e-6): fused_block and fused_block_int8 at the image block of a b4
+# request (736 rows, kv_valid 729) and the text block of a b8 one (64
+# rows, bidirectional), limits on the mean |kernel - plain| (fused_block,
+# none, fused_block_int8); and the attention forward at the image tower's
+# 4x16x729x72 with its limit. The limits sit between the sound readings
+# and the two faults of an odd head dim, the logits scaled by 1/sqrt(128)
+# and the tile's padded columns read from memory instead of zero-filled
+# (scripts/chip_probe_siglip.py; PERF.md)
+SIGLIP_MLP, SIGLIP_EPS = 4304, 1e-6
+# (readings on the H100, mean |diff|: sound / logits at 1/sqrt(128) /
+# padded columns read: fused_block 0.00128 / 0.0157 / 0.0538 and 0.00094 /
+# 0.0377 / 0.128; fused_block_int8 0.0077 / 0.0222 / 0.0565 and 0.00013 /
+# 0.0406 / 0.129; attention 6.1e-5 / 0.0138 / 0.0486). The int8 image
+# block's max limit is 0.25: a code flip's run reached 0.156 there
+SIGLIP_BLOCK_CASES = (
+    ((4, 736, 1152, 16, 729, False), 0.004, None, 0.012),
+    ((8, 64, 1152, 16, 64, False), 0.004, None, 0.002),
+)
+SIGLIP_INT8_MAX_DIFF = 0.25
+SIGLIP_FLASH_CASES = (((4, 16, 729, 72), False, 1e-3),)
 # phase 3, the bf16 GEMM (cet_gemm) alone: (name, M, N, K, epilogue) for
 # each projection of a block at the b32 train step's vision rows (18464 =
 # 32 x 577, d 1024), the image serving rows (2368 = 4 x 592) and
@@ -159,12 +200,16 @@ FLASH_CASES = (
 # rarely (two where the residual rounds again): max 0.125; mean 1e-3, far
 # under a dropped bias (~0.4: biases of std 0.5)
 GEMM_CASES = tuple(
-    (f"{name} {m}x{n}x{k}", m, n, k, epilogue)
+    (f"{name} {m}x{n}x{k}", m, n, k, epilogue, "quick")
     for m, d in ((18464, 1024), (2368, 1024), (20480, 768))
     for name, n, k, epilogue in (
         ("qkv", 3 * d, d, "bias"), ("out", d, d, "residual"),
         ("fc", 4 * d, d, "act"), ("fc+pre", 4 * d, d, "act_pre"),
-        ("proj", d, 4 * d, "residual")))
+        ("proj", d, 4 * d, "residual"))) + (
+    # SigLIP SO400M's fc (N = 4304, tanh) and fc2 (K = 4304) at the b32
+    # image call's rows (23552 = 32 x 736)
+    ("siglip fc 23552x4304x1152", 23552, 4304, 1152, "act", "tanh"),
+    ("siglip proj 23552x1152x4304", 23552, 1152, 4304, "residual", "tanh"))
 GEMM_MAX_DIFF, GEMM_MEAN_DIFF = 0.125, 1e-3
 # phase 3, the int8 GEMM (cet_gemm_s8) alone: (name, M, N, K, epilogue,
 # act scale index) for each projection of an int8 block at the b32 image
@@ -176,11 +221,14 @@ GEMM_MAX_DIFF, GEMM_MEAN_DIFF = 0.125, 1e-3
 # of the entries (the activation's exp and division round apart from
 # torch's, which moves a code at a .5 boundary)
 GEMM_S8_CASES = tuple(
-    (f"{name} {m}x{n}x{k}", m, n, k, epilogue, a_idx)
+    (f"{name} {m}x{n}x{k}", m, n, k, epilogue, a_idx, "quick")
     for m, d in ((18944, 1024), (2368, 1024), (20480, 768), (640, 768))
     for name, n, k, epilogue, a_idx in (
         ("qkv", 3 * d, d, "bf16", 0), ("out", d, d, "residual", 1),
-        ("fc", 4 * d, d, "act_q8", 2), ("proj", d, 4 * d, "residual", 3)))
+        ("fc", 4 * d, d, "act_q8", 2), ("proj", d, 4 * d, "residual", 3))
+) + (("siglip fc 23552x4304x1152", 23552, 4304, 1152, "act_q8", 2, "tanh"),
+     ("siglip proj 23552x1152x4304", 23552, 1152, 4304, "residual", 3,
+      "tanh"))
 GEMM_S8_FLIPS = 1e-4
 # the act scales of the int8 GEMM's inputs: a[2] * s gives sums of std
 # ~1.6, and a[3] spreads act(v) over the int8 codes
@@ -213,6 +261,16 @@ HEAD_ROUTES = {"pacl fused": ("pacl", "fused"), "pacl int8": ("pacl", "int8"),
 # composable fp32 tower, held here apart from the trainer's own gate
 # (train_pacl.py GATE_MIN_COS), which must not drift below it
 HEAD_GATE_COS = 0.999
+# phase 9: SigLIP ViT-SO400M-14-SigLIP-384 at full width and depth (27 + 27
+# layers, seeded random weights): images at b32, texts at b256 (64
+# tokens), the int8 towers calibrated on the first SIGLIP_CALIB of each;
+# the scorer on phase 7's What'sUp-A fixture through a sentencepiece
+# vocabulary written from the seed; and the training CLI's --siglip on
+# phase 6's composable ViT-L/14-336 route
+SIGLIP_MODEL = "ViT-SO400M-14-SigLIP-384"
+SIGLIP_IMAGES, SIGLIP_TEXTS, SIGLIP_CALIB = 32, 256, 8
+SIGLIP_TRAIN_ROUTE = {"composable --siglip": (
+    ["--siglip"], ROUTES["composable"][1])}
 # H100 SXM data-sheet peaks (dense): bf16 and int8 tensor cores, HBM3
 PEAK_BF16, PEAK_INT8, HBM_BYTES_PER_S = 989e12, 1979e12, 3.35e12
 
@@ -288,18 +346,35 @@ def block_inputs(rng, b, n, d, mlp, bias_std=0.5):
             t(d, mlp, std=0.02), t(d, std=bias_std), ln(), ln())
 
 
-def int8_block_inputs(args, heads, kv, causal):
+def int8_block_inputs(args, heads, kv, causal, act="quick", eps=1e-5):
     """fused_block_int8 inputs from fused_block's: the weights quantised by
     the port's quantize_weight, the static scales calibrated by a dynamic
-    pass of a quantised ResidualAttentionBlock over the same x."""
+    pass over the same x of a quantised ResidualAttentionBlock (QuickGELU)
+    or, for act "tanh", a quantised SiglipBlock (bidirectional)."""
     from clip_embeds_tpu_torch.models.layers import ResidualAttentionBlock
     from clip_embeds_tpu_torch.models.quant import (
-        calibrate_act_scales, quantize_state_dict)
+        calibrate_act_scales, quantize_linears, quantize_state_dict)
     from clip_embeds_tpu_torch.models.serving import (
-        INT8_BLOCK_ARGS, int8_block_args)
+        INT8_BLOCK_ARGS, int8_block_args, siglip_int8_block_args)
+    from clip_embeds_tpu_torch.models.siglip import SiglipBlock
 
     x, wqkv, bqkv, wo, bo, w1, b1, w2, b2, ln1, ln2 = args
     d, mlp = x.shape[-1], w1.shape[0]
+    if act == "tanh":
+        sd = {"ln_1.weight": ln1[0], "ln_1.bias": ln1[1],
+              "in_proj.weight": wqkv, "in_proj.bias": bqkv,
+              "out_proj.weight": wo, "out_proj.bias": bo,
+              "ln_2.weight": ln2[0], "ln_2.bias": ln2[1],
+              "fc1.weight": w1, "fc1.bias": b1, "fc2.weight": w2,
+              "fc2.bias": b2}
+        with torch.device("meta"):
+            block = SiglipBlock(d, heads, mlp, eps, quant="dynamic")
+        block.load_state_dict(quantize_linears(sd, [
+            (f"{k}.weight", k) for k in ("in_proj", "out_proj", "fc1",
+                                         "fc2")]), assign=True)
+        calibrate_act_scales(block, [x[:, :kv]])
+        p = siglip_int8_block_args(block)
+        return (x, *(p[k] for k in INT8_BLOCK_ARGS))
     sd = {"ln_1.weight": ln1[0], "ln_1.bias": ln1[1],
           "attn.in_proj_weight": wqkv, "attn.in_proj_bias": bqkv,
           "attn.out_proj.weight": wo, "attn.out_proj.bias": bo,
@@ -315,72 +390,104 @@ def int8_block_inputs(args, heads, kv, causal):
     return (x, *(p[k] for k in INT8_BLOCK_ARGS))
 
 
-def check_kernels(rng):
-    """Phase 3: every kernel against its plain version on the same inputs;
-    their times, the bound, and the library call's time where there is
-    one."""
-    from clip_embeds_tpu_torch.ops.flash_attention import (
-        _flash_forward, flash_attention, flash_attention_bwd,
-        flash_attention_bwd_reference, flash_attention_reference)
+def block_kernel_cases(rng, cases, mlp_of, act, eps, label,
+                       max_tol8=0.125):
+    """Phase 3's block cases: (name, kernel call, plain call, max tol, rows
+    compared, mean tol, bound, library, counted FLOPs) for fused_block,
+    fused_block_residuals (where its limit is not None) and
+    fused_block_int8 (likewise; max limit ``max_tol8``) at each ((b, n,
+    d, heads, kv_valid, causal), limits) of ``cases``, with the MLP width
+    ``mlp_of(d)``, activation ``act`` and LayerNorm eps ``eps``."""
     from clip_embeds_tpu_torch.ops.fused_block import (
         fused_block, fused_block_int8, fused_block_int8_reference,
         fused_block_reference, fused_block_residuals,
         fused_block_residuals_reference)
 
-    cases = []
+    out = []
+    # Max: bf16 outputs below 8, where a rounding flip is <= 1/32; an int8
+    # code that the two sides round apart moves its projection by
+    # a * max|w| and later codes with it.
+    for (b, n, d, heads, kv, causal), mean_tol, mean_tol_res, mean_tol8 \
+            in cases:
+        mlp = mlp_of(d)
+        args = block_inputs(rng, b, n, d, mlp)
+        kw = dict(heads=heads, kv_valid=kv, act=act, ln_eps=eps,
+                  causal=causal)
+        shape = f"{b}x{n}x{d} causal={causal}{label}"
+        out.append((f"fused_block {shape}",
+                    lambda a=args, k=kw: fused_block(*a, **k),
+                    lambda a=args, k=kw: fused_block_reference(*a, **k),
+                    0.125, kv, mean_tol,
+                    block_cost(b, n, d, mlp, heads, kv, causal), None, None))
+        if mean_tol_res is not None:
+            out.append((f"fused_block_residuals {shape}",
+                        lambda a=args, k=kw: fused_block_residuals(*a, **k),
+                        lambda a=args, k=kw:
+                        fused_block_residuals_reference(*a, **k),
+                        0.125, kv, mean_tol_res,
+                        block_cost(b, n, d, mlp, heads, kv, causal,
+                                   extra_out=5 * d + mlp), None, None))
+        if mean_tol8 is None:
+            continue
+        args8 = int8_block_inputs(args, heads, kv, causal, act, eps)
+        out.append((f"fused_block_int8 {shape}",
+                    lambda a=args8, k=kw: fused_block_int8(*a, **k),
+                    lambda a=args8, k=kw:
+                    fused_block_int8_reference(*a, **k),
+                    max_tol8, kv, mean_tol8,
+                    block_cost(b, n, d, mlp, heads, kv, causal, int8=True),
+                    None, None))
+    return out
+
+
+def flash_forward_case(rng, shape, causal, mean_tol):
+    """Phase 3's case of the attention forward at [B, H, N, D] (the max
+    limit: |o| <= max|v| ~ 4, P rounded to bf16 on both sides), with
+    scaled_dot_product_attention's time beside it; and its q, k, v."""
+    from clip_embeds_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_reference)
+
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to("cuda", torch.bfloat16) for _ in range(3))
+    bh, n, hd = shape[0] * shape[1], shape[2], shape[3]
+    pairs = bh * attention_pairs(n, causal) * hd
+    name = f"{'x'.join(map(str, shape))} causal={causal}"
+    return (f"flash_attention {name}",
+            lambda: flash_attention(q, k, v, causal),
+            lambda: flash_attention_reference(q, k, v, causal),
+            0.02, n, mean_tol,
+            bound_ms(flops=4 * pairs, nbytes=4 * bh * n * hd * 2),
+            lambda: F.scaled_dot_product_attention(q, k, v,
+                                                   is_causal=causal),
+            4 * pairs), (q, k, v)
+
+
+def check_kernels(rng):
+    """Phase 3: every kernel against its plain version on the same inputs;
+    their times, the bound, and the library call's time where there is
+    one. The SigLIP shapes draw from their own generator, so the earlier
+    cases keep their inputs."""
+    from clip_embeds_tpu_torch.ops.flash_attention import (
+        _flash_forward, flash_attention_bwd, flash_attention_bwd_reference)
+
     # (name, kernel call, plain call, tolerance on max |kernel - plain|,
     #  rows compared (axis 1), tolerance on the mean |kernel - plain|,
     #  (bound_ms, bound_by), library call or None, counted FLOPs or None)
-    # Max: bf16 outputs below 8, where a rounding flip is <= 1/32; an int8
-    # code that the two sides round apart moves its projection by
-    # a * max|w| and later codes with it. Mean limits: BLOCK_CASES.
-    for (b, n, d, heads, kv, causal), mean_tol, mean_tol_res, mean_tol8 in \
-            BLOCK_CASES:
-        mlp = 4 * d
-        args = block_inputs(rng, b, n, d, mlp)
-        kw = dict(heads=heads, kv_valid=kv, quick_gelu=True, causal=causal)
-        shape = f"{b}x{n}x{d} causal={causal}"
-        cases.append((f"fused_block {shape}",
-                      lambda a=args, k=kw: fused_block(*a, **k),
-                      lambda a=args, k=kw: fused_block_reference(*a, **k),
-                      0.125, kv, mean_tol,
-                      block_cost(b, n, d, mlp, heads, kv, causal), None, None))
-        cases.append((f"fused_block_residuals {shape}",
-                      lambda a=args, k=kw: fused_block_residuals(*a, **k),
-                      lambda a=args, k=kw:
-                      fused_block_residuals_reference(*a, **k),
-                      0.125, kv, mean_tol_res,
-                      block_cost(b, n, d, mlp, heads, kv, causal,
-                                 extra_out=5 * d + mlp), None, None))
-        if mean_tol8 is None:
-            continue
-        args8 = int8_block_inputs(args, heads, kv, causal)
-        cases.append((f"fused_block_int8 {shape}",
-                      lambda a=args8, k=kw: fused_block_int8(*a, **k),
-                      lambda a=args8, k=kw:
-                      fused_block_int8_reference(*a, **k),
-                      0.125, kv, mean_tol8,
-                      block_cost(b, n, d, mlp, heads, kv, causal, int8=True),
-                      None, None))
+    # Mean limits: BLOCK_CASES, FLASH_CASES, SIGLIP_*_CASES.
+    cases = block_kernel_cases(rng, BLOCK_CASES, lambda d: 4 * d, "quick",
+                               1e-5, "")
     # the attention backward: max as the edge tests (bf16 rounding flips of
     # P and dS, which the online (kernel) and two-pass (plain) softmax
-    # round apart). Mean limits: FLASH_CASES.
+    # round apart).
     for shape, causal, mean_tol_bwd in FLASH_CASES:
-        q, k, v, g = (torch.from_numpy(rng.standard_normal(shape).astype(
-            np.float32)).to("cuda", torch.bfloat16) for _ in range(4))
+        fwd, (q, k, v) = flash_forward_case(rng, shape, causal, 0.02)
+        cases.append(fwd)
+        g = torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to("cuda", torch.bfloat16)
         bh, n, hd = shape[0] * shape[1], shape[2], shape[3]
         pairs = bh * attention_pairs(n, causal) * hd
         io = bh * n * hd * 2
         name = f"{'x'.join(map(str, shape))} causal={causal}"
-        cases.append((f"flash_attention {name}",
-                      lambda q=q, k=k, v=v, c=causal: flash_attention(q, k, v, c),
-                      lambda q=q, k=k, v=v, c=causal:
-                      flash_attention_reference(q, k, v, c),
-                      0.02, n, 0.02,
-                      bound_ms(flops=4 * pairs, nbytes=4 * io),
-                      lambda q=q, k=k, v=v, c=causal:
-                      F.scaled_dot_product_attention(q, k, v, is_causal=c),
-                      4 * pairs))
         o, lse = _flash_forward(q, k, v, causal, with_lse=True)
         with torch.enable_grad():
             lq, lk, lv = (t.clone().requires_grad_() for t in (q, k, v))
@@ -396,6 +503,13 @@ def check_kernels(rng):
                       lambda t=(lq, lk, lv), lo=lo, g=g:
                       torch.autograd.grad(lo, t, g, retain_graph=True),
                       10 * pairs))
+    siglip_rng = np.random.default_rng(9)
+    cases += block_kernel_cases(
+        siglip_rng, SIGLIP_BLOCK_CASES, lambda d: SIGLIP_MLP, "tanh",
+        SIGLIP_EPS, f" mlp={SIGLIP_MLP} tanh", SIGLIP_INT8_MAX_DIFF)
+    for shape, causal, mean_tol in SIGLIP_FLASH_CASES:
+        cases.append(flash_forward_case(siglip_rng, shape, causal,
+                                        mean_tol)[0])
     results = {}
     for (name, kernel, plain, tol, n_valid, mean_tol, bound, library,
          flops) in cases:
@@ -468,9 +582,9 @@ def gemm_call(epilogue, a, w, bias, res, act="quick"):
 def check_gemms(rng, gpu):
     """Phase 3, the bf16 GEMM alone at GEMM_CASES: |kernel - plain|,
     kernel ms, TFLOP/s, share of the bound, F.linear ms."""
-    for name, m, n, k, epilogue in GEMM_CASES:
+    for name, m, n, k, epilogue, act in GEMM_CASES:
         a, w, bias, res = gemm_inputs(rng, m, n, k)
-        kernel, plain, nbytes = gemm_call(epilogue, a, w, bias, res)
+        kernel, plain, nbytes = gemm_call(epilogue, a, w, bias, res, act)
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         got, want = ((x,) if torch.is_tensor(x) else x for x in (got, want))
@@ -554,10 +668,10 @@ def int_mm_ms(a, w):
 def check_gemms_s8(rng, gpu):
     """Phase 3, the int8 GEMM alone at GEMM_S8_CASES: the outputs against
     the plain version, kernel ms, TOP/s, share of the bound, _int_mm ms."""
-    for name, m, n, k, epilogue, a_idx in GEMM_S8_CASES:
+    for name, m, n, k, epilogue, a_idx, act in GEMM_S8_CASES:
         a, w, wscale, bias, scales, res = gemm_s8_inputs(rng, m, n, k)
         kernel, plain, nbytes = gemm_s8_call(epilogue, a_idx, a, w, wscale,
-                                             bias, scales, res)
+                                             bias, scales, res, act)
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         diff = (got.float() - want.float()).abs()
@@ -692,7 +806,7 @@ def check_training(counters, gpu):
             route_model("composable").state_dict().items()}
     logging.getLogger().setLevel(logging.INFO)
     launches = {}
-    for route, (flags, per_step) in ROUTES.items():
+    for route, (flags, per_step) in {**ROUTES, **SIGLIP_TRAIN_ROUTE}.items():
         gc.collect()
         torch.cuda.empty_cache()
         log = _StepLog()
@@ -1255,6 +1369,203 @@ def check_heads(model, ref, drive, tmp, gpu):
           f"{gpu}")
 
 
+def write_siglip_vocab(path, seed):
+    """A sentencepiece unigram .model (the T5 layout: <pad>, </s>, <unk>)
+    written from the seed: the fixtures' words as whole pieces, then
+    letters and digits, with seeded scores."""
+    from clip_embeds_tpu_torch.text.unigram import (
+        CONTROL, NORMAL, UNKNOWN, write_model_proto)
+
+    rng = np.random.default_rng(seed)
+    words = sorted(set(OBJECTS) | set(WHATSUP_KEYS) | {
+        "a", "of", "the", "table", "photo", "is", "open", "red", "two"})
+    pieces = [("<pad>", 0.0, CONTROL), ("</s>", 0.0, CONTROL),
+              ("<unk>", 0.0, UNKNOWN)]
+    pieces += [("\u2581" + w, float(-2 - rng.random()), NORMAL)
+               for w in words]
+    pieces += [(c, float(-5 - rng.random()), NORMAL)
+               for c in "\u2581abcdefghijklmnopqrstuvwxyz0123456789"]
+    with open(path, "wb") as fh:
+        fh.write(write_model_proto(pieces))
+
+
+def siglip_requests(cfg):
+    """Phase 9's requests on the card: SIGLIP_IMAGES images and
+    SIGLIP_TEXTS token rows (64 ids, any of the vocabulary but pad and
+    </s>), from the seed."""
+    rng = np.random.default_rng(10)
+    v, t = cfg.vision, cfg.text
+    px = torch.from_numpy(rng.standard_normal(
+        (SIGLIP_IMAGES, v.image_size, v.image_size, 3)).astype(
+            np.float32)).cuda()
+    ids = torch.from_numpy(rng.integers(
+        2, t.vocab_size, (SIGLIP_TEXTS, t.max_position_embeddings))).cuda()
+    return px, ids
+
+
+def siglip_routes(model, ref, px, ids, q_img, q_txt):
+    """Phase 9's serving routes: name -> (items per call, call, the
+    launches of one call). bf16 ``model``; the int8 twins read the fp parts
+    of the fp32 ``ref`` and the calibrated towers ``q_img`` / ``q_txt``, as
+    the CLIP --int8 route does. Call under inference mode."""
+    from clip_embeds_tpu_torch.models.serving import (
+        fused_encode_image_siglip, fused_encode_image_siglip_int8,
+        fused_encode_text_siglip, fused_encode_text_siglip_int8)
+
+    v, t = model.cfg.vision.layers, model.cfg.text.layers
+    return {
+        "images fused_encode_image_siglip": (
+            len(px), lambda: fused_encode_image_siglip(model, px),
+            {"fused_block": v}),
+        "texts fused_encode_text_siglip": (
+            len(ids), lambda: fused_encode_text_siglip(model, ids),
+            {"fused_block": t}),
+        "images composable+flash": (
+            len(px), lambda: model.encode_image(px),
+            {"flash_attention": v}),
+        "images fused_encode_image_siglip_int8": (
+            len(px), lambda: fused_encode_image_siglip_int8(ref, q_img, px),
+            {"fused_block_int8": v}),
+        "texts fused_encode_text_siglip_int8": (
+            len(ids), lambda: fused_encode_text_siglip_int8(ref, q_txt, ids),
+            {"fused_block_int8": t}),
+    }
+
+
+def check_siglip(drive, tmp, gpu):
+    """Phase 9 (a) and (b): SO400M's serving routes with exact launches,
+    agreement and rates; then SiglipScorer on phase 7's What'sUp-A
+    fixture. (c), the --siglip train step, runs in check_training."""
+    import copy
+
+    from clip_embeds_tpu_torch.core.openclip_registry import (
+        resolve_siglip_config)
+    from clip_embeds_tpu_torch.evals.whatsup import (
+        eval_whatsup, load_annotation)
+    from clip_embeds_tpu_torch.models.serving import (
+        prepare_int8_siglip_text_tower, prepare_int8_siglip_tower,
+        siglip_fused_available)
+    from clip_embeds_tpu_torch.models.siglip import cast_siglip, create_siglip
+    from clip_embeds_tpu_torch.scores.scorers import SiglipScorer
+    from clip_embeds_tpu_torch.text.tokenizer import SigLipTokenizer
+
+    cfg = resolve_siglip_config(SIGLIP_MODEL)
+    v, t = cfg.vision, cfg.text
+    t0 = time.perf_counter()
+    ref = create_siglip(cfg, seed=0, device="cuda")  # fp32: plain path
+    model = cast_siglip(copy.deepcopy(ref), torch.bfloat16)
+    params = sum(p.numel() for p in ref.parameters())
+    print(f"[siglip] {SIGLIP_MODEL}: vision {v.layers}x{v.width} heads "
+          f"{v.heads} (head dim {v.width // v.heads}) mlp "
+          f"{v.intermediate_size}, {v.num_patches} tokens; text "
+          f"{t.layers}x{t.width}, {t.max_position_embeddings} tokens; "
+          f"{params / 1e6:.1f} M parameters; built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not siglip_fused_available(v):
+        raise AssertionError("SO400M would not take the fused route")
+    px, ids = siglip_requests(cfg)
+    embs = {}
+    with torch.inference_mode():
+        torch.cuda.reset_peak_memory_stats()
+        # int8: static scales calibrated on the first SIGLIP_CALIB of each
+        # request (the image calibration's composable bf16 tower runs the
+        # flash kernel, counted here)
+        (q_img, q_txt), counts = drive("siglip int8 calibration", lambda: (
+            prepare_int8_siglip_tower(ref, px[:SIGLIP_CALIB], torch.bfloat16),
+            prepare_int8_siglip_text_tower(ref, ids[:SIGLIP_CALIB],
+                                           torch.bfloat16)))
+        if counts != {k: (v.layers if k == "flash_attention" else 0)
+                      for k in counts}:
+            raise AssertionError(f"siglip calibration: launches {counts}")
+        routes = siglip_routes(model, ref, px, ids, q_img, q_txt)
+        # the plain fp32 composable path: no kernel (fp32 attention)
+        plain = {"images plain fp32": (SIGLIP_IMAGES,
+                                       lambda: ref.encode_image(px), {}),
+                 "texts plain fp32": (SIGLIP_TEXTS,
+                                      lambda: ref.encode_text(ids), {})}
+        for label, (n, fn, want) in {**routes, **plain}.items():
+            out, counts = drive(f"siglip {label}", fn)
+            expect = {k: want.get(k, 0) for k in counts}
+            if counts != expect:
+                raise AssertionError(f"siglip {label}: launches {counts} "
+                                     f"!= {expect}")
+            e = out.float()
+            norms = e.norm(dim=-1)
+            if e.shape != (n, v.width) or not torch.isfinite(e).all() \
+                    or (norms - 1).abs().max().item() > 2e-2:
+                raise AssertionError(f"siglip {label}: shape {e.shape}, "
+                                     f"norms {norms.min()}..{norms.max()}")
+            embs[label] = e
+        peak = torch.cuda.max_memory_allocated() / 2**30
+
+        def cos(a, b):
+            return float(F.cosine_similarity(embs[a], embs[b], dim=-1).min())
+
+        agree = {
+            "fused image vs fp32": cos("images fused_encode_image_siglip",
+                                       "images plain fp32"),
+            "composable+flash image vs fp32": cos("images composable+flash",
+                                                  "images plain fp32"),
+            "fused text vs fp32": cos("texts fused_encode_text_siglip",
+                                      "texts plain fp32"),
+            "int8 image vs bf16": cos(
+                "images fused_encode_image_siglip_int8",
+                "images fused_encode_image_siglip"),
+            "int8 text vs bf16": cos("texts fused_encode_text_siglip_int8",
+                                     "texts fused_encode_text_siglip"),
+        }
+        print(f"[siglip] min row cosine (limit 0.99; int8 against bf16, "
+              f"the JAX package's INT8_MIN_COS): {agree}; peak device "
+              f"memory {peak:.2f} GiB on {gpu}")
+        if min(agree.values()) < 0.99:
+            raise AssertionError(f"siglip embeddings disagree: {agree}")
+        for label, (count, fn, _) in routes.items():
+            ms = cuda_ms(fn, iters=3, warmup=1)
+            kind, name = label.split(" ", 1)
+            print(f"[throughput] siglip {kind}_per_s {name}: "
+                  f"{count / ms * 1e3:.1f} (batch {count}, {ms:.2f} ms) "
+                  f"on {gpu}")
+    del routes, plain, q_img, q_txt, embs
+    gc.collect()
+
+    # (b) the scorer on What'sUp-A: images through fused_block, texts
+    # through the composable tower (64 tokens: plain attention)
+    vocab = os.path.join(tmp, "siglip_c4.model")
+    write_siglip_vocab(vocab, 11)
+    tok = SigLipTokenizer(vocab)
+    ours = SiglipScorer(model, tok, batch_size=EVAL_BATCH)
+    plain = SiglipScorer(ref, tok, batch_size=EVAL_BATCH)
+    if (ours.route, plain.route) != ("fused", "composable"):
+        raise AssertionError(f"siglip scorer routes {ours.route}, "
+                             f"{plain.route}")
+    root = os.path.join(tmp, "whatsup")
+    data, _ = load_annotation(root, "a")
+    t0 = time.perf_counter()
+    results, counts = drive("siglip eval a", lambda: eval_whatsup(
+        ours.score_batch, data, root))
+    seconds = time.perf_counter() - t0
+    want = math.ceil(len(data) / EVAL_BATCH) * v.layers
+    if counts != {k: (want if k == "fused_block" else 0) for k in counts}:
+        raise AssertionError(f"siglip eval: launches {counts}, want "
+                             f"{want} fused_block")
+    if not all(0 <= r <= 100 for r in results.values()):
+        raise AssertionError(f"siglip eval: {results}")
+    print(f"[siglip] SiglipScorer on What'sUp-A: {len(data) / seconds:.2f} "
+          f"samples/s ({len(data)} samples, PIL decode, bf16 fused "
+          f"images) on {gpu}")
+    paths = [os.path.join(root, d["image_path"][5:]) for d in data[:64]]
+    img_cos = float(row_cos(ours.encode_images(paths),
+                            plain.encode_images(paths)).min())
+    print(f"[siglip] scorer image embeddings vs plain fp32 min row cosine "
+          f"(limit 0.99): {img_cos}")
+    if img_cos < 0.99:
+        raise AssertionError(f"siglip scorer embeddings disagree: {img_cos}")
+    check_decisions(decision_runs(ours, plain, tmp), "siglip")
+    del ours, plain, model, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def check_end_to_end(drive, device_ips, embed_dim, gpu):
     """Phase 7 (b): cli/embed.py main from JPEG files, bf16 and --int8."""
     from clip_embeds_tpu_torch.cli.embed import main as embed_main
@@ -1467,6 +1778,10 @@ def main() -> int:
         t0 = time.perf_counter()
         check_heads(model, ref, drive, fixtures, gpu)
         print(f"[phase 8] {time.perf_counter() - t0:.1f} s on {gpu}")
+        t0 = time.perf_counter()
+        check_siglip(drive, fixtures, gpu)
+        t9 = time.perf_counter() - t0
+        print(f"[phase 9] (a) and (b): {t9:.1f} s on {gpu}")
     del model, ref
     gc.collect()
     torch.cuda.empty_cache()
@@ -1476,7 +1791,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 6. training at full width and depth, through the CLI
+    # 6. training at full width and depth, through the CLI; and 9 (c), the
+    # --siglip step on the composable route
     train_launches = check_training(counters, gpu)
 
     def entry(name, source, replaces, path_launches, shape):

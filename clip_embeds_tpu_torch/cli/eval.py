@@ -1,6 +1,6 @@
 """Evaluation CLI (counterpart of ``clip_embeds_tpu/cli/eval.py``): the
 reference's per-family evaluation scripts behind one dispatcher, with
-``--scorer clip|pacl|sparc`` on What'sUp A/B (2 and 4 options),
+``--scorer clip|siglip|pacl|sparc`` on What'sUp A/B (2 and 4 options),
 COCO/VG-spatial one/two objects, MMVP and MMVP-VLM.
 
   python -m clip_embeds_tpu_torch.cli.eval --scorer clip \
@@ -13,8 +13,12 @@ It takes the JAX CLI's arguments, and ``--device`` (default ``cuda``: an
 error without a card unless given ``--device cpu``). ``--model-path`` is a
 PACL/SPARC head ``.npz`` of either package (``cli/train_pacl.py
 --output``); without it the head is a fresh init from seed 0. The PACL head
-scores with uniform pooling, the reference's eval override. The SigLIP and
-embedding scorers exit naming the ROADMAP.md item that will port them.
+scores with uniform pooling, the reference's eval override. ``--scorer
+siglip`` resolves a SigLIP registry name (``core/openclip_registry.py``)
+and then exits, as the JAX CLI does: its ``SigLipTokenizer`` needs the
+path of a sentencepiece ``.model``, which the CLI has no flag to give (so
+``scores.scorers.SiglipScorer`` is driven with an injected tokenizer). The
+embedding scorer exits naming the ROADMAP.md item that will port it.
 Images decode on the native C++ pipeline where its library builds, else
 with PIL. The results table is printed as the JAX CLI prints it, then one
 JSON line naming the scorer's route, the decoder that ran, the device and
@@ -31,7 +35,6 @@ import time
 # scorers this CLI does not take yet, by the ROADMAP.md item that will port
 # them
 _UNPORTED_SCORERS = {
-    "siglip": "queue 1 item 10 (SigLIP)",
     "embedding": "queue 1 item 12 (VLM2Vec)",
 }
 
@@ -87,14 +90,49 @@ def build_head(args, model):
     return head.to(model.visual.proj.device)
 
 
+def build_siglip_scorer(args, dtype):
+    """The JAX CLI's SigLIP branch: a SigLIP registry config, its tokenizer
+    (which exits: ``SigLipTokenizer`` needs a ``.model`` path the CLI does
+    not take), then the model, from an HF ``SiglipModel`` state dict
+    (``--pretrained``) or seeded random weights."""
+    import torch
+
+    from ..core.convert import siglip_state_dict_from_hf
+    from ..core.factory import resolve_device
+    from ..core.openclip_registry import resolve_siglip_config
+    from ..models.siglip import Siglip, cast_siglip, create_siglip
+    from ..scores.scorers import SiglipScorer
+    from ..text import tokenizer
+
+    cfg = resolve_siglip_config(args.model)
+    try:
+        tokenize = tokenizer.SigLipTokenizer()
+    except Exception:
+        raise SystemExit(
+            "SigLIP tokenizer needs sentencepiece; pass texts through "
+            "scores.scorers.SiglipScorer with an injected tokenizer"
+        )
+    device = resolve_device(args.device)
+    if args.pretrained:
+        model = Siglip(cfg)
+        model.load_state_dict(siglip_state_dict_from_hf(torch.load(
+            args.pretrained, map_location="cpu", weights_only=True)))
+        model = cast_siglip(model.to(device), dtype).eval()
+    else:
+        model = create_siglip(cfg, seed=0, dtype=dtype, device=device)
+    return SiglipScorer(model, tokenize, batch_size=args.batch_size)
+
+
 def build_scorer(args):
     import torch
 
     from ..core.factory import create_model, resolve_device
     from ..scores.scorers import CLIPScorer, PACLScorer, SPARCScorer
 
-    device = resolve_device(args.device)
     dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
+    if args.scorer == "siglip":
+        return build_siglip_scorer(args, dtype)
+    device = resolve_device(args.device)
     model = create_model(args.model, args.pretrained, dtype=dtype,
                          device=device)
     if args.scorer == "clip":

@@ -35,7 +35,6 @@ import torch
 _LOADERS = "queue 1 item 5e (real-data loaders)"
 _EXTRAS = "queue 1 item 5g (async checkpoints, logging, remote sync)"
 _UNPORTED_ITEMS = {
-    "queue 1 item 5b (SigLIP loss and step)": ("--siglip",),
     "queue 1 item 5c (distill and CoCa steps)": (
         "--distill-model", "--distill-pretrained",
         "--coca-caption-loss-weight", "--coca-contrastive-loss-weight"),
@@ -88,6 +87,9 @@ def parse_args(argv=None):
     p.add_argument("--lock-text-unlocked-layers", type=int, default=0)
     p.add_argument("--lock-text-freeze-layer-norm", action="store_true")
     p.add_argument("--usehardtext", action="store_true")
+    p.add_argument("--siglip", action="store_true",
+                   help="the sigmoid loss (losses/siglip.py) in place of "
+                        "InfoNCE")
     p.add_argument("--grad-cache-chunks", type=int, default=0)
     p.add_argument("--accum-freq", type=int, default=1,
                    help="gradient accumulation; maps to the exact-gradient "
@@ -223,9 +225,10 @@ def main(argv=None):
         # open_clip's --accum-freq cached-feature replay is the grad-cache
         # algorithm: exact gradients of the full accumulated batch
         args.grad_cache_chunks = args.accum_freq
-    if args.grad_cache_chunks > 1 and args.usehardtext:
+    if args.grad_cache_chunks > 1 and (args.siglip or args.usehardtext):
         raise SystemExit("--accum-freq/--grad-cache-chunks supports the "
-                         "InfoNCE objective only; drop --usehardtext or the "
+                         "InfoNCE objective only (the cached-replay loss is "
+                         "clip_loss); drop --siglip/--usehardtext or the "
                          "accumulation")
 
     if args.lock_image or args.lock_text:
@@ -250,7 +253,8 @@ def main(argv=None):
             logging.info("resumed at epoch %d", start_epoch)
 
     step_fn = make_clip_train_step(model, use_hard_text=args.usehardtext,
-                                   grad_cache_chunks=args.grad_cache_chunks)
+                                   grad_cache_chunks=args.grad_cache_chunks,
+                                   use_siglip=args.siglip)
     prev_ckpt_step = None
     logging.info("device=%s blocks=%s steps/epoch=%d", device, block_impl,
                  steps_per_epoch)

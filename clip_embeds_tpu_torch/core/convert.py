@@ -13,6 +13,12 @@ as ``nn.Linear`` [out, in] weights, ``in_proj`` is repacked into
 carry a head (``models/heads.py``, whose submodule names are flax's) across:
 a Dense ``kernel`` [in, out] is ``nn.Linear.weight`` [out, in], a LayerNorm
 ``scale`` is its ``weight``.
+
+:func:`siglip_state_dict_from_hf` loads HF ``SiglipModel`` weights into the
+port's SigLIP (``models/siglip.py``), as the JAX
+``convert_siglip_state_dict`` reads them;
+:func:`siglip_state_dict_from_jax_params` carries the JAX ``Siglip`` params
+across, for the tests.
 """
 
 from __future__ import annotations
@@ -138,3 +144,96 @@ def jax_params_from_head(head: torch.nn.Module) -> Dict[str, Any]:
         node[name.split(".")[-1]] = {k: np.ascontiguousarray(v)
                                      for k, v in leaf.items()}
     return tree
+
+
+# -- SigLIP ------------------------------------------------------------------
+
+
+def _hf(sd: Mapping[str, Any], key: str) -> np.ndarray:
+    v = sd[key]
+    if isinstance(v, torch.Tensor):
+        v = v.detach().float().cpu().numpy()
+    return np.asarray(v, np.float32)
+
+
+def siglip_state_dict_from_hf(sd: Mapping[str, Any]
+                              ) -> Dict[str, torch.Tensor]:
+    """HF ``SiglipModel`` state dict -> the port's ``models/siglip.py``
+    :class:`Siglip` state dict of fp32 tensors. Reads what the JAX
+    ``convert_siglip_state_dict`` (``clip_embeds_tpu/models/siglip.py``)
+    reads: q/k/v packed into ``in_proj`` (q, k, v stacked on the output
+    axis), the patch conv [W, 3, p, p] flattened in patchify's (kh, kw, c)
+    order, the probe [1, 1, W] as [1, W]; other keys (``position_ids``)
+    are ignored."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def lin(src: str, dst: str) -> None:
+        out[dst + ".weight"] = _t(_hf(sd, src + ".weight"))
+        out[dst + ".bias"] = _t(_hf(sd, src + ".bias"))
+
+    for tower in ("vision_model", "text_model"):
+        i = 0
+        while f"{tower}.encoder.layers.{i}.layer_norm1.weight" in sd:
+            src, dst = f"{tower}.encoder.layers.{i}", f"{tower}.blocks.{i}"
+            attn = f"{src}.self_attn"
+            for part in ("weight", "bias"):
+                out[f"{dst}.in_proj.{part}"] = _t(np.concatenate(
+                    [_hf(sd, f"{attn}.{x}_proj.{part}") for x in "qkv"]))
+            lin(f"{attn}.out_proj", f"{dst}.out_proj")
+            lin(f"{src}.layer_norm1", f"{dst}.ln_1")
+            lin(f"{src}.layer_norm2", f"{dst}.ln_2")
+            lin(f"{src}.mlp.fc1", f"{dst}.fc1")
+            lin(f"{src}.mlp.fc2", f"{dst}.fc2")
+            i += 1
+        out[f"{tower}.position_embedding"] = _t(_hf(
+            sd, f"{tower}.embeddings.position_embedding.weight"))
+    conv = _hf(sd, "vision_model.embeddings.patch_embedding.weight")
+    out["vision_model.patch_embed.weight"] = _t(
+        conv.transpose(0, 2, 3, 1).reshape(conv.shape[0], -1))
+    out["vision_model.patch_embed.bias"] = _t(
+        _hf(sd, "vision_model.embeddings.patch_embedding.bias"))
+    lin("vision_model.post_layernorm", "vision_model.post_layernorm")
+    head = "vision_model.head"
+    out[head + ".probe"] = _t(_hf(sd, head + ".probe").reshape(1, -1))
+    out[head + ".in_proj_weight"] = _t(
+        _hf(sd, head + ".attention.in_proj_weight"))
+    out[head + ".in_proj_bias"] = _t(_hf(sd, head + ".attention.in_proj_bias"))
+    lin(head + ".attention.out_proj", head + ".out_proj")
+    lin(head + ".layernorm", head + ".ln")
+    lin(head + ".mlp.fc1", head + ".fc1")
+    lin(head + ".mlp.fc2", head + ".fc2")
+    out["text_model.token_embedding.weight"] = _t(
+        _hf(sd, "text_model.embeddings.token_embedding.weight"))
+    lin("text_model.final_layer_norm", "text_model.final_layer_norm")
+    lin("text_model.head", "text_model.head")
+    for name in ("logit_scale", "logit_bias"):
+        out[name] = _t(_hf(sd, name).reshape(()))
+    return out
+
+
+def siglip_state_dict_from_jax_params(params: Mapping[str, Any]
+                                      ) -> Dict[str, torch.Tensor]:
+    """flax params of ``clip_embeds_tpu.models.siglip.Siglip`` (numpy
+    arrays) -> the port's :class:`Siglip` state dict of fp32 tensors: Dense
+    kernels [in, out] become ``[out, in]`` weights, LayerNorm scales
+    weights, ``blocks_{i}`` ``blocks.{i}``, the MAP head's
+    ``in_proj_kernel`` [W, 3W] its ``in_proj_weight`` [3W, W]."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(p: Mapping[str, Any], prefix: str) -> None:
+        for name, value in p.items():
+            key = prefix + (name.replace("blocks_", "blocks.")
+                            if name.startswith("blocks_") else name)
+            if isinstance(value, Mapping):
+                walk(value, key + ".")
+            elif name == "kernel":
+                out[prefix + "weight"] = _t(np.asarray(value).T)
+            elif name in ("scale", "embedding"):
+                out[prefix + "weight"] = _t(value)
+            elif name == "in_proj_kernel":
+                out[prefix + "in_proj_weight"] = _t(np.asarray(value).T)
+            else:  # bias, in_proj_bias, probe, position_embedding, logits
+                out[key] = _t(np.asarray(value))
+
+    walk(params, "")
+    return out

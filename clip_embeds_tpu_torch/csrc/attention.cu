@@ -28,6 +28,13 @@
 //   accumulator (A from registers) and V MN-major from the same tile; O
 //   stays in registers for the whole key loop, is normalised once and goes
 //   out by TMA store through the Q tile's shared memory.
+// Head dims: any multiple of 8 up to 128. The kernel is instantiated for
+// tile head dims D = 32, 64 and 128 and runs the smallest that holds the
+// logical head dim `hd`: the tensor maps end at hd columns, so TMA zero-fills
+// the tile's columns past it in Q, K and V (q.k and P.V are exact) and drops
+// them from the stored O; Q K^T skips the k16 steps that hold only zeros.
+// The wrapper scales the logits by 1/sqrt(hd). So hd = 72 (SigLIP SO400M),
+// 80, 88 or 104 reads a packed qkv buffer in place, with no padded copy.
 // Masking: keys at or past kv_valid (the K/V maps end there, so TMA
 // zero-fills them and padded activations never enter P V), and key > query
 // when causal. Strides let one kernel read Q, K and V out of the packed
@@ -65,7 +72,7 @@ template <int D>
 __global__ void __launch_bounds__(256, D <= 64 ? 2 : 1)
 attention_kernel(const __grid_constant__ FwdMaps maps, float* __restrict__ lse,
                  int H, int n, int kv_lim, int causal, float scale_log2,
-                 int q_tiles) {
+                 int q_tiles, int k_steps) {
   using L = FwdSmem<D>;
   using T = Tile<D>;
   constexpr int S = L::kStages;
@@ -130,9 +137,10 @@ attention_kernel(const __grid_constant__ FwdMaps maps, float* __restrict__ lse,
       float sc[32];
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<kBN>(sc, desc_k<D>(sq, kBM, 64 * wg, kk),
-                      desc_k<D>(sk, kBN, 0, kk), kk > 0);
+      for (int kk = 0; kk < D / 16; ++kk)  // past k_steps: zero columns
+        if (kk < k_steps)
+          wgmma_ss<kBN>(sc, desc_k<D>(sq, kBM, 64 * wg, kk),
+                        desc_k<D>(sk, kBN, 0, kk), kk > 0);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sc);
@@ -222,9 +230,10 @@ attention_kernel(const __grid_constant__ FwdMaps maps, float* __restrict__ lse,
   }
 }
 
+// D: the tile's head dim; hd <= D: the logical one, the maps' extent
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int B, int H, int n, int kv_valid, int causal, float scale,
+           int B, int H, int n, int hd, int kv_valid, int causal, float scale,
            long long sb, long long sh, long long sn, long long ob,
            long long oh, long long on, cudaStream_t stream) {
   using T = Tile<D>;
@@ -236,41 +245,43 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   const int kvr = std::max(kv_lim, 1);
   const int w = T::kPW, sw = T::kSwz;
   FwdMaps maps;
-  int err = make_map(&maps.q, q, D, n, H, B, sn, sh, sb, w, kBM, sw);
+  // hd columns: TMA zero-fills the tile's columns past them and drops
+  // them from the store
+  int err = make_map(&maps.q, q, hd, n, H, B, sn, sh, sb, w, kBM, sw);
   // K/V end at kv_lim: TMA zero-fills the keys past it
-  if (!err) err = make_map(&maps.k, k, D, kvr, H, B, sn, sh, sb, w, kBN, sw);
-  if (!err) err = make_map(&maps.v, v, D, kvr, H, B, sn, sh, sb, w, kBN, sw);
-  if (!err) err = make_map(&maps.o, o, D, n, H, B, on, oh, ob, w, 64, sw);
+  if (!err) err = make_map(&maps.k, k, hd, kvr, H, B, sn, sh, sb, w, kBN, sw);
+  if (!err) err = make_map(&maps.v, v, hd, kvr, H, B, sn, sh, sb, w, kBN, sw);
+  if (!err) err = make_map(&maps.o, o, hd, n, H, B, on, oh, ob, w, 64, sw);
   if (err) return err;
   const int q_tiles = (n + kBM - 1) / kBM;
   // b*h and the Q tile folded into x: no 65535 limit, and the blocks that
   // share one head's K/V run side by side
   attention_kernel<D><<<B * H * q_tiles, 256, bytes, stream>>>(
       maps, static_cast<float*>(lse), H, n, kv_lim, causal, scale * kLog2e,
-      q_tiles);
+      q_tiles, (hd + 15) / 16);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 }  // namespace cet
 
+// D: the logical head dim, a multiple of 8 up to 128 (else
+// cudaErrorInvalidValue); run on the smallest tile of 32, 64 or 128 that
+// holds it
 extern "C" int cet_attention(const void* q, const void* k, const void* v,
                              void* o, void* lse, int B, int H, int n, int D,
                              int kv_valid, int causal, float scale, long long sb,
                              long long sh, long long sn, long long ob,
                              long long oh, long long on, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32:
-      return cet::launch<32>(q, k, v, o, lse, B, H, n, kv_valid, causal,
-                             scale, sb, sh, sn, ob, oh, on, s);
-    case 64:
-      return cet::launch<64>(q, k, v, o, lse, B, H, n, kv_valid, causal,
-                             scale, sb, sh, sn, ob, oh, on, s);
-    case 128:
-      return cet::launch<128>(q, k, v, o, lse, B, H, n, kv_valid, causal,
-                              scale, sb, sh, sn, ob, oh, on, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (D < 8 || D > 128 || D % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (D <= 32)
+    return cet::launch<32>(q, k, v, o, lse, B, H, n, D, kv_valid, causal,
+                           scale, sb, sh, sn, ob, oh, on, s);
+  if (D <= 64)
+    return cet::launch<64>(q, k, v, o, lse, B, H, n, D, kv_valid, causal,
+                           scale, sb, sh, sn, ob, oh, on, s);
+  return cet::launch<128>(q, k, v, o, lse, B, H, n, D, kv_valid, causal,
+                          scale, sb, sh, sn, ob, oh, on, s);
 }

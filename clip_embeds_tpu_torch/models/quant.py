@@ -111,21 +111,31 @@ def quantize_state_dict(sd: Mapping[str, torch.Tensor],
     where ``sd`` is fp32); activation scales start at 1 and observations at
     0. Embeddings, LayerNorms, patchify and the projection heads keep their
     values, cast to ``dtype`` if given."""
-    fp, quantised = dict(sd), {}
+    pairs = []
     for key in sd:
         for fp_name, q_name in _BLOCK_LINEARS:
-            if not key.endswith(fp_name):
-                continue
-            prefix = key[: -len(fp_name)] + q_name
-            q, scale = quantize_weight(fp.pop(key))
-            bias = fp.pop(key[: -len("weight")] + "bias")
-            quantised.update({
-                prefix + ".weight_q": q,
-                prefix + ".scale": scale,
-                prefix + ".bias": bias.float(),
-                prefix + ".act_scale": torch.ones((), device=q.device),
-                prefix + ".act_max": torch.zeros((), device=q.device),
-            })
+            if key.endswith(fp_name):
+                pairs.append((key, key[: -len(fp_name)] + q_name))
+    return quantize_linears(sd, pairs, dtype)
+
+
+def quantize_linears(sd: Mapping[str, torch.Tensor], pairs,
+                     dtype: Optional[torch.dtype] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """``sd`` with each (fp weight key, QuantLinear path) of ``pairs``
+    quantised (the weight's bias is the key with "bias" for "weight"), the
+    other entries cast to ``dtype`` if given."""
+    fp, quantised = dict(sd), {}
+    for key, prefix in pairs:
+        q, scale = quantize_weight(fp.pop(key))
+        bias = fp.pop(key[: -len("weight")] + "bias")
+        quantised.update({
+            prefix + ".weight_q": q,
+            prefix + ".scale": scale,
+            prefix + ".bias": bias.float(),
+            prefix + ".act_scale": torch.ones((), device=q.device),
+            prefix + ".act_max": torch.zeros((), device=q.device),
+        })
     if dtype is not None:
         fp = {k: v.to(dtype) if v.is_floating_point() else v
               for k, v in fp.items()}
@@ -154,6 +164,39 @@ def quantize_model(model: nn.Module, mode: Quant = "dynamic",
     with torch.device("meta"):
         qmodel = CLIP(model.cfg, quant=mode)
     qmodel.load_state_dict(quantize_state_dict(sd, dtype), assign=True,
+                           strict=tower is None)
+    return qmodel.eval()
+
+
+def quantize_siglip(model: nn.Module, mode: Quant = "dynamic",
+                    dtype: Optional[torch.dtype] = None,
+                    tower: Optional[str] = None) -> nn.Module:
+    """:func:`quantize_model` for the SigLIP dual encoder
+    (``models/siglip.py``): a new ``Siglip`` built with ``quant=mode``
+    whose blocks' ``in_proj``, ``out_proj``, ``fc1`` and ``fc2`` are
+    quantised from ``model``'s weights; patchify, the embeddings, the
+    LayerNorms and both heads (the MAP head's projections too) keep their
+    values, cast to ``dtype`` (default: ``model``'s). With ``tower``
+    ('vision_model' or 'text_model') only that tower is built; the other
+    stays on the meta device and cannot run."""
+    from .siglip import Siglip
+
+    if tower not in (None, "vision_model", "text_model"):
+        raise ValueError(f"tower {tower!r}")
+    dtype = dtype or model.vision_model.position_embedding.dtype
+    sd = model.state_dict()
+    if tower is not None:
+        sd = {k: v for k, v in sd.items() if k.startswith(tower + ".")}
+    pairs = []
+    for key in sd:
+        parts = key.split(".")  # <tower>.blocks.<i>.<linear>.weight
+        if (len(parts) == 5 and parts[1] == "blocks"
+                and parts[3] in ("in_proj", "out_proj", "fc1", "fc2")
+                and parts[4] == "weight"):
+            pairs.append((key, key[: -len(".weight")]))
+    with torch.device("meta"):
+        qmodel = Siglip(model.cfg, quant=mode)
+    qmodel.load_state_dict(quantize_linears(sd, pairs, dtype), assign=True,
                            strict=tower is None)
     return qmodel.eval()
 

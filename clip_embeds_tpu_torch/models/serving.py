@@ -1,4 +1,4 @@
-"""Serving path: CLIP towers replayed block by block through
+"""Serving path: CLIP and SigLIP towers replayed block by block through
 ``ops.fused_block`` (counterpart of ``clip_embeds_tpu/models/serving.py``,
 bf16 and W8A8 ViT and text towers).
 
@@ -13,6 +13,12 @@ scales and static activation scales come from a calibrated quantised copy
 of the tower (``models/quant.py``); the embeddings, LayerNorms and heads
 are read from the fp model at each call, as the JAX package reads them
 from its fp param tree.
+
+The SigLIP towers (``models/siglip.py``: ViT-SO400M-14-SigLIP-384, head dim
+72, MLP width 4304) take the same kernels with ``act="tanh"`` and
+``ln_eps=1e-6``: the image tower's 729 tokens are padded to 736 rows
+(``kv_valid`` 729), the 64-token text tower is bidirectional and pools its
+last position; the post-LN and the MAP head run as a plain epilogue.
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ from ..ops.fused_block import (
 )
 from .clip import l2_normalize
 from .layers import get_act
-from .quant import calibrate_act_scales, quantize_model
+from .quant import calibrate_act_scales, quantize_model, quantize_siglip
 from .text_transformer import text_global_pool
 from .vit import patch_weight, patchify
 
@@ -243,7 +249,12 @@ def int8_block_args(block) -> Dict[str, torch.Tensor]:
     ``fused_block_int8`` arguments: int8 [out, in] weights, fp32 scales
     and biases, its LayerNorms and the four static activation scales."""
     a, m = block.attn, block.mlp
-    lins = (a.in_proj, a.out_proj, m.c_fc, m.c_proj)
+    return _int8_args((a.in_proj, a.out_proj, m.c_fc, m.c_proj), block)
+
+
+def _int8_args(lins, block) -> Dict[str, torch.Tensor]:
+    """The qkv, out, fc and proj QuantLinears ``lins`` and ``block``'s
+    ``ln_1`` / ``ln_2`` as ``fused_block_int8`` arguments."""
     out: Dict[str, torch.Tensor] = {}
     for name, lin in zip(("qkv", "o", "1", "2"), lins):
         out[f"w{name}_q"] = lin.weight_q
@@ -324,3 +335,171 @@ def fused_encode_text_int8(
                            n_valid, model.cfg.quick_gelu, causal)
 
     return _encode_text(model, text_ids, block_fn, normalize, dtype)
+
+
+# -- SigLIP fused serving ----------------------------------------------------
+
+
+def siglip_fused_available(vision_cfg) -> bool:
+    """Whether the fused kernels take a SigLIP vision tower's blocks (its
+    tokens padded to a multiple of 16)."""
+    n = _round_up(vision_cfg.num_patches, 16)
+    return fused_block_supported(
+        n, vision_cfg.width, vision_cfg.heads,
+        vision_cfg.intermediate_size / vision_cfg.width)
+
+
+def _siglip_block_weights(block, dtype: torch.dtype
+                          ) -> Tuple[torch.Tensor, ...]:
+    """A SiglipBlock's weights in fused_block's argument order."""
+    ws = (block.in_proj.weight, block.in_proj.bias, block.out_proj.weight,
+          block.out_proj.bias, block.fc1.weight, block.fc1.bias,
+          block.fc2.weight, block.fc2.bias,
+          torch.stack([block.ln_1.weight, block.ln_1.bias]),
+          torch.stack([block.ln_2.weight, block.ln_2.bias]))
+    return tuple(w.to(dtype) for w in ws)
+
+
+def _encode_image_siglip(model, images, block_fn: Callable, normalize: bool,
+                         dtype: torch.dtype) -> torch.Tensor:
+    """The SigLIP image tower; ``block_fn(i, x, n_valid)`` runs block i on
+    the padded sequence. No class token: every token feeds the MAP head,
+    whose one probe query runs as a plain epilogue in ``dtype``."""
+    cfg = model.cfg.vision
+    v = model.vision_model
+    x = patchify(images.to(dtype), cfg.patch_size)
+    x = x @ v.patch_embed.weight.to(dtype).t() + v.patch_embed.bias.to(dtype)
+    x = x + v.position_embedding.to(dtype)
+    n_valid = x.shape[1]
+    x = _pad_rows(x, _round_up(n_valid, 16))
+    for i in range(cfg.layers):
+        x = block_fn(i, x, n_valid)
+    x = _ln_affine(x[:, :n_valid], v.post_layernorm.weight,
+                   v.post_layernorm.bias, cfg.layer_norm_eps)
+    pooled = v.head(x)
+    return l2_normalize(pooled) if normalize else pooled
+
+
+def _encode_text_siglip(model, input_ids, block_fn: Callable,
+                        normalize: bool, dtype: torch.dtype) -> torch.Tensor:
+    """The SigLIP text tower (bidirectional); ``block_fn(i, x, n_valid)``
+    runs block i. Pooled = the LAST position -> final LN -> head."""
+    cfg = model.cfg.text
+    t = model.text_model
+    n_valid = input_ids.shape[1]
+    x = t.token_embedding.weight.to(dtype)[input_ids.long()]
+    x = x + t.position_embedding[:n_valid].to(dtype)
+    x = _pad_rows(x, _round_up(n_valid, 16))
+    for i in range(cfg.layers):
+        x = block_fn(i, x, n_valid)
+    x = _ln_affine(x[:, n_valid - 1], t.final_layer_norm.weight,
+                   t.final_layer_norm.bias, cfg.layer_norm_eps)
+    pooled = x @ t.head.weight.to(dtype).t() + t.head.bias.to(dtype)
+    return l2_normalize(pooled) if normalize else pooled
+
+
+def _siglip_block_fn(blocks, cfg, dtype: torch.dtype) -> Callable:
+    def block_fn(i, x, n_valid):
+        return fused_block(x, *_siglip_block_weights(blocks[i], dtype),
+                           heads=cfg.heads, kv_valid=n_valid, act="tanh",
+                           ln_eps=cfg.layer_norm_eps)
+    return block_fn
+
+
+def fused_encode_image_siglip(
+    model,                         # models.siglip.Siglip
+    images: torch.Tensor,          # [B, S, S, 3]
+    normalize: bool = True,
+    dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """Siglip.encode_image through fused blocks (tanh-GELU, eps 1e-6; 729
+    tokens padded to 736 rows at SO400M/384); returns [B, width]."""
+    block_fn = _siglip_block_fn(model.vision_model.blocks, model.cfg.vision,
+                                dtype)
+    return _encode_image_siglip(model, images, block_fn, normalize, dtype)
+
+
+def fused_encode_text_siglip(
+    model,                         # models.siglip.Siglip
+    input_ids: torch.Tensor,       # int [B, ctx <= 64]
+    normalize: bool = True,
+    dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """Siglip.encode_text through fused blocks (bidirectional attention,
+    tanh-GELU, eps 1e-6; pooled = LAST token -> head projection)."""
+    block_fn = _siglip_block_fn(model.text_model.blocks, model.cfg.text,
+                                dtype)
+    return _encode_text_siglip(model, input_ids, block_fn, normalize, dtype)
+
+
+@torch.no_grad()
+def siglip_int8_block_args(block) -> Dict[str, torch.Tensor]:
+    """A calibrated quantised SiglipBlock -> ``fused_block_int8``
+    arguments (as :func:`int8_block_args` for CLIP's block)."""
+    return _int8_args((block.in_proj, block.out_proj, block.fc1, block.fc2),
+                      block)
+
+
+def _prepare_int8_siglip(model, calib, method: str, tower: str,
+                         dtype: Optional[torch.dtype]) -> Dict[str, List]:
+    qmodel = quantize_siglip(model, "dynamic", dtype, tower=tower)
+    with torch.inference_mode():
+        calibrate_act_scales(qmodel, [calib], method)
+    return {"blocks": [siglip_int8_block_args(b)
+                       for b in getattr(qmodel, tower).blocks]}
+
+
+def prepare_int8_siglip_tower(model, calib_images: torch.Tensor,
+                              dtype: Optional[torch.dtype] = None
+                              ) -> Dict[str, List]:
+    """Quantise the SigLIP vision tower's block projections to int8 (from
+    ``model``'s own weights) and calibrate static activation scales on
+    ``calib_images`` through a dynamic-mode copy computing in ``dtype``
+    (default: the model's); patchify and the MAP head stay fp."""
+    return _prepare_int8_siglip(model, calib_images, "encode_image",
+                                "vision_model", dtype)
+
+
+def prepare_int8_siglip_text_tower(model, calib_ids: torch.Tensor,
+                                   dtype: Optional[torch.dtype] = None
+                                   ) -> Dict[str, List]:
+    """:func:`prepare_int8_siglip_tower` for the text tower, calibrated on
+    token batches."""
+    return _prepare_int8_siglip(model, calib_ids, "encode_text",
+                                "text_model", dtype)
+
+
+def _siglip_int8_block_fn(qtower, cfg) -> Callable:
+    def block_fn(i, x, n_valid):
+        bp = qtower["blocks"][i]
+        return fused_block_int8(
+            x, *(bp[k] for k in INT8_BLOCK_ARGS), heads=cfg.heads,
+            kv_valid=n_valid, act="tanh", ln_eps=cfg.layer_norm_eps)
+    return block_fn
+
+
+def fused_encode_image_siglip_int8(
+    model,                         # models.siglip.Siglip (fp parts)
+    qtower: Dict[str, List],       # prepare_int8_siglip_tower output
+    images: torch.Tensor,
+    normalize: bool = True,
+    dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """Siglip.encode_image with W8A8 fused blocks (tanh-GELU, eps 1e-6);
+    the MAP-head epilogue stays fp, as on the bf16 fused path."""
+    return _encode_image_siglip(
+        model, images, _siglip_int8_block_fn(qtower, model.cfg.vision),
+        normalize, dtype)
+
+
+def fused_encode_text_siglip_int8(
+    model,                         # models.siglip.Siglip (fp parts)
+    qtower: Dict[str, List],       # prepare_int8_siglip_text_tower output
+    input_ids: torch.Tensor,
+    normalize: bool = True,
+    dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """Siglip.encode_text with W8A8 fused blocks."""
+    return _encode_text_siglip(
+        model, input_ids, _siglip_int8_block_fn(qtower, model.cfg.text),
+        normalize, dtype)

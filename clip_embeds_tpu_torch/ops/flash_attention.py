@@ -26,7 +26,7 @@ import torch.nn.functional as F
 
 from . import _build
 
-_KERNEL_D = (32, 64, 128)  # head dims the kernels are instantiated for
+_KERNEL_D = (32, 64, 128)  # head dims the backward is instantiated for
 _TILE = 64                 # rows of the backward kernels' tiles
 NEG_INF = -1e30            # the Pallas kernels' mask value
 
@@ -85,8 +85,9 @@ def _aligned(t: torch.Tensor) -> bool:
 
 
 def _check(name: str, *ts: torch.Tensor) -> int:
-    """Shape and type checks shared by the kernels; returns the kernel's
-    head dim (D padded up to 32, 64 or 128)."""
+    """Shape and type checks shared by the kernels; returns the
+    backward's head dim (D padded up to 32, 64 or 128). The forward kernel
+    takes any multiple of 8 up to 128 as it is."""
     if ts[0].dim() != 4 or any(t.shape != ts[0].shape for t in ts):
         raise ValueError(f"{name}: q, k, v (and o, dO) must share a "
                          f"[B, H, N, D] shape: {[t.shape for t in ts]}")
@@ -99,9 +100,9 @@ def _check(name: str, *ts: torch.Tensor) -> int:
 
 
 def _qkv_for_kernel(dk: int, *ts: torch.Tensor):
-    """q, k, v as the kernels read them: zero columns up to the kernel's
-    head dim (they change neither q.k nor the kept outputs), and one
-    shared aligned stride."""
+    """q, k, v as the kernels read them: zero columns up to the head dim
+    ``dk`` (they change neither q.k nor the kept outputs), and one shared
+    aligned stride."""
     d = ts[0].shape[-1]
     if dk != d:
         ts = tuple(F.pad(t, (0, dk - d)) for t in ts)
@@ -114,10 +115,13 @@ def _qkv_for_kernel(dk: int, *ts: torch.Tensor):
 def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    causal: bool, with_lse: bool
                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """One launch of the forward kernel; returns (out, fp32 lse [B*H, N]
-    or None)."""
-    dk = _check("flash_attention", q, k, v)
+    """One launch of the forward kernel, at the head dim D itself where it
+    is a multiple of 8 (the kernel's tensor maps end at D columns; TMA
+    rows need 16 bytes, so any other D is padded up to the next one);
+    returns (out, fp32 lse [B*H, N] or None)."""
+    _check("flash_attention", q, k, v)
     b, h, n, d = q.shape
+    dk = -(-d // 8) * 8
     q, k, v = _qkv_for_kernel(dk, q, k, v)
     out = torch.empty(b, h, n, dk, dtype=q.dtype, device=q.device)
     lse = (torch.empty(b * h, n, dtype=torch.float32, device=q.device)

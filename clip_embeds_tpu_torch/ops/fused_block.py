@@ -49,7 +49,7 @@ _ACTS = {"quick": 0, "erf": 1, "tanh": 2}
 _EPI_BIAS, _EPI_ACT, _EPI_RESIDUAL, _EPI_ACT_PRE = 0, 1, 2, 3
 # csrc/fused_block_int8.cu epilogues
 _EPI_Q_BF16, _EPI_Q_ACT_Q8, _EPI_Q_RESIDUAL = 0, 1, 2
-_KERNEL_HEAD_DIMS = (32, 64, 128)
+_MAX_HEAD_DIM = 128  # csrc/attention.cu: any multiple of 8 up to it
 
 
 def _ln(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -165,16 +165,20 @@ def fused_block_int8_reference(
     return x + qdot(m, a[3], w2_q, s2, b2).to(dt)
 
 
-def fused_block_supported(n: int, d: int, heads: int,
-                          mlp_ratio: float) -> bool:
-    """Shapes the CUDA kernels take: GEMM depths and widths that are
-    multiples of 32 (``d`` and the MLP width), and a head dim the attention
-    kernel is instantiated for."""
+def fused_block_supported(n: int, d: int, heads: int, mlp_ratio: float,
+                          int8: bool = False) -> bool:
+    """Shapes the CUDA kernels take: ``d`` and the MLP width, the K and N
+    of the GEMMs, in whole 16-byte TMA rows: multiples of 8 for
+    ``cet_gemm`` (bf16), of 16 with ``int8`` (``cet_gemm_s8``: int8 codes,
+    the fc launch's int8 output too); and a head dim that is a multiple of
+    8 up to 128 (``cet_attention``). LayerNorm takes any width."""
     if n < 1 or heads < 1 or d % heads != 0:
         return False
     mlp = int(d * mlp_ratio)
-    return (d % 32 == 0 and mlp % 32 == 0
-            and d // heads in _KERNEL_HEAD_DIMS)
+    hd = d // heads
+    step = 16 if int8 else 8
+    return (d % step == 0 and mlp % step == 0
+            and hd % 8 == 0 and hd <= _MAX_HEAD_DIM)
 
 
 def gemm_reference(a, w, bias, res, epi: int, act: str, pre: bool = False):
@@ -476,7 +480,7 @@ def fused_block_int8(
                         "and fp32 scales, biases and act_scales")
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         raise RuntimeError("fused_block_int8 is forward-only")
-    if not fused_block_supported(n, d, heads, mlp / d):
+    if not fused_block_supported(n, d, heads, mlp / d, int8=True):
         raise ValueError(f"fused_block_int8 kernels do not take n={n} d={d} "
                          f"heads={heads} mlp={mlp}")
     if (wqkv_q.shape != (3 * d, d) or wo_q.shape != (d, d)

@@ -1,7 +1,6 @@
 """Batched scorers bridging models to the evaluations of ``evals/``
 (counterpart of ``clip_embeds_tpu/scores/scorers.py``: ``_batched``,
-``CLIPScorer``, ``PACLScorer`` and ``SPARCScorer``; the SigLIP scorer is
-not ported yet).
+``CLIPScorer``, ``PACLScorer``, ``SPARCScorer`` and ``SiglipScorer``).
 
 The reference drivers run one PIL image + a couple of captions per forward
 (eval_clip.py:50-65); here images and texts are accumulated and encoded in
@@ -23,6 +22,10 @@ JAX package's TPU fused path runs in either dtype). The PACL and SPARC
 scorers run the composable towers everywhere, as the JAX ones do: on the
 card in bf16 the 577-token vision tower's attention is the flash kernel,
 the 77-token text tower's plain attention. Their heads compute in fp32.
+The SigLIP scorer, on the card in bf16 where ``siglip_fused_available``
+holds, runs its images through ``fused_encode_image_siglip`` (the JAX
+scorer's TPU route) and its texts through the composable tower (64 tokens:
+plain attention); elsewhere, fp32 on the card included, both composable.
 """
 
 from __future__ import annotations
@@ -35,7 +38,13 @@ import torch
 from ..image.preprocess import ImageLike, preprocess_batch
 from ..losses.sparc import sparc_group_patches
 from ..models.clip import l2_normalize
-from ..models.serving import fused_encode_image, fused_encode_text, fused_route
+from ..models.serving import (
+    fused_encode_image,
+    fused_encode_image_siglip,
+    fused_encode_text,
+    fused_route,
+    siglip_fused_available,
+)
 from ..text.tokenizer import get_tokenizer
 
 
@@ -303,5 +312,90 @@ class SPARCScorer(_HeadScorer):
                               self.tokenizer([text] * n_img))
             rows.append(100.0 * np.diag(sim))
         logits = np.stack(rows)
+        e = np.exp(logits - logits.max(axis=-1, keepdims=True))
+        return e / e.sum(axis=-1, keepdims=True)
+
+
+class SiglipScorer:
+    """SigLIP dual-encoder scorer (sigmoid-loss scoring semantics) over the
+    port's :class:`~clip_embeds_tpu_torch.models.siglip.Siglip`, on its
+    device and in its dtype.
+
+    The pairing score is sigmoid(logit_scale * cos + logit_bias).
+    ``tokenize`` is any texts -> int [B, 64] ids callable;
+    ``text/tokenizer.py SigLipTokenizer`` (pure-Python sentencepiece
+    unigram over a local ``.model`` file) is the native choice.
+    """
+
+    def __init__(self, model, tokenize: Callable, batch_size: int = 64):
+        self.model = model
+        self.tokenize = tokenize
+        self.batch_size = batch_size
+        self.image_size = model.cfg.vision.image_size
+        self.device = model.logit_scale.device
+        self.dtype = model.vision_model.position_embedding.dtype
+        self.route = ("fused" if self.device.type == "cuda"
+                      and self.dtype == torch.bfloat16
+                      and siglip_fused_available(model.cfg.vision)
+                      else "composable")
+        self._scale = float(model.logit_scale.detach().float().exp())
+        self._bias = float(model.logit_bias.detach().float())
+
+    @torch.inference_mode()
+    def _encode_images(self, pixels: np.ndarray) -> torch.Tensor:
+        x = torch.from_numpy(pixels).to(self.device, self.dtype)
+        if self.route == "fused":
+            return fused_encode_image_siglip(self.model, x, dtype=self.dtype)
+        return self.model.encode_image(x)
+
+    @torch.inference_mode()
+    def _encode_texts(self, ids: np.ndarray) -> torch.Tensor:
+        return self.model.encode_text(
+            torch.from_numpy(ids).long().to(self.device))
+
+    def encode_images(self, images: Sequence[ImageLike]) -> np.ndarray:
+        pixels = preprocess_batch(images, self.image_size, "siglip")
+        return _batched(self._encode_images, pixels, self.batch_size)
+
+    def encode_texts(self, texts: Sequence[str]) -> np.ndarray:
+        ids = np.asarray(self.tokenize(list(texts)))
+        return _batched(self._encode_texts, ids, self.batch_size)
+
+    def sigmoid_scores(
+        self, images: Sequence[ImageLike], texts: Sequence[str]
+    ) -> np.ndarray:
+        """m x n pairing probabilities sigmoid(scale*cos + bias)."""
+        sims = self.encode_images(images) @ self.encode_texts(texts).T
+        z = self._scale * sims + self._bias
+        return 1.0 / (1.0 + np.exp(-z))
+
+    def score_batch(
+        self, samples: Sequence[Tuple[ImageLike, List[str]]]
+    ) -> List[np.ndarray]:
+        """Per-sample softmax over option cosines (score_batch protocol of
+        ``evals/whatsup.py``)."""
+        images = [s[0] for s in samples]
+        img_feats = self.encode_images(images)
+        all_texts: List[str] = []
+        offsets = [0]
+        for _, options in samples:
+            all_texts.extend(options)
+            offsets.append(offsets[-1] + len(options))
+        txt_feats = self.encode_texts(all_texts)
+        out = []
+        for i in range(len(samples)):
+            tf = txt_feats[offsets[i]:offsets[i + 1]]
+            logits = self._scale * img_feats[i] @ tf.T + self._bias
+            e = np.exp(logits - logits.max())
+            out.append(e / e.sum())
+        return out
+
+    def pair_score(
+        self, images: Sequence[str], texts: Sequence[str]
+    ) -> np.ndarray:
+        """t2i softmax over images per text (MMVP-VLM protocol)."""
+        img = self.encode_images(images)
+        txt = self.encode_texts(texts)
+        logits = self._scale * txt @ img.T + self._bias
         e = np.exp(logits - logits.max(axis=-1, keepdims=True))
         return e / e.sum(axis=-1, keepdims=True)

@@ -10,7 +10,9 @@ EOT-preserving truncation. The vocabulary ``bpe_simple_vocab_16e6.txt.gz``
 ``tests/test_torch_convert.py`` holds its ids to the JAX package's. Also a
 copy of the same file's offline POS bucketizer, ``simple_pos_tagger``, which
 the PACL noun-phrase chunker reads (``tests/test_torch_pacl.py`` holds it to
-JAX's).
+JAX's), and of its SigLIP sentencepiece tokenizer, ``SigLipTokenizer`` with
+``basic_clean`` and ``canonicalize_text`` (``tests/test_torch_siglip.py``
+holds its ids to JAX's).
 """
 
 from __future__ import annotations
@@ -64,9 +66,35 @@ def byte_to_unicode() -> dict:
     return ordered
 
 
+def basic_clean(text: str) -> str:
+    return html.unescape(html.unescape(_fix_text(text))).strip()
+
+
 def _clean_lower(text: str) -> str:
-    text = html.unescape(html.unescape(_fix_text(text))).strip()
-    return " ".join(text.split()).strip().lower()
+    return " ".join(basic_clean(text).split()).strip().lower()
+
+
+def canonicalize_text(
+    text: str,
+    *,
+    keep_punctuation_exact_string: Optional[str] = None,
+) -> str:
+    """big_vision prompt canonicalization (reference tokenizer.py:104-131):
+    lowercase, strip punctuation, collapse whitespace; '_' becomes space."""
+    import string as _string
+
+    trans = str.maketrans("", "", _string.punctuation)
+    text = text.replace("_", " ")
+    if keep_punctuation_exact_string:
+        text = keep_punctuation_exact_string.join(
+            part.translate(trans)
+            for part in text.split(keep_punctuation_exact_string)
+        )
+    else:
+        text = text.translate(trans)
+    text = text.lower()
+    text = " ".join(text.split())
+    return text.strip()
 
 
 class BPETokenizer:
@@ -171,6 +199,50 @@ class BPETokenizer:
 def get_tokenizer(context_length: int = DEFAULT_CONTEXT_LENGTH
                   ) -> BPETokenizer:
     return BPETokenizer(context_length=context_length)
+
+
+class SigLipTokenizer:
+    """SigLIP sentencepiece tokenizer (reference tokenizer.py:464-528; a
+    copy of the JAX package's): canonicalize(basic_clean(text)) -> unigram
+    sentencepiece encode + </s>, pad to 64 (pad id 1 for the T5
+    c4-en/mc4 vocabs, 0 for Gemma).
+
+    Runs the pure-Python unigram engine of ``text/unigram.py`` directly
+    over the ``.model`` protobuf, with no native ``sentencepiece``. Pass
+    the local path of the vocabulary file: nothing is downloaded.
+    """
+
+    def __init__(self, tokenizer_name: str,
+                 context_length: Optional[int] = 64):
+        from .unigram import UnigramTokenizer
+
+        if not os.path.exists(tokenizer_name):
+            raise FileNotFoundError(
+                f"SigLipTokenizer needs a local sentencepiece .model file; "
+                f"{tokenizer_name!r} does not exist (the reference downloads "
+                "c4-en/mc4/gemma vocabs; see tokenizer.py:470-477)"
+            )
+        self.tokenizer = UnigramTokenizer.from_model_file(tokenizer_name)
+        self.is_gemma = "gemma" in tokenizer_name
+        self.pad_token_id = 0 if self.is_gemma else 1
+        self.eos_token_id = 1
+        self.context_length = context_length
+
+    def __call__(self, texts, context_length: Optional[int] = None
+                 ) -> np.ndarray:
+        if isinstance(texts, str):
+            texts = [texts]
+        context_length = context_length or self.context_length
+        assert context_length, "set a context length"
+        texts = [canonicalize_text(basic_clean(t)) for t in texts]
+        out = np.full((len(texts), context_length), self.pad_token_id,
+                      np.int32)
+        for i, text in enumerate(texts):
+            # truncate to leave room for </s> like the HF fast tokenizer
+            ids = self.tokenizer.encode(text)[: context_length - 1]
+            ids = ids + [self.eos_token_id]
+            out[i, : len(ids)] = ids
+        return out
 
 
 # A tiny self-contained POS bucketizer so the noun-phrase chunker of

@@ -1,6 +1,6 @@
 """The train steps (counterpart of ``clip_embeds_tpu/train/steps.py``):
 ``make_clip_train_step``, the CLIP contrastive step (open_clip's
-``train_one_epoch``: forward both towers, InfoNCE or hard-text loss,
+``train_one_epoch``: forward both towers, InfoNCE, SigLIP or hard-text loss,
 backward, AdamW update, optionally after global-norm clipping, then the
 logit scale clamped to ln(100)); and ``make_frozen_tower_train_step``, the
 PACL/SPARC step that trains a head on a frozen tower's features.
@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from ..losses.clip_loss import clip_loss, clip_loss_hard_text, clip_metrics
+from ..losses.siglip import siglip_loss
 from .grad_cache import cache_grad_step
 from .optim import clip_by_global_norm
 from .schedules import Schedule
@@ -53,11 +54,13 @@ class TrainState:
 
 
 def clip_train_loss(model: nn.Module, batch: Batch,
-                    use_hard_text: bool = False
+                    use_hard_text: bool = False, use_siglip: bool = False
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(loss, metrics) of one batch: 'images' [B, S, S, 3], 'texts'
     [B, ctx]; with ``use_hard_text`` also 'hard_texts' [H, ctx] and
-    optionally 'hard_valid' [H] bool."""
+    optionally 'hard_valid' [H] bool. ``use_siglip`` takes the sigmoid
+    loss with the model's logit bias (None for the CLIP configs); the
+    hard-text loss comes first where both are asked, as in JAX."""
     out = model(batch["images"], batch["texts"])
     img, txt, scale = (out["image_features"], out["text_features"],
                        out["logit_scale"])
@@ -65,6 +68,8 @@ def clip_train_loss(model: nn.Module, batch: Batch,
         hard = model.encode_text(batch["hard_texts"], normalize=True)
         loss = clip_loss_hard_text(img, txt, hard, scale,
                                    hard_valid=batch.get("hard_valid"))
+    elif use_siglip:
+        loss = siglip_loss(img, txt, scale, out.get("logit_bias"))
     else:
         loss = clip_loss(img, txt, scale, out.get("logit_bias"))
     metrics = clip_metrics(img, txt, scale)
@@ -73,7 +78,7 @@ def clip_train_loss(model: nn.Module, batch: Batch,
 
 
 def make_clip_train_step(model: nn.Module, use_hard_text: bool = False,
-                         grad_cache_chunks: int = 0
+                         grad_cache_chunks: int = 0, use_siglip: bool = False
                          ) -> Callable[[TrainState, Batch], Dict]:
     """A train step ``step(state, batch) -> metrics`` (metrics hold 0-d
     tensors; reading them syncs the device).
@@ -82,7 +87,7 @@ def make_clip_train_step(model: nn.Module, use_hard_text: bool = False,
     :func:`~.grad_cache.cache_grad_step` over that many chunks, InfoNCE
     only; as in JAX, the logit scale is then a constant of the loss and
     gets no gradient."""
-    if grad_cache_chunks > 1 and use_hard_text:
+    if grad_cache_chunks > 1 and (use_hard_text or use_siglip):
         raise ValueError("grad-cache supports the InfoNCE objective only")
 
     def encode(chunk: Batch) -> Dict[str, torch.Tensor]:
@@ -98,7 +103,8 @@ def make_clip_train_step(model: nn.Module, use_hard_text: bool = False,
                 batch, grad_cache_chunks)
             metrics = {"logit_scale": scale}
         else:
-            loss, metrics = clip_train_loss(model, batch, use_hard_text)
+            loss, metrics = clip_train_loss(model, batch, use_hard_text,
+                                            use_siglip)
             loss.backward()
             loss = loss.detach()
         state.apply_gradients()

@@ -6,7 +6,10 @@ the keys past kv_valid, a backward that repeats bit for bit, the bf16 and
 int8 GEMMs alone over ragged M, N and K and every epilogue, the residual
 block inside an autograd backward, the errors a wrapper raises, and the
 PACL/SPARC slice on the card (the frozen-tower routes' patch tokens, a
-head step, the head scorers' route).
+head step, the head scorers' route), and the SigLIP shapes (attention at
+head dims 72, 80, 88 and 104 from separate and packed buffers, the GEMMs
+at N and K = 4304, the SO400M-width blocks and a two-layer tower on every
+serving route).
 Marked ``cuda``; without a card they skip. On the card:
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py``."""
 
@@ -70,14 +73,14 @@ def _bf16(rng, *shape, std=1.0, mean=0.0):
     return torch.from_numpy(a).to("cuda", torch.bfloat16)
 
 
-def _block_args(rng, b, n, d, mlp, bias_std=0.02):
+def _block_args(rng, b, n, d, mlp, bias_std=0.02, out_std=0.05):
     ln = lambda: torch.stack([_bf16(rng, d, std=0.1, mean=1.0),
                               _bf16(rng, d, std=0.1)])
     return (_bf16(rng, b, n, d), _bf16(rng, 3 * d, d, std=d ** -0.5),
-            _bf16(rng, 3 * d, std=bias_std), _bf16(rng, d, d, std=0.05),
+            _bf16(rng, 3 * d, std=bias_std), _bf16(rng, d, d, std=out_std),
             _bf16(rng, d, std=bias_std),
             _bf16(rng, mlp, d, std=(2 * d) ** -0.5),
-            _bf16(rng, mlp, std=bias_std), _bf16(rng, d, mlp, std=0.05),
+            _bf16(rng, mlp, std=bias_std), _bf16(rng, d, mlp, std=out_std),
             _bf16(rng, d, std=bias_std), ln(), ln())
 
 
@@ -147,8 +150,8 @@ def test_kernel_wrappers_reject_what_they_cannot_run(cuda):
                                 _block_args(rng, 1, 16, 64, 256)),
                               heads=2, kv_valid=16)
     args = _block_args(rng, 1, 16, 64, 256)
-    with pytest.raises(ValueError):  # head dim 16
-        fused_block(*args, heads=4, kv_valid=16)
+    with pytest.raises(ValueError):  # head dim 4: not a multiple of 8
+        fused_block(*args, heads=16, kv_valid=16)
     with pytest.raises(TypeError):
         fused_block(*(a.float() for a in args), heads=2, kv_valid=16)
 
@@ -216,8 +219,8 @@ def test_fused_block_int8_wrapper_rejects(cuda):
     with pytest.raises(RuntimeError, match="forward-only"):
         fused_block_int8(args[0].clone().requires_grad_(), *args[1:],
                          heads=2, kv_valid=16)
-    with pytest.raises(ValueError):  # head dim 16
-        fused_block_int8(*args, heads=4, kv_valid=16)
+    with pytest.raises(ValueError):  # head dim 4: not a multiple of 8
+        fused_block_int8(*args, heads=16, kv_valid=16)
 
 
 def _bwd_inputs(rng, shape, causal):
@@ -810,3 +813,216 @@ def test_head_scorers_card_route_matches_plain_path(cuda):
         cos = (got * want).sum(-1) / (np.linalg.norm(got, axis=-1)
                                       * np.linalg.norm(want, axis=-1))
         assert cos.min() >= 0.99, cos.min()
+
+
+# -- SigLIP shapes: head dims off the 32/64/128 tiles, MLP width 4304 ------
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("hd", [72, 80, 88, 104])
+def test_flash_kernel_odd_head_dims(cuda, hd, causal):
+    """The forward at head dims the kernel has no tile of its own for (it
+    runs the 128 tile on hd columns), from contiguous tensors and from
+    strided views of one packed [B, N, 3, H, hd] buffer (no copy: the same
+    bits), against the plain version; 4x16x729x72 is SO400M's image
+    tower at batch 4."""
+    rng = np.random.default_rng(30)
+    shape = (4, 16, 729, hd) if hd == 72 else (2, 3, 200, hd)
+    q, k, v = (_bf16(rng, *shape) for _ in range(3))
+    with torch.inference_mode():
+        got = flash_attention(q, k, v, causal)
+        want = flash_attention_reference(q, k, v, causal)
+        b, h, n, _ = shape
+        qkv = torch.stack([q, k, v]).permute(1, 3, 0, 2, 4).contiguous()
+        pq, pk, pv = qkv.permute(2, 0, 3, 1, 4)  # views of [B, N, 3, H, hd]
+        packed = flash_attention(pq, pk, pv, causal)
+    assert got.shape == want.shape == shape
+    diff = (got.float() - want.float()).abs()
+    assert diff.max().item() <= 0.02, diff.max().item()
+    assert diff.mean().item() <= 2e-4, diff.mean().item()
+    assert torch.equal(packed, got)
+
+
+@pytest.mark.parametrize("hd", [72, 80, 104])
+def test_fused_attention_reads_packed_qkv_at_odd_head_dims(cuda, hd):
+    """The block chain's attention (cet_attention straight out of the
+    packed [B, n, 3d] buffer, heads side by side at hd columns) against
+    the plain attention of the same buffer: a map that read past hd would
+    take the next head's columns."""
+    from clip_embeds_tpu_torch.ops.fused_block import (
+        _attention,
+        _attention_reference,
+    )
+
+    rng = np.random.default_rng(31)
+    heads, n, kv = 4, 200, 190
+    qkv = _bf16(rng, 2, n, 3 * heads * hd)
+    out = torch.empty(2, n, heads * hd, dtype=torch.bfloat16, device="cuda")
+    with torch.inference_mode():
+        _attention(qkv, out, heads, kv, False)
+        want = _attention_reference(qkv, heads, kv, False)
+    diff = (out.float() - want.float()).abs()
+    assert diff.max().item() <= 0.02, diff.max().item()
+    assert diff.mean().item() <= 2e-4, diff.mean().item()
+
+
+@pytest.mark.parametrize("epilogue", list(GEMM_EPILOGUES))
+@pytest.mark.parametrize("m, n, k", [(129, 4304, 1152), (2944, 4304, 1152),
+                                     (129, 1152, 4304), (2944, 1152, 4304)])
+def test_gemm_kernel_siglip_widths(cuda, m, n, k, epilogue):
+    """cet_gemm at SO400M's fc (N = 4304: the last 64-wide piece holds 16
+    columns, the staged bias ends at N) and fc2 (K = 4304 = 67 x 64 + 16),
+    against the plain version, every epilogue, tanh."""
+    epi, pre = GEMM_EPILOGUES[epilogue]
+    rng = np.random.default_rng(32)
+    args = _gemm_inputs(rng, m, n, k)
+    with torch.inference_mode():
+        got = _run_gemm(*args, epi, "tanh", pre)
+        want = gemm_reference(*args, epi, "tanh", pre=pre)
+        torch.cuda.synchronize()
+    for g, w in zip(got, want if pre else (want,), strict=True):
+        diff = (g.float() - w.float()).abs()
+        assert diff.max().item() <= 0.125, diff.max().item()
+        assert diff.mean().item() <= 1e-3, diff.mean().item()
+
+
+@pytest.mark.parametrize("epilogue", list(GEMM_S8_EPILOGUES))
+@pytest.mark.parametrize("m, n, k", [(129, 4304, 1152), (2944, 4304, 1152),
+                                     (129, 1152, 4304), (2944, 1152, 4304)])
+def test_gemm_s8_kernel_siglip_widths(cuda, m, n, k, epilogue):
+    """cet_gemm_s8 at SO400M's fc (N = 4304, int8 codes out) and fc2 (K =
+    4304 = 33 x 128 + 80), against the plain version."""
+    epi, a_idx = GEMM_S8_EPILOGUES[epilogue]
+    rng = np.random.default_rng(33)
+    args = _gemm_s8_inputs(rng, m, n, k)
+    with torch.inference_mode():
+        got = _run_gemm_s8(*args, epi, a_idx, "tanh")
+        want = gemm_s8_reference(*args[:5], a_idx, args[5], epi, "tanh")
+        torch.cuda.synchronize()
+    _check_gemm_s8(got, want, epi)
+
+
+def _siglip_block_args(rng, b, n, d, heads, mlp, kv):
+    """fused_block inputs at a SigLIP block's shape, at the scales of
+    chip_smoke.py's phase-3 inputs (out-projections of std 0.02, biases
+    0.5), whose fault probes set the limits below; and the int8 ones from
+    them (weights quantised, scales calibrated by a dynamic pass of a
+    quantised SiglipBlock over x)."""
+    from clip_embeds_tpu_torch.models.siglip import SiglipBlock
+    from clip_embeds_tpu_torch.models.quant import quantize_linears
+    from clip_embeds_tpu_torch.models.serving import siglip_int8_block_args
+
+    args = _block_args(rng, b, n, d, mlp, bias_std=0.5, out_std=0.02)
+    x, wqkv, bqkv, wo, bo, w1, b1, w2, b2, ln1, ln2 = args
+    sd = {"ln_1.weight": ln1[0], "ln_1.bias": ln1[1],
+          "in_proj.weight": wqkv, "in_proj.bias": bqkv,
+          "out_proj.weight": wo, "out_proj.bias": bo,
+          "ln_2.weight": ln2[0], "ln_2.bias": ln2[1],
+          "fc1.weight": w1, "fc1.bias": b1, "fc2.weight": w2, "fc2.bias": b2}
+    with torch.device("meta"):
+        block = SiglipBlock(d, heads, mlp, 1e-6, quant="dynamic")
+    pairs = [(f"{k}.weight", k) for k in ("in_proj", "out_proj", "fc1",
+                                          "fc2")]
+    block.load_state_dict(quantize_linears(sd, pairs), assign=True)
+    with torch.inference_mode():
+        calibrate_act_scales(block, [x[:, :kv]])
+    p = siglip_int8_block_args(block)
+    return args, [x] + [p[k] for k in INT8_BLOCK_ARGS]
+
+
+@pytest.mark.parametrize("b, n, d, heads, mlp, kv", [
+    (4, 736, 1152, 16, 4304, 729),   # SO400M image block at batch 4
+    (8, 64, 1152, 16, 4304, 64),     # its text block
+    (2, 48, 144, 2, 208, 45),        # head dim 72, MLP width % 32 = 16
+])
+def test_fused_blocks_at_siglip_shapes(cuda, b, n, d, heads, mlp, kv):
+    """fused_block and fused_block_int8 at head dim 72 with tanh-GELU and
+    eps 1e-6 against their plain versions, within chip_smoke.py's
+    SIGLIP_BLOCK_CASES limits (the image block's; sound readings on the
+    H100 0.0013 and 0.0077)."""
+    rng = np.random.default_rng(34)
+    args, args8 = _siglip_block_args(rng, b, n, d, heads, mlp, kv)
+    kw = dict(heads=heads, kv_valid=kv, act="tanh", ln_eps=1e-6)
+    with torch.inference_mode():
+        got, want = fused_block(*args, **kw), fused_block_reference(*args,
+                                                                    **kw)
+        got8 = fused_block_int8(*args8, **kw)
+        want8 = fused_block_int8_reference(*args8, **kw)
+    diff = (got.float() - want.float())[:, :kv].abs()
+    assert diff.max().item() <= 0.125, diff.max().item()
+    assert diff.mean().item() <= 4e-3, diff.mean().item()
+    diff8 = (got8.float() - want8.float())[:, :kv].abs()
+    # an int8 code the two sides round apart moves its projection and the
+    # codes after it: at these widths (mlp 4304) such runs reach 5 bf16
+    # steps of 1/32 (0.156 read at 4x736x1152 on the H100), so 8
+    assert diff8.max().item() <= 0.25, diff8.max().item()
+    assert diff8.mean().item() <= 0.012, diff8.mean().item()
+
+
+def test_siglip_tower_routes_match_composable(cuda):
+    """A two-layer SO400M-width SigLIP (729 image tokens, so the flash
+    kernel's gate opens; 64 text tokens) on every serving route, with exact
+    launches: bf16 fused and composable + flash against the composable
+    fp32 path (row cosine >= 0.99), int8 against bf16 (the JAX package's
+    0.99 gate); and SiglipScorer's route in either dtype."""
+    import dataclasses
+
+    from clip_embeds_tpu_torch.models.serving import (
+        fused_encode_image_siglip,
+        fused_encode_image_siglip_int8,
+        fused_encode_text_siglip,
+        fused_encode_text_siglip_int8,
+        prepare_int8_siglip_text_tower,
+        prepare_int8_siglip_tower,
+        siglip_fused_available,
+    )
+    from clip_embeds_tpu_torch.models.siglip import (
+        SiglipConfig,
+        create_siglip,
+    )
+
+    base = SiglipConfig()
+    cfg = SiglipConfig(dataclasses.replace(base.vision, layers=2),
+                       dataclasses.replace(base.text, layers=2))
+    assert siglip_fused_available(cfg.vision)
+    ref = create_siglip(cfg, seed=0, device=cuda)
+    model = create_siglip(cfg, seed=0, dtype=torch.bfloat16, device=cuda)
+    rng = np.random.default_rng(35)
+    px = torch.from_numpy(rng.standard_normal((4, 384, 384, 3)).astype(
+        np.float32)).to(cuda)
+    ids = torch.from_numpy(rng.integers(0, 32000, (8, 64))).to(cuda)
+
+    def cos(a, b):
+        a, b = a.float(), b.float()
+        return (torch.nn.functional.cosine_similarity(a, b, dim=-1)
+                .min().item())
+
+    with torch.inference_mode():
+        img32, txt32 = ref.encode_image(px), ref.encode_text(ids)
+        flash_attention.launches = fused_block.launches = 0
+        fused_block_int8.launches = 0
+        img = fused_encode_image_siglip(model, px)
+        txt = fused_encode_text_siglip(model, ids)
+        assert (fused_block.launches, flash_attention.launches) == (4, 0)
+        comp = model.encode_image(px)
+        assert flash_attention.launches == 2
+        q_img = prepare_int8_siglip_tower(ref, px, torch.bfloat16)
+        q_txt = prepare_int8_siglip_text_tower(ref, ids, torch.bfloat16)
+        assert flash_attention.launches == 4  # the image calibration pass
+        img8 = fused_encode_image_siglip_int8(ref, q_img, px)
+        txt8 = fused_encode_text_siglip_int8(ref, q_txt, ids)
+        assert fused_block_int8.launches == 4
+    from clip_embeds_tpu_torch.scores.scorers import SiglipScorer
+
+    # the scorer's card route: fused images in bf16, composable in fp32
+    assert SiglipScorer(model, None).route == "fused"
+    assert SiglipScorer(ref, None).route == "composable"
+    got = {"image": cos(img, img32), "text": cos(txt, txt32),
+           "composable": cos(comp, img32), "int8_image": cos(img8, img),
+           "int8_text": cos(txt8, txt)}
+    print(f"SigLIP two-layer route cosines: {got}")
+    assert min(got.values()) >= 0.99, got
+    for e in (img, txt, img8, txt8):
+        assert torch.isfinite(e).all()
+        norms = e.float().norm(dim=-1)
+        assert (norms - 1).abs().max().item() <= 2e-2

@@ -125,6 +125,13 @@ def test_dot_product_attention_cpu_paths_agree():
 def test_fused_block_supported_gates():
     assert fused_block_supported(592, 1024, 16, 4.0)   # ViT-L/14-336
     assert fused_block_supported(80, 768, 12, 4.0)     # its text tower
-    assert not fused_block_supported(80, 768, 16, 4.0)  # head dim 48
-    assert not fused_block_supported(80, 100, 2, 4.0)   # width % 32
+    assert fused_block_supported(80, 768, 16, 4.0)     # head dim 48
+    # SigLIP SO400M: head dim 72, MLP width 4304 (% 32 = 16), both dtypes
+    assert fused_block_supported(736, 1152, 16, 4304 / 1152)
+    assert fused_block_supported(736, 1152, 16, 4304 / 1152, int8=True)
+    assert not fused_block_supported(80, 100, 2, 4.0)   # width % 8
     assert not fused_block_supported(80, 1024, 4, 4.0)  # head dim 256
+    assert not fused_block_supported(80, 96, 8, 4.0)    # head dim 12 % 8
+    # MLP width 200: whole bf16 rows (% 8), not whole int8 ones (% 16)
+    assert fused_block_supported(80, 64, 2, 200 / 64)
+    assert not fused_block_supported(80, 64, 2, 200 / 64, int8=True)
