@@ -21,7 +21,14 @@ Phases, each of which raises on failure:
      eps 1e-6: the blocks at 4x736x1152 and 8x64x1152, the attention
      forward at 4x16x729x72 beside scaled_dot_product_attention, the fc
      and fc2 GEMMs at 23552 rows), within limits set by fault probes
-     (scripts/chip_probe_siglip.py);
+     (scripts/chip_probe_siglip.py); and the attention forward at
+     LLaVA-1.5-7B's causal prefill, [1|8, 32, 639, 128] (a partial last Q
+     tile), beside scaled_dot_product_attention, its limit from
+     scripts/chip_probe_llava.py; and int8_linear, QuantLinear's card
+     route (cet_quantize_s8 + cet_gemm_s8), at the W8A8 trunk's
+     projections ([int8_linear] lines: 639 and 5112 rows, 4096 -> 4096,
+     4096 -> 11008, 11008 -> 4096, dynamic and static scales) bit-equal
+     to qdot rounded to bf16, with TOP/s and torch._int_mm's time;
   4. the main paths: ViT-L/14-336 (OpenAI config, seeded random weights,
      all 24 + 12 layers) serves 3 image and 3 text requests of 8 through
      embed_image_batches / embed_text_batches, the CLI's helpers: first in
@@ -92,6 +99,28 @@ Phases, each of which raises on failure:
      on the composable ViT-L/14-336 route with its exact launches,
      finite losses and moved parameters.
 
+ 10. (run last) LLaVA-1.5-7B VQAScore at full width and depth (ViT-L/14-336
+     read at layer -2, 23 blocks; the 2-layer projector; the 32-layer
+     Vicuna-7B trunk, 32 heads of 128; seeded random weights built on the
+     card by init_llava; a seeded word-hash tokenizer passed in, BOS 1,
+     pad 0): (a) the VQAScore Score's pair path, forward_image_texts and
+     forward_groups on 8 What'sUp-A images x 4 texts, in bf16 and with the
+     W8A8 trunk (quantize_llava_trunk, dynamic QuantLinear), each with its
+     launches held exactly (flash_attention: 23 a pair-path chunk, 23 + 32
+     a prefill; int8_linear: 7 a trunk layer a pass), scores finite in
+     (0, 1], the paths against each other, bf16 against the plain fp32
+     path beside the no-kernel witness (|delta log score| and the answer
+     rows' logits cosine), int8 against bf16, pairs/s, prefill ms at k = 1
+     and 8 and peak memory (int8 below bf16); (b) evals/whatsup.py
+     eval_whatsup on the first 64 What'sUp-A samples through
+     forward_groups (a GroupAdapter here), samples/s, exact launches, and
+     the clear decisions of the first 16 against the plain fp32 path's;
+     (c) a score bundle in the JAX layout at full width with the trunk and
+     the tower cut to 2 layers, loaded by scores.registry.get_score_model
+     in bf16 and with quant=True, through evals/benchmarks.py
+     run_benchmark on a 16-sample Winoground fixture, exact launches and
+     metrics in [0, 1].
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device it exits
 with code 2 and prints no result.
@@ -110,6 +139,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -191,6 +221,11 @@ SIGLIP_BLOCK_CASES = (
 )
 SIGLIP_INT8_MAX_DIFF = 0.25
 SIGLIP_FLASH_CASES = (((4, 16, 729, 72), False, 1e-3),)
+# phase 3, LLaVA-1.5-7B's causal prefill at head dim 128 (32 heads, F =
+# 63 + 576 = 639 rows: a partial last Q tile) at k = 1 and 8 images, and
+# the limit on the mean |kernel - plain|
+LLAVA_FLASH_CASES = (((1, 32, 639, 128), True, 1e-3),
+                     ((8, 32, 639, 128), True, 1e-3))
 # phase 3, the bf16 GEMM (cet_gemm) alone: (name, M, N, K, epilogue) for
 # each projection of a block at the b32 train step's vision rows (18464 =
 # 32 x 577, d 1024), the image serving rows (2368 = 4 x 592) and
@@ -233,6 +268,18 @@ GEMM_S8_FLIPS = 1e-4
 # the act scales of the int8 GEMM's inputs: a[2] * s gives sums of std
 # ~1.6, and a[3] spreads act(v) over the int8 codes
 GEMM_S8_ACT_SCALES = (0.021, 0.034, 0.027, 0.0315)
+# phase 3, int8_linear (QuantLinear's card route: cet_quantize_s8, then
+# cet_gemm_s8 with the bf16 epilogue and no bias) at the W8A8 trunk's
+# projections, (M, N, K): the prefill's rows at k = 1 and 8 images (639
+# and 5112 = 8 x 639, a partial last M tile) through q/k/v/o (4096 ->
+# 4096), gate/up (4096 -> 11008) and down (11008 -> 4096), in the dynamic
+# mode (the scale from the input's abs-max) and the static one (a
+# calibrated scale at INT8_LINEAR_STATIC of it, so codes clip). Held
+# bit-equal to qdot's exact product rounded to bf16
+INT8_LINEAR_CASES = tuple((m, n, k) for m in (639, 5112)
+                          for n, k in ((4096, 4096), (11008, 4096),
+                                       (4096, 11008)))
+INT8_LINEAR_STATIC = 0.5
 # phase 7: the image decoder the card's machine gives the port. It has g++
 # and PIL but not the libjpeg / libpng / libwebp headers, so the native
 # library does not build there and images decode with PIL (probe on NVIDIA
@@ -271,6 +318,31 @@ SIGLIP_MODEL = "ViT-SO400M-14-SigLIP-384"
 SIGLIP_IMAGES, SIGLIP_TEXTS, SIGLIP_CALIB = 32, 256, 8
 SIGLIP_TRAIN_ROUTE = {"composable --siglip": (
     ["--siglip"], ROUTES["composable"][1])}
+# phase 10: LLaVA-1.5-7B VQAScore at full width and depth (ViT-L/14-336 to
+# layer -2, the 2-layer projector, the 32-layer Vicuna-7B trunk; seeded
+# random weights) through the three VQAScorer paths on LLAVA_GROUP images
+# x LLAVA_TEXTS texts, bf16 and W8A8; What'sUp-A's first LLAVA_WHATSUP
+# samples through forward_groups, decisions against the plain fp32 path on
+# the first LLAVA_AGREE; a score bundle cut to 2 + 2 layers through the
+# registry and run_benchmark on a LLAVA_WINO-sample Winoground fixture
+LLAVA_SEED, LLAVA_GROUP, LLAVA_TEXTS = 10, 8, 4
+# calls a path is timed over: the paths run host code between launches,
+# and one call's time spreads up to 1.8x from one machine to the next
+LLAVA_TIME_ITERS, LLAVA_PREFILL_ITERS = 5, 10
+LLAVA_WHATSUP, LLAVA_AGREE, LLAVA_WINO, LLAVA_PLAIN_IMAGES = 64, 16, 16, 2
+# limits on |delta log score| and the least cosine of the answer
+# positions' logits rows. Readings on the H100 (scripts/chip_probe_llava.py
+# and this phase; PERF.md): the bf16 paths against the k-group path 0.040
+# (pair, plain attention in the trunk) and 0.050 (per-image); bf16 against
+# plain fp32 0.068 and cosine 0.99900, the no-kernel witness 0.033 and
+# 0.99898, the prefill without its causal mask 0.448; W8A8 against bf16
+# 0.23-0.53 and cosine 0.973, with every projection's codes at a quarter
+# of their range 1.63
+LLAVA_PATHS_LOG_TOL = 0.2      # the three bf16 paths against each other
+LLAVA_FP32_LOG_TOL = 0.2       # bf16 kernel route against plain fp32
+LLAVA_FP32_COS = 0.998
+LLAVA_INT8_LOG_TOL = 1.0       # W8A8 against bf16
+LLAVA_INT8_COS = 0.95
 # H100 SXM data-sheet peaks (dense): bf16 and int8 tensor cores, HBM3
 PEAK_BF16, PEAK_INT8, HBM_BYTES_PER_S = 989e12, 1979e12, 3.35e12
 
@@ -510,6 +582,10 @@ def check_kernels(rng):
     for shape, causal, mean_tol in SIGLIP_FLASH_CASES:
         cases.append(flash_forward_case(siglip_rng, shape, causal,
                                         mean_tol)[0])
+    llava_rng = np.random.default_rng(10)
+    for shape, causal, mean_tol in LLAVA_FLASH_CASES:
+        cases.append(flash_forward_case(llava_rng, shape, causal,
+                                        mean_tol)[0])
     results = {}
     for (name, kernel, plain, tol, n_valid, mean_tol, bound, library,
          flops) in cases:
@@ -692,6 +768,50 @@ def check_gemms_s8(rng, gpu):
               f"{100 * bound / ms:.1f}% of the bound {bound:.4f} ms "
               f"({bound_by}); torch._int_mm {int_mm_ms(a, w)} on {gpu}")
         del a, w, wscale, bias, scales, res, kernel, plain
+
+
+def check_int8_linear(gpu):
+    """Phase 3, QuantLinear's card route at INT8_LINEAR_CASES in both
+    modes: bit-equal to qdot rounded to bf16, int8_linear ms (both
+    kernels), TOP/s, share of the bound, _int_mm ms on the same codes."""
+    from clip_embeds_tpu_torch.models.quant import QuantLinear, quantize_weight
+    from clip_embeds_tpu_torch.ops.fused_block import int8_linear, qdot
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for m, n, k in INT8_LINEAR_CASES:
+        x = torch.randn(m, k, generator=g, device="cuda").bfloat16()
+        w = 0.02 * torch.randn(n, k, generator=g, device="cuda")
+        for mode in ("dynamic", "static"):
+            lin = QuantLinear(k, n, mode, bias=False).cuda()
+            lin.weight_q, lin.scale = quantize_weight(w)
+            amax = x.float().abs().max()
+            lin.act_scale.copy_(INT8_LINEAR_STATIC * amax / 127.0)
+            got = lin(x)
+            a = (lin.act_scale if mode == "static"
+                 else (lin.act_max / 127.0).clamp_min(1e-8))
+            want = qdot(x.float(), a, lin.weight_q, lin.scale,
+                        None).to(torch.bfloat16)
+            apart = int((got != want).sum())
+            if got.shape != (m, n) or apart or (
+                    mode == "dynamic" and lin.act_max != amax):
+                raise AssertionError(
+                    f"int8_linear {m}x{n}x{k} {mode}: {apart} of {m * n} "
+                    f"entries differ from qdot, act_max "
+                    f"{float(lin.act_max)} (abs-max {float(amax)})")
+            del got, want
+        ops = 2 * m * n * k
+        nbytes = 2 * m * k + n * k + 4 * n + 2 * m * n
+        bound, bound_by = bound_ms(int8_ops=ops, nbytes=nbytes)
+        ms = cuda_ms(lambda: int8_linear(x, a, lin.weight_q, lin.scale,
+                                         None))
+        xq = torch.clamp(torch.round(x.float() / a), -127, 127).to(
+            torch.int8)
+        print(f"[int8_linear] {m}x{n}x{k}: dynamic and static bit-equal to "
+              f"qdot in bf16; kernel {ms:.4f} ms, {ops / ms / 1e9:.1f} "
+              f"TOP/s, {100 * bound / ms:.1f}% of the bound {bound:.4f} ms "
+              f"({bound_by}); torch._int_mm {int_mm_ms(xq, lin.weight_q)} "
+              f"on {gpu}")
+        del x, w, xq, lin
 
 
 def synthetic_requests(rng, cfg):
@@ -1631,6 +1751,383 @@ def check_end_to_end(drive, device_ips, embed_dim, gpu):
             raise AssertionError(f"e2e int8 embeddings disagree: {cos8}")
 
 
+def word_tokenizer(seed, vocab):
+    """A seeded word-hash tokenizer (BOS 1, pad 0, ids 2..vocab-1): the
+    card's machine has no transformers and no LLaMA vocabulary, so the
+    scorer takes it as ``tokenize``."""
+    def tokenize(text):
+        return [1] + [2 + zlib.crc32(f"{seed}:{w}".encode()) % (vocab - 2)
+                      for w in text.split()]
+    return tokenize
+
+
+@torch.no_grad()
+def cast_copy(model, dtype):
+    """A copy of the LLaVA ``model`` on its device with every tensor in
+    ``dtype`` (the plain fp32 path on the bf16 model's values), made on the
+    card without a host copy."""
+    from clip_embeds_tpu_torch.models.llava import Llava
+
+    with torch.device("meta"):
+        out = Llava(model.cfg).to(dtype)
+    out.to_empty(device=next(model.parameters()).device)
+    src = model.state_dict()
+    for name, t in out.state_dict().items():
+        t.copy_(src[name])
+    return out.eval()
+
+
+class GroupAdapter:
+    """evals/whatsup.py's score_batch over VQAScorer.forward_groups: each
+    sample's image against its own options, LLAVA_GROUP images a call
+    (glue for this check, not a package feature)."""
+
+    def __init__(self, scorer):
+        self.scorer = scorer
+
+    def score_batch(self, samples):
+        out = []
+        for s in range(0, len(samples), LLAVA_GROUP):
+            chunk = samples[s : s + LLAVA_GROUP]
+            out.extend(self.scorer.forward_groups(
+                [p for p, _ in chunk], [list(o) for _, o in chunk]))
+        return out
+
+
+def event_times(fn, iters):
+    """The wall time in ms of each of ``iters`` calls of fn(), between two
+    CUDA events around each (the paths read scores back to the host)."""
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return times
+
+
+def counted(counters, label, fn, want):
+    """fn() with every launch count set to 0 just before; the counts read
+    just after must be ``want`` (0 for a kernel not named)."""
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    got = {k: c.launches for k, c in counters.items()}
+    expect = {k: want.get(k, 0) for k in counters}
+    print(f"[vqascore] {label}: launches {got}")
+    if got != expect:
+        raise AssertionError(f"{label}: launches {got} != {expect}")
+    return out
+
+
+def check_scores(label, scores):
+    if not (np.isfinite(scores).all() and (scores > 0).all()
+            and (scores <= 1).all()):
+        raise AssertionError(f"{label}: scores not in (0, 1]: {scores}")
+
+
+def llava_paths(score, images, texts, label, counters, gpu):
+    """The three VQAScore paths of ``score`` on images x texts, each with
+    exact launches, then timed over LLAVA_TIME_ITERS more calls by CUDA
+    events. Returns ({path:
+    scores [k, n]}, {path: pairs/s})."""
+    scorer = score.pair_forward.__self__
+    cfg = scorer.model.cfg
+    tb, layers = cfg.tower_blocks, cfg.llama.num_layers
+    k, n, bs = len(images), len(texts), scorer.batch_size
+    q = 7 * layers if label == "int8" else 0  # int8_linear a trunk pass
+    chunks, groups = math.ceil(k * n / bs), math.ceil(k / score.group_size)
+    paths = {
+        "pair": (lambda: score.pair_forward(
+            [im for im in images for _ in texts], list(texts) * k
+        ).reshape(k, n),
+            {"flash_attention": chunks * tb, "int8_linear": chunks * q}),
+        "per-image": (lambda: np.stack([
+            score.image_texts_forward(im, list(texts)) for im in images]),
+            {"flash_attention": k * (tb + layers),
+             "int8_linear": k * (1 + math.ceil(n / bs)) * q}),
+        "groups": (lambda: score(list(images), list(texts)),
+                   {"flash_attention": groups * (tb + layers),
+                    "int8_linear": groups * 2 * q}),
+    }
+    scores, rates = {}, {}
+    for name, (fn, want) in paths.items():
+        scores[name] = counted(counters, f"{label} {name} path, {k} images "
+                               f"x {n} texts", fn, want)
+        check_scores(f"{label} {name}", scores[name])
+        times = event_times(fn, LLAVA_TIME_ITERS)
+        ms = sum(times) / len(times)
+        rates[name] = k * n / ms * 1e3
+        print(f"[vqascore] {label} {name}: {rates[name]:.2f} pairs/s "
+              f"({k * n} pairs in {ms:.1f} ms, the mean of "
+              f"{len(times)} calls; range {min(times):.1f}-"
+              f"{max(times):.1f} ms) on {gpu}")
+    return scores, rates
+
+
+def prefill_times(scorer, images, texts, label, gpu):
+    """ms of one Llava.prefill (vision tower, projector, causal trunk) at
+    k = 1 and k = LLAVA_GROUP images, by CUDA events around each of
+    LLAVA_PREFILL_ITERS calls after one to warm up: the mean and range."""
+    for k in (1, LLAVA_GROUP):
+        batch = scorer.pack_groups(images[:k], [list(texts)] * k)[2]
+        ids = scorer._tensor(batch["prefix_ids"])
+        valid = scorer._tensor(batch["prefix_valid"])
+        px = scorer._pixels(batch["images"])
+        with torch.inference_mode():
+            times = event_times(lambda: scorer.model.prefill(ids, px, valid),
+                                1 + LLAVA_PREFILL_ITERS)[1:]
+        f = ids.shape[1] - 1 + scorer.model.cfg.n_image_tokens
+        print(f"[vqascore] {label} prefill k={k} (F = {f} rows): "
+              f"{sum(times) / len(times):.2f} ms, the mean of {len(times)} "
+              f"calls (range {min(times):.2f}-{max(times):.2f} ms) on {gpu}")
+
+
+def log_diff(a, b):
+    return float(np.abs(np.log(a) - np.log(b)).max())
+
+
+def answer_rows(batch):
+    """[kb, n * ls] bool: the logits rows of a pack_groups batch that
+    predict an answer token (each block's rows j < ls - 1 whose label
+    j + 1 is kept), as forward_groups scores them."""
+    from clip_embeds_tpu_torch.models.llava import IGNORE_INDEX
+
+    ls, lab = batch["ls"], batch["labels"]
+    rows = np.zeros(lab.shape, bool)
+    for start in range(0, lab.shape[1], ls):
+        rows[:, start : start + ls - 1] = (
+            lab[:, start + 1 : start + ls] != IGNORE_INDEX)
+    return torch.from_numpy(rows)
+
+
+def check_plain_fp32(scorer, plain, images, texts, gpu):
+    """The bf16 kernel route against the plain fp32 path (the same weights
+    in fp32, plain attention, TF32 off) on LLAVA_PLAIN_IMAGES images x the
+    texts through forward_groups: |delta log score| and the least cosine of
+    the answer positions' logits rows, beside the bf16 no-kernel witness."""
+    k = LLAVA_PLAIN_IMAGES
+    batch = scorer.pack_groups(images[:k], [list(texts)] * k)[2]
+    rows = answer_rows(batch)
+
+    def run(s):
+        return s._group_scores(batch), s.group_logits(batch)[
+            rows.to(s.device)].float().cpu()
+
+    (got, lg), (want, lw) = run(scorer), run(plain)
+    with plain_attention():
+        wit, lx = run(scorer)
+    read = {"kernel": (log_diff(got, want),
+                       float(F.cosine_similarity(lg, lw, dim=-1).min())),
+            "witness": (log_diff(wit, want),
+                        float(F.cosine_similarity(lx, lw, dim=-1).min()))}
+    print(f"[vqascore] bf16 vs plain fp32 on {k} images x {len(texts)} "
+          f"texts ({int(rows.sum())} answer rows): max |d log score|, min "
+          f"row cosine: {read} (limits {LLAVA_FP32_LOG_TOL}, "
+          f"{LLAVA_FP32_COS}) on {gpu}")
+    if read["kernel"][0] > LLAVA_FP32_LOG_TOL or \
+            read["kernel"][1] < LLAVA_FP32_COS:
+        raise AssertionError(f"bf16 VQAScore disagrees with fp32: {read}")
+    return batch, rows, lg
+
+
+def write_winoground(root, n, seed):
+    """Winoground format: examples.jsonl and images/<name>.png, two images
+    and two captions a sample, drawn from ``seed``."""
+    from PIL import Image
+
+    os.makedirs(os.path.join(root, "images"))
+    rows = []
+    for i in range(n):
+        for s in (0, 1):
+            rng = np.random.default_rng([seed, i, s])
+            low = Image.fromarray(rng.integers(0, 256, (6, 8, 3), np.uint8))
+            low.resize((320, 240), Image.BICUBIC).save(
+                os.path.join(root, "images", f"ex_{i}_img_{s}.png"))
+        o1, o2 = OBJECTS[i % len(OBJECTS)], OBJECTS[(i + 3) % len(OBJECTS)]
+        rows.append({"image_0": f"ex_{i}_img_0", "image_1": f"ex_{i}_img_1",
+                     "caption_0": f"a {o1} to the left of a {o2}",
+                     "caption_1": f"a {o2} to the left of a {o1}"})
+    with open(os.path.join(root, "examples.jsonl"), "w") as fh:
+        fh.write("\n".join(json.dumps(r) for r in rows))
+
+
+def check_bundle(tmp, cfg, tokenize, counters, gpu):
+    """Phase 10 (c): a score bundle in the JAX layout (config.json + fp32
+    params.npz) at full width with the trunk and the tower cut to 2 layers
+    each, written from the seed, loaded through the registry in bf16 and
+    with quant=True, and run_benchmark on a Winoground fixture."""
+    import dataclasses
+
+    from clip_embeds_tpu_torch.core.convert import jax_params_from_llava
+    from clip_embeds_tpu_torch.core.factory import init_llava
+    from clip_embeds_tpu_torch.evals.benchmarks import (
+        get_benchmark, run_benchmark)
+    from clip_embeds_tpu_torch.scores.build import save_score_bundle
+    from clip_embeds_tpu_torch.scores.registry import get_score_model
+
+    bcfg = dataclasses.replace(
+        cfg, llama=dataclasses.replace(cfg.llama, num_layers=2),
+        vision=dataclasses.replace(cfg.vision, layers=2))
+    t0 = time.perf_counter()
+    src = init_llava(bcfg, seed=LLAVA_SEED, device="cuda",
+                     dtype=torch.float32)
+    n_params = sum(p.numel() for p in src.parameters())
+    bundle = os.path.join(tmp, "bundle")
+    save_score_bundle(bundle, "llava", bcfg, jax_params_from_llava(src),
+                      conversation="chat")
+    del src
+    size = os.path.getsize(os.path.join(bundle, "params.npz"))
+    print(f"[vqascore] bundle: {n_params / 1e9:.3f} B parameters, "
+          f"params.npz {size / 2**30:.2f} GiB, written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    root = os.path.join(tmp, "winoground")
+    write_winoground(root, LLAVA_WINO, LLAVA_SEED)
+    dataset = get_benchmark("winoground", root)
+    calls = 2 * math.ceil(LLAVA_WINO / LLAVA_GROUP)  # 2 images a sample
+    layers = bcfg.llama.num_layers
+    for quant in (False, True):
+        label = "int8" if quant else "bf16"
+        t0 = time.perf_counter()
+        score = get_score_model("llava-v1.5-7b", checkpoint=bundle,
+                                tokenize=tokenize, quant=quant,
+                                bos_token_id=1, pad_token_id=0)
+        t_load = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tensor, metrics = counted(
+            counters, f"bundle {label} run_benchmark winoground",
+            lambda: run_benchmark(score, dataset, batch_size=LLAVA_GROUP),
+            {"flash_attention": calls * (bcfg.tower_blocks + layers),
+             "int8_linear": calls * 2 * 7 * layers if quant else 0})
+        check_scores(f"bundle {label}", tensor)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        if set(metrics) != {"text", "image", "group"} or not all(
+                0 <= v <= 1 for v in metrics.values()):
+            raise AssertionError(f"bundle {label} metrics {metrics}")
+        print(f"[vqascore] bundle {label}: loaded in {t_load:.1f} s; "
+              f"winoground {LLAVA_WINO} samples {metrics} in "
+              f"{time.perf_counter() - t0:.1f} s on {gpu}")
+        del score
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def check_vqascore(counters, gpu):
+    """Phase 10: LLaVA-1.5-7B VQAScore at full width and depth."""
+    from clip_embeds_tpu_torch.core.factory import init_llava
+    from clip_embeds_tpu_torch.evals.whatsup import (
+        eval_whatsup, load_annotation)
+    from clip_embeds_tpu_torch.models.llava import LlavaConfig
+    from clip_embeds_tpu_torch.models.quant import quantize_llava_trunk
+    from clip_embeds_tpu_torch.ops.fused_block import int8_linear
+    from clip_embeds_tpu_torch.scores.score import VQAScore
+    from clip_embeds_tpu_torch.scores.vqa_score import VQAScorer
+
+    counters = dict(counters, int8_linear=int8_linear)
+    cfg = LlavaConfig()
+    tok = word_tokenizer(LLAVA_SEED, cfg.llama.vocab_size)
+    kw = dict(bos_token_id=1, pad_token_id=0)
+    tb, layers = cfg.tower_blocks, cfg.llama.num_layers
+    with tempfile.TemporaryDirectory() as tmp:
+        # phase 7's What'sUp-A fixture, written again from its seed
+        root = os.path.join(tmp, "whatsup")
+        write_whatsup(root, 7)
+        data, _ = load_annotation(root, "a")
+        images = [os.path.join(root, d["image_path"][5:])
+                  for d in data[:LLAVA_GROUP]]
+        texts = data[0]["caption_options"][:LLAVA_TEXTS]
+
+        # (a) bf16: the three paths
+        t0 = time.perf_counter()
+        model = init_llava(cfg, seed=LLAVA_SEED, device="cuda",
+                           dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        print(f"[vqascore] LLaVA-1.5-7B (tower {tb} of "
+              f"{cfg.vision.layers} blocks, trunk {layers}x"
+              f"{cfg.llama.hidden_size} heads {cfg.llama.num_heads} hd "
+              f"{cfg.llama.head_dim}) bf16 built on the card in "
+              f"{time.perf_counter() - t0:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        score = VQAScore(model, tok, group_size=LLAVA_GROUP, **kw)
+        scorer = score.pair_forward.__self__
+        bf16, _ = llava_paths(score, images, texts, "bf16", counters, gpu)
+        peak_bf16 = torch.cuda.max_memory_allocated()
+        prefill_times(scorer, images, texts, "bf16", gpu)
+        agree = {k: log_diff(v, bf16["groups"]) for k, v in bf16.items()}
+        print(f"[vqascore] bf16 paths against groups, max |d log score| "
+              f"(limit {LLAVA_PATHS_LOG_TOL}): {agree}; peak "
+              f"{peak_bf16 / 2**30:.2f} GiB on {gpu}")
+        if max(agree.values()) > LLAVA_PATHS_LOG_TOL:
+            raise AssertionError(f"the bf16 paths disagree: {agree}")
+
+        # (b) What'sUp-A through forward_groups
+        ours = GroupAdapter(scorer)
+        n = LLAVA_WHATSUP
+        t0 = time.perf_counter()
+        res = counted(
+            counters, f"What'sUp-A {n} samples",
+            lambda: eval_whatsup(ours.score_batch, data[:n], root),
+            {"flash_attention": math.ceil(n / LLAVA_GROUP) * (tb + layers)})
+        dt = time.perf_counter() - t0
+        print(f"[vqascore] What'sUp-A: {n / dt:.2f} samples/s ({n} "
+              f"samples, 2 options, {dt:.1f} s) individual accuracy "
+              f"{res['individual_accuracy']} on {gpu}")
+
+        # the plain fp32 path: scores, logits rows and clear decisions
+        ref = cast_copy(model, torch.float32)
+        plain = VQAScorer(ref, tok, **kw)
+        batch, rows, bf16_rows = check_plain_fp32(scorer, plain, images,
+                                                  texts, gpu)
+        check_decisions({"a": (lambda s, log: eval_whatsup(
+            recorded(s.score_batch, log), data[:LLAVA_AGREE], root),
+            ours, GroupAdapter(plain))}, "vqascore")
+        del ref, plain
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # W8A8: the trunk's seven projections a layer through int8_linear
+        t0 = time.perf_counter()
+        qmodel = quantize_llava_trunk(model)
+        del score, scorer, ours, model
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        print(f"[vqascore] W8A8 trunk quantised on the card in "
+              f"{time.perf_counter() - t0:.1f} s")
+        torch.cuda.reset_peak_memory_stats()
+        qscore = VQAScore(qmodel, tok, group_size=LLAVA_GROUP, **kw)
+        int8, _ = llava_paths(qscore, images, texts, "int8", counters, gpu)
+        peak_int8 = torch.cuda.max_memory_allocated()
+        prefill_times(qscore.pair_forward.__self__, images, texts, "int8",
+                      gpu)
+        vs = {k: log_diff(int8[k], bf16[k]) for k in int8}
+        qscorer = qscore.pair_forward.__self__
+        qrows = qscorer.group_logits(batch)[
+            rows.to(qscorer.device)].float().cpu()
+        cos = float(F.cosine_similarity(qrows, bf16_rows, dim=-1).min())
+        print(f"[vqascore] int8 against bf16, max |d log score| (limit "
+              f"{LLAVA_INT8_LOG_TOL}): {vs}; min answer-row logits cosine "
+              f"{cos:.6f} (limit {LLAVA_INT8_COS}); peak "
+              f"{peak_int8 / 2**30:.2f} GiB (bf16 {peak_bf16 / 2**30:.2f}) "
+              f"on {gpu}")
+        if (max(vs.values()) > LLAVA_INT8_LOG_TOL or cos < LLAVA_INT8_COS
+                or peak_int8 >= peak_bf16):
+            raise AssertionError(f"int8 VQAScore: {vs}, cosine {cos}, "
+                                 f"peak {peak_int8} >= {peak_bf16}?")
+        del qscore, qmodel
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) the registry route from a score bundle
+        check_bundle(tmp, cfg, tok, counters, gpu)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card",
@@ -1668,6 +2165,7 @@ def main() -> int:
         # its own inputs: the main path's requests below stay as they were
         check_gemms(np.random.default_rng(1), gpu)
         check_gemms_s8(np.random.default_rng(2), gpu)
+        check_int8_linear(gpu)
 
     # 4. the main path at full width and depth
     t0 = time.perf_counter()
@@ -1794,6 +2292,13 @@ def main() -> int:
     # 6. training at full width and depth, through the CLI; and 9 (c), the
     # --siglip step on the composable route
     train_launches = check_training(counters, gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 10. LLaVA-1.5-7B VQAScore
+    t0 = time.perf_counter()
+    check_vqascore(counters, gpu)
+    print(f"[phase 10] {time.perf_counter() - t0:.1f} s on {gpu}")
 
     def entry(name, source, replaces, path_launches, shape):
         """One kernel's line: the largest max |diff| over its shapes, and

@@ -22,10 +22,11 @@ size and sliced after.
 from the fp32 weights and static activation scales calibrated on the first
 16 images of the first batch, or on the first 64 texts. On the card,
 where the shapes allow, both towers run ``fused_encode_*_int8`` (the
-``fused_block_int8`` kernels, which compute in bf16: ``--int8 --fp32``
-raises there). Elsewhere images take the composable static-quant model
-and texts stay on the composable fp tower, as the JAX CLI routes off the
-TPU. The JSON line names the route and the image decoder that ran.
+``fused_block_int8`` kernels). Elsewhere images take the composable
+static-quant model and texts stay on the composable fp tower, as the JAX
+CLI routes off the TPU. Every int8 route on the card computes in bf16
+(QuantLinear there runs ``cet_gemm_s8``), so ``--int8 --fp32`` raises
+there. The JSON line names the route and the image decoder that ran.
 
 Usage:
   python -m clip_embeds_tpu_torch.cli.embed --model ViT-L-14-336 \
@@ -114,16 +115,19 @@ def _on_card(model) -> bool:
 def _int8_fused(model, dtype: torch.dtype) -> bool:
     """Whether ``--int8`` takes the fused_block_int8 kernels: on the card
     whenever the shapes allow, as the JAX CLI does on the TPU in any dtype.
-    The kernels compute in bf16, so fp32 there raises rather than serve a
-    route the user did not ask for."""
+    Every int8 route on the card computes in bf16 (fused_block_int8, and
+    QuantLinear's cet_gemm_s8 where the shapes keep the tower composable),
+    so fp32 there raises rather than serve a route the user did not ask
+    for."""
     from ..models.serving import fused_path_available
 
-    if not (_on_card(model) and fused_path_available(model)):
+    if not _on_card(model):
         return False
     if dtype != torch.bfloat16:
-        raise ValueError("--int8 on the card runs the bf16 fused_block_int8 "
-                         "kernels; --fp32 cannot be served with it")
-    return True
+        raise ValueError("--int8 on the card runs the bf16 int8 kernels "
+                         "(fused_block_int8, cet_gemm_s8); --fp32 cannot be "
+                         "served with it")
+    return fused_path_available(model)
 
 
 def image_route(model, int8: bool = False,

@@ -175,10 +175,13 @@ def main(argv=None):
             qtower = prepare_int8_tower(model, calib_px, dtype)
             return lambda raw: fused_encode_image_int8(
                 model, qtower, preprocess(raw, size, dtype))
-        qmodel = quantize_model(model, "dynamic", torch.float32,
-                                tower="visual")
+        # QuantLinear on the card runs cet_gemm_s8, which computes in
+        # bf16: the card calibrates in bf16, the CPU in fp32 (the int8
+        # weights come from the fp32 model either way)
+        cal = dtype if device.type == "cuda" else torch.float32
+        qmodel = quantize_model(model, "dynamic", cal, tower="visual")
         with torch.inference_mode():
-            calibrate_act_scales(qmodel, [calib_px], "encode_image")
+            calibrate_act_scales(qmodel, [calib_px.to(cal)], "encode_image")
         cast_floating(qmodel, dtype)
         return lambda raw: qmodel.encode_image(preprocess(raw, size, dtype),
                                                normalize=True)

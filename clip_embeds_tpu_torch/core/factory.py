@@ -2,7 +2,8 @@
 local open_clip state dict (counterpart of ``clip_embeds_tpu/core/
 factory.py``; nothing is downloaded); and the JAX package's ``.npz``
 parameter files (``save_params_npz`` / ``load_params_npz``: flax trees
-flattened to "a/b/kernel" keys), in which the PACL/SPARC heads travel."""
+flattened to "a/b/kernel" keys), in which the PACL/SPARC heads travel; and
+:func:`init_llava`, a seeded LLaVA built where it will run."""
 
 from __future__ import annotations
 
@@ -152,3 +153,45 @@ def load_params_npz(path: str) -> Dict[str, Any]:
     numpy arrays."""
     with np.load(path) as data:
         return unflatten_params({k: data[k] for k in data.files})
+
+
+@torch.no_grad()
+def init_llava(cfg, seed: int = 0,
+               device: Union[str, torch.device] = "cuda",
+               dtype: torch.dtype = torch.bfloat16):
+    """A :class:`~..models.llava.Llava` of config ``cfg`` with seeded random
+    weights, allocated on ``device`` in ``dtype`` and drawn there from a
+    ``torch.Generator`` of that device: the vision tower at open_clip's
+    block scales, the projector and the Llama trunk at HF's
+    ``initializer_range`` (normals of std 0.02, zero biases, norms at
+    one). No copy is made on the host, so a 7B model is built on the card
+    directly. A seed gives other values on another device type (each has
+    its own generator stream)."""
+    from ..models.llava import Llava
+
+    device = torch.device(device)
+    with torch.device("meta"):
+        model = Llava(cfg).to(dtype)
+    model.to_empty(device=device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    vis, v = model.vision_tower, cfg.vision
+    nn.init.normal_(vis.conv1.weight, std=(3 * v.patch_size ** 2) ** -0.5,
+                    generator=g)
+    nn.init.normal_(vis.class_embedding, std=v.width ** -0.5, generator=g)
+    nn.init.normal_(vis.positional_embedding, std=v.width ** -0.5,
+                    generator=g)
+    _init_tower(vis.transformer.resblocks, v.width, v.layers, g)
+    for name, p in model.named_parameters():
+        if name.endswith(("ln_1.weight", "ln_2.weight", "ln_pre.weight",
+                          "ln_post.weight", "norm.weight",
+                          "layernorm.weight")):
+            p.fill_(1.0)
+        elif name.endswith(("ln_1.bias", "ln_2.bias", "ln_pre.bias",
+                            "ln_post.bias")):
+            p.zero_()
+        elif not name.startswith("vision_tower."):
+            if name.endswith("bias"):
+                p.zero_()
+            else:
+                nn.init.normal_(p, std=0.02, generator=g)
+    return model.eval()

@@ -1,6 +1,6 @@
 """The SigLIP part of the open_clip model-config registry (a copy of the
 SigLIP subset of ``clip_embeds_tpu/core/openclip_registry.py``; the rest of
-the registry is not ported yet).
+the registry is not ported yet), and its table of pretrained tags.
 
 ``siglip_registry.json`` beside this file holds the registry entries whose
 vision tower is a timm ``vit_*_siglip_*`` tower, copied from the JAX
@@ -10,14 +10,17 @@ dual encoder of ``models/siglip.py``) or 'hf-text' (a SigLIP vision tower
 under an HF text tower, the nllb-clip hybrids, not built here);
 :func:`resolve_siglip_config` maps a 'siglip' entry onto
 :class:`~..models.siglip.SiglipConfig`. ``tests/test_torch_siglip.py``
-holds both to the JAX package for every entry.
+holds both to the JAX package for every entry. ``pretrained_tags.json``
+holds the architecture -> tags part of the registry's pretrained table (the
+download records are not copied); :func:`list_pretrained` reads it, as the
+JAX function of that name reads the whole table.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 _REGISTRY_PATH = os.path.join(os.path.dirname(__file__),
                               "siglip_registry.json")
@@ -124,3 +127,14 @@ def resolve_siglip_config(name: str):
             max_position_embeddings=t.get("context_length", 64),
         ),
     )
+
+
+def list_pretrained(as_str: bool = False
+                    ) -> List[Union[str, Tuple[str, str]]]:
+    """Every (architecture, pretrained tag) of the registry, or
+    "arch:tag" strings."""
+    with open(os.path.join(os.path.dirname(__file__),
+                           "pretrained_tags.json")) as fh:
+        table = json.load(fh)
+    return [f"{k}:{t}" if as_str else (k, t)
+            for k in table for t in table[k]]

@@ -269,7 +269,7 @@ __device__ __forceinline__ void store_tile_s8(
 // C[M, N] = epilogue(A[M, K] W[N, K]^T) over `tiles` output tiles of
 // 128 x BN (`n_tiles` along N), A, W, C and the residual through their
 // tensor maps; the column scales, biases and activation scales are read by
-// element. Requires K % 16 == 0, N % 16 == 0 for int8 output (% 8 for
+// element, and a null `bias` adds nothing. Requires K % 16 == 0, N % 16 == 0 for int8 output (% 8 for
 // bf16) and 16-byte aligned bases (checked by the wrapper).
 template <int BN>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -357,7 +357,7 @@ gemm_s8_kernel(const __grid_constant__ GemmS8Maps maps,
       if (t < BN) {
         const bool in = n0 + t < N;
         sc_s[t] = in ? __fmul_rn(a, wscale[n0 + t]) : 0.f;
-        bias_s[t] = in ? bias[n0 + t] : 0.f;
+        bias_s[t] = in && bias ? bias[n0 + t] : 0.f;
       }
       // the turn: the other warpgroup has passed its waits on the block's
       // previous tile, so every earlier phase of the full barriers is done

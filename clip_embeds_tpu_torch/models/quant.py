@@ -5,15 +5,21 @@
 with fp32 per-output-channel scales and an fp32 bias, and quantises its
 input per tensor: on the fly in ``dynamic`` mode (recording the running
 abs-max in a buffer, what flax's ``sow`` into ``quant_obs`` does), or with
-the calibrated ``act_scale`` in ``static`` mode. The product is the exact
-int8 x int8 sum of ``ops.fused_block.qdot``.
+the calibrated ``act_scale`` in ``static`` mode. The product is
+``ops.fused_block.int8_linear``: on the CPU the exact int8 x int8 sum of
+``qdot``; on the card the kernels behind ``fused_block_int8``
+(``cet_quantize_s8`` then ``cet_gemm_s8`` with its bf16 epilogue), with
+the scale kept on the device. ``bias=False`` is the JAX
+``QuantDense(use_bias=False)`` of the Llama trunk's projections.
 
 Scales, biases and activation statistics stay fp32 whatever the model's
 compute dtype, as flax keeps QuantDense's params fp32: cast a quantised
 model with :func:`cast_floating`, not ``.to(dtype)``.
 
-Not ported yet: the LoRA side-path (``_lora_delta``, ``LoraDense``) and
-the Llama/T5 trunk quantisers.
+:func:`quantize_llava_trunk` quantises the seven projections of each
+layer of a LLaVA Llama trunk (``LLAMA_QUANT_LAYER_NAMES``). Not ported yet:
+the LoRA side-path (``_lora_delta``, ``LoraDense``) and the T5 trunk
+quantiser.
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.fused_block import qdot
+from ..ops.fused_block import int8_linear
 
 Quant = Union[bool, str]
 # the [out, in] weights a quantised block swaps: (fp name, QuantLinear path)
@@ -34,6 +40,12 @@ _BLOCK_LINEARS = (
     ("mlp.c_fc.weight", "mlp.c_fc"),
     ("mlp.c_proj.weight", "mlp.c_proj"),
 )
+# the Llama trunk's projections (attention q/k/v/o, SwiGLU gate/up/down);
+# embeddings, RMSNorms and the lm_head stay floating point
+LLAMA_QUANT_LAYER_NAMES = (
+    "q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj",
+    "down_proj",
+)
 
 
 def quantize_weight(w: torch.Tensor):
@@ -42,7 +54,11 @@ def quantize_weight(w: torch.Tensor):
     Abs-max over ``in``; a zero row gets scale 1.0; round half to even.
     The JAX ``quantize_weight`` of the [in, out] kernel, transposed."""
     w = w.float()
-    scale = w.abs().amax(dim=1) / 127.0
+    amax = w.abs().amax(dim=1)
+    # divided by a tensor: PyTorch's CUDA division by a Python scalar
+    # multiplies by its reciprocal, a rounding apart from the true
+    # quotient the JAX package takes
+    scale = amax / amax.new_full(amax.shape, 127.0)
     scale = torch.where(scale == 0, torch.ones_like(scale), scale)
     q = torch.clamp(torch.round(w / scale[:, None]), -127, 127)
     return q.to(torch.int8), scale
@@ -50,10 +66,11 @@ def quantize_weight(w: torch.Tensor):
 
 class QuantLinear(nn.Module):
     """Drop-in ``nn.Linear`` with int8 weights and int8 activations
-    (counterpart of ``QuantDense``); returns the input's dtype."""
+    (counterpart of ``QuantDense``); returns the input's dtype. On the card
+    it takes bf16 inputs and K, N multiples of 16, and raises otherwise."""
 
     def __init__(self, in_features: int, out_features: int,
-                 mode: str = "dynamic"):
+                 mode: str = "dynamic", bias: bool = True):
         super().__init__()
         if mode not in ("dynamic", "static"):
             raise ValueError(f"mode {mode!r}")
@@ -63,19 +80,20 @@ class QuantLinear(nn.Module):
             "weight_q", torch.zeros(out_features, in_features,
                                     dtype=torch.int8))
         self.register_buffer("scale", torch.ones(out_features, dtype=f32))
-        self.register_buffer("bias", torch.zeros(out_features, dtype=f32))
+        self.register_buffer(
+            "bias", torch.zeros(out_features, dtype=f32) if bias else None)
         self.register_buffer("act_scale", torch.ones((), dtype=f32))
         self.register_buffer("act_max", torch.zeros((), dtype=f32))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x32 = x.float()
         if self.mode == "static":
             a = self.act_scale.clamp_min(1e-8)
-        else:
-            observed = x32.abs().amax()
+        else:  # abs-max in one read of x, no |x| temporary, on the device
+            lo, hi = torch.aminmax(x)
+            observed = torch.maximum(hi, -lo).float()
             self.act_max.copy_(torch.maximum(self.act_max, observed))
             a = (observed / 127.0).clamp_min(1e-8)
-        return qdot(x32, a, self.weight_q, self.scale, self.bias).to(x.dtype)
+        return int8_linear(x, a, self.weight_q, self.scale, self.bias)
 
 
 class CastLinear(nn.Linear):
@@ -85,16 +103,18 @@ class CastLinear(nn.Linear):
     cast. When the dtypes already agree the cast is a no-op."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
 
 
-def linear(quant: Quant, in_features: int, out_features: int) -> nn.Module:
+def linear(quant: Quant, in_features: int, out_features: int,
+           bias: bool = True) -> nn.Module:
     """:class:`CastLinear`, or :class:`QuantLinear` when ``quant`` is True /
     'dynamic' / 'static' (counterpart of ``quant.dense``)."""
     if quant:
         mode = "static" if quant == "static" else "dynamic"
-        return QuantLinear(in_features, out_features, mode)
-    return CastLinear(in_features, out_features)
+        return QuantLinear(in_features, out_features, mode, bias)
+    return CastLinear(in_features, out_features, bias)
 
 
 def quant_layers(model: nn.Module):
@@ -123,19 +143,20 @@ def quantize_linears(sd: Mapping[str, torch.Tensor], pairs,
                      dtype: Optional[torch.dtype] = None
                      ) -> Dict[str, torch.Tensor]:
     """``sd`` with each (fp weight key, QuantLinear path) of ``pairs``
-    quantised (the weight's bias is the key with "bias" for "weight"), the
-    other entries cast to ``dtype`` if given."""
+    quantised (the weight's bias, if ``sd`` has one, is the key with
+    "bias" for "weight"), the other entries cast to ``dtype`` if given."""
     fp, quantised = dict(sd), {}
     for key, prefix in pairs:
         q, scale = quantize_weight(fp.pop(key))
-        bias = fp.pop(key[: -len("weight")] + "bias")
+        bias = fp.pop(key[: -len("weight")] + "bias", None)
         quantised.update({
             prefix + ".weight_q": q,
             prefix + ".scale": scale,
-            prefix + ".bias": bias.float(),
             prefix + ".act_scale": torch.ones((), device=q.device),
             prefix + ".act_max": torch.zeros((), device=q.device),
         })
+        if bias is not None:
+            quantised[prefix + ".bias"] = bias.float()
     if dtype is not None:
         fp = {k: v.to(dtype) if v.is_floating_point() else v
               for k, v in fp.items()}
@@ -238,3 +259,38 @@ def calibrate_act_scales(model: nn.Module, batches: Iterable,
     for batch in batches:
         fn(*batch) if isinstance(batch, tuple) else fn(batch)
     return inject_act_scales(model)
+
+
+def quantize_llava_trunk(model: nn.Module, mode: Quant = "dynamic",
+                         dtype: Optional[torch.dtype] = None) -> nn.Module:
+    """A new :class:`~.llava.Llava` on ``model``'s device whose Llama
+    trunk's seven projections a layer (``LLAMA_QUANT_LAYER_NAMES``) are
+    int8 :class:`QuantLinear` quantised from ``model``'s weights
+    (counterpart of ``quantize_llava_trunk``); the vision tower,
+    projector, embeddings, norms and ``lm_head`` keep their tensors, cast
+    to ``dtype`` (default: ``model``'s; with the same dtype they are
+    shared, not copied). ``model`` is left as it is."""
+    from .llava import Llava
+
+    dtype = dtype or model.language_model.embed_tokens.weight.dtype
+    sd = model.state_dict()
+    with torch.device("meta"):
+        qmodel = Llava(model.cfg, quant_llm=mode)
+    qmodel.load_state_dict(quantize_linears(sd, llava_trunk_pairs(sd), dtype),
+                           assign=True)
+    return qmodel.eval()
+
+
+def llava_trunk_pairs(sd: Iterable[str]):
+    """The (fp weight key, QuantLinear path) pairs of a LLaVA state dict's
+    Llama trunk: the ``LLAMA_QUANT_LAYER_NAMES`` projections of each
+    layer, as :func:`quantize_linears` takes them."""
+    pairs = []
+    for key in sd:
+        parts = key.split(".")
+        # language_model.model.layers.<i>.<self_attn|mlp>.<proj>.weight
+        if (key.startswith("language_model.model.layers.")
+                and parts[-2] in LLAMA_QUANT_LAYER_NAMES
+                and parts[-1] == "weight"):
+            pairs.append((key, key[: -len(".weight")]))
+    return pairs

@@ -64,7 +64,7 @@ class VisionTransformer(nn.Module):
 
     def embed(self, images: torch.Tensor) -> torch.Tensor:
         """[B, S, S, 3] -> ln_pre([CLS; patches] + pos), [B, 1+N, W]."""
-        dtype = self.compute_dtype or self.proj.dtype
+        dtype = self.compute_dtype or self.class_embedding.dtype
         x = patchify(images.to(dtype), self.cfg.patch_size)
         x = torch.matmul(x, patch_weight(self.conv1.weight).to(dtype).t())
         cls = self.class_embedding.to(dtype).expand(x.shape[0], 1, -1)

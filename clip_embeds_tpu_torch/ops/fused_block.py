@@ -143,6 +143,47 @@ def qdot(x32: torch.Tensor, a_scale: torch.Tensor, wq: torch.Tensor,
     return y if bias is None else y + bias.float()
 
 
+def int8_linear(x: torch.Tensor, a_scale: torch.Tensor, wq: torch.Tensor,
+                scale: torch.Tensor, bias: Optional[torch.Tensor]
+                ) -> torch.Tensor:
+    """One W8A8 projection (the JAX ``QuantDense`` product): ``x``
+    [..., K] quantised per tensor at the 0-d fp32 scale ``a_scale``, times
+    the int8 weight ``wq`` [N, K] with fp32 per-row ``scale``, plus the
+    fp32 ``bias`` (or none); returns [..., N] in x's dtype.
+
+    CPU tensors take :func:`qdot`. CUDA tensors launch two C entries of
+    ``csrc/fused_block_int8.cu``, the kernels behind
+    :func:`fused_block_int8`: ``cet_quantize_s8`` (x's codes at a_scale,
+    read from the device) and ``cet_gemm_s8`` with the bf16 epilogue; they
+    take bf16 ``x`` and K, N multiples of 16 (int8 TMA rows), and raise
+    otherwise. Nothing is read back to the host."""
+    if x.device.type == "cpu":
+        return qdot(x.float(), a_scale, wq, scale, bias).to(x.dtype)
+    n, k = wq.shape
+    if x.dtype != torch.bfloat16 or wq.dtype != torch.int8:
+        raise TypeError("int8_linear on the card takes bf16 activations and "
+                        "an int8 weight (cet_gemm_s8 writes bf16)")
+    if x.shape[-1] != k or k % 16 or n % 16:
+        raise ValueError(f"int8_linear on the card needs K and N multiples "
+                         f"of 16 (cet_gemm_s8's int8 rows), not K="
+                         f"{x.shape[-1]} (weight {k}) N={n}")
+    x = x.contiguous()
+    a = a_scale.reshape(1).float().contiguous()
+    if bias is not None:
+        bias = bias.float().contiguous()
+    xq = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    _build.launch("cet_quantize_s8", x.data_ptr(), a.data_ptr(), 0,
+                  xq.data_ptr(), x.numel())
+    out = torch.empty(*x.shape[:-1], n, dtype=x.dtype, device=x.device)
+    _gemm_s8(xq, wq.contiguous(), scale.float().contiguous(), bias, a, 0,
+             None, out, _EPI_Q_BF16, 0)
+    int8_linear.launches += 1
+    return out
+
+
+int8_linear.launches = 0
+
+
 def fused_block_int8_reference(
     x, wqkv_q, sqkv, bqkv, wo_q, so, bo, w1_q, s1, b1, w2_q, s2, b2,
     ln1, ln2, act_scales, heads: int, kv_valid: int,
@@ -384,13 +425,15 @@ def gemm_s8_reference(a_q, w_q, wscale, bias, act_scales, a_idx: int, res,
     """Plain PyTorch version of one :func:`_gemm_s8` launch, from ``qdot``'s
     pieces: int8 codes ``a_q`` [..., K] and ``w_q`` [N, K], exact sums,
     ``v = acc * (a * wscale) + bias`` in fp32 with ``a =
-    act_scales[a_idx]``, then ``bf16(v)`` (``_EPI_Q_BF16``), ``res +
+    act_scales[a_idx]`` (no bias added where ``bias`` is None), then ``bf16(v)`` (``_EPI_Q_BF16``), ``res +
     bf16(v)`` (``_EPI_Q_RESIDUAL``, res bf16), or the int8 codes of
     ``act(v)`` at the next scale ``act_scales[a_idx + 1]``
     (``_EPI_Q_ACT_Q8``). The products and sums go through float64, exact
     on any device (|sum| <= 127^2 * K < 2^53)."""
     acc = torch.matmul(a_q.double(), w_q.double().t()).float()
-    v = acc * (act_scales[a_idx].float() * wscale.float()) + bias.float()
+    v = acc * (act_scales[a_idx].float() * wscale.float())
+    if bias is not None:
+        v = v + bias.float()
     if epi == _EPI_Q_ACT_Q8:
         q = torch.round(_apply_act(v, act) / act_scales[a_idx + 1].float())
         return torch.clamp(q, -127, 127).to(torch.int8)
@@ -406,7 +449,7 @@ def _gemm_s8(a, w, scale, bias, act_scales, a_idx: int, res, out, epi: int,
     ``w`` and ``res`` and writes ``out`` by TMA in 16-byte rows, so those
     must be contiguous with 16-byte aligned bases, K a multiple of 16, and
     N of 16 for int8 output (8 for bf16); the scales and biases are read
-    by element."""
+    by element, and a ``bias`` of None adds nothing."""
     m, k = a.numel() // a.shape[-1], a.shape[-1]
     n = w.shape[0]
     rows = [t for t in (a, w, res, out) if t is not None]
@@ -414,13 +457,15 @@ def _gemm_s8(a, w, scale, bias, act_scales, a_idx: int, res, out, epi: int,
     if k % 16 or n % n_step:
         raise ValueError(f"cet_gemm_s8 needs K a multiple of 16 and N of "
                          f"{n_step} (TMA's 16-byte rows), not K={k} N={n}")
-    if not all(t.is_contiguous() for t in (*rows, scale, bias, act_scales)):
+    if not all(t.is_contiguous() for t in (*rows, scale, act_scales)
+               + ((bias,) if bias is not None else ())):
         raise ValueError("cet_gemm_s8 takes contiguous operands")
     if any(t.data_ptr() % 16 for t in rows):
         raise ValueError("cet_gemm_s8 takes 16-byte aligned operands")
     _build.launch(
         "cet_gemm_s8", a.data_ptr(), w.data_ptr(), scale.data_ptr(),
-        bias.data_ptr(), act_scales.data_ptr(), a_idx,
+        bias.data_ptr() if bias is not None else None,
+        act_scales.data_ptr(), a_idx,
         res.data_ptr() if res is not None else None, out.data_ptr(),
         m, n, k, epi, act,
     )

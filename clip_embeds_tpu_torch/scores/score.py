@@ -1,7 +1,7 @@
 """Public Score API: m x n (images x texts) scoring + dataset batch_forward.
-The port's ``Score`` and ``CLIPScore`` (counterpart of
-``clip_embeds_tpu/scores/score.py``; the VQAScore, T5, InstructBLIP and
-ITM factories are not ported yet).
+The port's ``Score``, ``VQAScore`` and ``CLIPScore`` (counterpart of
+``clip_embeds_tpu/scores/score.py``; the T5, InstructBLIP and ITM
+factories are not ported yet, ROADMAP.md queue 1 item 13).
 
 Reference: t2v_metrics/t2v_metrics/score.py:13-92 — ``Score(images, texts)``
 returns an m x n matrix by pairing each image with every text;
@@ -117,6 +117,17 @@ class Score:
                         images, texts, **kwargs
                     )
         return out
+
+
+def VQAScore(model, tokenize, group_size: int = 8, **kw) -> Score:
+    """VQAScore factory over the port's LLaVA (t2v_metrics.VQAScore): the
+    pair path, the per-image prefix reuse and the k-group path of
+    :class:`~.vqa_score.VQAScorer`."""
+    from .vqa_score import VQAScorer
+
+    scorer = VQAScorer(model, tokenize, **kw)
+    return Score(scorer.forward, scorer.forward_image_texts,
+                 scorer.forward_groups, group_size=group_size)
 
 
 def CLIPScore(model, **kw) -> Score:

@@ -1026,3 +1026,172 @@ def test_siglip_tower_routes_match_composable(cuda):
         assert torch.isfinite(e).all()
         norms = e.float().norm(dim=-1)
         assert (norms - 1).abs().max().item() <= 2e-2
+
+
+# -- the LLaVA slice: causal attention at head dim 128, the W8A8 trunk ------
+
+
+@pytest.mark.parametrize("n", [128, 639, 703])
+def test_flash_kernel_causal_head_dim_128(cuda, n):
+    """The causal prefill's attention at head dim 128 (LLaVA-1.5-7B's
+    trunk: F = Lp - 1 + 576 with Lp padded to 64, so 639 and 703 end in a
+    partial Q tile) from the trunk's layout, [B, N, H, D] projections
+    viewed as [B, H, N, D] (row stride H * D), against the plain version;
+    the same bits as from contiguous tensors."""
+    rng = np.random.default_rng(n)
+    q, k, v = (_bf16(rng, 2, n, 8, 128).transpose(1, 2) for _ in range(3))
+    with torch.inference_mode():
+        got = flash_attention(q, k, v, causal=True)
+        want = flash_attention_reference(q, k, v, causal=True)
+        flat = flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal=True)
+    assert got.shape == want.shape == (2, 8, n, 128)
+    diff = (got.float() - want.float()).abs()
+    assert diff.max().item() <= 0.02, diff.max().item()
+    assert diff.mean().item() <= 2e-4, diff.mean().item()
+    assert torch.equal(got, flat)
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("mode", ["dynamic", "static"])
+def test_quant_linear_card_route_is_qdot_rounded_to_bf16(cuda, mode, bias):
+    """QuantLinear on the card (cet_quantize_s8, then cet_gemm_s8 with the
+    bf16 epilogue) equals qdot's exact product rounded to bf16, bit for
+    bit, at a trunk projection's shape (K 4096, N 11008 would be the 7B's;
+    here K 512, N 1376); the dynamic scale is the abs-max of the input,
+    recorded without a host sync; one int8_linear launch a call."""
+    from clip_embeds_tpu_torch.models.quant import QuantLinear, quantize_weight
+    from clip_embeds_tpu_torch.ops.fused_block import int8_linear, qdot
+
+    rng = np.random.default_rng(40)
+    x = _bf16(rng, 3, 213, 512)
+    w = torch.from_numpy(rng.standard_normal((1376, 512)).astype(
+        np.float32) * 0.02).to(cuda)
+    lin = QuantLinear(512, 1376, mode, bias=bias).to(cuda)
+    lin.weight_q, lin.scale = quantize_weight(w)
+    if bias:
+        lin.bias.normal_(std=0.1)
+    lin.act_scale.fill_(0.0213)
+    before = int8_linear.launches
+    with torch.inference_mode():
+        got = lin(x)
+    assert int8_linear.launches == before + 1
+    a = (lin.act_scale if mode == "static"
+         else x.float().abs().amax() / 127.0)
+    want = qdot(x.float(), a, lin.weight_q, lin.scale,
+                lin.bias).to(torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and got.shape == (3, 213, 1376)
+    assert torch.equal(got, want)
+    if mode == "dynamic":
+        assert lin.act_max.item() == x.float().abs().max().item()
+
+
+def test_quant_linear_card_route_rejects(cuda):
+    """Shapes and types cet_gemm_s8 does not take raise; nothing falls
+    back to qdot's float64 product."""
+    from clip_embeds_tpu_torch.models.quant import QuantLinear
+
+    lin = QuantLinear(520, 64, bias=False).to(cuda)  # K % 16 != 0
+    with pytest.raises(ValueError, match="multiples of 16"):
+        lin(torch.zeros(4, 520, dtype=torch.bfloat16, device=cuda))
+    lin = QuantLinear(64, 64, bias=False).to(cuda)
+    with pytest.raises(TypeError, match="bf16"):
+        lin(torch.zeros(4, 64, device=cuda))
+
+
+def test_llava_routes_on_card_match_plain_path(cuda):
+    """A two-layer LLaVA at head dim 128 in bf16 on the card: the prefill
+    runs the flash kernel causal (one launch a vision block, one a trunk
+    layer), the masked pair path only the vision tower's; the three
+    VQAScorer paths agree with each other and with the fp32 plain path
+    on the CPU, and the W8A8 trunk launches int8_linear 7 times a layer
+    per trunk pass."""
+    from clip_embeds_tpu_torch.core.config import VisionConfig
+    from clip_embeds_tpu_torch.core.factory import init_llava
+    from clip_embeds_tpu_torch.models.llama import LlamaConfig
+    from clip_embeds_tpu_torch.models.llava import LlavaConfig
+    from clip_embeds_tpu_torch.models.quant import quantize_llava_trunk
+    from clip_embeds_tpu_torch.ops.fused_block import int8_linear
+    from clip_embeds_tpu_torch.scores.vqa_score import VQAScorer
+
+    cfg = LlavaConfig(
+        llama=LlamaConfig(vocab_size=512, hidden_size=256,
+                          intermediate_size=512, num_layers=2, num_heads=2),
+        vision=VisionConfig(image_size=224, patch_size=14, width=128,
+                            layers=3, head_width=64))
+    model = init_llava(cfg, seed=0, device=cuda, dtype=torch.bfloat16)
+    ref = init_llava(cfg, seed=0, device=cuda, dtype=torch.bfloat16)
+    ref = ref.float().cpu()
+
+    def tokenize(text):
+        return [1] + [2 + sum(map(ord, w)) % 500 for w in text.split()]
+
+    kw = dict(bos_token_id=1, pad_token_id=0)
+    ours = VQAScorer(model, tokenize, device=cuda, **kw)
+    plain = VQAScorer(ref, tokenize, device="cpu", **kw)
+    rng = np.random.default_rng(41)
+    images = [rng.integers(0, 256, (60, 80, 3), dtype=np.uint8)
+              for _ in range(2)]
+    texts = [["a cat", "two dogs on a red mat"], ["a box", "three cups"]]
+    flash_attention.launches = 0
+    pair = np.stack([ours.forward([im] * 2, t)
+                     for im, t in zip(images, texts)])
+    assert flash_attention.launches == 2 * cfg.tower_blocks
+    flash_attention.launches = 0
+    per_image = np.stack([ours.forward_image_texts(im, t)
+                          for im, t in zip(images, texts)])
+    assert flash_attention.launches == 2 * (cfg.tower_blocks + 2)
+    flash_attention.launches = 0
+    grouped = ours.forward_groups(images, texts)
+    assert flash_attention.launches == cfg.tower_blocks + 2
+    want = plain.forward_groups(images, texts)
+    for got in (pair, per_image, grouped):
+        assert np.isfinite(got).all() and (got > 0).all()
+        np.testing.assert_allclose(np.log(got), np.log(want), atol=0.05)
+    qmodel = quantize_llava_trunk(model)
+    q = VQAScorer(qmodel, tokenize, device=cuda, **kw)
+    int8_linear.launches = 0
+    got = q.forward_groups(images, texts)
+    assert int8_linear.launches == 7 * 2 * 2  # prefill + suffix passes
+    np.testing.assert_allclose(np.log(got), np.log(want), atol=0.1)
+
+
+def test_bundle_int8_trunk_on_card_is_quantised_from_fp32(cuda, tmp_path):
+    """A score bundle loaded on the card with quant=True (bf16 serving)
+    quantises the trunk on the card from the bundle's fp32 weights: the
+    int8 codes and fp32 scales equal those of the fp32 load on the CPU,
+    which tests/test_torch_vqa_score.py holds to JAX's."""
+    from clip_embeds_tpu_torch.core.config import VisionConfig
+    from clip_embeds_tpu_torch.core.convert import jax_params_from_llava
+    from clip_embeds_tpu_torch.core.factory import init_llava
+    from clip_embeds_tpu_torch.models.llama import LlamaConfig
+    from clip_embeds_tpu_torch.models.llava import LlavaConfig
+    from clip_embeds_tpu_torch.models.quant import QuantLinear
+    from clip_embeds_tpu_torch.scores.build import save_score_bundle
+    from clip_embeds_tpu_torch.scores.registry import get_score_model
+
+    cfg = LlavaConfig(
+        llama=LlamaConfig(vocab_size=512, hidden_size=256,
+                          intermediate_size=512, num_layers=2, num_heads=2),
+        vision=VisionConfig(image_size=224, patch_size=14, width=128,
+                            layers=3, head_width=64))
+    src = init_llava(cfg, seed=0, device="cpu", dtype=torch.float32)
+    save_score_bundle(str(tmp_path), "llava", cfg, jax_params_from_llava(src),
+                      conversation="chat")
+
+    def quant_layers(device):
+        score = get_score_model("llava-v1.5-7b", checkpoint=str(tmp_path),
+                                tokenize=lambda t: [1, 2], quant=True,
+                                device=device)
+        model = score.pair_forward.__self__.model
+        return model, [m for m in model.modules()
+                       if isinstance(m, QuantLinear)]
+
+    card, on_card = quant_layers(cuda)
+    _, on_cpu = quant_layers("cpu")
+    assert card.language_model.embed_tokens.weight.dtype == torch.bfloat16
+    assert len(on_card) == len(on_cpu) == 7 * 2
+    for got, want in zip(on_card, on_cpu):
+        assert got.weight_q.is_cuda and got.scale.dtype == torch.float32
+        assert torch.equal(got.weight_q.cpu(), want.weight_q)
+        assert torch.equal(got.scale.cpu(), want.scale)

@@ -219,6 +219,23 @@ def test_int8_route_on_card(monkeypatch):
     assert embed.text_route(tm, True, torch.float32) == "composable"
 
 
+def test_int8_route_on_card_without_fused_shapes(monkeypatch):
+    """On the card, where the fused kernels do not take the shapes, --int8
+    takes the composable static-quant images (QuantLinear's cet_gemm_s8,
+    bf16 only) and the fp text tower; --fp32 raises there too."""
+    from clip_embeds_tpu_torch.cli import embed
+    from clip_embeds_tpu_torch.models import serving
+
+    tm = create_model("test-tiny")
+    monkeypatch.setattr(serving, "fused_path_available", lambda m: False)
+    monkeypatch.setattr(embed, "_on_card", lambda m: True)
+    assert embed.image_route(tm, True, torch.bfloat16) == "composable_int8"
+    assert embed.text_route(tm, True, torch.bfloat16) == "composable"
+    for route in (embed.image_route, embed.text_route):
+        with pytest.raises(ValueError, match="fp32"):
+            route(tm, True, torch.float32)
+
+
 def test_embed_cli_int8_images_match_jax(tmp_path, checkpoint, capsys):
     _mk_images(tmp_path)
     common = ["--model", "test-tiny", "--pretrained", checkpoint,
