@@ -120,6 +120,28 @@ Phases, each of which raises on failure:
      in bf16 and with quant=True, through evals/benchmarks.py
      run_benchmark on a 16-sample Winoground fixture, exact launches and
      metrics in [0, 1].
+ 11. (run last, on phase 10's bf16 LLaVA-1.5-7B, which phase 10 keeps on
+     the host while it measures its W8A8 twin, and that twin) VLM2Vec: (a)
+     embed_last_token on image query rows and text target rows and
+     embed_mixed on a mixed batch of the synthetic route (64 tokens a row,
+     639 trunk rows with an image) at b8 and b16, bf16 and W8A8, with exact
+     launches (flash_attention 23 a tower call, none in the padded trunk;
+     int8_linear 224 a W8A8 trunk pass), finite unit-norm embeddings, the
+     mixed batch against its rows on their own paths, bf16 against the
+     plain fp32 path beside the no-kernel witness, W8A8 against bf16,
+     embeds/s by CUDA events and peak memory; (b') the LoRA adapters'
+     gradients on a 2-layer cut of the trunk at full width, bf16 against
+     plain fp32 beside the witness and W8A8 against its witness; (b)
+     cli/train_vlm2vec.py main on the synthetic mixed route, 3 steps at
+     b64 with GradCache and LoRA r16 alpha 64 in bf16, on the bf16 base
+     and with --quant_base, exact launches, finite losses, every adapter
+     moved, the base bit-equal, samples/s and peak memory; (c)
+     cli/eval_mmeb.py main on an MMEB fixture (2 subsets x 16 queries x 8
+     candidates, JPEGs) with (b)'s adapters merged and over the W8A8
+     trunk, exact launches, accuracies in [0, 1], the embedding cache read
+     back, items/s; (d) (b)'s merged bundle, cut to 2 + 2 layers, through
+     scores/build.py load_score_bundle. Limits from
+     scripts/chip_probe_vlm2vec.py.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device it exits
@@ -129,6 +151,7 @@ with code 2 and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import io
 import json
@@ -343,6 +366,48 @@ LLAVA_FP32_LOG_TOL = 0.2       # bf16 kernel route against plain fp32
 LLAVA_FP32_COS = 0.998
 LLAVA_INT8_LOG_TOL = 1.0       # W8A8 against bf16
 LLAVA_INT8_COS = 0.95
+# phase 11: VLM2Vec over phase 10's LLaVA-1.5-7B and its W8A8 trunk:
+# embeddings at V2V_BATCHES (64-token rows: 639 trunk rows with an image);
+# the training CLI's synthetic mixed route, V2V_TRAIN_STEPS steps at the
+# reference recipe's batch 64 with GradCache and LoRA at the JAX defaults
+# (r 16, alpha 64; the CLI's default targets q/k/v/o/down), its chunk per
+# route: 2 rows a side on the bf16 base (JAX's default; no remat, as in
+# JAX: ~7.7 GB of activations a 639-token row by its widths, the plain
+# fp32 attention's among them), 16 with --quant_base (remat);
+# the adapters' gradients at V2V_GRAD_BATCH; the MMEB eval CLI on a
+# fixture of 2 subsets x V2V_EVAL_QUERIES queries x V2V_EVAL_CANDS
+# candidates in batches of V2V_EVAL_BATCH
+V2V_SEED, V2V_TOKENS, V2V_BATCHES, V2V_TIME_ITERS = 11, 64, (8, 16), 3
+V2V_TRAIN_BATCH, V2V_TRAIN_STEPS, V2V_RANK, V2V_ALPHA = 64, 3, 16, 64
+V2V_CHUNK = {"bf16": 2, "quant_base": 16}
+V2V_GRAD_BATCH = 2
+V2V_EVAL_QUERIES, V2V_EVAL_CANDS, V2V_EVAL_BATCH = 16, 8, 8
+# limits on the least row cosine of the embeddings at b8. Readings on the
+# H100 (scripts/chip_probe_vlm2vec.py; PERF.md): the bf16 kernel route
+# against plain fp32 0.99764, the no-kernel witness 0.99741, the mixed
+# batch against its rows on their own paths 0.99922, where the imageless
+# rows' image block left visible reads 0.0046 / 0.0064 and pooling one
+# token past the last 0.063; W8A8 against bf16 0.8955 (the mixed batch:
+# its per-tensor activation scales span the masked image blocks; image
+# rows 0.9598), its codes at a quarter of their range 0.4586
+V2V_SPLIT_COS = 0.99     # a mixed batch against its rows on their own paths
+V2V_FP32_COS = 0.99      # bf16 kernel route against plain fp32
+V2V_INT8_COS = 0.8       # W8A8 against bf16
+# the gradient check runs on the 7B's first V2V_GRAD_LAYERS trunk layers
+# (full width): through all 32 random layers bf16 rounding alone turns the
+# adapters' gradients (cosine over all against plain fp32: kernel route
+# 0.352, witness 0.382 at temperature 0.02; 0.459 / 0.478 for a linear
+# readout of the embeddings). On the cut (readings on the H100,
+# scripts/chip_probe_vlm2vec.py; PERF.md), cosine over all / least per
+# tensor: the bf16 kernel route against plain fp32 0.99378 / 0.99112, the
+# witness 0.99243 / 0.98959, the imageless rows' image block left visible
+# 0.290 / 0.026; the W8A8 kernel route against its witness 0.98188 /
+# 0.95342 (a tower's bf16 rounding moves some activation codes), with the
+# dynamic scale's gradient dropped 0.95661 / 0.63816
+V2V_GRAD_LAYERS = 2
+V2V_GRAD_COS_MIN, V2V_GRAD_TENSOR_COS_MIN = 0.99, 0.95
+V2V_GRAD_BELOW_WITNESS = 5e-4
+V2V_INT8_GRAD_COS_MIN, V2V_INT8_GRAD_TENSOR_COS_MIN = 0.97, 0.85
 # H100 SXM data-sheet peaks (dense): bf16 and int8 tensor cores, HBM3
 PEAK_BF16, PEAK_INT8, HBM_BYTES_PER_S = 989e12, 1979e12, 3.35e12
 
@@ -1809,7 +1874,7 @@ def event_times(fn, iters):
     return times
 
 
-def counted(counters, label, fn, want):
+def counted(counters, label, fn, want, tag="vqascore"):
     """fn() with every launch count set to 0 just before; the counts read
     just after must be ``want`` (0 for a kernel not named)."""
     for c in counters.values():
@@ -1818,7 +1883,7 @@ def counted(counters, label, fn, want):
     torch.cuda.synchronize()
     got = {k: c.launches for k, c in counters.items()}
     expect = {k: want.get(k, 0) for k in counters}
-    print(f"[vqascore] {label}: launches {got}")
+    print(f"[{tag}] {label}: launches {got}")
     if got != expect:
         raise AssertionError(f"{label}: launches {got} != {expect}")
     return out
@@ -2017,7 +2082,9 @@ def check_bundle(tmp, cfg, tokenize, counters, gpu):
 
 
 def check_vqascore(counters, gpu):
-    """Phase 10: LLaVA-1.5-7B VQAScore at full width and depth."""
+    """Phase 10: LLaVA-1.5-7B VQAScore at full width and depth. Returns
+    the bf16 model (on the host) and its W8A8 twin (on the card) for
+    phase 11."""
     from clip_embeds_tpu_torch.core.factory import init_llava
     from clip_embeds_tpu_torch.evals.whatsup import (
         eval_whatsup, load_annotation)
@@ -2094,7 +2161,10 @@ def check_vqascore(counters, gpu):
         # W8A8: the trunk's seven projections a layer through int8_linear
         t0 = time.perf_counter()
         qmodel = quantize_llava_trunk(model)
-        del score, scorer, ours, model
+        del score, scorer, ours
+        # phase 11 takes the bf16 model back; off the card meanwhile (its
+        # tower and embeddings stay there, shared with qmodel)
+        model.to("cpu")
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.synchronize()
@@ -2120,12 +2190,537 @@ def check_vqascore(counters, gpu):
                 or peak_int8 >= peak_bf16):
             raise AssertionError(f"int8 VQAScore: {vs}, cosine {cos}, "
                                  f"peak {peak_int8} >= {peak_bf16}?")
-        del qscore, qmodel
+        del qscore
         gc.collect()
         torch.cuda.empty_cache()
 
         # (c) the registry route from a score bundle
         check_bundle(tmp, cfg, tok, counters, gpu)
+    return model, qmodel
+
+
+# -- phase 11: VLM2Vec ----------------------------------------------------------
+
+
+def v2v_requests(b, seed, image_size):
+    """``b`` image query rows (64 tokens, the sentinel after BOS, right
+    padded: 639 rows in the trunk) and ``b`` text target rows, drawn from
+    ``seed`` as the synthetic route draws its rows."""
+    from clip_embeds_tpu_torch.models.llava import IMAGE_TOKEN_INDEX
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for side in ("qry", "tgt"):
+        ids = rng.integers(2, 90, (b, V2V_TOKENS)).astype(np.int32)
+        mask = np.zeros((b, V2V_TOKENS), bool)
+        for i in range(b):
+            n = int(rng.integers(8, V2V_TOKENS))
+            ids[i, n:] = 0
+            mask[i, :n] = True
+        ids[:, 0] = 1
+        if side == "qry":
+            ids[:, 1] = IMAGE_TOKEN_INDEX
+        out[f"{side}_ids"], out[f"{side}_mask"] = ids, mask
+    out["qry_pixels"] = rng.standard_normal(
+        (b, image_size, image_size, 3)).astype(np.float32)
+    return out
+
+
+def v2v_cast(model, dtype, **llava_kw):
+    """A copy of the LLaVA ``model`` on its device with its floating
+    tensors in ``dtype`` (``llava_kw``: lora_rank, lora_alpha, remat)."""
+    from clip_embeds_tpu_torch.models.llava import Llava
+
+    with torch.device("meta"):
+        out = Llava(model.cfg, **llava_kw).to(dtype)
+    out.to_empty(device=next(model.parameters()).device)
+    src = model.state_dict()
+    with torch.no_grad():
+        for name, t in out.state_dict().items():
+            t.copy_(src[name])
+    return out.requires_grad_(False).eval()
+
+
+def llava_view(model, cfg=None, **llava_kw):
+    """The LLaVA ``model`` rebuilt on its own tensors (nothing is copied)
+    with ``llava_kw`` (quant_llm for a W8A8 trunk, the LoRA side-path,
+    remat) and, with ``cfg``, cut to that config's depths (its first
+    layers and blocks)."""
+    from clip_embeds_tpu_torch.models.llava import Llava
+
+    with torch.device("meta"):
+        out = Llava(cfg or model.cfg, **llava_kw)
+    keep = out.state_dict()
+    out.load_state_dict({k: v for k, v in model.state_dict().items()
+                         if k in keep}, assign=True)
+    return out.requires_grad_(False).eval()
+
+
+def cut_config(cfg, trunk, tower=None):
+    """``cfg`` with its Llama trunk cut to ``trunk`` layers and, given
+    ``tower``, its vision tower to that many."""
+    cfg = dataclasses.replace(
+        cfg, llama=dataclasses.replace(cfg.llama, num_layers=trunk))
+    if tower is not None:
+        cfg = dataclasses.replace(
+            cfg, vision=dataclasses.replace(cfg.vision, layers=tower))
+    return cfg
+
+
+def fingerprint(model):
+    """Two exact integer checksums of each tensor's bits (the activation
+    statistics left out), to hold a frozen base bit-equal without a copy."""
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32}
+    out = {}
+    for k, t in model.state_dict().items():
+        if k.endswith("act_max"):
+            continue
+        v = t.detach().contiguous().view(-1)
+        v = v.view(ints[v.element_size()]).long()
+        w = torch.arange(v.numel(), device=v.device) % 65521 + 1
+        out[k] = (int(v.sum()), int((v * w).sum()))
+    return out
+
+
+def v2v_embed(model, qmodel, ref, counters, gpu):
+    """Phase 11 (a): embed_last_token on image query rows and text target
+    rows, and embed_mixed on a mixed batch of the synthetic route, at
+    batch 8 and 16, bf16 and W8A8, with exact launches; unit norm; the
+    mixed batch against its rows on their own paths; bf16 against the
+    plain fp32 path beside the no-kernel witness; W8A8 against bf16;
+    embeds/s and peak memory."""
+    from clip_embeds_tpu_torch.cli.train_vlm2vec import (
+        _synthetic_mixed_batches, to_device)
+
+    cfg = model.cfg
+    tb, q = cfg.tower_blocks, 7 * cfg.llama.num_layers
+    size = cfg.vision.image_size
+    bf16 = torch.bfloat16
+    outs = {}
+    for label, m in (("bf16", model), ("int8", qmodel)):
+        n8 = q if label == "int8" else 0
+        torch.cuda.reset_peak_memory_stats()
+        for b in V2V_BATCHES:
+            req = to_device(v2v_requests(b, V2V_SEED, size), "cuda", bf16)
+            mix = to_device(next(_synthetic_mixed_batches(b, size, V2V_SEED)),
+                            "cuda", bf16)
+            calls = {
+                "image rows": (lambda: m.embed_last_token(
+                    req["qry_ids"], req["qry_pixels"], req["qry_mask"]),
+                    {"flash_attention": tb, "int8_linear": n8}),
+                "text rows": (lambda: m.embed_last_token(
+                    req["tgt_ids"], None, req["tgt_mask"]),
+                    {"int8_linear": n8}),
+                "mixed": (lambda: m.embed_mixed(
+                    mix["qry_ids"], mix["qry_pixels"],
+                    mix["qry_image_valid"], mix["qry_mask"]),
+                    {"flash_attention": tb, "int8_linear": n8}),
+            }
+            with torch.inference_mode():
+                for name, (fn, want) in calls.items():
+                    emb = counted(counters, f"{label} {name} b{b}", fn, want,
+                                  tag="vlm2vec").float()
+                    norms = emb.norm(dim=-1)
+                    if not (torch.isfinite(emb).all() and (
+                            norms - 1).abs().max() < 2e-2):
+                        raise AssertionError(f"{label} {name} b{b}: norms "
+                                             f"{norms}")
+                    outs[label, name, b] = emb
+                    times = event_times(fn, V2V_TIME_ITERS)
+                    ms = sum(times) / len(times)
+                    print(f"[vlm2vec] {label} {name} b{b}: "
+                          f"{b / ms * 1e3:.2f} embeds/s ({ms:.1f} ms, the "
+                          f"mean of {len(times)} calls; range "
+                          f"{min(times):.1f}-{max(times):.1f}) on {gpu}")
+        print(f"[vlm2vec] {label} embedding peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {gpu}")
+
+    b = V2V_BATCHES[0]
+    mix = next(_synthetic_mixed_batches(b, size, V2V_SEED))
+    on = to_device(mix, "cuda", bf16)
+    args = ("qry_ids", "qry_pixels", "qry_image_valid", "qry_mask")
+    got = outs["bf16", "mixed", b]
+    with torch.inference_mode():
+        split = []
+        for i in range(b):
+            n = int(mix["qry_mask"][i].sum())
+            if mix["qry_image_valid"][i]:
+                one = model.embed_last_token(on["qry_ids"][i:i + 1],
+                                             on["qry_pixels"][i:i + 1],
+                                             on["qry_mask"][i:i + 1])
+            else:
+                one = model.embed_last_token(on["qry_ids"][i:i + 1, :n],
+                                             None, on["qry_mask"][i:i + 1, :n])
+            split.append(one.float())
+        split = torch.cat(split)
+        plain = ref.embed_mixed(*(to_device(mix, "cuda", torch.float32)[k]
+                                  for k in args))
+        with plain_attention():
+            witness = model.embed_mixed(*(on[k] for k in args)).float()
+    read = {
+        "mixed vs split rows": row_cos(got.cpu().numpy(),
+                                       split.cpu().numpy()).min(),
+        "bf16 vs plain fp32": row_cos(got.cpu().numpy(),
+                                      plain.cpu().numpy()).min(),
+        "witness vs plain fp32": row_cos(witness.cpu().numpy(),
+                                         plain.cpu().numpy()).min(),
+        "int8 vs bf16 (mixed)": row_cos(outs["int8", "mixed", b].cpu().numpy(),
+                                        got.cpu().numpy()).min(),
+        "int8 vs bf16 (image rows)": row_cos(
+            outs["int8", "image rows", b].cpu().numpy(),
+            outs["bf16", "image rows", b].cpu().numpy()).min(),
+    }
+    read = {k: float(v) for k, v in read.items()}
+    print(f"[vlm2vec] least row cosine at b{b}: {read} (limits: split "
+          f"{V2V_SPLIT_COS}, fp32 {V2V_FP32_COS}, int8 {V2V_INT8_COS}) on "
+          f"{gpu}")
+    if (read["mixed vs split rows"] < V2V_SPLIT_COS
+            or read["bf16 vs plain fp32"] < V2V_FP32_COS
+            or min(read["int8 vs bf16 (mixed)"],
+                   read["int8 vs bf16 (image rows)"]) < V2V_INT8_COS):
+        raise AssertionError(f"VLM2Vec embeddings disagree: {read}")
+
+
+def v2v_train_launches(cfg, chunks, int8):
+    """Each kernel's launches in one GradCache step of the synthetic mixed
+    route: every embed_mixed call runs the tower (flash forward only: the
+    frozen tower builds no graph) in the no-grad pass and the re-forward;
+    the W8A8 trunk runs in both and again in the backward (remat)."""
+    calls = 2 * chunks  # the two sides of each chunk
+    want = {"flash_attention": 2 * calls * cfg.tower_blocks}
+    if int8:
+        want["int8_linear"] = 3 * calls * 7 * cfg.llama.num_layers
+    return want
+
+
+@contextlib.contextmanager
+def shared_llava(model, qmodel, tokenize, saved):
+    """The VLM2Vec entry points' load_base returns phase 10's models
+    instead of building the tiny smoke model: the bf16 LLaVA-1.5-7B, or
+    its W8A8 trunk with the LoRA side-path asked for; init_lora keeps a
+    copy of the adapters it draws in ``saved``; a merged export is cut to
+    2 + 2 layers first (phase 11 (d))."""
+    from clip_embeds_tpu_torch.cli import train_vlm2vec
+    from clip_embeds_tpu_torch.models import lora
+
+    def load_base(ckpt, seed, device, dtype, quant=False, **llava_kw):
+        if (ckpt, torch.device(device).type, dtype) != (
+                None, "cuda", torch.bfloat16):
+            raise AssertionError(f"phase 11 shares no model for {ckpt} "
+                                 f"{device} {dtype}")
+        m = (llava_view(qmodel, quant_llm="dynamic", **llava_kw) if quant
+             else model)
+        return model.cfg, m, (tokenize, 1, 0)
+
+    def init_lora(*a, **kw):
+        tree = real_init(*a, **kw)
+        saved.append({k: {n: t.clone() for n, t in ab.items()}
+                      for k, ab in tree.items()})
+        return tree
+
+    def save_merged(path, cfg, merged):
+        cut = cut_config(cfg, 2, 2)
+        real_save(path, cut, llava_view(merged, cut))
+
+    real_init, real_save = lora.init_lora, train_vlm2vec.save_merged
+    with patched(train_vlm2vec, "load_base", load_base), \
+            patched(lora, "init_lora", init_lora), \
+            patched(train_vlm2vec, "save_merged", save_merged):
+        yield
+
+
+def v2v_grads(model, adapters, batch, alpha, dtype, temperature=None):
+    """The adapters' gradients through the train step's adapter path
+    (train/vlm2vec.py adapter_runner: merged weights on an fp base, the
+    side-path where the model has one) on the mixed ``batch``, of a fixed
+    linear readout of the embeddings (the sum over rows of <embedding, u>,
+    u drawn from V2V_SEED), or with ``temperature`` of the contrastive
+    loss."""
+    from clip_embeds_tpu_torch.cli.train_vlm2vec import to_device
+    from clip_embeds_tpu_torch.losses.clip_loss import (
+        embedding_contrastive_loss)
+    from clip_embeds_tpu_torch.train.vlm2vec import adapter_runner
+
+    t = {k: {n: v.detach().float().clone().requires_grad_()
+             for n, v in ab.items()} for k, ab in adapters.items()}
+    on = to_device(batch, "cuda", dtype)
+    g = torch.Generator(device="cuda").manual_seed(V2V_SEED)
+    u = torch.randn(2, len(batch["qry_ids"]), model.cfg.llama.hidden_size,
+                    generator=g, device="cuda")
+
+    def step_fn(call, flush):
+        q, p = (call("embed_mixed", on[f"{s}_ids"], on[f"{s}_pixels"],
+                     on[f"{s}_image_valid"], on[f"{s}_mask"]).float()
+                for s in ("qry", "tgt"))
+        loss = ((q * u[0]).sum() + (p * u[1]).sum() if temperature is None
+                else embedding_contrastive_loss(q, p, temperature))
+        loss.backward()
+        flush()
+
+    adapter_runner(model, alpha, True)(t, step_fn)
+    return {f"{k}/{n}": t[k][n].grad for k in sorted(t) for n in "ab"}
+
+
+def v2v_adapters(model):
+    """LoRA adapters of the CLI's default targets (q/k/v/o/down) at
+    V2V_RANK, seeded, with b drawn off zero so that every tensor has a
+    gradient."""
+    from clip_embeds_tpu_torch.models import lora
+
+    g = torch.Generator(device="cuda").manual_seed(V2V_SEED)
+    tree = lora.init_lora(model, rank=V2V_RANK, generator=g, targets=(
+        "q_proj", "k_proj", "v_proj", "o_proj", "down_proj"))
+    for ab in tree.values():
+        ab["b"] = 0.02 * torch.randn(ab["b"].shape, generator=g,
+                                     device="cuda")
+    return tree
+
+
+def v2v_gradients(model, qmodel, gpu):
+    """Phase 11 (b'): the adapters' gradients (v2v_grads) of the
+    contrastive loss at the recipe's temperature on a mixed batch of
+    V2V_GRAD_BATCH rows, on views of the 7B with the trunk cut to
+    V2V_GRAD_LAYERS layers at full width: the bf16 materialized kernel
+    route (flash_attention in the tower) against the plain fp32 path (an
+    fp32 copy of the cut with the side-path: the same function), beside
+    the no-kernel witness; the W8A8 side-path route (int8_linear) against
+    its witness (no plain int8 route on the card)."""
+    from clip_embeds_tpu_torch.cli.train_vlm2vec import (
+        _synthetic_mixed_batches)
+
+    cut = cut_config(model.cfg, V2V_GRAD_LAYERS)
+    small = llava_view(model, cut)
+    ref = v2v_cast(small, torch.float32, lora_rank=V2V_RANK,
+                   lora_alpha=float(V2V_ALPHA))
+    qsmall = llava_view(qmodel, cut, quant_llm="dynamic", lora_rank=V2V_RANK,
+                        lora_alpha=float(V2V_ALPHA))
+    batch = next(_synthetic_mixed_batches(V2V_GRAD_BATCH,
+                                          cut.vision.image_size, V2V_SEED))
+    tree, bf16 = v2v_adapters(small), torch.bfloat16
+    torch.cuda.reset_peak_memory_stats()
+    want = v2v_grads(ref, tree, batch, V2V_ALPHA, torch.float32, 0.02)
+    got = v2v_grads(small, tree, batch, V2V_ALPHA, bf16, 0.02)
+    qgot = v2v_grads(qsmall, tree, batch, V2V_ALPHA, bf16, 0.02)
+    with plain_attention():
+        wit = v2v_grads(small, tree, batch, V2V_ALPHA, bf16, 0.02)
+        qwit = v2v_grads(qsmall, tree, batch, V2V_ALPHA, bf16, 0.02)
+    read = {"kernel": grad_agreement(got, want),
+            "witness": grad_agreement(wit, want),
+            "int8 kernel vs its witness": grad_agreement(qgot, qwit)}
+    print(f"[vlm2vec] adapter gradients at b{V2V_GRAD_BATCH}, trunk cut to "
+          f"{V2V_GRAD_LAYERS} layers (cosine over all, least per tensor, "
+          f"its name): {read} (limits {V2V_GRAD_COS_MIN} over all, "
+          f"{V2V_GRAD_BELOW_WITNESS} under the witness, "
+          f"{V2V_GRAD_TENSOR_COS_MIN} per tensor; int8 "
+          f"{V2V_INT8_GRAD_COS_MIN}, {V2V_INT8_GRAD_TENSOR_COS_MIN}); peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {gpu}")
+    (k_all, k_min, _), (w_all, _, _) = read["kernel"], read["witness"]
+    q_all, q_min, _ = read["int8 kernel vs its witness"]
+    if (k_all < V2V_GRAD_COS_MIN or k_all < w_all - V2V_GRAD_BELOW_WITNESS
+            or k_min < V2V_GRAD_TENSOR_COS_MIN
+            or q_all < V2V_INT8_GRAD_COS_MIN
+            or q_min < V2V_INT8_GRAD_TENSOR_COS_MIN):
+        raise AssertionError(f"adapter gradients disagree: {read}")
+
+
+def v2v_train(model, qmodel, tmp, tokenize, counters, gpu):
+    """Phase 11 (b): cli/train_vlm2vec.py main on the synthetic mixed route,
+    V2V_TRAIN_STEPS steps at batch V2V_TRAIN_BATCH with GradCache, LoRA r16
+    alpha 64, bf16, on the bf16 base (materialized adapters) and with
+    --quant_base; exact launches, finite losses, every adapter moved, the
+    base bit-equal. Returns each route's adapter file."""
+    from clip_embeds_tpu_torch.cli.train_vlm2vec import main as train_main
+    from clip_embeds_tpu_torch.ops.fused_block import int8_linear
+
+    counters = dict(counters, int8_linear=int8_linear)
+    cfg = model.cfg
+    files = {}
+    for route, base in (("bf16", model), ("quant_base", qmodel)):
+        chunks = V2V_TRAIN_BATCH // V2V_CHUNK[route]
+        out = os.path.join(tmp, f"train_{route}")
+        argv = ["--lora", "--lora_r", str(V2V_RANK), "--lora_alpha",
+                str(V2V_ALPHA), "--bf16", "--grad_cache", "--gc_q_chunk_size",
+                str(V2V_CHUNK[route]), "--per_device_train_batch_size",
+                str(V2V_TRAIN_BATCH), "--max_steps", str(V2V_TRAIN_STEPS),
+                "--logging_steps", "1", "--output_dir", out,
+                "--data_parallel", "1"]
+        if route == "quant_base":
+            argv.append("--quant_base")
+        want = {k: V2V_TRAIN_STEPS * v for k, v in v2v_train_launches(
+            cfg, chunks, route == "quant_base").items()}
+        before = fingerprint(base)
+        saved = []
+        t0 = time.perf_counter()
+        with shared_llava(model, qmodel, tokenize, saved):
+            state, report = counted(
+                counters, f"train {route}: {V2V_TRAIN_STEPS} steps at b"
+                f"{V2V_TRAIN_BATCH}, {chunks} grad-cache chunks",
+                lambda: train_main(argv), want, tag="vlm2vec")
+        took = time.perf_counter() - t0
+        losses = report["losses"]
+        if len(losses) != V2V_TRAIN_STEPS or not np.isfinite(losses).all():
+            raise AssertionError(f"train {route}: losses {losses}")
+        moved = [k for k, ab in state.params.items() for n in "ab"
+                 if torch.equal(ab[n].detach(), saved[0][k][n])]
+        if moved:
+            raise AssertionError(f"train {route}: adapters that did not "
+                                 f"move: {moved[:3]}")
+        if fingerprint(base) != before:
+            raise AssertionError(f"train {route}: the frozen base changed")
+        print(f"[vlm2vec] train {route}: losses {losses}; samples/s "
+              f"{[round(r, 2) for r in report['samples_per_s']]} (the "
+              f"running rate after each step); peak "
+              f"{report['peak_gib']:.2f} GiB; {len(state.params)} adapted "
+              f"kernels all moved; base bit-equal; main took {took:.1f} s "
+              f"on {gpu}")
+        files[route] = os.path.join(out, "adapter-final.npz")
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    return files
+
+
+def write_mmeb_eval(root, seed):
+    """An MMEB-eval fixture: I2T (image queries, text candidates) and T2I
+    (text queries, image candidates), V2V_EVAL_QUERIES queries of
+    V2V_EVAL_CANDS candidates each, gold first, JPEGs as phase 7 writes
+    them."""
+    n_photos = 2 * V2V_EVAL_QUERIES
+    write_photos([os.path.join(root, "images", f"p{i}.jpg")
+                  for i in range(n_photos)], seed)
+    words = [f"a {o} {p} a {o2}" for o in OBJECTS[:6] for o2 in OBJECTS[:3]
+             for p in ("on", "under")]
+    i2t = [{"qry_text": f"what is in photo {i}", "qry_img_path": f"p{i}.jpg",
+            "tgt_text": [words[(i + 5 * j) % len(words)]
+                         for j in range(V2V_EVAL_CANDS)],
+            "tgt_img_path": [""] * V2V_EVAL_CANDS}
+           for i in range(V2V_EVAL_QUERIES)]
+    t2i = [{"qry_text": f"find the photo of {words[i]}", "qry_img_path": "",
+            "tgt_text": ["<image>\na photo"] * V2V_EVAL_CANDS,
+            "tgt_img_path": [f"p{(i + 3 * j) % n_photos}.jpg"
+                             for j in range(V2V_EVAL_CANDS)]}
+           for i in range(V2V_EVAL_QUERIES)]
+    for name, rows in (("I2T", i2t), ("T2I", t2i)):
+        with open(os.path.join(root, f"{name}.json"), "w") as fh:
+            json.dump(rows, fh)
+
+
+def v2v_eval_launches(root, cfg, int8):
+    """The eval CLI's launches on the fixture: per subset and side, the
+    deduplicated image rows and text rows in batches of V2V_EVAL_BATCH,
+    the tower once a batch of image rows, the W8A8 trunk once a batch."""
+    from clip_embeds_tpu_torch.evals.mmeb import dedup_pairs
+
+    want = {"flash_attention": 0, "int8_linear": 0}
+    for name in ("I2T", "T2I"):
+        with open(os.path.join(root, f"{name}.json")) as fh:
+            rows = json.load(fh)
+        sides = (dedup_pairs([(r["qry_text"], r["qry_img_path"])
+                              for r in rows]),
+                 dedup_pairs([p for r in rows
+                              for p in zip(r["tgt_text"], r["tgt_img_path"])]))
+        for pairs in sides:
+            n_img = sum(1 for _, im in pairs if im)
+            batches = [math.ceil(n_img / V2V_EVAL_BATCH),
+                       math.ceil((len(pairs) - n_img) / V2V_EVAL_BATCH)]
+            want["flash_attention"] += batches[0] * cfg.tower_blocks
+            if int8:
+                want["int8_linear"] += sum(batches) * 7 * cfg.llama.num_layers
+    return want
+
+
+def v2v_eval(model, qmodel, tmp, files, tokenize, counters, gpu):
+    """Phase 11 (c): cli/eval_mmeb.py main on the fixture with (b)'s
+    adapters, merged on the bf16 base and served over the W8A8 trunk:
+    exact launches, accuracies in [0, 1], a second run reads the embedding
+    cache back to the same table with no launch; items/s."""
+    from clip_embeds_tpu_torch.cli.eval_mmeb import main as eval_main
+    from clip_embeds_tpu_torch.ops.fused_block import int8_linear
+
+    counters = dict(counters, int8_linear=int8_linear)
+    root = os.path.join(tmp, "mmeb_eval")
+    write_mmeb_eval(root, V2V_SEED)
+    for how, flag, adapter in (("merged", "--lora", files["bf16"]),
+                               ("quant_base", "--quant_base",
+                                files["quant_base"])):
+        out = os.path.join(tmp, f"eval_{how}")
+        argv = [flag, "--checkpoint_path", adapter, "--lora_r", str(V2V_RANK),
+                "--lora_alpha", str(V2V_ALPHA), "--dataset_name", root,
+                "--subset_name", "I2T", "T2I", "--image_dir",
+                os.path.join(root, "images"), "--encode_output_path", out,
+                "--per_device_train_batch_size", str(V2V_EVAL_BATCH)]
+        want = v2v_eval_launches(root, model.cfg, how == "quant_base")
+        with shared_llava(model, qmodel, tokenize, []):
+            table, report = counted(counters, f"eval_mmeb {how}",
+                                    lambda: eval_main(argv), want,
+                                    tag="vlm2vec")
+            again, cached = counted(counters, f"eval_mmeb {how}, cached",
+                                    lambda: eval_main(argv), {},
+                                    tag="vlm2vec")
+        accs = [r["acc"] for r in table["subsets"].values()]
+        if (len(accs) != 2 or not all(0 <= a <= 1 for a in accs)
+                or again != table or cached["items"] != 0):
+            raise AssertionError(f"eval_mmeb {how}: {table} / {again} "
+                                 f"{cached}")
+        print(f"[vlm2vec] eval_mmeb {how}: {table}; "
+              f"{report['items_per_s']:.2f} items/s ({report['items']} "
+              f"items in {report['seconds']:.1f} s, dedup'd, batch "
+              f"{V2V_EVAL_BATCH}); the cached run read them back on {gpu}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def check_vlm2vec(model, qmodel, counters, gpu):
+    """Phase 11: VLM2Vec over phase 10's LLaVA-1.5-7B (bf16) and its W8A8
+    trunk: (a) embedding, (b) training through the CLI, (c) the MMEB eval
+    through the CLI, (d) the merged bundle of (b), cut to 2 + 2 layers."""
+    from clip_embeds_tpu_torch.cli.train_vlm2vec import to_device
+    from clip_embeds_tpu_torch.ops.fused_block import int8_linear
+    from clip_embeds_tpu_torch.scores.build import (
+        config_from_dict, llava_from_params, load_score_bundle)
+    from clip_embeds_tpu_torch.models.llava import LlavaConfig
+
+    counters = dict(counters, int8_linear=int8_linear)
+    tok = word_tokenizer(V2V_SEED, model.cfg.llama.vocab_size)
+    # the plain fp32 path (plain attention, TF32 off)
+    ref = v2v_cast(model, torch.float32)
+    t0 = time.perf_counter()
+    v2v_embed(model, qmodel, ref, counters, gpu)
+    print(f"[phase 11] (a) {time.perf_counter() - t0:.1f} s on {gpu}")
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    v2v_gradients(model, qmodel, gpu)
+    print(f"[phase 11] gradients {time.perf_counter() - t0:.1f} s on {gpu}")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        files = v2v_train(model, qmodel, tmp, tok, counters, gpu)
+        print(f"[phase 11] (b) {time.perf_counter() - t0:.1f} s on {gpu}")
+        t0 = time.perf_counter()
+        v2v_eval(model, qmodel, tmp, files, tok, counters, gpu)
+        print(f"[phase 11] (c) {time.perf_counter() - t0:.1f} s on {gpu}")
+
+        # (d) the merged bundle of (b), cut to 2 + 2 layers
+        path = os.path.join(tmp, "train_bf16", "merged")
+        meta, params = load_score_bundle(path)
+        cfg = config_from_dict(LlavaConfig, meta["model"])
+        small = llava_from_params(params, cfg, "cuda", torch.bfloat16)
+        batch = to_device(v2v_requests(2, V2V_SEED, cfg.vision.image_size),
+                          "cuda", torch.bfloat16)
+        with torch.inference_mode():
+            emb = small.embed_last_token(batch["qry_ids"],
+                                         batch["qry_pixels"],
+                                         batch["qry_mask"]).float()
+        size = os.path.getsize(os.path.join(path, "params.npz"))
+        if (cfg.llama.num_layers, cfg.tower_blocks) != (2, 1) or \
+                not torch.isfinite(emb).all():
+            raise AssertionError(f"merged bundle: {cfg} {emb}")
+        print(f"[vlm2vec] merged bundle (cut to 2 + 2 layers, "
+              f"{size / 2**30:.2f} GiB) loaded through load_score_bundle; "
+              f"its embeddings finite, shape {tuple(emb.shape)}")
+        del small, params
 
 
 def main() -> int:
@@ -2297,8 +2892,14 @@ def main() -> int:
 
     # 10. LLaVA-1.5-7B VQAScore
     t0 = time.perf_counter()
-    check_vqascore(counters, gpu)
+    llava, qllava = check_vqascore(counters, gpu)
     print(f"[phase 10] {time.perf_counter() - t0:.1f} s on {gpu}")
+
+    # 11. VLM2Vec over phase 10's LLaVA-1.5-7B and its W8A8 trunk
+    t0 = time.perf_counter()
+    check_vlm2vec(llava.to("cuda"), qllava, counters, gpu)
+    del llava, qllava
+    print(f"[phase 11] {time.perf_counter() - t0:.1f} s on {gpu}")
 
     def entry(name, source, replaces, path_launches, shape):
         """One kernel's line: the largest max |diff| over its shapes, and

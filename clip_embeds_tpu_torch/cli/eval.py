@@ -17,8 +17,10 @@ scores with uniform pooling, the reference's eval override. ``--scorer
 siglip`` resolves a SigLIP registry name (``core/openclip_registry.py``)
 and then exits, as the JAX CLI does: its ``SigLipTokenizer`` needs the
 path of a sentencepiece ``.model``, which the CLI has no flag to give (so
-``scores.scorers.SiglipScorer`` is driven with an injected tokenizer). The
-embedding scorer exits naming the ROADMAP.md item that will port it.
+``scores.scorers.SiglipScorer`` is driven with an injected tokenizer).
+``--scorer embedding`` raises the JAX CLI's NotImplementedError: the
+LLaVA embedding scorer is built directly
+(``scores.embedding_scorer.EmbeddingScorer``, ``cli/eval_mmeb.py``).
 Images decode on the native C++ pipeline where its library builds, else
 with PIL. The results table is printed as the JAX CLI prints it, then one
 JSON line naming the scorer's route, the decoder that ran, the device and
@@ -31,12 +33,6 @@ import argparse
 import json
 import logging
 import time
-
-# scorers this CLI does not take yet, by the ROADMAP.md item that will port
-# them
-_UNPORTED_SCORERS = {
-    "embedding": "queue 1 item 12 (VLM2Vec)",
-}
 
 
 def parse_args(argv=None):
@@ -60,11 +56,7 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda",
                    help="'cuda' (the default: exits if there is no card) "
                    "or 'cpu'")
-    args = p.parse_args(argv)
-    if args.scorer in _UNPORTED_SCORERS:
-        p.error(f"--scorer {args.scorer} is not ported yet: ROADMAP.md "
-                f"{_UNPORTED_SCORERS[args.scorer]}")
-    return args
+    return p.parse_args(argv)
 
 
 def build_head(args, model):
@@ -137,6 +129,10 @@ def build_scorer(args):
                          device=device)
     if args.scorer == "clip":
         return CLIPScorer(model, batch_size=args.batch_size)
+    if args.scorer == "embedding":
+        raise NotImplementedError(
+            "embedding scorer needs a LLaVA checkpoint + HF tokenizer; "
+            "construct scores.embedding_scorer.EmbeddingScorer directly")
     head = build_head(args, model)
     if args.scorer == "pacl":
         return PACLScorer(model, head, batch_size=args.batch_size)

@@ -395,6 +395,33 @@ def llama_state_dict_from_jax_params(params: Mapping[str, Any],
     return sd
 
 
+def flax_module_path(name: str, sep: str = "/") -> str:
+    """A module name of the port's LLaVA / Llama (``language_model.model.
+    layers.3.self_attn.q_proj``) -> its flax scope path
+    (``language_model/model/layers_3/self_attn/q_proj``): a list index
+    joins its list's name with '_'."""
+    out: list = []
+    for part in name.split("."):
+        if part.isdigit():
+            out[-1] = f"{out[-1]}_{part}"
+        else:
+            out.append(part)
+    return sep.join(out)
+
+
+def lora_targets_by_key(model: torch.nn.Module) -> Dict[str, torch.nn.Module]:
+    """The LoRA adapter key of each linear layer of ``model`` -> the layer:
+    the flat canonical key of JAX ``models/lora.py`` (the flax path of the
+    Dense kernel, ``.../q_proj/kernel``, also over a QuantDense's
+    ``kernel_q``), so that an adapter file of either package addresses the
+    same layers. Orientation stays JAX's: a [in, r], b [r, out]."""
+    from ..models.quant import QuantLinear
+
+    return {flax_module_path(name) + "/kernel": m
+            for name, m in model.named_modules()
+            if isinstance(m, (torch.nn.Linear, QuantLinear))}
+
+
 def jax_params_from_llava(model: torch.nn.Module) -> Dict[str, Any]:
     """The port's :class:`Llava` -> flax ``Llava`` params (nested dicts of
     numpy arrays: float32, int8 ``kernel_q`` for a quantised trunk, with
@@ -419,18 +446,8 @@ def jax_params_from_llava(model: torch.nn.Module) -> Dict[str, Any]:
         node.setdefault(path.split(".")[-1], {}).update(
             {k: np.ascontiguousarray(v) for k, v in leaf.items()})
 
-    def flax_path(name: str) -> str:
-        parts = name.split(".")
-        out = []
-        for part in parts:
-            if part.isdigit():
-                out[-1] = f"{out[-1]}_{part}"
-            else:
-                out.append(part)
-        return ".".join(out)
-
     for name, m in model.named_modules():
-        path = flax_path(name)
+        path = flax_module_path(name, ".")
         if isinstance(m, QuantLinear):
             leaf = {"kernel_q": arr(m.weight_q).T, "scale": arr(m.scale)}
             if m.bias is not None:

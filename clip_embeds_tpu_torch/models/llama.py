@@ -19,9 +19,12 @@ Attention has two modes, as in JAX:
 
 JAX sows the post-RoPE, pre-GQA-repeat K/V into the flax ``kv``
 collection; the port has no collections, so ``trunk(..., sow_kv=True)``
-returns them explicitly beside the hidden states. Not ported: the
-``decode`` KV cache, M-RoPE (``mrope_cos_sin``), the LoRA side-path and
-the ``scan_layers`` layout.
+returns them explicitly beside the hidden states. ``lora_rank`` /
+``lora_alpha`` build the seven projections a layer with the unmaterialized
+LoRA side-path (``models/quant.py``), and ``remat`` recomputes each block
+in the backward (``torch.utils.checkpoint``, JAX's ``nn.remat`` per
+block; training only). Not ported: the ``decode`` KV cache, M-RoPE
+(``mrope_cos_sin``) and the ``scan_layers`` layout.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..ops.attention import dot_product_attention
@@ -117,14 +121,16 @@ def _repeat_kv(t: torch.Tensor, rep: int) -> torch.Tensor:
 
 
 class LlamaAttention(nn.Module):
-    def __init__(self, cfg: LlamaConfig, quant: Quant = False):
+    def __init__(self, cfg: LlamaConfig, quant: Quant = False,
+                 lora_rank: int = 0, lora_alpha: float = 16.0):
         super().__init__()
         self.cfg = cfg
         hd, d, bias = cfg.head_dim, cfg.hidden_size, cfg.attention_bias
-        self.q_proj = linear(quant, d, cfg.num_heads * hd, bias)
-        self.k_proj = linear(quant, d, cfg.kv_heads * hd, bias)
-        self.v_proj = linear(quant, d, cfg.kv_heads * hd, bias)
-        self.o_proj = linear(quant, cfg.num_heads * hd, d, False)
+        lo = dict(lora_rank=lora_rank, lora_alpha=lora_alpha)
+        self.q_proj = linear(quant, d, cfg.num_heads * hd, bias, **lo)
+        self.k_proj = linear(quant, d, cfg.kv_heads * hd, bias, **lo)
+        self.v_proj = linear(quant, d, cfg.kv_heads * hd, bias, **lo)
+        self.o_proj = linear(quant, cfg.num_heads * hd, d, False, **lo)
 
     def forward(self, x, cos, sin, kv_mask=None, prefix: Optional[KV] = None,
                 sow_kv: bool = False, prefix_mask=None,
@@ -178,25 +184,28 @@ class LlamaAttention(nn.Module):
 
 
 class LlamaMLP(nn.Module):
-    def __init__(self, cfg: LlamaConfig, quant: Quant = False):
+    def __init__(self, cfg: LlamaConfig, quant: Quant = False,
+                 lora_rank: int = 0, lora_alpha: float = 16.0):
         super().__init__()
         d, m = cfg.hidden_size, cfg.intermediate_size
-        self.gate_proj = linear(quant, d, m, False)
-        self.up_proj = linear(quant, d, m, False)
-        self.down_proj = linear(quant, m, d, False)
+        lo = dict(lora_rank=lora_rank, lora_alpha=lora_alpha)
+        self.gate_proj = linear(quant, d, m, False, **lo)
+        self.up_proj = linear(quant, d, m, False, **lo)
+        self.down_proj = linear(quant, m, d, False, **lo)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
 
 
 class LlamaBlock(nn.Module):
-    def __init__(self, cfg: LlamaConfig, quant: Quant = False):
+    def __init__(self, cfg: LlamaConfig, quant: Quant = False,
+                 lora_rank: int = 0, lora_alpha: float = 16.0):
         super().__init__()
         self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
-        self.self_attn = LlamaAttention(cfg, quant)
+        self.self_attn = LlamaAttention(cfg, quant, lora_rank, lora_alpha)
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size,
                                                 cfg.rms_norm_eps)
-        self.mlp = LlamaMLP(cfg, quant)
+        self.mlp = LlamaMLP(cfg, quant, lora_rank, lora_alpha)
 
     def forward(self, x, cos, sin, kv_mask=None, prefix=None, sow_kv=False,
                 prefix_mask=None, suffix_block=None):
@@ -210,15 +219,19 @@ class LlamaModel(nn.Module):
     """Decoder trunk over input embeddings (LLaVA splices image features
     before it)."""
 
-    def __init__(self, cfg: LlamaConfig, quant: Quant = False):
+    def __init__(self, cfg: LlamaConfig, quant: Quant = False,
+                 lora_rank: int = 0, lora_alpha: float = 16.0,
+                 remat: bool = False):
         super().__init__()
         if cfg.mrope_section is not None:
             raise NotImplementedError(
                 "M-RoPE (Qwen2-VL) is not ported yet: ROADMAP.md queue 1 "
                 "item 14")
         self.cfg = cfg
-        self.layers = nn.ModuleList(LlamaBlock(cfg, quant)
-                                    for _ in range(cfg.num_layers))
+        self.remat = remat
+        self.layers = nn.ModuleList(
+            LlamaBlock(cfg, quant, lora_rank, lora_alpha)
+            for _ in range(cfg.num_layers))
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
 
     def forward(self, inputs_embeds, attention_mask=None, positions=None,
@@ -235,7 +248,15 @@ class LlamaModel(nn.Module):
         cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
         x = inputs_embeds
         kv: List[KV] = []
+        remat = self.remat and torch.is_grad_enabled()
+        if remat and (prefix_kv is not None or sow_kv):
+            raise ValueError("remat is a training feature: no prefix_kv or "
+                             "sow_kv under it")
         for i, layer in enumerate(self.layers):
+            if remat:
+                x, sown = torch.utils.checkpoint.checkpoint(
+                    layer, x, cos, sin, attention_mask, use_reentrant=False)
+                continue
             x, sown = layer(x, cos, sin, attention_mask,
                             None if prefix_kv is None else prefix_kv[i],
                             sow_kv, prefix_mask, suffix_block)
@@ -246,11 +267,16 @@ class LlamaModel(nn.Module):
 
 
 class LlamaForCausalLM(nn.Module):
-    def __init__(self, cfg: LlamaConfig, quant: Quant = False):
+    """``lora_rank`` adapts the trunk's projections only (the reference's
+    target set); the embeddings and ``lm_head`` stay frozen."""
+
+    def __init__(self, cfg: LlamaConfig, quant: Quant = False,
+                 lora_rank: int = 0, lora_alpha: float = 16.0,
+                 remat: bool = False):
         super().__init__()
         self.cfg = cfg
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
-        self.model = LlamaModel(cfg, quant)
+        self.model = LlamaModel(cfg, quant, lora_rank, lora_alpha, remat)
         self.lm_head = (None if cfg.tie_word_embeddings
                         else linear(False, cfg.hidden_size, cfg.vocab_size,
                                     False))

@@ -9,14 +9,20 @@
   block of ``n_image_tokens`` slots by a gather (static shapes);
 * :meth:`Llava.prefill` / :meth:`Llava.suffix_logits`: the image+question
   prefix run once per image, its per-layer K/V replayed across the
-  candidate texts (VQAScore's m x n reuse).
+  candidate texts (VQAScore's m x n reuse);
+* :meth:`Llava.embed_last_token` / :meth:`Llava.embed_mixed`: VLM2Vec's
+  last-token pooling, L2-normalised; the mixed form masks the image block
+  of imageless rows and re-derives their RoPE positions.
 
 Module names are the flax ones (``vision_tower``, ``multi_modal_projector``,
 ``language_model``). The vision tower holds only the blocks the hidden
 tap runs (``LlavaConfig.tower_blocks``, 23 of ViT-L/14-336's 24) and no
-``ln_post`` or output projection, as a flax ``Llava.init`` creates none. Not ported yet: ``embed_last_token`` and
-``embed_mixed`` (VLM2Vec, ROADMAP.md queue 1 item 12), ``scan_llm`` and
-``stack_llava_params``.
+``ln_post`` or output projection, as a flax ``Llava.init`` creates none.
+``lora_rank`` / ``lora_alpha`` give the trunk's projections the
+unmaterialized LoRA side-path, the vision tower excluded as in the
+reference; ``remat`` recomputes each trunk block in the backward (the
+tower's, frozen in every mode that trains adapters, build no graph). Not
+ported: ``scan_llm`` and ``stack_llava_params``.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import torch
 from torch import nn
 
 from ..core.config import VisionConfig
+from .clip import l2_normalize
 from .layers import exact_gelu
 from .llama import KV, LlamaConfig, LlamaForCausalLM
 from .quant import Quant, linear
@@ -121,11 +128,17 @@ class Llava(nn.Module):
     Llama trunk's projections as int8 QuantLinear (``quantize_llava_trunk``
     fills them). Attention takes ``ops/attention.py``'s 'auto' route: the
     flash kernel for the vision tower and the trunk's unmasked prefill in
-    bf16 on the card, as the JAX model does on the TPU."""
+    bf16 on the card, as the JAX model does on the TPU; a padded trunk
+    (every embedding call) takes plain attention, as JAX does.
+    ``lora_rank`` > 0 enables the LoRA side-path of the trunk's
+    projections (adapters attached by ``models/lora.py attach_lora``)."""
 
-    def __init__(self, cfg: LlavaConfig, quant_llm: Quant = ""):
+    def __init__(self, cfg: LlavaConfig, quant_llm: Quant = "",
+                 lora_rank: int = 0, lora_alpha: float = 16.0,
+                 remat: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.lora_rank, self.lora_alpha = lora_rank, lora_alpha
         self.vision_tower = VisionTransformer(
             cfg.vision, embed_dim=cfg.vision.width,
             quick_gelu=cfg.vision_quick_gelu)
@@ -136,7 +149,8 @@ class Llava(nn.Module):
         del self.vision_tower.ln_post, self.vision_tower.proj
         self.multi_modal_projector = MultiModalProjector(
             cfg.vision.width, cfg.llama.hidden_size)
-        self.language_model = LlamaForCausalLM(cfg.llama, quant_llm)
+        self.language_model = LlamaForCausalLM(
+            cfg.llama, quant_llm, lora_rank, lora_alpha, remat)
 
     def encode_images(self, pixel_values: torch.Tensor) -> torch.Tensor:
         """[B, S, S, 3] -> projected image tokens [B, n_image, hidden]."""
@@ -226,3 +240,49 @@ class Llava(nn.Module):
             embeds, suffix_mask, positions, prefix_kv=prefix_kv,
             prefix_mask=prefix_mask, suffix_block=suffix_block)
         return self.language_model.logits(hidden)
+
+    def embed_mixed(self, input_ids: torch.Tensor,
+                    pixel_values: torch.Tensor, image_valid: torch.Tensor,
+                    attention_mask: torch.Tensor) -> torch.Tensor:
+        """VLM2Vec pooling over a mixed image/text batch [B, D]: every row
+        of ``input_ids`` [B, L] holds one sentinel (imageless rows in their
+        padding), ``pixel_values`` are zeros where ``image_valid`` [B] is
+        False, ``attention_mask`` [B, L] marks the real text tokens. The
+        image block of an imageless row is masked out of attention and the
+        positions are re-derived as ``max(cumsum(mask) - 1, 0)``, so its
+        valid tokens see the text-only layout; the hidden state at the
+        last valid index, L2-normalised."""
+        image_features = self.encode_images(pixel_values)
+        n_image = image_features.shape[1]
+        embeds = self.merge(input_ids, image_features)
+        _, is_image, text_gather, _ = splice_positions(input_ids, n_image)
+        text_mask = torch.gather(attention_mask.int(), 1, text_gather)
+        mask = torch.where(is_image, image_valid[:, None].int(), text_mask)
+        positions = (torch.cumsum(mask, dim=1) - 1).clamp_min(0)
+        hidden = self.language_model.trunk(embeds, mask.bool(), positions)
+        idx = torch.arange(hidden.shape[1], device=hidden.device)[None, :]
+        last = torch.where(mask.bool(), idx, -1).amax(dim=1)
+        return l2_normalize(hidden[torch.arange(hidden.shape[0]), last])
+
+    def embed_last_token(self, input_ids: torch.Tensor,
+                         pixel_values: Optional[torch.Tensor] = None,
+                         attention_mask: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+        """VLM2Vec pooling [B, D]: the hidden state of the last valid
+        token, at ``sum(mask) - 1`` (right padding), L2-normalised. With
+        ``pixel_values`` each row of ``input_ids`` holds one sentinel;
+        without, the rows are text only."""
+        if pixel_values is not None:
+            image_features = self.encode_images(pixel_values)
+            embeds = self.merge(input_ids, image_features)
+            if attention_mask is None:
+                attention_mask = torch.ones_like(input_ids, dtype=torch.int)
+            mask = expand_like_tokens(attention_mask.int(), input_ids,
+                                      image_features.shape[1], 1)
+        else:
+            embeds = self.language_model.embed(input_ids.clamp_min(0))
+            mask = (torch.ones_like(input_ids, dtype=torch.int)
+                    if attention_mask is None else attention_mask.int())
+        hidden = self.language_model.trunk(embeds, mask.bool())
+        last = mask.sum(dim=1) - 1
+        return l2_normalize(hidden[torch.arange(hidden.shape[0]), last])

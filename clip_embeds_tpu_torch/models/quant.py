@@ -17,14 +17,24 @@ compute dtype, as flax keeps QuantDense's params fp32: cast a quantised
 model with :func:`cast_floating`, not ``.to(dtype)``.
 
 :func:`quantize_llava_trunk` quantises the seven projections of each
-layer of a LLaVA Llama trunk (``LLAMA_QUANT_LAYER_NAMES``). Not ported yet:
-the LoRA side-path (``_lora_delta``, ``LoraDense``) and the T5 trunk
-quantiser.
+layer of a LLaVA Llama trunk (``LLAMA_QUANT_LAYER_NAMES``).
+
+The unmaterialized LoRA side-path (``_lora_delta``, ``LoraDense`` and the
+``lora_rank`` of ``QuantDense``): a layer built with ``lora_rank`` > 0
+adds ``((x.float() @ a) @ b) * (alpha / rank)`` to its fp32 output before
+the cast to the compute dtype, where JAX adds it, when an adapter is
+attached (``models/lora.py attach_lora``: JAX's ``lora`` collection); a
+layer with none adds nothing. On the card the int8 product comes out of
+``cet_gemm_s8`` in bf16, so there the side-path is added to that rounded
+product. With gradients, the int8 codes pass none (the round), and the
+dynamic scale passes what JAX's does: ``y = acc * (a * scale)`` with
+``a = max|x| / 127`` carries a gradient to the abs-max entry of ``x``.
+Not ported: the T5 trunk quantiser.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Mapping, Optional, Union
+from typing import Dict, Iterable, Mapping, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -64,17 +74,59 @@ def quantize_weight(w: torch.Tensor):
     return q.to(torch.int8), scale
 
 
-class QuantLinear(nn.Module):
+class _LoraSide:
+    """The unmaterialized LoRA side-path shared by :class:`CastLinear` and
+    :class:`QuantLinear`: ``lora_rank`` > 0 enables it, ``lora`` holds the
+    attached (a [in, r], b [r, out]) fp32 pair or None (no delta)."""
+
+    lora_rank: int = 0
+    lora_alpha: float = 16.0
+    lora: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+
+    def _with_lora(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """``y`` (this layer's output) plus ``alpha / rank * ((x @ a) @
+        b)``, added in fp32 (one addmm) and cast to x's dtype; ``y`` as it
+        is without an adapter."""
+        if self.lora_rank <= 0 or self.lora is None:
+            return y
+        a, b = self.lora
+        xa = x.float().reshape(-1, x.shape[-1]) @ a
+        out = torch.addmm(y.float().reshape(-1, y.shape[-1]), xa, b,
+                          alpha=self.lora_alpha / self.lora_rank)
+        return out.view(y.shape).to(x.dtype)
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """``y`` as it is, whose gradient also reaches the dynamic activation
+    scale ``a``: ``y = acc * (a * scale) + bias`` gives ``dy/da = (y -
+    bias) / a`` (the codes pass none: the round), JAX's one term through
+    the int8 base."""
+
+    @staticmethod
+    def forward(ctx, y, a, bias):
+        ctx.save_for_backward(y, a, bias)
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        y, a, bias = ctx.saved_tensors
+        acc = y.float() if bias is None else y.float() - bias.float()
+        return g, (g.float() * acc).sum() / a, None
+
+
+class QuantLinear(_LoraSide, nn.Module):
     """Drop-in ``nn.Linear`` with int8 weights and int8 activations
     (counterpart of ``QuantDense``); returns the input's dtype. On the card
     it takes bf16 inputs and K, N multiples of 16, and raises otherwise."""
 
     def __init__(self, in_features: int, out_features: int,
-                 mode: str = "dynamic", bias: bool = True):
+                 mode: str = "dynamic", bias: bool = True,
+                 lora_rank: int = 0, lora_alpha: float = 16.0):
         super().__init__()
         if mode not in ("dynamic", "static"):
             raise ValueError(f"mode {mode!r}")
         self.mode = mode
+        self.lora_rank, self.lora_alpha = lora_rank, lora_alpha
         f32 = torch.float32
         self.register_buffer(
             "weight_q", torch.zeros(out_features, in_features,
@@ -88,33 +140,55 @@ class QuantLinear(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.mode == "static":
             a = self.act_scale.clamp_min(1e-8)
-        else:  # abs-max in one read of x, no |x| temporary, on the device
-            lo, hi = torch.aminmax(x)
-            observed = torch.maximum(hi, -lo).float()
-            self.act_max.copy_(torch.maximum(self.act_max, observed))
+        else:
+            if torch.is_grad_enabled() and x.requires_grad:
+                # JAX's max(|x|): its gradient reaches the abs-max entry
+                # (aminmax has no derivative in every torch release)
+                observed = x.abs().amax().float()
+            else:  # abs-max in one read of x, no |x| temporary
+                lo, hi = torch.aminmax(x)
+                observed = torch.maximum(hi, -lo).float()
+            self.act_max.copy_(torch.maximum(self.act_max,
+                                             observed.detach()))
             a = (observed / 127.0).clamp_min(1e-8)
-        return int8_linear(x, a, self.weight_q, self.scale, self.bias)
+        y = int8_linear(x.detach(), a.detach(), self.weight_q, self.scale,
+                        self.bias)
+        if a.requires_grad:
+            y = _ScaleGrad.apply(y, a, self.bias)
+        return self._with_lora(x, y)
 
 
-class CastLinear(nn.Linear):
+class CastLinear(_LoraSide, nn.Linear):
     """``nn.Linear`` that computes in its input's dtype: the weight and bias
     are cast to it (flax's ``Dense(dtype=...)`` over fp32 params), so fp32
     master weights train in bf16 and the gradient flows back through the
-    cast. When the dtypes already agree the cast is a no-op."""
+    cast. When the dtypes already agree the cast is a no-op. With
+    ``lora_rank`` > 0 and an attached adapter, JAX's ``LoraDense``."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True, lora_rank: int = 0,
+                 lora_alpha: float = 16.0, **kw):
+        super().__init__(in_features, out_features, bias, **kw)
+        self.lora_rank, self.lora_alpha = lora_rank, lora_alpha
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.linear(x, self.weight.to(x.dtype), bias)
+        return self._with_lora(
+            x, F.linear(x, self.weight.to(x.dtype), bias))
 
 
 def linear(quant: Quant, in_features: int, out_features: int,
-           bias: bool = True) -> nn.Module:
+           bias: bool = True, lora_rank: int = 0,
+           lora_alpha: float = 16.0) -> nn.Module:
     """:class:`CastLinear`, or :class:`QuantLinear` when ``quant`` is True /
-    'dynamic' / 'static' (counterpart of ``quant.dense``)."""
+    'dynamic' / 'static' (counterpart of ``quant.dense``); ``lora_rank`` >
+    0 enables the unmaterialized LoRA side-path on either."""
     if quant:
         mode = "static" if quant == "static" else "dynamic"
-        return QuantLinear(in_features, out_features, mode, bias)
-    return CastLinear(in_features, out_features, bias)
+        return QuantLinear(in_features, out_features, mode, bias,
+                           lora_rank, lora_alpha)
+    return CastLinear(in_features, out_features, bias, lora_rank,
+                      lora_alpha)
 
 
 def quant_layers(model: nn.Module):
@@ -237,9 +311,13 @@ def cast_floating(model: nn.Module, dtype: torch.dtype) -> nn.Module:
 def inject_act_scales(model: nn.Module) -> nn.Module:
     """Bake each QuantLinear's observed abs-max into its static activation
     scale, ``max(act_max / 127, 1e-8)``, and switch it to static mode.
-    A layer that observed nothing gets the floor 1e-8."""
+    A layer that observed nothing gets the floor 1e-8. The quotient is a
+    true division, as numpy's in JAX: the divisor is a tensor on the
+    device (by a Python scalar, PyTorch's CUDA division multiplies by the
+    reciprocal, an ulp apart)."""
     for q in quant_layers(model):
-        q.act_scale.copy_((q.act_max / 127.0).clamp_min(1e-8))
+        q.act_scale.copy_((q.act_max / q.act_max.new_full((), 127.0))
+                          .clamp_min(1e-8))
         q.mode = "static"
     return model
 
@@ -262,20 +340,22 @@ def calibrate_act_scales(model: nn.Module, batches: Iterable,
 
 
 def quantize_llava_trunk(model: nn.Module, mode: Quant = "dynamic",
-                         dtype: Optional[torch.dtype] = None) -> nn.Module:
+                         dtype: Optional[torch.dtype] = None,
+                         **llava_kw) -> nn.Module:
     """A new :class:`~.llava.Llava` on ``model``'s device whose Llama
     trunk's seven projections a layer (``LLAMA_QUANT_LAYER_NAMES``) are
     int8 :class:`QuantLinear` quantised from ``model``'s weights
     (counterpart of ``quantize_llava_trunk``); the vision tower,
     projector, embeddings, norms and ``lm_head`` keep their tensors, cast
     to ``dtype`` (default: ``model``'s; with the same dtype they are
-    shared, not copied). ``model`` is left as it is."""
+    shared, not copied). ``model`` is left as it is. ``llava_kw``
+    (``lora_rank``, ``lora_alpha``, ``remat``) go to the new model."""
     from .llava import Llava
 
     dtype = dtype or model.language_model.embed_tokens.weight.dtype
     sd = model.state_dict()
     with torch.device("meta"):
-        qmodel = Llava(model.cfg, quant_llm=mode)
+        qmodel = Llava(model.cfg, quant_llm=mode, **llava_kw)
     qmodel.load_state_dict(quantize_linears(sd, llava_trunk_pairs(sd), dtype),
                            assign=True)
     return qmodel.eval()

@@ -217,6 +217,36 @@ VQA_CONVERSATIONS = {
 # -- live construction --------------------------------------------------------
 
 
+def llava_from_params(params: Dict[str, Any], cfg: LlavaConfig,
+                      device, dtype: torch.dtype, quant: bool = False,
+                      **llava_kw):
+    """The port's Llava of config ``cfg`` from flax-layout ``params`` (a
+    bundle's tree) on ``device`` in ``dtype``, frozen, in eval mode. With
+    ``quant`` the Llama trunk is W8A8 (dynamic QuantLinear), its int8
+    codes and fp32 scales quantised on the device from the fp32 weights,
+    one projection at a time, as the JAX package quantises its fp32
+    params; the tower, projector, embeddings, norms and lm_head stay
+    floating point. ``llava_kw`` (``lora_rank``, ``lora_alpha``,
+    ``remat``) go to the model."""
+    from ..core.convert import llava_state_dict_from_jax_params
+    from ..models.llava import Llava
+    from ..models.quant import llava_trunk_pairs, quantize_linears
+
+    fp = llava_state_dict_from_jax_params(params, cfg)
+    sd = {}
+    if quant:
+        for key, path in llava_trunk_pairs(fp):
+            sd.update(quantize_linears({key: fp.pop(key).to(device)},
+                                       [(key, path)]))
+    sd.update({k: (v.to(device, dtype) if v.is_floating_point()
+                   else v.to(device)) for k, v in fp.items()})
+    del fp
+    with torch.device("meta"):
+        model = Llava(cfg, quant_llm="dynamic" if quant else "", **llava_kw)
+    model.load_state_dict(sd, assign=True)
+    return model.requires_grad_(False).eval()
+
+
 def build_score_model(
     name: str,
     checkpoint: str,
@@ -261,9 +291,6 @@ def build_score_model(
     if name not in LLAVA_MODELS + LLAVA_LLAMA_MODELS + LLAVA16_MODELS:
         raise KeyError(f"unknown score model {name!r}")
 
-    from ..core.convert import llava_state_dict_from_jax_params
-    from ..models.llava import Llava
-    from ..models.quant import llava_trunk_pairs, quantize_linears
     from .score import VQAScore
 
     device = torch.device(device)
@@ -278,24 +305,8 @@ def build_score_model(
            else default_model_config(name))
     quant = kw.pop("quant", None)
     kw.pop("scan", None)  # an XLA compile-time layout; nothing to do here
-    fp = llava_state_dict_from_jax_params(params, cfg)
+    model = llava_from_params(params, cfg, device, dtype, quant=bool(quant))
     del params
-    sd = {}
-    if quant:
-        # W8A8 trunk: int8 codes and fp32 scales quantised on the device
-        # from the bundle's fp32 weights, one projection at a time, as the
-        # JAX package quantises its fp32 params; the tower, projector,
-        # embeddings, norms and lm_head stay floating point
-        for key, path in llava_trunk_pairs(fp):
-            sd.update(quantize_linears({key: fp.pop(key).to(device)},
-                                       [(key, path)]))
-    sd.update({k: (v.to(device, dtype) if v.is_floating_point()
-                   else v.to(device)) for k, v in fp.items()})
-    del fp
-    with torch.device("meta"):
-        model = Llava(cfg, quant_llm="dynamic" if quant else "")
-    model.load_state_dict(sd, assign=True)
-    del sd
     if tokenize is None:
         hf = _bundle_hf_tokenizer(checkpoint)
         if hf is None:

@@ -14,7 +14,7 @@ re-forward needs no RNG replay.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -34,12 +34,15 @@ def _chunks(batch: Dict[str, torch.Tensor], n_chunks: int
 def cache_grad_step(encode_fn: Callable[[Dict[str, torch.Tensor]], Reps],
                     loss_fn: Callable[[Reps], torch.Tensor],
                     batch: Dict[str, torch.Tensor],
-                    n_chunks: int) -> torch.Tensor:
+                    n_chunks: int,
+                    after_backward: Optional[Callable[[], None]] = None
+                    ) -> torch.Tensor:
     """Loss of ``loss_fn(encode_fn(batch))``; the gradients of every
     parameter ``encode_fn`` reaches are accumulated into ``.grad``.
 
     encode_fn(chunk) -> reps with leading axis the chunk size;
-    loss_fn(full_reps) -> scalar over the full batch (global negatives).
+    loss_fn(full_reps) -> scalar over the full batch (global negatives);
+    after_backward(), if given, runs after each chunk's backward.
     """
     chunks = _chunks(batch, n_chunks)
     with torch.no_grad():
@@ -54,4 +57,6 @@ def cache_grad_step(encode_fn: Callable[[Dict[str, torch.Tensor]], Reps],
         out = encode_fn(chunk)
         torch.autograd.backward([out[k] for k in reps],
                                 [cotangents[k][i] for k in reps])
+        if after_backward is not None:
+            after_backward()
     return loss.detach()

@@ -76,3 +76,15 @@ def clip_by_global_norm(params: Iterable[torch.Tensor],
     for g in grads:
         g.mul_(scale.to(g.dtype))
     return norm
+
+
+def adamw_over(params: Iterable[torch.Tensor], lr: float = 2e-5,
+               beta1: float = 0.9, beta2: float = 0.999, eps: float = 1e-8,
+               weight_decay: float = 0.0) -> torch.optim.AdamW:
+    """optax ``adamw`` over the given tensors (a LoRA adapter tree's, or a
+    model's fully fine-tuned parameters), one group: the VLM2Vec trainer's
+    optimiser with the HF Trainer's defaults (beta2 0.999, eps 1e-8,
+    weight decay 0). The learning rate is set before each update by the
+    train state."""
+    return torch.optim.AdamW(list(params), lr=lr, betas=(beta1, beta2),
+                             eps=eps, weight_decay=weight_decay)

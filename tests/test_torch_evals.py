@@ -548,23 +548,28 @@ def test_eval_cli_head_tables_match_jax(tmp_path, checkpoint, head_npz,
     (["--rope", "after"], "9"), (["--sparc-local"], "9")])
 def test_unported_scorers_name_their_roadmap_item(tmp_path, capsys, argv,
                                                   item, checkpoint):
-    """The scorers still to port exit naming their ROADMAP.md item; those of
-    item 9 (PACL/SPARC, ported) and their flags parse and build their
-    scorers; item 10's (SigLIP, ported) exits as the JAX CLI does, for want
-    of a sentencepiece vocabulary path (tests/test_torch_siglip.py holds
-    both packages to it)."""
+    """The scorers of ported ROADMAP.md items: those of item 9 (PACL/SPARC)
+    and their flags parse and build their scorers; item 10's (SigLIP) exits
+    as the JAX CLI does, for want of a sentencepiece vocabulary path
+    (tests/test_torch_siglip.py holds both packages to it); item 12's
+    (VLM2Vec) ``--scorer embedding`` raises the JAX CLI's
+    NotImplementedError, the same message from both packages."""
     common = ["--root-dir", str(tmp_path)]
     if item == "10":
         with pytest.raises(SystemExit, match="SigLIP tokenizer needs "
                            "sentencepiece"):
             main(argv + common)
         return
-    if item != "9":
-        with pytest.raises(SystemExit) as exc:
-            main(argv + common)
-        assert exc.value.code == 2
-        err = capsys.readouterr().err
-        assert f"not ported yet: ROADMAP.md queue 1 item {item} " in err
+    if item == "12":
+        tiny = common + ["--model", "test-tiny", "--results-file",
+                         str(tmp_path / "results.txt")]
+        with pytest.raises(NotImplementedError) as want:
+            jax_main(argv + tiny)
+        with pytest.raises(NotImplementedError) as got:
+            main(argv + tiny + ["--device", "cpu"])
+        assert str(got.value) == str(want.value)
+        assert "construct scores.embedding_scorer.EmbeddingScorer" in str(
+            got.value)
         return
     if "--scorer" not in argv:  # the head flags, with their scorer
         argv = argv + ["--scorer", "pacl" if "--rope" in argv else "sparc"]

@@ -1195,3 +1195,154 @@ def test_bundle_int8_trunk_on_card_is_quantised_from_fp32(cuda, tmp_path):
         assert got.weight_q.is_cuda and got.scale.dtype == torch.float32
         assert torch.equal(got.weight_q.cpu(), want.weight_q)
         assert torch.equal(got.scale.cpu(), want.scale)
+
+
+def _small_llava(cuda, **kw):
+    """A two-layer LLaVA at head dim 128 whose 257-token tower takes the
+    flash kernel, seeded, bf16 on the card; and its fp32 copy on the CPU."""
+    from clip_embeds_tpu_torch.core.config import VisionConfig
+    from clip_embeds_tpu_torch.core.factory import init_llava
+    from clip_embeds_tpu_torch.models.llama import LlamaConfig
+    from clip_embeds_tpu_torch.models.llava import LlavaConfig
+
+    cfg = LlavaConfig(
+        llama=LlamaConfig(vocab_size=512, hidden_size=256,
+                          intermediate_size=512, num_layers=2, num_heads=2),
+        vision=VisionConfig(image_size=224, patch_size=14, width=128,
+                            layers=3, head_width=64))
+    model = init_llava(cfg, seed=0, device=cuda, dtype=torch.bfloat16)
+    return model, init_llava(cfg, seed=0, device=cuda,
+                             dtype=torch.bfloat16).float().cpu()
+
+
+def _mixed(n, seed):
+    from clip_embeds_tpu_torch.cli.train_vlm2vec import (
+        _synthetic_mixed_batches)
+
+    return next(_synthetic_mixed_batches(n, 224, seed))
+
+
+def _on(batch, device, dtype=torch.float32):
+    from clip_embeds_tpu_torch.cli.train_vlm2vec import to_device
+
+    return to_device(batch, device, dtype)
+
+
+def test_static_act_scales_on_card_are_numpy_division(cuda):
+    """Calibrating a W8A8 trunk on the card bakes max(act_max / 127, 1e-8)
+    as numpy divides (the JAX package's host division), bit for bit."""
+    from clip_embeds_tpu_torch.models.quant import (
+        calibrate_act_scales, quant_layers, quantize_llava_trunk)
+
+    model, _ = _small_llava(cuda)
+    qmodel = quantize_llava_trunk(model)
+    b = _on(_mixed(4, 3), cuda, torch.bfloat16)
+    calibrate_act_scales(qmodel, [(b["qry_ids"], b["qry_pixels"],
+                                   b["qry_image_valid"], b["qry_mask"])],
+                         method="embed_mixed")
+    layers = quant_layers(qmodel)
+    assert len(layers) == 7 * 2
+    for q in layers:
+        act_max = np.float32(q.act_max.cpu().numpy())
+        want = np.float32(max(act_max / 127.0, 1e-8))
+        got = q.act_scale.cpu().numpy()
+        assert got.view(np.int32) == np.array(want).view(np.int32)
+
+
+def test_vlm2vec_embeddings_on_card_match_plain_path(cuda):
+    """embed_last_token and embed_mixed in bf16 on the card: one flash
+    launch a vision block, none in the padded trunk; with the W8A8 trunk
+    seven int8_linear launches a layer; against the fp32 plain path on the
+    CPU (least row cosine 0.99; W8A8 against bf16 0.97), unit norm, and
+    the mixed batch equal to its rows on their own paths."""
+    from clip_embeds_tpu_torch.models.quant import quantize_llava_trunk
+    from clip_embeds_tpu_torch.ops.fused_block import int8_linear
+
+    model, ref = _small_llava(cuda)
+    qmodel = quantize_llava_trunk(model)
+    b = _mixed(4, 5)
+    on, cpu = _on(b, cuda, torch.bfloat16), _on(b, "cpu")
+    args = ("qry_ids", "qry_pixels", "qry_image_valid", "qry_mask")
+    tb = model.cfg.tower_blocks
+
+    def cos(x, y):
+        return torch.nn.functional.cosine_similarity(
+            x.float().cpu(), y.float().cpu(), dim=-1).min().item()
+
+    with torch.inference_mode():
+        want = ref.embed_mixed(*(cpu[k] for k in args))
+        flash_attention.launches = int8_linear.launches = 0
+        got = model.embed_mixed(*(on[k] for k in args))
+        assert (flash_attention.launches, int8_linear.launches) == (tb, 0)
+        assert cos(got, want) > 0.99
+        norms = got.float().norm(dim=-1)
+        assert torch.allclose(norms, torch.ones_like(norms), atol=1e-2)
+        int8_linear.launches = 0
+        q = qmodel.embed_mixed(*(on[k] for k in args))
+        assert int8_linear.launches == 7 * 2 and cos(q, got) > 0.97
+        flash_attention.launches = 0
+        text = model.embed_last_token(on["tgt_ids"], None, on["tgt_mask"])
+        assert flash_attention.launches == 0
+        assert cos(text, ref.embed_last_token(cpu["tgt_ids"], None,
+                                              cpu["tgt_mask"])) > 0.99
+        for i in range(4):
+            if not b["qry_image_valid"][i]:
+                continue
+            one = model.embed_last_token(on["qry_ids"][i:i + 1],
+                                         on["qry_pixels"][i:i + 1],
+                                         on["qry_mask"][i:i + 1])
+            assert cos(one, got[i:i + 1]) > 0.999
+
+
+def test_lora_step_over_int8_trunk_on_card_matches_cpu(cuda):
+    """One GradCache step of LoRA adapters through the side-path over the
+    W8A8 trunk (remat per block), bf16 on the card against fp32 on the CPU
+    from the same codes and adapters (SGD at lr 1: the updated adapters
+    hold the gradients), at temperature 1 (VLM2Vec's 0.02 scales the
+    logits' bf16 rounding by 50): the loss within 0.02, the adapters'
+    gradients at cosine 0.99 over all; the frozen base unchanged."""
+    from clip_embeds_tpu_torch.models import lora
+    from clip_embeds_tpu_torch.models.quant import quantize_llava_trunk
+    from clip_embeds_tpu_torch.ops.fused_block import int8_linear
+    from clip_embeds_tpu_torch.train.vlm2vec import (
+        Vlm2VecState, make_vlm2vec_mixed_train_step)
+
+    model, ref = _small_llava(cuda)
+    kw = dict(lora_rank=4, lora_alpha=16.0, remat=True)
+    qmodel = quantize_llava_trunk(model, **kw)
+    qref = quantize_llava_trunk(ref, **kw)
+    tree = lora.init_lora(qref, rank=4, generator=torch.Generator()
+                          .manual_seed(1))
+    rng = np.random.default_rng(2)
+    for ab in tree.values():
+        ab["b"] = torch.tensor(0.02 * rng.standard_normal(ab["b"].shape),
+                               dtype=torch.float32)
+    before = {k: v.clone() for k, v in qmodel.state_dict().items()
+              if not k.endswith("act_max")}
+    batch = _mixed(4, 7)
+    grads, losses = [], []
+    for m, device, dtype in ((qmodel, cuda, torch.bfloat16),
+                             (qref, "cpu", torch.float32)):
+        t = {k: {n: v.to(device).clone().requires_grad_()
+                 for n, v in ab.items()} for k, ab in tree.items()}
+        tensors = list(lora.lora_tensors(t))
+        state = Vlm2VecState(model=m, optimizer=torch.optim.SGD(tensors,
+                                                                lr=1.0),
+                             schedule=lambda s: 1.0, params=t)
+        step = make_vlm2vec_mixed_train_step(m, lora_alpha=16.0,
+                                             temperature=1.0,
+                                             grad_cache_chunks=2)
+        int8_linear.launches = 0
+        losses.append(float(step(state, _on(batch, device, dtype))["loss"]))
+        if device == cuda:  # 2 chunks x 2 sides: no-grad pass, re-forward
+            # and its recompute in the backward
+            assert int8_linear.launches == 7 * 2 * 2 * 2 * 3
+        old = torch.cat([v.flatten() for v in lora.lora_tensors(tree)])
+        new = torch.cat([v.detach().float().cpu().flatten()
+                         for v in tensors])
+        grads.append(old - new)
+    assert abs(losses[0] - losses[1]) < 0.02
+    cos = torch.nn.functional.cosine_similarity(grads[0], grads[1], dim=0)
+    assert cos.item() > 0.99
+    after = qmodel.state_dict()
+    assert all(torch.equal(v, after[k]) for k, v in before.items())
