@@ -28,7 +28,11 @@ Phases, each of which raises on failure:
      route (cet_quantize_s8 + cet_gemm_s8), at the W8A8 trunk's
      projections ([int8_linear] lines: 639 and 5112 rows, 4096 -> 4096,
      4096 -> 11008, 11008 -> 4096, dynamic and static scales) bit-equal
-     to qdot rounded to bf16, with TOP/s and torch._int_mm's time;
+     to qdot rounded to bf16, with TOP/s and torch._int_mm's time; and
+     the image tower's rows under --force-patch-dropout 0.5 (1 + 288 =
+     289): fused_block and fused_block_residuals at 32x289x1024, the
+     attention forward and backward at 32x16x289x64, under the limits of
+     the 577-row cases;
   4. the main paths: ViT-L/14-336 (OpenAI config, seeded random weights,
      all 24 + 12 layers) serves 3 image and 3 text requests of 8 through
      embed_image_batches / embed_text_batches, the CLI's helpers: first in
@@ -142,6 +146,29 @@ Phases, each of which raises on failure:
      back, items/s; (d) (b)'s merged bundle, cut to 2 + 2 layers, through
      scores/build.py load_score_bundle. Limits from
      scripts/chip_probe_vlm2vec.py.
+ 12. (run after 6, on its seed-0 ViT-L/14-336 weights, before 10) the
+     source's CLIP fine-tune recipe and the real-data loaders through
+     cli/train.py main, on fixtures written from the seed: (a) 256 JPEGs
+     of mixed sizes (every eighth wider than 2:1, where RandomResizedCrop
+     falls back to a centre crop), half under an LCS-558K root, half
+     under a DataMix-665K root, a LLaVA annotation JSON (1-3 answer turns,
+     a third with left/right phrases, a few entries without an image),
+     leftright.json, a TSV and two tar shards with one undecodable
+     member; (b) --lock-image --usehardtext --augfiles leftright.json
+     --dataset-type datamix, 4 steps at b32 on the composable and
+     fused-train-res routes: exact launches a step, finite losses, every
+     visual.* tensor bit-equal and every other moved, each batch's
+     hard_valid sum as the fixture implies, samples/s end to end and the
+     host's share (time in next() of the data iterator), peak memory,
+     beside phase 6's synthetic b32 rate; (c) the recipe's gradients at
+     b8 on a datamix batch against the plain fp32 composable path, beside
+     the no-kernel witness, under phase 6's limits; (d)
+     --force-patch-dropout 0.5 unlocked, 2 steps at b32 on phase 6's
+     three routes with their launches, the image blocks at 289 rows; (e)
+     one step each of --dataset-type csv, webdataset (--no-train-aug: raw
+     bytes through the batch decoder) and auto on the .tsv and the .tar,
+     composable with --lock-image, the undecodable sample dropped and the
+     batch refilled.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device it exits
@@ -410,6 +437,37 @@ V2V_GRAD_BELOW_WITNESS = 5e-4
 V2V_INT8_GRAD_COS_MIN, V2V_INT8_GRAD_TENSOR_COS_MIN = 0.97, 0.85
 # H100 SXM data-sheet peaks (dense): bf16 and int8 tensor cores, HBM3
 PEAK_BF16, PEAK_INT8, HBM_BYTES_PER_S = 989e12, 1979e12, 3.35e12
+# phase 3, the image tower under --force-patch-dropout 0.5: 1 + 288 = 289
+# rows (a partial last tile where 577 had its own), fused_block and
+# fused_block_residuals at b32 and the attention forward and backward at
+# 32x16x289x64, under the limits of the 577-row cases; their own inputs
+PATCH_DROP_BLOCK_CASES = (((32, 289, 1024, 16, 289, False), 0.004, 0.004,
+                           None),)
+PATCH_DROP_FLASH_CASES = (((32, 16, 289, 64), False, 2e-5),)
+# phase 12: the source's CLIP fine-tune recipe (open_clip train-clip.sh:
+# --lock-image --usehardtext --augfiles leftright.json on LLaVA's
+# LCS-558K + DataMix-665K) through cli/train.py main on phase 6's
+# ViT-L/14-336 weights, on fixtures written from RECIPE_SEED: RECIPE_JPEGS
+# JPEGs of mixed sizes, RECIPE_SAMPLES annotated (RECIPE_STEPS steps at
+# TRAIN_BATCH; 1-3 answer turns, every turn of a third of them with a
+# left/right phrase, RECIPE_NO_IMAGE entries without an image), a TSV of
+# RECIPE_TSV rows and two tar shards of RECIPE_TAR samples, one of them
+# undecodable (one step each at TRAIN_BATCH). The recipe's routes and
+# their launches a step: the locked image tower runs forward only (24
+# blocks), the text tower twice (the 32 texts, then the 8 hard texts, 12
+# blocks each, 77 tokens: plain attention)
+RECIPE_SEED, RECIPE_JPEGS, RECIPE_SAMPLES, RECIPE_NO_IMAGE = 12, 256, 144, 6
+RECIPE_STEPS, RECIPE_TSV, RECIPE_TAR = 4, 48, 33
+RECIPE_ROUTES = {
+    "composable": ([], {"flash_attention": 24}),
+    "fused-train-res": (["--fused-train-blocks", "--fused-train-backward",
+                         "residual"],
+                        {"fused_block": 24 + 12 + 12,
+                         "fused_block_residuals": 12 + 12}),
+}
+# phase 12 (d): --force-patch-dropout 0.5 unlocked, PATCH_DROP_STEPS steps
+# at TRAIN_BATCH on each of phase 6's routes, with phase 6's launches
+PATCH_DROP, PATCH_DROP_ROWS, PATCH_DROP_STEPS = 0.5, 289, 2
 
 
 def gpu_line() -> str:
@@ -599,26 +657,19 @@ def flash_forward_case(rng, shape, causal, mean_tol):
             4 * pairs), (q, k, v)
 
 
-def check_kernels(rng):
-    """Phase 3: every kernel against its plain version on the same inputs;
-    their times, the bound, and the library call's time where there is
-    one. The SigLIP shapes draw from their own generator, so the earlier
-    cases keep their inputs."""
+def flash_train_cases(rng, cases):
+    """Phase 3's cases of the attention forward and backward at each
+    ([B, H, N, D], causal, mean limit of the backward) of ``cases``. The
+    backward's max limit is the edge tests': bf16 rounding flips of P and
+    dS, which the online (kernel) and two-pass (plain) softmax round
+    apart."""
     from clip_embeds_tpu_torch.ops.flash_attention import (
         _flash_forward, flash_attention_bwd, flash_attention_bwd_reference)
 
-    # (name, kernel call, plain call, tolerance on max |kernel - plain|,
-    #  rows compared (axis 1), tolerance on the mean |kernel - plain|,
-    #  (bound_ms, bound_by), library call or None, counted FLOPs or None)
-    # Mean limits: BLOCK_CASES, FLASH_CASES, SIGLIP_*_CASES.
-    cases = block_kernel_cases(rng, BLOCK_CASES, lambda d: 4 * d, "quick",
-                               1e-5, "")
-    # the attention backward: max as the edge tests (bf16 rounding flips of
-    # P and dS, which the online (kernel) and two-pass (plain) softmax
-    # round apart).
-    for shape, causal, mean_tol_bwd in FLASH_CASES:
+    out = []
+    for shape, causal, mean_tol_bwd in cases:
         fwd, (q, k, v) = flash_forward_case(rng, shape, causal, 0.02)
-        cases.append(fwd)
+        out.append(fwd)
         g = torch.from_numpy(rng.standard_normal(shape).astype(
             np.float32)).to("cuda", torch.bfloat16)
         bh, n, hd = shape[0] * shape[1], shape[2], shape[3]
@@ -629,17 +680,31 @@ def check_kernels(rng):
         with torch.enable_grad():
             lq, lk, lv = (t.clone().requires_grad_() for t in (q, k, v))
             lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal)
-        cases.append((f"flash_attention_bwd {name}",
-                      lambda a=(q, k, v, o, g, lse), c=causal:
-                      flash_attention_bwd(*a, c),
-                      lambda a=(q, k, v, o, g), c=causal:
-                      flash_attention_bwd_reference(*a, c),
-                      0.0625, n, mean_tol_bwd,
-                      bound_ms(flops=10 * pairs,
-                               nbytes=8 * io + bh * n * 4),
-                      lambda t=(lq, lk, lv), lo=lo, g=g:
-                      torch.autograd.grad(lo, t, g, retain_graph=True),
-                      10 * pairs))
+        out.append((f"flash_attention_bwd {name}",
+                    lambda a=(q, k, v, o, g, lse), c=causal:
+                    flash_attention_bwd(*a, c),
+                    lambda a=(q, k, v, o, g), c=causal:
+                    flash_attention_bwd_reference(*a, c),
+                    0.0625, n, mean_tol_bwd,
+                    bound_ms(flops=10 * pairs, nbytes=8 * io + bh * n * 4),
+                    lambda t=(lq, lk, lv), lo=lo, g=g:
+                    torch.autograd.grad(lo, t, g, retain_graph=True),
+                    10 * pairs))
+    return out
+
+
+def check_kernels(rng):
+    """Phase 3: every kernel against its plain version on the same inputs;
+    their times, the bound, and the library call's time where there is
+    one. The SigLIP shapes draw from their own generator, so the earlier
+    cases keep their inputs."""
+    # (name, kernel call, plain call, tolerance on max |kernel - plain|,
+    #  rows compared (axis 1), tolerance on the mean |kernel - plain|,
+    #  (bound_ms, bound_by), library call or None, counted FLOPs or None)
+    # Mean limits: BLOCK_CASES, FLASH_CASES, SIGLIP_*_CASES.
+    cases = block_kernel_cases(rng, BLOCK_CASES, lambda d: 4 * d, "quick",
+                               1e-5, "")
+    cases += flash_train_cases(rng, FLASH_CASES)
     siglip_rng = np.random.default_rng(9)
     cases += block_kernel_cases(
         siglip_rng, SIGLIP_BLOCK_CASES, lambda d: SIGLIP_MLP, "tanh",
@@ -651,6 +716,10 @@ def check_kernels(rng):
     for shape, causal, mean_tol in LLAVA_FLASH_CASES:
         cases.append(flash_forward_case(llava_rng, shape, causal,
                                         mean_tol)[0])
+    drop_rng = np.random.default_rng(11)
+    cases += block_kernel_cases(drop_rng, PATCH_DROP_BLOCK_CASES,
+                                lambda d: 4 * d, "quick", 1e-5, "")
+    cases += flash_train_cases(drop_rng, PATCH_DROP_FLASH_CASES)
     results = {}
     for (name, kernel, plain, tol, n_valid, mean_tol, bound, library,
          flops) in cases:
@@ -936,14 +1005,20 @@ def train_batch(batch_size, seed):
     return _to_device(batch, torch.device("cuda"))
 
 
-def train_grads(model, batch):
-    """Gradients of one batch's InfoNCE loss, fp32, by parameter name."""
+def train_grads(model, batch, use_hard_text=False, trainable=None):
+    """Gradients of one batch's InfoNCE loss (with hard texts where asked),
+    fp32, by parameter name: of every parameter, or of the names in
+    ``trainable`` with the others frozen."""
     from clip_embeds_tpu_torch.train.steps import clip_train_loss
 
     model.zero_grad(set_to_none=True)
-    loss, _ = clip_train_loss(model, batch)
+    if trainable is not None:
+        for k, p in model.named_parameters():
+            p.requires_grad_(k in trainable)
+    loss, _ = clip_train_loss(model, batch, use_hard_text=use_hard_text)
     loss.backward()
-    grads = {k: p.grad.float() for k, p in model.named_parameters()}
+    grads = {k: p.grad.float() for k, p in model.named_parameters()
+             if p.requires_grad}
     model.zero_grad(set_to_none=True)
     return grads, loss.item()
 
@@ -980,7 +1055,8 @@ def grad_agreement(grads, ref):
 
 
 def check_training(counters, gpu):
-    """Phase 6. Returns each route's launch counts from its CLI run."""
+    """Phase 6. Returns each route's launch counts from its CLI run, its
+    b32 train samples/s by CUDA events, and the seed-0 state dict (host)."""
     from clip_embeds_tpu_torch.cli.train import main as train_main
     from clip_embeds_tpu_torch.train.optim import adamw
     from clip_embeds_tpu_torch.train.schedules import const_lr
@@ -990,7 +1066,7 @@ def check_training(counters, gpu):
     base = {k: v.detach().cpu() for k, v in
             route_model("composable").state_dict().items()}
     logging.getLogger().setLevel(logging.INFO)
-    launches = {}
+    launches, rates = {}, {}
     for route, (flags, per_step) in {**ROUTES, **SIGLIP_TRAIN_ROUTE}.items():
         gc.collect()
         torch.cuda.empty_cache()
@@ -1075,13 +1151,358 @@ def check_training(counters, gpu):
             ms = start.elapsed_time(end) / 3
             if not np.isfinite(float(metrics["loss"])):
                 raise AssertionError(f"{route} b{bs}: loss not finite")
+            rates[route, bs] = bs / ms * 1e3
             print(f"[throughput] train_samples_per_s {route} b{bs}: "
                   f"{bs / ms * 1e3:.1f} ({ms:.2f} ms/step, peak "
                   f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB) "
                   f"on {gpu}")
             del tb
         del model, opt, state, step, grads
-    return launches
+    return launches, rates, base
+
+
+# -- phase 12: the fine-tune recipe and the real-data loaders ---------------
+
+
+def write_recipe_fixtures(root, seed):
+    """Phase 12's fixtures under ``root``: RECIPE_JPEGS JPEGs of smooth
+    random fields, of mixed sizes and aspect ratios (every eighth wider
+    than 2:1, where RandomResizedCrop's ten area draws all fail and it
+    falls back to a centre crop), half under an LCS-558K root with names
+    from '0' and half under a DataMix-665K root; the LLaVA annotation JSON
+    (ann.json) over the first RECIPE_SAMPLES, 1-3 answer turns each, every
+    turn of a third of them with a left/right phrase, and RECIPE_NO_IMAGE
+    entries without an image; leftright.json from the port's
+    LEFTRIGHT_SWAPS; a TSV (data.tsv) of RECIPE_TSV rows; and two tar
+    shards (shard-000.tar, shard-001.tar) of RECIPE_TAR samples together,
+    one of them undecodable. Returns whether each annotated sample's
+    captions carry a phrase, in annotation order."""
+    import tarfile
+
+    from PIL import Image
+
+    from clip_embeds_tpu_torch.data.hard_negatives import LEFTRIGHT_SWAPS
+
+    rng = np.random.default_rng(seed)
+    names, paths = [], []
+    for i in range(RECIPE_JPEGS):
+        if i % 2 == 0:
+            name = f"{i // 2:05d}/{i:09d}.jpg"
+            paths.append(os.path.join(root, "lcs", name))
+        else:
+            name = f"coco/train2017/{i:012d}.jpg"
+            paths.append(os.path.join(root, "datamix", name))
+        names.append(name)
+    sizes = [(int(rng.integers(120, 300)), int(rng.integers(640, 900)))
+             if i % 8 == 0 else tuple(int(x) for x in rng.integers(180, 640,
+                                                                    2))
+             for i in range(RECIPE_JPEGS)]
+
+    def one(i):
+        r = np.random.default_rng([seed, i])
+        h, w = sizes[i]
+        low = Image.fromarray(r.integers(0, 256, (6, 8, 3), np.uint8))
+        img = np.asarray(low.resize((w, h), Image.BICUBIC), np.int16)
+        img = img + r.integers(-6, 7, img.shape, np.int16)
+        os.makedirs(os.path.dirname(paths[i]), exist_ok=True)
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+            paths[i], quality=90)
+
+    with ThreadPoolExecutor(os.cpu_count()) as pool:
+        list(pool.map(one, range(RECIPE_JPEGS)))
+
+    ann, phrased = [], []
+    where = ("on the left of", "to the right of", "at the left of")
+    for i in range(RECIPE_SAMPLES):
+        has = i % 3 == 0
+        conv = []
+        for t in range(1 + i % 3):
+            obj = OBJECTS[(i + t) % len(OBJECTS)]
+            rel = where[(i + t) % 3] if has else "next to"
+            conv += [{"from": "human", "value": "<image>\nWhere is it?"},
+                     {"from": "gpt", "value": f"The {obj} is {rel} the "
+                                              f"table{i}."}]
+        ann.append({"id": str(i), "image": names[i], "conversations": conv})
+        phrased.append(has)
+    for j in range(RECIPE_NO_IMAGE):
+        ann.insert(7 * j + 3, {"id": f"text{j}", "conversations": [
+            {"from": "human", "value": "Hi"},
+            {"from": "gpt", "value": "on the left"}]})
+    with open(os.path.join(root, "ann.json"), "w") as fh:
+        json.dump(ann, fh)
+    with open(os.path.join(root, "leftright.json"), "w") as fh:
+        json.dump(LEFTRIGHT_SWAPS, fh)
+    rows = ["filepath\ttitle"] + [
+        f"{paths[-1 - i]}\ta photo of the {OBJECTS[i % len(OBJECTS)]} {i}"
+        for i in range(RECIPE_TSV)]
+    with open(os.path.join(root, "data.tsv"), "w") as fh:
+        fh.write("\n".join(rows) + "\n")
+    half = RECIPE_TAR // 2
+    for s, span in enumerate((range(half), range(half, RECIPE_TAR))):
+        with tarfile.open(os.path.join(root, f"shard-{s:03d}.tar"),
+                          "w") as tf:
+            for i in span:
+                with open(paths[RECIPE_SAMPLES + i], "rb") as fh:
+                    blob = fh.read()
+                if i == 5:
+                    blob = b"undecodable"
+                for ext, data in (("jpg", blob),
+                                  ("txt", f"a photo {i}".encode())):
+                    info = tarfile.TarInfo(f"{i:06d}.{ext}")
+                    info.size = len(data)
+                    tf.addfile(info, io.BytesIO(data))
+    return phrased
+
+
+class _Drops(logging.Handler):
+    """Counts the loaders' 'dropping undecodable sample' warnings."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.count = 0
+
+    def emit(self, record):
+        self.count += "dropping undecodable sample" in str(record.msg)
+
+
+class _TimedData:
+    """``cli.train.build_data`` wrapped: each batch's hard_valid sum, the
+    time each next() of the data iterator begins and how long it takes
+    (the CLI reads the loss after each step, so the span from one next()
+    to the following one is one batch's host work plus its device
+    step)."""
+
+    def __init__(self, build_data):
+        self.real = build_data
+        self.hard, self.starts, self.host = [], [], []
+
+    def __call__(self, *args, **kw):
+        it, steps = self.real(*args, **kw)
+        return self.iterate(it), steps
+
+    def iterate(self, it):
+        while True:
+            self.starts.append(time.perf_counter())
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            self.host.append(time.perf_counter() - self.starts[-1])
+            if "hard_valid" in batch:
+                self.hard.append(int(batch["hard_valid"].sum()))
+            yield batch
+
+    def rates(self, batch_size, skip=0):
+        """(samples/s, the host's share of the wall) over the steps after
+        the first ``skip``."""
+        wall = self.starts[-1] - self.starts[skip]
+        return ((len(self.host) - skip) * batch_size / wall,
+                sum(self.host[skip:]) / wall)
+
+
+def _tower_rows():
+    """A global forward pre-hook that records the rows every image-tower
+    Transformer (width 1024) receives; returns (rows, handle)."""
+    from clip_embeds_tpu_torch.models.layers import Transformer
+
+    rows = []
+
+    def hook(module, args):
+        if isinstance(module, Transformer) and args[0].shape[-1] == 1024:
+            rows.append(args[0].shape[1])
+
+    return rows, torch.nn.modules.module.register_module_forward_pre_hook(
+        hook)
+
+
+def recipe_run(counters, label, argv, per_step, steps, gpu):
+    """cli/train.py main(argv) on ViT-L/14-336 (seed 0, phase 6's weights)
+    with every launch count set to 0 just before: held to ``per_step``
+    launches a step for ``steps`` steps, finite losses; returns (state,
+    _TimedData, peak GiB)."""
+    from clip_embeds_tpu_torch.cli import train as train_cli
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log, timed = _StepLog(), _TimedData(train_cli.build_data)
+    logging.getLogger().addHandler(log)
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with patched(train_cli, "build_data", timed):
+            t0 = time.perf_counter()
+            state = train_cli.main([
+                "--model", MODEL, "--pretrained", "openai", "--seed", "0",
+                "--batch-size", str(TRAIN_BATCH), "--lr", "1e-5",
+                "--warmup", "1", "--log-every", "1", *argv])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        logging.getLogger().removeHandler(log)
+    counts = {k: fn.launches for k, fn in counters.items()}
+    want = {k: steps * per_step.get(k, 0) for k in counters}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[recipe] {label}: {state.step} steps of {TRAIN_BATCH} in "
+          f"{wall:.1f} s; losses {log.losses}; launches {counts}")
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts} != {want}")
+    if state.step != steps or len(log.losses) != steps or not np.isfinite(
+            log.losses).all():
+        raise AssertionError(f"{label}: {state.step} steps, losses "
+                             f"{log.losses}")
+    return state, timed, peak
+
+
+def check_recipe(counters, base, train_rates, gpu):
+    """Phase 12: (a) the fixtures; (b) the recipe on each of
+    RECIPE_ROUTES; (c) its gradients at GRAD_BATCH on a real datamix batch
+    against plain fp32 beside the witness; (d) patch dropout unlocked on
+    phase 6's routes; (e) the CSV, WebDataset and auto loaders. ``base``:
+    phase 6's seed-0 state dict on the host."""
+    from clip_embeds_tpu_torch.cli import train as train_cli
+    from clip_embeds_tpu_torch.core import factory
+    from clip_embeds_tpu_torch.core.config import get_model_config
+
+    # the CLIs' seed-0 init from phase 6's seed-0 weights: the same values,
+    # without drawing 428M normals on the host for each run
+    with tempfile.TemporaryDirectory() as root, patched(
+            factory, "init_params",
+            lambda model, seed=0: model.load_state_dict(base)):
+        t0 = time.perf_counter()
+        phrased = write_recipe_fixtures(root, RECIPE_SEED)
+        print(f"[recipe] (a) fixtures: {RECIPE_JPEGS} JPEGs, "
+              f"{RECIPE_SAMPLES} + {RECIPE_NO_IMAGE} annotations, "
+              f"{RECIPE_TSV} TSV rows, {RECIPE_TAR} tar samples in "
+              f"{time.perf_counter() - t0:.1f} s")
+        data = ["--train-data", f"{root}/ann.json", "--lcs-root",
+                f"{root}/lcs", "--datamix-root", f"{root}/datamix"]
+        recipe = ["--lock-image", "--usehardtext", "--augfiles",
+                  f"{root}/leftright.json", "--dataset-type", "datamix",
+                  *data]
+        # the loader's order: default_rng(seed + epoch) over the samples,
+        # max_hard_per_batch = TRAIN_BATCH // 4 rows a batch
+        order = np.arange(RECIPE_SAMPLES)
+        np.random.default_rng(0).shuffle(order)
+        want_hard = [min(TRAIN_BATCH // 4, sum(phrased[i] for i in chunk))
+                     for chunk in order.reshape(RECIPE_STEPS, -1)]
+
+        # (b) the recipe
+        for route, (flags, per_step) in RECIPE_ROUTES.items():
+            state, timed, peak = recipe_run(
+                counters, f"recipe {route}", recipe + flags, per_step,
+                RECIPE_STEPS, gpu)
+            (rate, share), (rate1, share1) = (timed.rates(TRAIN_BATCH),
+                                              timed.rates(TRAIN_BATCH, 1))
+            after = state.model.state_dict()
+            kept = [k for k in base if torch.equal(after[k].cpu(), base[k])]
+            visual = [k for k in base if k.startswith("visual.")]
+            if kept != visual:
+                raise AssertionError(f"recipe {route}: tensors left as they "
+                                     f"were {len(kept)}, visual "
+                                     f"{len(visual)}")
+            if timed.hard != want_hard:
+                raise AssertionError(f"recipe {route}: hard_valid sums "
+                                     f"{timed.hard} != {want_hard}")
+            print(f"[recipe] {route}: visual.* ({len(visual)} tensors) "
+                  f"bit-equal, the other {len(base) - len(visual)} moved; "
+                  f"hard_valid sums {timed.hard}; end to end "
+                  f"{rate:.1f} samples/s, host share {share:.3f} "
+                  f"(steps 2-{RECIPE_STEPS}: {rate1:.1f} samples/s, host "
+                  f"share {share1:.3f}; batches {timed.host} s in "
+                  f"next()); peak {peak:.2f} GiB; phase 6 synthetic "
+                  f"b{TRAIN_BATCH}, unlocked, device only: "
+                  f"{train_rates[route, TRAIN_BATCH]:.1f} samples/s; on "
+                  f"{gpu}")
+            del state, after
+
+        # (c) gradient agreement on a real datamix batch of GRAD_BATCH
+        args = train_cli.parse_args(["--model", MODEL, "--batch-size",
+                                     str(GRAD_BATCH), "--seed", "0",
+                                     *recipe])
+        cfg = get_model_config(MODEL, "openai")
+        batch = train_cli._to_device(
+            next(train_cli.build_data(args, cfg)[0]), torch.device("cuda"))
+        trainable = {k for k in base if not k.startswith("visual.")}
+        ref, ref_loss = train_grads(route_model("composable", None), batch,
+                                    True, trainable)
+        with plain_attention():
+            witness, _ = train_grads(route_model("composable"), batch, True,
+                                     trainable)
+        cos, worst, worst_name = grad_agreement(witness, ref)
+        print(f"[recipe] (c) witness (bf16, plain attention) gradients vs "
+              f"plain fp32 at b{GRAD_BATCH}, {int(batch['hard_valid'].sum())}"
+              f" hard texts: cosine {cos:.6f}, least per tensor {worst:.6f} "
+              f"({worst_name})")
+        cos_min = max(GRAD_COS_MIN, cos - GRAD_COS_BELOW_WITNESS)
+        for route in RECIPE_ROUTES:
+            gc.collect()
+            torch.cuda.empty_cache()
+            grads, loss = train_grads(route_model(route), batch, True,
+                                      trainable)
+            cos, worst, worst_name = grad_agreement(grads, ref)
+            print(f"[recipe] (c) {route} gradients vs plain fp32: cosine "
+                  f"{cos:.6f} (limit {cos_min:.6f}), least per tensor "
+                  f"{worst:.6f} ({worst_name}; limit "
+                  f"{GRAD_TENSOR_COS_MIN}); loss {loss:.6f} vs "
+                  f"{ref_loss:.6f}")
+            if not (cos >= cos_min and worst >= GRAD_TENSOR_COS_MIN):
+                raise AssertionError(f"recipe {route}: gradients disagree")
+        del ref, witness, grads
+
+        # (d) patch dropout, the image tower unlocked, on phase 6's routes
+        for route, (flags, per_step) in ROUTES.items():
+            rows, handle = _tower_rows()
+            try:
+                state, timed, peak = recipe_run(
+                    counters, f"patch dropout {route}",
+                    ["--force-patch-dropout", str(PATCH_DROP),
+                     "--train-num-samples",
+                     str(PATCH_DROP_STEPS * TRAIN_BATCH), *flags],
+                    per_step, PATCH_DROP_STEPS, gpu)
+            finally:
+                handle.remove()
+            if rows != [PATCH_DROP_ROWS] * PATCH_DROP_STEPS:
+                raise AssertionError(f"patch dropout {route}: image rows "
+                                     f"{rows}")
+            print(f"[recipe] (d) patch dropout {PATCH_DROP} {route}: image "
+                  f"blocks at {rows[0]} rows; synthetic, end to end: "
+                  f"{timed.rates(TRAIN_BATCH)[0]:.1f} samples/s, step 2 "
+                  f"{timed.rates(TRAIN_BATCH, 1)[0]:.1f}; peak {peak:.2f} "
+                  f"GiB on {gpu}")
+            del state
+
+        # (e) the other loaders, one step each, composable, image locked
+        drops = _Drops()
+        logging.getLogger().addHandler(drops)
+        try:
+            for label, argv, dropped in (
+                    ("csv", ["--dataset-type", "csv", "--train-data",
+                             f"{root}/data.tsv"], 0),
+                    ("webdataset --no-train-aug (batch decode)",
+                     ["--dataset-type", "webdataset", "--train-data",
+                      f"{root}/shard-{{000..001}}.tar", "--no-train-aug"],
+                     1),
+                    ("auto .tsv", ["--dataset-type", "auto", "--train-data",
+                                   f"{root}/data.tsv"], 0),
+                    ("auto .tar", ["--dataset-type", "auto", "--train-data",
+                                   f"{root}/shard-000.tar",
+                                   f"{root}/shard-001.tar"], 1)):
+                drops.count = 0
+                state, timed, _ = recipe_run(
+                    counters, label, ["--lock-image", "--train-num-samples",
+                                      str(TRAIN_BATCH), *argv],
+                    RECIPE_ROUTES["composable"][1], 1, gpu)
+                if drops.count != dropped:
+                    raise AssertionError(f"{label}: {drops.count} samples "
+                                         f"dropped, want {dropped}")
+                print(f"[recipe] (e) {label}: 1 step, undecodable samples "
+                      f"dropped {dropped} (the batch refilled); "
+                      f"%.1f samples/s, host share %.3f on {gpu}"
+                      % timed.rates(TRAIN_BATCH))
+                del state
+        finally:
+            logging.getLogger().removeHandler(drops)
 
 
 def serving_routes(model, ref, images, texts, rng):
@@ -2886,7 +3307,16 @@ def main() -> int:
 
     # 6. training at full width and depth, through the CLI; and 9 (c), the
     # --siglip step on the composable route
-    train_launches = check_training(counters, gpu)
+    train_launches, train_rates, base = check_training(counters, gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 12. the source's fine-tune recipe and the real-data loaders, through
+    # the training CLI on phase 6's weights
+    t0 = time.perf_counter()
+    check_recipe(counters, base, train_rates, gpu)
+    del base
+    print(f"[phase 12] {time.perf_counter() - t0:.1f} s on {gpu}")
     gc.collect()
     torch.cuda.empty_cache()
 

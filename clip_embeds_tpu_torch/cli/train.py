@@ -14,6 +14,18 @@ keeps the composable blocks, as the JAX CLI does off the TPU.
       --pretrained openai --dataset-type synthetic --batch-size 64 \\
       --train-num-samples 640 [--fused-train-blocks] [--device cpu]
 
+The source's fine-tune recipe (open_clip ``train-clip.sh``) on LLaVA's
+LCS-558K + DataMix-665K annotations, through the train augmentations:
+
+  python -m clip_embeds_tpu_torch.cli.train --model ViT-L-14-336 \\
+      --pretrained openai --lock-image --usehardtext \\
+      --augfiles leftright.json --dataset-type datamix \\
+      --train-data blip_laion_cc_sbu_558k.json llava_v1_5_mix665k.json \\
+      --lcs-root LCS --datamix-root DATAMIX --batch-size 256
+
+``--dataset-type csv|webdataset|auto`` read a TSV or tar shards the same
+way; ``--force-patch-dropout p`` turns on FLIP patch dropout.
+
 The flags of the JAX CLI that are not ported yet exit with an error that
 names the ROADMAP.md item that will port them; none is parsed and ignored.
 ``main(argv)`` returns the :class:`~..train.steps.TrainState`.
@@ -22,6 +34,7 @@ names the ROADMAP.md item that will port them; none is parsed and ignored.
 from __future__ import annotations
 
 import argparse
+import ast
 import logging
 import os
 import time
@@ -32,19 +45,11 @@ import torch
 
 # JAX flags that this CLI does not take yet, by the ROADMAP.md item that
 # will port them
-_LOADERS = "queue 1 item 5e (real-data loaders)"
 _EXTRAS = "queue 1 item 5g (async checkpoints, logging, remote sync)"
 _UNPORTED_ITEMS = {
     "queue 1 item 5c (distill and CoCa steps)": (
         "--distill-model", "--distill-pretrained",
         "--coca-caption-loss-weight", "--coca-contrastive-loss-weight"),
-    "queue 1 item 5d (patch dropout)": ("--force-patch-dropout",),
-    _LOADERS: (
-        "--train-data", "--csv-img-key", "--csv-caption-key",
-        "--csv-separator", "--dataset-resampled",
-        "--train-data-upsampling-factors", "--wds-shuffle-buffer",
-        "--augfiles", "--aug-cfg", "--no-train-aug", "--lcs-root",
-        "--datamix-root"),
     "queue 1 item 5f (validation and zero-shot in training)": (
         "--val-data", "--val-frequency", "--val-num-samples",
         "--imagenet-val", "--zeroshot-frequency"),
@@ -55,7 +60,33 @@ _UNPORTED_ITEMS = {
 }
 _UNPORTED = {flag: item for item, flags in _UNPORTED_ITEMS.items()
              for flag in flags}
-_UNPORTED_DATASETS = ("datamix", "csv", "webdataset", "auto")
+
+
+class ParseKwargs(argparse.Action):
+    """key=value list -> dict with literal-eval values (the JAX CLI's
+    ``ParseKwargs``, open_clip's ``params.py``; used by --aug-cfg)."""
+
+    def __call__(self, parser, namespace, values, option_string=None):
+        kw = {}
+        for value in values:
+            key, value = value.split("=", 1)
+            try:
+                kw[key] = ast.literal_eval(value)
+            except (ValueError, SyntaxError):
+                kw[key] = str(value)
+        setattr(namespace, self.dest, kw)
+
+
+def build_train_transform(args, model_cfg):
+    """RandomResizedCrop(+aug_cfg) train transform at the model's image
+    size (open_clip's ``preprocess_train``), or None with
+    ``--no-train-aug`` (the deterministic eval transform)."""
+    if args.no_train_aug:
+        return None
+    from ..image.transform import image_transform
+
+    return image_transform(model_cfg.vision.image_size, is_train=True,
+                           aug_cfg=args.aug_cfg or None)
 
 
 def parse_args(argv=None):
@@ -87,6 +118,19 @@ def parse_args(argv=None):
     p.add_argument("--lock-text-unlocked-layers", type=int, default=0)
     p.add_argument("--lock-text-freeze-layer-norm", action="store_true")
     p.add_argument("--usehardtext", action="store_true")
+    p.add_argument("--augfiles", nargs="*", default=None,
+                   help="hard-negative swap tables (JSON), merged")
+    p.add_argument("--aug-cfg", nargs="*", default={}, action=ParseKwargs,
+                   help="train-augmentation key=value pairs "
+                        "(image/transform.py AugmentationCfg), e.g. "
+                        "scale='(0.8,1.0)' color_jitter='(0.4,0.4,0.4,0.1)' "
+                        "color_jitter_prob=0.8 gray_scale_prob=0.2")
+    p.add_argument("--no-train-aug", action="store_true",
+                   help="train on the deterministic eval transform instead "
+                        "of RandomResizedCrop (an ablation)")
+    p.add_argument("--force-patch-dropout", type=float, default=None,
+                   help="FLIP patch dropout: the share of patch tokens the "
+                        "image tower drops in training")
     p.add_argument("--siglip", action="store_true",
                    help="the sigmoid loss (losses/siglip.py) in place of "
                         "InfoNCE")
@@ -109,7 +153,25 @@ def parse_args(argv=None):
                         "through fused_block_residuals, 'vjp' recomputes "
                         "the composable block")
     p.add_argument("--dataset-type", default="synthetic",
-                   choices=["synthetic", *_UNPORTED_DATASETS])
+                   choices=["synthetic", "datamix", "csv", "webdataset",
+                            "auto"])
+    p.add_argument("--train-data", nargs="*", default=None,
+                   help="datamix annotation JSONs / a CSV or TSV file / "
+                        "tar shard URLs with {000..127} brace expansion")
+    p.add_argument("--csv-img-key", default="filepath")
+    p.add_argument("--csv-caption-key", default="title")
+    p.add_argument("--csv-separator", default="\t")
+    p.add_argument("--dataset-resampled", action="store_true",
+                   help="webdataset: draw shards with replacement")
+    p.add_argument("--train-data-upsampling-factors", default=None,
+                   help="webdataset: '::'-separated per-URL weights")
+    p.add_argument("--wds-shuffle-buffer", type=int, default=5000,
+                   help="webdataset sample shuffle buffer")
+    p.add_argument("--lcs-root", default=None,
+                   help="datamix: the LCS-558K image root (paths that "
+                        "start with '0')")
+    p.add_argument("--datamix-root", default=None,
+                   help="datamix: the DataMix-665K image root")
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--resume", default=None, help="'latest' or a path")
     p.add_argument("--save-frequency", type=int, default=1)
@@ -127,42 +189,114 @@ def parse_args(argv=None):
     for flag, item in _UNPORTED.items():
         if hasattr(args, flag[2:].replace("-", "_")):
             p.error(f"{flag} is not ported yet: ROADMAP.md {item}")
-    if args.dataset_type in _UNPORTED_DATASETS:
-        p.error(f"--dataset-type {args.dataset_type} is not ported yet: "
-                f"ROADMAP.md {_LOADERS}")
     return args
 
 
-def build_data(args, cfg) -> Tuple[Iterator[Dict[str, np.ndarray]], int]:
-    """Synthetic batches, as many as ``--train-num-samples`` holds."""
-    from ..data.synthetic import synthetic_batches
+def build_data(args, model_cfg, epoch: int = 0
+               ) -> Tuple[Iterator[Dict[str, np.ndarray]], int]:
+    """(epoch ``epoch``'s batches, steps an epoch), as the JAX CLI's
+    ``build_data``: CSV and datamix take ``len(dataset) // batch_size``
+    steps, webdataset and synthetic ``--train-num-samples //
+    batch_size``; ``auto`` picks CSV or webdataset by the first file's
+    extension."""
+    from ..text.tokenizer import get_tokenizer
 
-    steps = max(args.train_num_samples // args.batch_size, 1)
-    return synthetic_batches(
-        args.batch_size, cfg.vision.image_size, cfg.text.context_length,
-        num_batches=steps,
-        hard_negatives=args.batch_size // 4 if args.usehardtext else 0,
-        seed=args.seed,
-    ), steps
+    dataset_type = args.dataset_type
+    if dataset_type == "auto":
+        ext = args.train_data[0].split(".")[-1]
+        if ext in ("csv", "tsv"):
+            dataset_type = "csv"
+        elif ext == "tar":
+            dataset_type = "webdataset"
+        else:
+            raise ValueError(
+                f"cannot infer dataset type from extension {ext!r}")
+    tokenizer = get_tokenizer(model_cfg.text.context_length)
+    if dataset_type == "csv":
+        from ..data.csv_dataset import CsvPairDataset, csv_batches
+
+        ds = CsvPairDataset(
+            args.train_data[0], img_key=args.csv_img_key,
+            caption_key=args.csv_caption_key, sep=args.csv_separator,
+        )
+        return csv_batches(
+            ds, args.batch_size, model_cfg.vision.image_size, tokenizer,
+            epoch=epoch, seed=args.seed,
+            train_transform=build_train_transform(args, model_cfg),
+        ), len(ds) // args.batch_size
+    if dataset_type == "webdataset":
+        from ..data.wds import (
+            ShardedTarDataset, decode_raw_image_text, wds_batches)
+
+        weights = None
+        if args.train_data_upsampling_factors:
+            weights = [float(w) for w in
+                       args.train_data_upsampling_factors.split("::")]
+        ds = ShardedTarDataset(
+            args.train_data if len(args.train_data) > 1
+            else args.train_data[0],
+            decode=decode_raw_image_text, seed=args.seed,
+            resampled=args.dataset_resampled, weights=weights,
+            sample_shuffle_size=args.wds_shuffle_buffer,
+        )
+        return wds_batches(
+            ds, args.batch_size, image_size=model_cfg.vision.image_size,
+            tokenizer=tokenizer, epoch=epoch, seed=args.seed,
+            train_transform=build_train_transform(args, model_cfg),
+        ), max(args.train_num_samples // args.batch_size, 1)
+    if dataset_type == "synthetic":
+        from ..data.synthetic import synthetic_batches
+
+        steps = max(args.train_num_samples // args.batch_size, 1)
+        return synthetic_batches(
+            args.batch_size, model_cfg.vision.image_size,
+            model_cfg.text.context_length, num_batches=steps,
+            hard_negatives=args.batch_size // 4 if args.usehardtext else 0,
+            seed=args.seed,
+        ), steps
+    from ..data.datamix import DataMixDataset, datamix_batches
+    from ..data.hard_negatives import HardNegativeAugmenter, \
+        leftright_augmenter
+
+    aug = None
+    if args.usehardtext:
+        aug = (HardNegativeAugmenter(augfiles=args.augfiles) if args.augfiles
+               else leftright_augmenter(args.seed))
+    ds = DataMixDataset(
+        args.train_data,
+        {"lcs558k": args.lcs_root, "datamix665k": args.datamix_root},
+        image_size=model_cfg.vision.image_size, tokenizer=tokenizer,
+        augmenter=aug, seed=args.seed,
+        train_transform=build_train_transform(args, model_cfg),
+    )
+    return datamix_batches(
+        ds, args.batch_size,
+        max_hard_per_batch=args.batch_size // 4 if args.usehardtext else 0,
+        seed=args.seed, epoch=epoch,
+    ), len(ds) // args.batch_size
 
 
 def _block_impl(args, device: torch.device, dtype: torch.dtype, cfg) -> str:
     """The block route: fused only on the card, where the kernels take the
-    shapes (in bf16, the kernels' type)."""
+    shapes the blocks will see (in bf16, the kernels' type): the image
+    tower's 1 + kept patches under patch dropout, else 1 + all."""
     if not args.fused_train_blocks:
         return "composable"
     if device.type != "cuda":
         logging.warning("--fused-train-blocks needs the card; keeping "
                         "composable blocks")
         return "composable"
+    from ..models.vit import patches_kept
     from ..ops.fused_block import fused_block_supported
 
     if dtype != torch.bfloat16:
         raise SystemExit("--fused-train-blocks runs the bf16 fused-block "
                          "kernels; --precision fp32 cannot take them")
     v, t = cfg.vision, cfg.text
-    if not (fused_block_supported(v.num_patches + 1, v.width, v.heads,
-                                  v.mlp_ratio)
+    drop = (v.patch_dropout if args.force_patch_dropout is None
+            else args.force_patch_dropout)
+    rows = 1 + patches_kept(v.num_patches, drop)
+    if not (fused_block_supported(rows, v.width, v.heads, v.mlp_ratio)
             and fused_block_supported(t.context_length, t.width, t.heads,
                                       t.mlp_ratio)):
         raise SystemExit(f"--fused-train-blocks: the fused-block kernels do "
@@ -207,7 +341,7 @@ def main(argv=None):
         args.model, args.pretrained, seed=args.seed, dtype=torch.float32,
         device=device, remat=remat, block_impl=block_impl,
         compute_dtype=dtype, force_quick_gelu=args.force_quick_gelu,
-        train=True)
+        force_patch_dropout=args.force_patch_dropout, train=True)
     data_iter, steps_per_epoch = build_data(args, model.cfg)
     total_steps = steps_per_epoch * args.epochs
 
@@ -230,6 +364,9 @@ def main(argv=None):
                          "InfoNCE objective only (the cached-replay loss is "
                          "clip_loss); drop --siglip/--usehardtext or the "
                          "accumulation")
+    if args.grad_cache_chunks > 1 and args.force_patch_dropout:
+        logging.warning("patch dropout is disabled on the grad-cache path "
+                        "(the cached encode pass runs deterministically)")
 
     if args.lock_image or args.lock_text:
         apply_freeze(model, tower_freeze_labels(
@@ -254,13 +391,13 @@ def main(argv=None):
 
     step_fn = make_clip_train_step(model, use_hard_text=args.usehardtext,
                                    grad_cache_chunks=args.grad_cache_chunks,
-                                   use_siglip=args.siglip)
+                                   use_siglip=args.siglip, seed=args.seed)
     prev_ckpt_step = None
     logging.info("device=%s blocks=%s steps/epoch=%d", device, block_impl,
                  steps_per_epoch)
     for epoch in range(start_epoch, args.epochs):
         if epoch > start_epoch or epoch > 0:
-            data_iter, _ = build_data(args, model.cfg)
+            data_iter, _ = build_data(args, model.cfg, epoch=epoch)
         t0 = time.perf_counter()
         seen = 0
         for i, batch in enumerate(data_iter):

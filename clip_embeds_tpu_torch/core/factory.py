@@ -7,6 +7,7 @@ flattened to "a/b/kernel" keys), in which the PACL/SPARC heads travel; and
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
 from typing import Any, Dict, Optional, Union
@@ -89,6 +90,7 @@ def create_model(
     block_impl: str = "composable",
     compute_dtype: Optional[torch.dtype] = None,
     force_quick_gelu: bool = False,
+    force_patch_dropout: Optional[float] = None,
     train: bool = False,
 ) -> CLIP:
     """Build the port's CLIP on ``device`` with parameters in ``dtype``.
@@ -99,10 +101,15 @@ def create_model(
     ``remat``, ``block_impl`` and ``compute_dtype`` (default: ``dtype``)
     are the training options of :class:`~..models.clip.CLIP`; the model is
     returned in train mode when ``train``, else in eval mode.
+    ``force_quick_gelu`` and ``force_patch_dropout`` override the config
+    (open_clip's ``--force-quick-gelu`` / ``--force-patch-dropout``).
     """
     cfg = get_model_config(name, pretrained)
     if force_quick_gelu:
         cfg = cfg.replace(quick_gelu=True)
+    if force_patch_dropout is not None:
+        cfg = cfg.replace(vision=dataclasses.replace(
+            cfg.vision, patch_dropout=force_patch_dropout))
     model = CLIP(cfg, block_impl=block_impl, remat=remat,
                  compute_dtype=compute_dtype)
     if pretrained and os.path.exists(pretrained):

@@ -54,9 +54,14 @@ class CLIP(nn.Module):
                            nn.Parameter(torch.tensor(cfg.init_logit_bias)))
 
     def encode_image(self, images: torch.Tensor, normalize: bool = False,
-                     output_tokens: bool = False):
-        """images [B, S, S, 3] -> [B, embed_dim] (and tokens)."""
-        pooled, tokens = self.visual(images)
+                     output_tokens: bool = False, deterministic: bool = True,
+                     generator: Optional[torch.Generator] = None):
+        """images [B, S, S, 3] -> [B, embed_dim] (and tokens).
+        ``deterministic=False`` (the train step's) drops patches where the
+        config has patch dropout, drawn from ``generator``; eval and
+        serving never drop patches."""
+        pooled, tokens = self.visual(images, deterministic=deterministic,
+                                     generator=generator)
         if normalize:
             pooled = l2_normalize(pooled)
         return (pooled, tokens) if output_tokens else pooled
@@ -70,11 +75,15 @@ class CLIP(nn.Module):
         return (pooled, tokens) if output_tokens else pooled
 
     def forward(self, images: Optional[torch.Tensor] = None,
-                text_ids: Optional[torch.Tensor] = None
+                text_ids: Optional[torch.Tensor] = None,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None
                 ) -> Dict[str, torch.Tensor]:
         out = {"logit_scale": self.logit_scale.exp()}
         if images is not None:
-            out["image_features"] = self.encode_image(images, normalize=True)
+            out["image_features"] = self.encode_image(
+                images, normalize=True, deterministic=deterministic,
+                generator=generator)
         if text_ids is not None:
             out["text_features"] = self.encode_text(text_ids, normalize=True)
         if self.logit_bias is not None:

@@ -7,6 +7,13 @@ the open_clip stride-p conv) flattened in (kh, kw, cin) order: the same math
 as the conv. The tower computes in ``compute_dtype`` (default: its
 parameters' dtype), as flax's ``dtype`` over fp32 params: the patch kernel,
 class and positional embeddings and the projection are cast to it.
+
+FLIP patch dropout (``cfg.patch_dropout`` > 0, train time only) keeps
+``max(1, int(n_patches * (1 - p)))`` patch tokens a sample and always the
+CLS token, between the positional embedding and ``ln_pre``, as the JAX
+tower does. Also here: :func:`interpolate_pos_embed` (JAX's
+``jax.image.resize`` bilinear, antialiased where it shrinks) and
+:func:`sincos_2d_pos_embed`.
 """
 
 from __future__ import annotations
@@ -14,6 +21,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..core.config import VisionConfig
@@ -40,6 +48,59 @@ def patch_weight(conv1_weight: torch.Tensor) -> torch.Tensor:
     return w.permute(0, 2, 3, 1).reshape(w.shape[0], -1)
 
 
+def patches_kept(n_patches: int, patch_dropout: float) -> int:
+    """Patch tokens a sample keeps under patch dropout ``patch_dropout``
+    (all of them at 0)."""
+    if patch_dropout <= 0.0:
+        return n_patches
+    return max(1, int(n_patches * (1.0 - patch_dropout)))
+
+
+def interpolate_pos_embed(pos_embed: torch.Tensor, old_grid: int,
+                          new_grid: int) -> torch.Tensor:
+    """Resample the patch grid of a [1+N, D] positional embedding to
+    ``new_grid`` x ``new_grid``; the CLS row stays (PACL's 14 -> 25 grid).
+    ``jax.image.resize(..., "bilinear")`` antialiases where it shrinks:
+    its triangle kernel widens by the shrink factor, normalised over the
+    cells inside the grid. ``F.interpolate``'s bilinear with
+    ``antialias=True`` computes the same weights both ways (up, they are
+    plain bilinear); without it, a shrink samples only the two nearest
+    cells. fp32 sums, returned in ``pos_embed``'s dtype."""
+    cls_pe, patch_pe = pos_embed[:1], pos_embed[1:]
+    d = patch_pe.shape[-1]
+    grid = patch_pe.float().reshape(1, old_grid, old_grid, d).permute(
+        0, 3, 1, 2)
+    grid = F.interpolate(grid, size=(new_grid, new_grid), mode="bilinear",
+                         align_corners=False, antialias=True)
+    grid = grid[0].permute(1, 2, 0).reshape(new_grid * new_grid, d)
+    return torch.cat([cls_pe, grid.to(pos_embed.dtype)], dim=0)
+
+
+def sincos_2d_pos_embed(width: int, grid_size: int,
+                        cls_token: bool = True) -> torch.Tensor:
+    """Fixed 2D sin-cos positional embedding [(1+)N, width], fp32
+    (open_clip's ``get_2d_sincos_pos_embed``, MoCo-v3 layout): the first
+    half of the channels encodes the column, the second half the row, each
+    as the sines then the cosines of the scaled inverse frequencies; a zero
+    CLS row first with ``cls_token``."""
+    assert width % 4 == 0
+    quarter = width // 4
+    omega = 1.0 / (10000.0 ** (torch.arange(quarter, dtype=torch.float32)
+                               / quarter))
+    pos = torch.arange(grid_size, dtype=torch.float32)
+    grid_col = pos.repeat(grid_size)
+    grid_row = pos.repeat_interleave(grid_size)
+
+    def encode(coords):
+        angles = torch.outer(coords, omega)
+        return torch.cat([angles.sin(), angles.cos()], dim=1)
+
+    embed = torch.cat([encode(grid_col), encode(grid_row)], dim=1)
+    if cls_token:
+        embed = torch.cat([torch.zeros(1, width), embed], dim=0)
+    return embed
+
+
 class VisionTransformer(nn.Module):
     def __init__(self, cfg: VisionConfig, embed_dim: int,
                  quick_gelu: bool = False, quant: Quant = False,
@@ -62,23 +123,44 @@ class VisionTransformer(nn.Module):
         self.ln_post = LayerNorm(w)
         self.proj = nn.Parameter(torch.empty(w, embed_dim))
 
-    def embed(self, images: torch.Tensor) -> torch.Tensor:
-        """[B, S, S, 3] -> ln_pre([CLS; patches] + pos), [B, 1+N, W]."""
+    def tokens(self, images: torch.Tensor) -> torch.Tensor:
+        """[B, S, S, 3] -> [CLS; patches] + pos, [B, 1+N, W]."""
         dtype = self.compute_dtype or self.class_embedding.dtype
         x = patchify(images.to(dtype), self.cfg.patch_size)
         x = torch.matmul(x, patch_weight(self.conv1.weight).to(dtype).t())
         cls = self.class_embedding.to(dtype).expand(x.shape[0], 1, -1)
-        x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(dtype)
-        return x if self.ln_pre is None else self.ln_pre(x)
+        return torch.cat([cls, x], dim=1) + self.positional_embedding.to(dtype)
 
     def forward(
         self, images: torch.Tensor, hidden_layer: Optional[int] = None,
+        deterministic: bool = True,
+        generator: Optional[torch.Generator] = None,
+        keep_idx: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """images [B, S, S, 3] -> (pooled [B, embed_dim], tokens [B, N, W]).
 
         With ``hidden_layer`` (e.g. -2) returns the raw hidden states
-        [B, 1+N, W] after that block (no ln_post, no projection)."""
-        x = self.embed(images)
+        [B, 1+N, W] after that block (no ln_post, no projection).
+
+        ``deterministic=False`` turns on patch dropout where
+        ``cfg.patch_dropout`` > 0: uniform noise [B, n_patches] from
+        ``generator``, its top-k, and the kept patches gathered in top-k
+        order (not by position), as the JAX tower draws them. torch cannot
+        reproduce ``jax.random``'s bits, so ``keep_idx`` [B, keep] (indices
+        into the patches) may be given in place of the draw: a test feeds
+        it the indices JAX drew."""
+        x = self.tokens(images)
+        if not deterministic and self.cfg.patch_dropout > 0.0:
+            if keep_idx is None:
+                noise = torch.rand(x.shape[0], x.shape[1] - 1,
+                                   generator=generator, device=x.device)
+                keep = patches_kept(x.shape[1] - 1, self.cfg.patch_dropout)
+                keep_idx = noise.topk(keep, dim=1).indices
+            patches = torch.gather(
+                x[:, 1:], 1, keep_idx[..., None].expand(-1, -1, x.shape[-1]))
+            x = torch.cat([x[:, :1], patches], dim=1)
+        if self.ln_pre is not None:
+            x = self.ln_pre(x)
         if hidden_layer is not None:
             return self.transformer(
                 x, num_blocks=self.cfg.layers + 1 + hidden_layer)

@@ -3,7 +3,10 @@
 ``train_one_epoch``: forward both towers, InfoNCE, SigLIP or hard-text loss,
 backward, AdamW update, optionally after global-norm clipping, then the
 logit scale clamped to ln(100)); and ``make_frozen_tower_train_step``, the
-PACL/SPARC step that trains a head on a frozen tower's features.
+PACL/SPARC step that trains a head on a frozen tower's features. Where the
+config has FLIP patch dropout, the CLIP step draws it from a generator
+seeded from (seed, step), as the JAX step folds the step into
+``PRNGKey(seed)``: the same seed gives the same run, not JAX's draw.
 
 PyTorch updates the parameters in place, so the state is a small mutable
 object: the model, its optimizer, the update count and the learning-rate
@@ -15,6 +18,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -53,15 +57,26 @@ class TrainState:
         self.step += 1
 
 
+def patch_dropout_generator(seed: int, step: int,
+                            device: torch.device) -> torch.Generator:
+    """The generator of step ``step``'s patch dropout on ``device``."""
+    state = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)
+    return torch.Generator(device=device).manual_seed(int(state[0]))
+
+
 def clip_train_loss(model: nn.Module, batch: Batch,
-                    use_hard_text: bool = False, use_siglip: bool = False
+                    use_hard_text: bool = False, use_siglip: bool = False,
+                    generator: Optional[torch.Generator] = None
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(loss, metrics) of one batch: 'images' [B, S, S, 3], 'texts'
     [B, ctx]; with ``use_hard_text`` also 'hard_texts' [H, ctx] and
     optionally 'hard_valid' [H] bool. ``use_siglip`` takes the sigmoid
     loss with the model's logit bias (None for the CLIP configs); the
-    hard-text loss comes first where both are asked, as in JAX."""
-    out = model(batch["images"], batch["texts"])
+    hard-text loss comes first where both are asked, as in JAX. With
+    ``generator`` the image tower drops patches where its config says so
+    (the hard texts go through the text tower alone, as in JAX)."""
+    out = model(batch["images"], batch["texts"],
+                deterministic=generator is None, generator=generator)
     img, txt, scale = (out["image_features"], out["text_features"],
                        out["logit_scale"])
     if use_hard_text:
@@ -78,7 +93,8 @@ def clip_train_loss(model: nn.Module, batch: Batch,
 
 
 def make_clip_train_step(model: nn.Module, use_hard_text: bool = False,
-                         grad_cache_chunks: int = 0, use_siglip: bool = False
+                         grad_cache_chunks: int = 0, use_siglip: bool = False,
+                         seed: int = 0
                          ) -> Callable[[TrainState, Batch], Dict]:
     """A train step ``step(state, batch) -> metrics`` (metrics hold 0-d
     tensors; reading them syncs the device).
@@ -86,7 +102,10 @@ def make_clip_train_step(model: nn.Module, use_hard_text: bool = False,
     With ``grad_cache_chunks`` > 1 the gradients come from
     :func:`~.grad_cache.cache_grad_step` over that many chunks, InfoNCE
     only; as in JAX, the logit scale is then a constant of the loss and
-    gets no gradient."""
+    gets no gradient, and the cached encode runs without patch dropout.
+    Elsewhere a config with patch dropout draws it from
+    :func:`patch_dropout_generator` (``seed``, the update count)."""
+    use_patch_dropout = model.cfg.vision.patch_dropout > 0.0
     if grad_cache_chunks > 1 and (use_hard_text or use_siglip):
         raise ValueError("grad-cache supports the InfoNCE objective only")
 
@@ -103,8 +122,11 @@ def make_clip_train_step(model: nn.Module, use_hard_text: bool = False,
                 batch, grad_cache_chunks)
             metrics = {"logit_scale": scale}
         else:
+            generator = (patch_dropout_generator(
+                seed, state.step, batch["images"].device)
+                if use_patch_dropout else None)
             loss, metrics = clip_train_loss(model, batch, use_hard_text,
-                                            use_siglip)
+                                            use_siglip, generator)
             loss.backward()
             loss = loss.detach()
         state.apply_gradients()

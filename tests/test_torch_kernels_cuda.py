@@ -1346,3 +1346,81 @@ def test_lora_step_over_int8_trunk_on_card_matches_cpu(cuda):
     assert cos.item() > 0.99
     after = qmodel.state_dict()
     assert all(torch.equal(v, after[k]) for k, v in before.items())
+
+
+def test_training_kernels_at_the_patch_dropout_rows(cuda):
+    """--force-patch-dropout 0.5 leaves the ViT-L/14-336 image blocks 1 +
+    288 = 289 rows (a partial last tile where 577 had its own): the fused
+    blocks at 2x289x1024 and the attention forward and backward at
+    2x16x289x64 against their plain versions, under the limits of the
+    577-row cases."""
+    rng = np.random.default_rng(40)
+    args = _block_args(rng, 2, 289, 1024, 4096, bias_std=0.5)
+    kw = dict(heads=16, kv_valid=289, causal=False, act="quick")
+    with torch.inference_mode():
+        y = fused_block(*args, **kw)
+        got = fused_block_residuals(*args, **kw)
+        want = fused_block_residuals_reference(*args, **kw)
+    assert torch.equal(got[0], y)
+    for name, a, w in zip(("y", "qkv", "att", "m1", "x_mid"), got, want):
+        diff = (a.float() - w.float()).abs()
+        assert diff.max().item() <= 0.125, (name, diff.max().item())
+        assert diff.mean().item() <= 4e-3, (name, diff.mean().item())
+    q, k, v, o, g, lse = _bwd_inputs(rng, (2, 16, 289, 64), False)
+    with torch.inference_mode():
+        fwd = flash_attention(q, k, v)
+        assert (fwd.float() - flash_attention_reference(q, k, v).float()
+                ).abs().max().item() <= 0.02
+        grads = flash_attention_bwd(q, k, v, o, g, lse)
+        want = flash_attention_bwd_reference(q, k, v, o, g)
+    for name, d in zip("qkv", _bwd_diff(grads, want)):
+        assert d.max().item() <= 0.0625, (name, d.max().item())
+        assert d.mean().item() <= 2e-5, (name, d.mean().item())
+
+
+@pytest.mark.parametrize("block_impl", ["composable", "fused-train",
+                                        "fused-train-res"])
+def test_patch_dropout_step_on_card(cuda, block_impl):
+    """A train step of the two-block ViT-L-width model with patch dropout
+    0.5 on each block route: the image blocks see 289 rows, the route's
+    kernels launch once a block where phase 6 of chip_smoke.py counts
+    them (the 77-token text attention stays plain), and the loss and
+    every gradient are finite."""
+    import dataclasses
+
+    from clip_embeds_tpu_torch.core.config import get_model_config
+    from clip_embeds_tpu_torch.models.clip import CLIP
+    from clip_embeds_tpu_torch.train.steps import (
+        clip_train_loss, patch_dropout_generator)
+
+    cfg = get_model_config("test-vitl-2layer", "openai")
+    cfg = cfg.replace(vision=dataclasses.replace(cfg.vision,
+                                                 patch_dropout=0.5))
+    model = CLIP(cfg, block_impl=block_impl,
+                 compute_dtype=torch.bfloat16).to(cuda).train()
+    model.load_state_dict(_vitl2(cuda).state_dict())
+    rows = []
+    model.visual.transformer.register_forward_pre_hook(
+        lambda mod, a: rows.append(a[0].shape[1]))
+    rng = np.random.default_rng(41)
+    ids = np.zeros((4, 77), np.int64)
+    ids[:, 0], ids[:, 1:9], ids[:, 9] = 49406, rng.integers(1, 49406, 8), \
+        49407
+    batch = {"images": torch.from_numpy(rng.standard_normal(
+        (4, 336, 336, 3)).astype(np.float32)).to(cuda),
+        "texts": torch.from_numpy(ids).to(cuda)}
+    counted = (fused_block, fused_block_residuals, flash_attention,
+               flash_attention_bwd)
+    for fn in counted:
+        fn.launches = 0
+    loss, _ = clip_train_loss(model, batch,
+                              generator=patch_dropout_generator(0, 0, cuda))
+    loss.backward()
+    torch.cuda.synchronize()
+    want = {"composable": (0, 0, 2, 2), "fused-train": (4, 0, 2, 2),
+            "fused-train-res": (4, 4, 0, 2)}[block_impl]
+    assert rows == [289]
+    assert tuple(fn.launches for fn in counted) == want
+    assert torch.isfinite(loss)
+    for name, p in model.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
