@@ -32,7 +32,12 @@ Phases, each of which raises on failure:
      the image tower's rows under --force-patch-dropout 0.5 (1 + 288 =
      289): fused_block and fused_block_residuals at 32x289x1024, the
      attention forward and backward at 32x16x289x64, under the limits of
-     the 577-row cases;
+     the 577-row cases; and phase 13's towers, the attention forward at
+     EVA-g's 4x16x257x88 and 4x16x677x88 (blip2-itm-coco) and BLIP
+     ViT-L/16's 4x16x197x64, beside scaled_dot_product_attention, and
+     int8_linear at T5-XXL's projections (5120 and 64 rows; 4096 -> 4096,
+     4096 -> 10240, 10240 -> 4096) with bf16 F.linear's time beside it,
+     limits from scripts/chip_probe_t5.py;
   4. the main paths: ViT-L/14-336 (OpenAI config, seeded random weights,
      all 24 + 12 layers) serves 3 image and 3 text requests of 8 through
      embed_image_batches / embed_text_batches, the CLI's helpers: first in
@@ -139,10 +144,11 @@ Phases, each of which raises on failure:
      cli/train_vlm2vec.py main on the synthetic mixed route, 3 steps at
      b64 with GradCache and LoRA r16 alpha 64 in bf16, on the bf16 base
      and with --quant_base, exact launches, finite losses, every adapter
-     moved, the base bit-equal, samples/s and peak memory; (c)
+     moved, the base bit-equal, samples/s and peak memory, on the 7B
+     cut to its first 8 trunk layers at full width; (c)
      cli/eval_mmeb.py main on an MMEB fixture (2 subsets x 16 queries x 8
      candidates, JPEGs) with (b)'s adapters merged and over the W8A8
-     trunk, exact launches, accuracies in [0, 1], the embedding cache read
+     trunk (the same cut), exact launches, accuracies in [0, 1], the embedding cache read
      back, items/s; (d) (b)'s merged bundle, cut to 2 + 2 layers, through
      scores/build.py load_score_bundle. Limits from
      scripts/chip_probe_vlm2vec.py.
@@ -169,6 +175,24 @@ Phases, each of which raises on failure:
      bytes through the batch decoder) and auto on the .tsv and the .tar,
      composable with --lock-image, the undecodable sample dropped and the
      batch refilled.
+ 13. (run last, after 11) the T5 and BLIP score families at full width,
+     seeded random weights, on 8 What'sUp-A images x 4 texts: (a)
+     CLIP-FlanT5-XXL (ViT-L/14-336 to layer -2, the projector to 4096,
+     T5-v1.1-XXL 24 + 24 layers of 4096, 64 heads of 64, d_ff 10240)
+     through the T5VQAScore Score's pair path, forward_image_texts and
+     forward_groups, bf16 and with the W8A8 T5 trunk
+     (quantize_clip_t5_trunk), with exact launches (flash_attention 23 a
+     tower call, int8_linear 432 a T5 pass), scores in (0, 1] and spread,
+     the paths against each other, bf16 against the plain fp32 path on
+     the T5 cut to 4 + 4 layers beside the no-kernel witness (|delta log
+     score| and the answer rows' logits cosine), W8A8 against bf16,
+     pairs/s and peak memory; (b) InstructBLIP-FlanT5-XXL (EVA-g, the
+     Q-Former, the same T5 trunk) through forward and
+     forward_image_texts, flash_attention 39 an EVA-g call, the same
+     checks; (c) blip2-itm, blip2-itc and image-reward-v1 from seeded fp32
+     bundles in the JAX layout through scores.registry.get_score_model in
+     bf16, exact launches, against the plain fp32 path. Limits from
+     scripts/chip_probe_t5.py.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device it exits
@@ -330,6 +354,23 @@ INT8_LINEAR_CASES = tuple((m, n, k) for m in (639, 5112)
                           for n, k in ((4096, 4096), (11008, 4096),
                                        (4096, 11008)))
 INT8_LINEAR_STATIC = 0.5
+# phase 3, the towers of the T5 and BLIP score families (phase 13): the
+# attention forward at EVA-g's 257 rows (16 heads of 88, a partial last Q
+# tile), at blip2-itm-coco's 677 and at BLIP ViT-L/16's 197 (head dim
+# 64), b4; the limit on the mean |kernel - plain| between the sound
+# readings on the H100 (8.1e-5 / 6.2e-5 / 8.1e-5) and the faults'
+# (scripts/chip_probe_t5.py: logits at 1/sqrt(128) 0.0156 / 0.0102 /
+# 0.0284; the last partial Q tile unwritten 3.1e-4 / 0.0027 / 0.032, which
+# the max limit catches too); and int8_linear at T5-XXL's W8A8
+# projections: the encoder's rows of a b8 call (5120 = 8 x 640) and the
+# decoder's (64 = 8 x 8, a partial M tile) through q/k/v/o (4096 ->
+# 4096), wi_0 / wi_1 (4096 -> 10240) and wo (10240 -> 4096)
+T5_FAMILY_FLASH_CASES = (((4, 16, 257, 88), False, 2e-4),
+                         ((4, 16, 677, 88), False, 2e-4),
+                         ((4, 16, 197, 64), False, 2e-4))
+T5_INT8_LINEAR_CASES = tuple((m, n, k) for m in (5120, 64)
+                             for n, k in ((4096, 4096), (10240, 4096),
+                                          (4096, 10240)))
 # phase 7: the image decoder the card's machine gives the port. It has g++
 # and PIL but not the libjpeg / libpng / libwebp headers, so the native
 # library does not build there and images decode with PIL (probe on NVIDIA
@@ -406,6 +447,10 @@ LLAVA_INT8_COS = 0.95
 # candidates in batches of V2V_EVAL_BATCH
 V2V_SEED, V2V_TOKENS, V2V_BATCHES, V2V_TIME_ITERS = 11, 64, (8, 16), 3
 V2V_TRAIN_BATCH, V2V_TRAIN_STEPS, V2V_RANK, V2V_ALPHA = 64, 3, 16, 64
+# (b) and (c) run on the 7B cut to its first V2V_TRAIN_LAYERS trunk layers
+# at full width (the tower whole): at all 32 they took 148 s of host-bound
+# launches, time that phase 13 needs
+V2V_TRAIN_LAYERS = 8
 V2V_CHUNK = {"bf16": 2, "quant_base": 16}
 V2V_GRAD_BATCH = 2
 V2V_EVAL_QUERIES, V2V_EVAL_CANDS, V2V_EVAL_BATCH = 16, 8, 8
@@ -435,6 +480,48 @@ V2V_GRAD_LAYERS = 2
 V2V_GRAD_COS_MIN, V2V_GRAD_TENSOR_COS_MIN = 0.99, 0.95
 V2V_GRAD_BELOW_WITNESS = 5e-4
 V2V_INT8_GRAD_COS_MIN, V2V_INT8_GRAD_TENSOR_COS_MIN = 0.97, 0.85
+# phase 13: the T5 and BLIP score families at full width, seeded random
+# weights (ROADMAP item 13). (a) CLIP-FlanT5-XXL (ViT-L/14-336 to layer
+# -2, 23 blocks; the projector to 4096; T5-v1.1-XXL 24 + 24 layers, 64
+# heads of 64, d_ff 10240) through the three T5VQAScorer paths on
+# T5_GROUP What'sUp-A images x T5_TEXTS texts, bf16 and W8A8; (b)
+# InstructBLIP-FlanT5-XXL (EVA-g 39 x 1408, the 12-layer Q-Former, the
+# same seeded T5-XXL trunk) through forward and forward_image_texts; (c)
+# blip2-itm, blip2-itc and image-reward-v1 from seeded fp32 bundles
+# through get_score_model, on the same images and texts
+T5_SEED, T5_GROUP, T5_TEXTS, T5_TIME_ITERS = 13, 8, 4, 2
+# the plain fp32 reference runs the T5 trunk cut to its first
+# T5_CUT_LAYERS encoder and decoder layers at full width (the towers and
+# the Q-Former whole: 44.6 GB of fp32 XXL would not sit beside the bf16
+# model), on T5_PLAIN_IMAGES images x the texts; the bf16 kernel route
+# and the no-kernel witness on the same cut
+T5_CUT_LAYERS, T5_PLAIN_IMAGES = 4, 2
+# the seeded scores must spread: (max - min) / max over the 32 pairs
+T5_SPREAD_MIN = 1e-6
+# limits on |delta log score| and the least cosine of the answer rows'
+# logits. Readings on the H100 (scripts/chip_probe_t5.py; PERF.md): the
+# bf16 paths against each other 0 (CLIP-FlanT5) and 0.0019
+# (InstructBLIP); bf16 against plain fp32 on the cut 0.0118 / 0.99996
+# and 0.0089 / 0.99995, the no-kernel witness 0.0076 / 0.99997 and
+# 0.0145 / 0.99994, the T5 attention scaled by d_kv^-1/2 (a fault) 0.169
+# / 0.956 and 0.174 / 0.950, InstructBLIP's Q-Former cross-attention
+# skipped 0.508 / 0.753; the encoder's relative bias dropped reads 0.0152
+# / 0.99995, which seeded weights cannot tell from sound (its table's
+# std d_model^-1/2 moves the logits little). W8A8 against bf16 at full
+# depth: CLIP-FlanT5 0.036-0.090 / 0.99820, InstructBLIP 0.089-0.175 /
+# 0.99791; with every projection's codes at a quarter of their range
+# 0.175 / 0.98796 and 0.265 / 0.98440. The cosine tells that fault from
+# sound; |d log score| does not, and its limit holds gross faults only
+T5_PATHS_LOG_TOL = 0.05        # the bf16 paths against each other
+T5_FP32_LOG_TOL = 0.05         # bf16 kernel route against plain fp32 (cut)
+T5_FP32_COS = 0.9995
+T5_INT8_LOG_TOL = 0.3          # W8A8 against bf16
+T5_INT8_COS = 0.995
+# (c): limits on |delta| against the plain fp32 path of the ITM
+# probability, the ITC cosine and the standardised reward. Readings:
+# 0.0021, 0.0024, 0.0209; with the text mask ignored (a fault) ITM 0.033,
+# the reward 0.504
+BLIP_ITM_TOL, BLIP_ITC_TOL, REWARD_TOL = 0.01, 0.01, 0.1
 # H100 SXM data-sheet peaks (dense): bf16 and int8 tensor cores, HBM3
 PEAK_BF16, PEAK_INT8, HBM_BYTES_PER_S = 989e12, 1979e12, 3.35e12
 # phase 3, the image tower under --force-patch-dropout 0.5: 1 + 288 = 289
@@ -720,6 +807,9 @@ def check_kernels(rng):
     cases += block_kernel_cases(drop_rng, PATCH_DROP_BLOCK_CASES,
                                 lambda d: 4 * d, "quick", 1e-5, "")
     cases += flash_train_cases(drop_rng, PATCH_DROP_FLASH_CASES)
+    t5_rng = np.random.default_rng(13)
+    for shape, causal, mean_tol in T5_FAMILY_FLASH_CASES:
+        cases.append(flash_forward_case(t5_rng, shape, causal, mean_tol)[0])
     results = {}
     for (name, kernel, plain, tol, n_valid, mean_tol, bound, library,
          flops) in cases:
@@ -904,15 +994,19 @@ def check_gemms_s8(rng, gpu):
         del a, w, wscale, bias, scales, res, kernel, plain
 
 
-def check_int8_linear(gpu):
-    """Phase 3, QuantLinear's card route at INT8_LINEAR_CASES in both
-    modes: bit-equal to qdot rounded to bf16, int8_linear ms (both
-    kernels), TOP/s, share of the bound, _int_mm ms on the same codes."""
+def check_int8_linear(gpu, cases=INT8_LINEAR_CASES, seed=3):
+    """Phase 3, QuantLinear's card route at ``cases`` in both modes:
+    bit-equal to qdot rounded to bf16, int8_linear ms (both kernels),
+    TOP/s, share of the bound, the plain qdot's ms, _int_mm ms on the same
+    codes and cuBLAS's bf16 F.linear ms at the same shape (yardsticks,
+    timed only). Returns {(m, n, k): (ms, plain ms, bound ms, bound_by,
+    F.linear ms)}."""
     from clip_embeds_tpu_torch.models.quant import QuantLinear, quantize_weight
     from clip_embeds_tpu_torch.ops.fused_block import int8_linear, qdot
 
-    g = torch.Generator(device="cuda").manual_seed(3)
-    for m, n, k in INT8_LINEAR_CASES:
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    out = {}
+    for m, n, k in cases:
         x = torch.randn(m, k, generator=g, device="cuda").bfloat16()
         w = 0.02 * torch.randn(n, k, generator=g, device="cuda")
         for mode in ("dynamic", "static"):
@@ -940,12 +1034,19 @@ def check_int8_linear(gpu):
                                          None))
         xq = torch.clamp(torch.round(x.float() / a), -127, 127).to(
             torch.int8)
+        wb = w.bfloat16()
+        lin_ms = cuda_ms(lambda: F.linear(x, wb))
+        plain_ms = cuda_ms(lambda: qdot(x.float(), a, lin.weight_q,
+                                        lin.scale, None), iters=2, warmup=1)
         print(f"[int8_linear] {m}x{n}x{k}: dynamic and static bit-equal to "
               f"qdot in bf16; kernel {ms:.4f} ms, {ops / ms / 1e9:.1f} "
               f"TOP/s, {100 * bound / ms:.1f}% of the bound {bound:.4f} ms "
-              f"({bound_by}); torch._int_mm {int_mm_ms(xq, lin.weight_q)} "
-              f"on {gpu}")
-        del x, w, xq, lin
+              f"({bound_by}); plain qdot {plain_ms:.4f} ms; torch._int_mm "
+              f"{int_mm_ms(xq, lin.weight_q)}, bf16 F.linear {lin_ms:.4f} "
+              f"ms on {gpu}")
+        out[(m, n, k)] = (ms, plain_ms, bound, bound_by, lin_ms)
+        del x, w, wb, xq, lin
+    return out
 
 
 def synthetic_requests(rng, cfg):
@@ -2249,13 +2350,11 @@ def word_tokenizer(seed, vocab):
 
 @torch.no_grad()
 def cast_copy(model, dtype):
-    """A copy of the LLaVA ``model`` on its device with every tensor in
-    ``dtype`` (the plain fp32 path on the bf16 model's values), made on the
-    card without a host copy."""
-    from clip_embeds_tpu_torch.models.llava import Llava
-
+    """A copy of ``model`` (LLaVA, or a T5 / BLIP family model) on its
+    device with every tensor in ``dtype`` (the plain fp32 path on the bf16
+    model's values), made on the card without a host copy."""
     with torch.device("meta"):
-        out = Llava(model.cfg).to(dtype)
+        out = type(model)(model.cfg).to(dtype)
     out.to_empty(device=next(model.parameters()).device)
     src = model.state_dict()
     for name, t in out.state_dict().items():
@@ -2449,7 +2548,7 @@ def check_bundle(tmp, cfg, tokenize, counters, gpu):
     with quant=True, and run_benchmark on a Winoground fixture."""
     import dataclasses
 
-    from clip_embeds_tpu_torch.core.convert import jax_params_from_llava
+    from clip_embeds_tpu_torch.core.convert import jax_params_from_module
     from clip_embeds_tpu_torch.core.factory import init_llava
     from clip_embeds_tpu_torch.evals.benchmarks import (
         get_benchmark, run_benchmark)
@@ -2464,7 +2563,7 @@ def check_bundle(tmp, cfg, tokenize, counters, gpu):
                      dtype=torch.float32)
     n_params = sum(p.numel() for p in src.parameters())
     bundle = os.path.join(tmp, "bundle")
-    save_score_bundle(bundle, "llava", bcfg, jax_params_from_llava(src),
+    save_score_bundle(bundle, "llava", bcfg, jax_params_from_module(src),
                       conversation="chat")
     del src
     size = os.path.getsize(os.path.join(bundle, "params.npz"))
@@ -2662,18 +2761,16 @@ def v2v_cast(model, dtype, **llava_kw):
     return out.requires_grad_(False).eval()
 
 
-def llava_view(model, cfg=None, **llava_kw):
-    """The LLaVA ``model`` rebuilt on its own tensors (nothing is copied)
-    with ``llava_kw`` (quant_llm for a W8A8 trunk, the LoRA side-path,
-    remat) and, with ``cfg``, cut to that config's depths (its first
-    layers and blocks)."""
-    from clip_embeds_tpu_torch.models.llava import Llava
-
+def model_view(model, cfg=None, strict=True, **kw):
+    """``model`` rebuilt on its own tensors (nothing copied) as
+    ``type(model)(cfg or model.cfg, **kw)``: its first layers where ``cfg``
+    cuts depth; with ``strict=False`` the tensors it lacks stay on the meta
+    device, for the caller to replace."""
     with torch.device("meta"):
-        out = Llava(cfg or model.cfg, **llava_kw)
+        out = type(model)(cfg or model.cfg, **kw)
     keep = out.state_dict()
     out.load_state_dict({k: v for k, v in model.state_dict().items()
-                         if k in keep}, assign=True)
+                         if k in keep}, assign=True, strict=strict)
     return out.requires_grad_(False).eval()
 
 
@@ -2829,7 +2926,7 @@ def shared_llava(model, qmodel, tokenize, saved):
                 None, "cuda", torch.bfloat16):
             raise AssertionError(f"phase 11 shares no model for {ckpt} "
                                  f"{device} {dtype}")
-        m = (llava_view(qmodel, quant_llm="dynamic", **llava_kw) if quant
+        m = (model_view(qmodel, quant_llm="dynamic", **llava_kw) if quant
              else model)
         return model.cfg, m, (tokenize, 1, 0)
 
@@ -2841,7 +2938,7 @@ def shared_llava(model, qmodel, tokenize, saved):
 
     def save_merged(path, cfg, merged):
         cut = cut_config(cfg, 2, 2)
-        real_save(path, cut, llava_view(merged, cut))
+        real_save(path, cut, model_view(merged, cut))
 
     real_init, real_save = lora.init_lora, train_vlm2vec.save_merged
     with patched(train_vlm2vec, "load_base", load_base), \
@@ -2910,10 +3007,10 @@ def v2v_gradients(model, qmodel, gpu):
         _synthetic_mixed_batches)
 
     cut = cut_config(model.cfg, V2V_GRAD_LAYERS)
-    small = llava_view(model, cut)
+    small = model_view(model, cut)
     ref = v2v_cast(small, torch.float32, lora_rank=V2V_RANK,
                    lora_alpha=float(V2V_ALPHA))
-    qsmall = llava_view(qmodel, cut, quant_llm="dynamic", lora_rank=V2V_RANK,
+    qsmall = model_view(qmodel, cut, quant_llm="dynamic", lora_rank=V2V_RANK,
                         lora_alpha=float(V2V_ALPHA))
     batch = next(_synthetic_mixed_batches(V2V_GRAD_BATCH,
                                           cut.vision.image_size, V2V_SEED))
@@ -3115,12 +3212,16 @@ def check_vlm2vec(model, qmodel, counters, gpu):
     t0 = time.perf_counter()
     v2v_gradients(model, qmodel, gpu)
     print(f"[phase 11] gradients {time.perf_counter() - t0:.1f} s on {gpu}")
+    cut = cut_config(model.cfg, V2V_TRAIN_LAYERS)
+    mcut = model_view(model, cut)
+    qcut = model_view(qmodel, cut, quant_llm="dynamic")
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        files = v2v_train(model, qmodel, tmp, tok, counters, gpu)
-        print(f"[phase 11] (b) {time.perf_counter() - t0:.1f} s on {gpu}")
+        files = v2v_train(mcut, qcut, tmp, tok, counters, gpu)
+        print(f"[phase 11] (b) {time.perf_counter() - t0:.1f} s on {gpu} "
+              f"(trunk cut to {V2V_TRAIN_LAYERS} layers)")
         t0 = time.perf_counter()
-        v2v_eval(model, qmodel, tmp, files, tok, counters, gpu)
+        v2v_eval(mcut, qcut, tmp, files, tok, counters, gpu)
         print(f"[phase 11] (c) {time.perf_counter() - t0:.1f} s on {gpu}")
 
         # (d) the merged bundle of (b), cut to 2 + 2 layers
@@ -3142,6 +3243,390 @@ def check_vlm2vec(model, qmodel, counters, gpu):
               f"{size / 2**30:.2f} GiB) loaded through load_score_bundle; "
               f"its embeddings finite, shape {tuple(emb.shape)}")
         del small, params
+
+
+# -- phase 13: the T5 and BLIP score families ----------------------------------
+
+
+def t5_word_tokenizer(seed, vocab):
+    """A seeded word-hash tokenizer in T5's manner: no BOS, ids
+    2..vocab-1, the EOS id 1 last (the card's machine has no
+    sentencepiece model)."""
+    def tokenize(text):
+        return [2 + zlib.crc32(f"{seed}:{w}".encode()) % (vocab - 2)
+                for w in text.split()] + [1]
+    return tokenize
+
+
+def t5_cut(cfg, layers):
+    """``cfg`` with its T5 trunk cut to ``layers`` encoder and decoder
+    layers."""
+    return dataclasses.replace(cfg, t5=dataclasses.replace(
+        cfg.t5, num_layers=layers, num_decoder_layers=layers))
+
+
+def t5_int8_per_pass(cfg):
+    """int8_linear launches a W8A8 T5 pass: 7 an encoder layer (q, k, v, o,
+    wi_0, wi_1, wo), 11 a decoder layer (and the cross-attention's 4)."""
+    return 7 * cfg.t5.num_layers + 11 * cfg.t5.decoder_layers
+
+
+def spread(label, scores):
+    """(max - min) / max of the scores, printed beside their range;
+    raises where they collapse to one value."""
+    lo, hi = float(scores.min()), float(scores.max())
+    rel = (hi - lo) / hi
+    print(f"[t5] {label} scores {lo:.6g}..{hi:.6g}, log spread "
+          f"{math.log(hi / lo):.4f}, relative spread {rel:.3g} (limit "
+          f"{T5_SPREAD_MIN})")
+    if rel < T5_SPREAD_MIN:
+        raise AssertionError(f"{label}: every score equal: {scores}")
+
+
+def timed_paths(paths, k, n, label, counters, gpu):
+    """Each (fn, launches) of ``paths``: run once with exact launches, its
+    scores checked in (0, 1], then timed over T5_TIME_ITERS calls by CUDA
+    events. Returns {path: scores [k, n]}."""
+    scores = {}
+    for name, (fn, want) in paths.items():
+        scores[name] = counted(counters, f"{label} {name} path, {k} images "
+                               f"x {n} texts", fn, want, tag="t5")
+        check_scores(f"{label} {name}", scores[name])
+        times = event_times(fn, T5_TIME_ITERS)
+        ms = sum(times) / len(times)
+        print(f"[t5] {label} {name}: {k * n / ms * 1e3:.2f} pairs/s "
+              f"({k * n} pairs in {ms:.1f} ms, the mean of {len(times)} "
+              f"calls; range {min(times):.1f}-{max(times):.1f} ms) on {gpu}")
+    return scores
+
+
+def clip_t5_paths(score, images, texts, label, counters, gpu, int8):
+    """The three T5VQAScore paths with their launches: #4 23 a tower call
+    (one a chunk of pairs, one an image, one a group), int8_linear 432 a
+    W8A8 T5 pass (a chunk of batch_size pairs)."""
+    scorer = score.pair_forward.__self__
+    cfg = scorer.model.cfg
+    tb, bs = cfg.tower_blocks, scorer.batch_size
+    q = t5_int8_per_pass(cfg) if int8 else 0
+    k, n = len(images), len(texts)
+    chunks = math.ceil(k * n / bs)
+    return timed_paths({
+        "pair": (lambda: score.pair_forward(
+            [im for im in images for _ in texts], list(texts) * k
+        ).reshape(k, n), {"flash_attention": chunks * tb,
+                          "int8_linear": chunks * q}),
+        "per-image": (lambda: np.stack([
+            score.image_texts_forward(im, list(texts)) for im in images]),
+            {"flash_attention": k * tb,
+             "int8_linear": k * math.ceil(n / bs) * q}),
+        "groups": (lambda: score(list(images), list(texts)),
+                   {"flash_attention": math.ceil(k / score.group_size) * tb,
+                    "int8_linear": chunks * q}),
+    }, k, n, label, counters, gpu)
+
+
+def instructblip_paths(score, images, texts, label, counters, gpu, int8):
+    """InstructBLIP's pair path and forward_image_texts: #4 39 an EVA-g
+    call (one a chunk of pairs, one an image), int8_linear 432 a W8A8 T5
+    pass."""
+    scorer = score.pair_forward.__self__
+    cfg = scorer.model.cfg
+    layers, bs = cfg.vision.layers, scorer.batch_size
+    q = t5_int8_per_pass(cfg) if int8 else 0
+    k, n = len(images), len(texts)
+    chunks = math.ceil(k * n / bs)
+    return timed_paths({
+        "pair": (lambda: score.pair_forward(
+            [im for im in images for _ in texts], list(texts) * k
+        ).reshape(k, n), {"flash_attention": chunks * layers,
+                          "int8_linear": chunks * q}),
+        "per-image": (lambda: score(list(images), list(texts)),
+                      {"flash_attention": k * layers,
+                       "int8_linear": k * math.ceil(n / bs) * q}),
+    }, k, n, label, counters, gpu)
+
+
+@torch.inference_mode()
+def answer_logits(scorer, images, texts):
+    """One batch of k x n pairs: (scores [k * n], the answer positions'
+    logits rows, fp32 on the host). CLIP-FlanT5 through its features,
+    InstructBLIP through its full forward."""
+    from clip_embeds_tpu_torch.models.llava import IGNORE_INDEX
+    from clip_embeds_tpu_torch.scores.vqa_score import (
+        DEFAULT_ANSWER_TEMPLATE, DEFAULT_QUESTION_TEMPLATE, _exp_neg_mean_ce)
+
+    pairs = [(im, t) for im in images for t in texts]
+    model = scorer.model
+    if hasattr(scorer, "encode_image_features"):
+        feats = scorer.encode_image_features(images)
+        q_ids, a_ids = scorer._tokenize_pairs(
+            [t for _, t in pairs], DEFAULT_QUESTION_TEMPLATE,
+            DEFAULT_ANSWER_TEMPLATE)
+        ids, enc_mask, labels, dec_mask = scorer.batch_inputs(q_ids, a_ids)
+        idx = torch.arange(len(images), device=scorer.device
+                           ).repeat_interleave(len(texts))
+        logits = model.forward_with_features(ids, feats[idx], labels,
+                                             enc_mask, dec_mask)
+    else:
+        from clip_embeds_tpu_torch.scores.vqa_score import (
+            INSTRUCTBLIP_ANSWER_TEMPLATE, INSTRUCTBLIP_QUESTION_TEMPLATE)
+
+        q_ids, t_ids, a_ids = scorer._tokenize(
+            [t for _, t in pairs], INSTRUCTBLIP_QUESTION_TEMPLATE,
+            INSTRUCTBLIP_ANSWER_TEMPLATE)
+        q, t, labels, q_mask, t_mask, dec_mask = scorer._inputs(
+            q_ids, t_ids, a_ids)
+        logits = model(scorer._pixels([im for im, _ in pairs]), q, t,
+                       labels, q_mask, t_mask, dec_mask)
+    scores = _exp_neg_mean_ce(logits.float(), labels).cpu().numpy()
+    return scores, logits[labels != IGNORE_INDEX].float().cpu()
+
+
+def agreement(ours, ref):
+    """(max |delta log score|, least row cosine) of two answer_logits."""
+    return (log_diff(ours[0], ref[0]),
+            float(F.cosine_similarity(ours[1], ref[1], dim=-1).min()))
+
+
+def plain_fp32_check(label, make_scorer, model, images, texts, gpu):
+    """The bf16 kernel route against the plain fp32 path on the T5 trunk
+    cut to T5_CUT_LAYERS + T5_CUT_LAYERS layers (full width, the towers
+    whole), beside the bf16 no-kernel witness on the same cut: max |delta
+    log score| and the least cosine of the answer rows' logits."""
+    cut = model_view(model, t5_cut(model.cfg, T5_CUT_LAYERS))
+    ref = cast_copy(cut, torch.float32)
+    imgs = images[:T5_PLAIN_IMAGES]
+    want = answer_logits(make_scorer(ref), imgs, texts)
+    got = answer_logits(make_scorer(cut), imgs, texts)
+    with plain_attention():
+        wit = answer_logits(make_scorer(cut), imgs, texts)
+    read = {"kernel": agreement(got, want), "witness": agreement(wit, want)}
+    print(f"[t5] {label} bf16 vs plain fp32, T5 cut to {T5_CUT_LAYERS} + "
+          f"{T5_CUT_LAYERS} layers, {len(imgs)} images x {len(texts)} texts "
+          f"({want[1].shape[0]} answer rows): max |d log score|, min row "
+          f"cosine: {read} (limits {T5_FP32_LOG_TOL}, {T5_FP32_COS}) on "
+          f"{gpu}")
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return read
+
+
+def check_t5_vqascore(counters, gpu, images, texts):
+    """Phase 13 (a) and (b): CLIP-FlanT5-XXL and InstructBLIP-FlanT5-XXL,
+    bf16 then W8A8 (the T5 trunk quantised from the bf16 model's seeded
+    values, shared by both)."""
+    from clip_embeds_tpu_torch.core.factory import init_score_model
+    from clip_embeds_tpu_torch.models.clip_t5 import CLIPT5
+    from clip_embeds_tpu_torch.models.instructblip import InstructBlipT5
+    from clip_embeds_tpu_torch.models.quant import quantize_clip_t5_trunk
+    from clip_embeds_tpu_torch.scores.build import default_model_config
+    from clip_embeds_tpu_torch.scores.score import (
+        InstructBlipVQAScore, T5VQAScore)
+    from clip_embeds_tpu_torch.scores.vqa_score import (
+        InstructBlipVQAScorer, T5VQAScorer)
+
+    cfg = default_model_config("clip-flant5-xxl")
+    ib_cfg = default_model_config("instructblip-flant5-xxl")
+    tok = t5_word_tokenizer(T5_SEED, cfg.t5.vocab_size)
+    qtok = word_tokenizer(T5_SEED, ib_cfg.qformer.vocab_size)
+    bf16 = torch.bfloat16
+    t0 = time.perf_counter()
+    with torch.device("meta"):
+        model = CLIPT5(cfg)
+    model = init_score_model(model, T5_SEED, "cuda", bf16)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[t5] CLIP-FlanT5-XXL (tower {cfg.tower_blocks} of "
+          f"{cfg.vision.layers} blocks, T5 {cfg.t5.num_layers} + "
+          f"{cfg.t5.decoder_layers} x {cfg.t5.d_model}, {cfg.t5.num_heads} "
+          f"heads of {cfg.t5.d_kv}, d_ff {cfg.t5.d_ff}; {n_params / 1e9:.2f} "
+          f"B parameters) bf16 built on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # (a) bf16: the three paths, their spread and agreement
+    score = T5VQAScore(model, tok, group_size=T5_GROUP)
+    s_bf16 = clip_t5_paths(score, images, texts, "clip-flant5 bf16",
+                           counters, gpu, False)
+    peak_bf16 = torch.cuda.max_memory_allocated()
+    spread("clip-flant5 bf16", s_bf16["groups"])
+    agree = {k: log_diff(v, s_bf16["groups"]) for k, v in s_bf16.items()}
+    print(f"[t5] clip-flant5 bf16 paths against groups, max |d log score| "
+          f"(limit {T5_PATHS_LOG_TOL}): {agree}; peak "
+          f"{peak_bf16 / 2**30:.2f} GiB on {gpu}")
+    if max(agree.values()) > T5_PATHS_LOG_TOL:
+        raise AssertionError(f"the bf16 CLIP-FlanT5 paths disagree: {agree}")
+    read = plain_fp32_check(
+        "clip-flant5", lambda m: T5VQAScorer(m, tok), model, images, texts,
+        gpu)
+    if read["kernel"][0] > T5_FP32_LOG_TOL or read["kernel"][1] < T5_FP32_COS:
+        raise AssertionError(f"bf16 CLIP-FlanT5 disagrees with fp32: {read}")
+    rows_bf16 = answer_logits(score.pair_forward.__self__,
+                              images[:T5_PLAIN_IMAGES], texts)
+
+    # (b) InstructBLIP-FlanT5-XXL on the same T5 trunk
+    t0 = time.perf_counter()
+    with torch.device("meta"):
+        ib = InstructBlipT5(ib_cfg)
+    ib = init_score_model(ib, T5_SEED + 1, "cuda", bf16, t5=model.t5)
+    torch.cuda.synchronize()
+    print(f"[t5] InstructBLIP-FlanT5-XXL (EVA-g {ib_cfg.vision.layers} x "
+          f"{ib_cfg.vision.width}, {ib_cfg.vision.heads} heads of "
+          f"{ib_cfg.vision.head_width}, {ib_cfg.vision.num_patches + 1} "
+          f"rows; Q-Former {ib_cfg.qformer.num_layers} layers, "
+          f"{ib_cfg.num_query_tokens} queries; the T5-XXL above) built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    ib_score = InstructBlipVQAScore(ib, qtok, tok)
+    ib_bf16 = instructblip_paths(ib_score, images, texts,
+                                 "instructblip bf16", counters, gpu, False)
+    spread("instructblip bf16", ib_bf16["pair"])
+    d = log_diff(ib_bf16["per-image"], ib_bf16["pair"])
+    print(f"[t5] instructblip bf16 per-image against pair, max |d log "
+          f"score| {d:.4g} (limit {T5_PATHS_LOG_TOL})")
+    if d > T5_PATHS_LOG_TOL:
+        raise AssertionError(f"the bf16 InstructBLIP paths disagree: {d}")
+    read = plain_fp32_check(
+        "instructblip",
+        lambda m: InstructBlipVQAScorer(m, qtok, tok), ib, images, texts,
+        gpu)
+    if read["kernel"][0] > T5_FP32_LOG_TOL or read["kernel"][1] < T5_FP32_COS:
+        raise AssertionError(f"bf16 InstructBLIP disagrees with fp32: {read}")
+    ib_rows_bf16 = answer_logits(ib_score.pair_forward.__self__,
+                                 images[:T5_PLAIN_IMAGES], texts)
+
+    # W8A8: the T5 trunk's 432 projections a pass through int8_linear
+    t0 = time.perf_counter()
+    qmodel = quantize_clip_t5_trunk(model)
+    qib = model_view(ib, strict=False, quant_t5="dynamic")
+    qib.t5 = qmodel.t5
+    del score, ib_score, model, ib
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    print(f"[t5] W8A8 T5 trunk quantised on the card in "
+          f"{time.perf_counter() - t0:.1f} s; the bf16 trunk freed")
+    torch.cuda.reset_peak_memory_stats()
+    qscore = T5VQAScore(qmodel, tok, group_size=T5_GROUP)
+    s_int8 = clip_t5_paths(qscore, images, texts, "clip-flant5 int8",
+                           counters, gpu, True)
+    peak_int8 = torch.cuda.max_memory_allocated()
+    vs = {k: log_diff(s_int8[k], s_bf16[k]) for k in s_int8}
+    cos = agreement(answer_logits(qscore.pair_forward.__self__,
+                                  images[:T5_PLAIN_IMAGES], texts),
+                    rows_bf16)[1]
+    print(f"[t5] clip-flant5 int8 against bf16, max |d log score| (limit "
+          f"{T5_INT8_LOG_TOL}): {vs}; min answer-row logits cosine "
+          f"{cos:.6f} (limit {T5_INT8_COS}); peak {peak_int8 / 2**30:.2f} "
+          f"GiB (bf16 {peak_bf16 / 2**30:.2f}) on {gpu}")
+    if (max(vs.values()) > T5_INT8_LOG_TOL or cos < T5_INT8_COS
+            or peak_int8 >= peak_bf16):
+        raise AssertionError(f"int8 CLIP-FlanT5: {vs}, cosine {cos}, peak "
+                             f"{peak_int8} >= {peak_bf16}?")
+    qib_score = InstructBlipVQAScore(qib, qtok, tok)
+    ib_int8 = instructblip_paths(qib_score, images, texts,
+                                 "instructblip int8", counters, gpu, True)
+    vs = {k: log_diff(ib_int8[k], ib_bf16[k]) for k in ib_int8}
+    cos = agreement(answer_logits(qib_score.pair_forward.__self__,
+                                  images[:T5_PLAIN_IMAGES], texts),
+                    ib_rows_bf16)[1]
+    print(f"[t5] instructblip int8 against bf16, max |d log score| "
+          f"{vs}; min answer-row logits cosine {cos:.6f} (limits "
+          f"{T5_INT8_LOG_TOL}, {T5_INT8_COS}) on {gpu}")
+    if max(vs.values()) > T5_INT8_LOG_TOL or cos < T5_INT8_COS:
+        raise AssertionError(f"int8 InstructBLIP: {vs}, cosine {cos}")
+    del qscore, qib_score, qmodel, qib
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def check_blip_scores(counters, gpu, images, texts, tmp):
+    """Phase 13 (c): blip2-itm, blip2-itc and image-reward-v1 at full
+    width from seeded fp32 bundles in the JAX layout, through
+    get_score_model in bf16 with exact launches (#4 39 an EVA-g call, 24 a
+    BLIP ViT-L call: one an image of the m x n broadcast), against the
+    plain fp32 path (the bundle's source model, fp32 on the card)."""
+    from clip_embeds_tpu_torch.core.convert import jax_params_from_module
+    from clip_embeds_tpu_torch.core.factory import init_score_model
+    from clip_embeds_tpu_torch.models.blip import ImageReward
+    from clip_embeds_tpu_torch.models.blip2 import Blip2ITM
+    from clip_embeds_tpu_torch.scores.build import (
+        _blip2_itc_score, default_model_config, save_score_bundle)
+    from clip_embeds_tpu_torch.scores.registry import get_score_model
+    from clip_embeds_tpu_torch.scores.score import ITMScore, ImageRewardScore
+
+    k = len(images)
+    for family, cls, names in (
+            ("blip2", Blip2ITM, (("blip2-itm", BLIP_ITM_TOL, ITMScore),
+                                 ("blip2-itc", BLIP_ITC_TOL,
+                                  _blip2_itc_score))),
+            ("image_reward", ImageReward,
+             (("image-reward-v1", REWARD_TOL, ImageRewardScore),))):
+        cfg = default_model_config(names[0][0])
+        tok = word_tokenizer(T5_SEED, (cfg.qformer if family == "blip2"
+                                       else cfg.text).vocab_size)
+        t0 = time.perf_counter()
+        with torch.device("meta"):
+            src = cls(cfg)
+        src = init_score_model(src, T5_SEED + 2, "cuda", torch.float32)
+        bundle = os.path.join(tmp, family)
+        save_score_bundle(bundle, family, cfg, jax_params_from_module(src))
+        size = os.path.getsize(os.path.join(bundle, "params.npz"))
+        print(f"[t5] {family} bundle: {sum(p.numel() for p in src.parameters()) / 1e9:.3f} "
+              f"B parameters, params.npz {size / 2**30:.2f} GiB, written in "
+              f"{time.perf_counter() - t0:.1f} s")
+        for name, tol, factory in names:
+            t0 = time.perf_counter()
+            score = get_score_model(name, checkpoint=bundle, tokenize=tok)
+            t_load = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            got = counted(counters, f"{name} bf16, {k} images x "
+                          f"{len(texts)} texts",
+                          lambda: score(list(images), list(texts)),
+                          {"flash_attention": k * cfg.vision.layers},
+                          tag="t5")
+            dt = time.perf_counter() - t0
+            want = factory(src, tok, image_size=cfg.vision.image_size)(
+                list(images), list(texts))
+            diff = float(np.abs(got - want).max())
+            lo, hi = float(want.min()), float(want.max())
+            print(f"[t5] {name}: loaded in {t_load:.1f} s; {k * len(texts)} "
+                  f"pairs in {dt:.2f} s ({k * len(texts) / dt:.2f} pairs/s, "
+                  f"the first call); plain fp32 {lo:.4g}..{hi:.4g}, max "
+                  f"|bf16 - fp32| {diff:.4g} (limit {tol}) on {gpu}")
+            if not np.isfinite(got).all() or diff > tol or hi - lo <= 0:
+                raise AssertionError(f"{name}: {got} against {want}")
+            del score
+            gc.collect()
+            torch.cuda.empty_cache()
+        del src
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def check_t5_family(counters, gpu):
+    """Phase 13: (a), (b) and (c) on phase 7's What'sUp-A fixture, written
+    again from its seed: its first T5_GROUP images x T5_TEXTS options."""
+    from clip_embeds_tpu_torch.evals.whatsup import load_annotation
+    from clip_embeds_tpu_torch.ops.fused_block import int8_linear
+
+    counters = dict(counters, int8_linear=int8_linear)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "whatsup")
+        write_whatsup(root, 7)
+        data, _ = load_annotation(root, "a")
+        images = [os.path.join(root, d["image_path"][5:])
+                  for d in data[:T5_GROUP]]
+        texts = data[0]["caption_options"][:T5_TEXTS]
+        t0 = time.perf_counter()
+        check_t5_vqascore(counters, gpu, images, texts)
+        print(f"[phase 13] (a) and (b) {time.perf_counter() - t0:.1f} s on "
+              f"{gpu}")
+        t0 = time.perf_counter()
+        check_blip_scores(counters, gpu, images, texts, tmp)
+        print(f"[phase 13] (c) {time.perf_counter() - t0:.1f} s on {gpu}")
 
 
 def main() -> int:
@@ -3182,6 +3667,7 @@ def main() -> int:
         check_gemms(np.random.default_rng(1), gpu)
         check_gemms_s8(np.random.default_rng(2), gpu)
         check_int8_linear(gpu)
+        check_int8_linear(gpu, T5_INT8_LINEAR_CASES, seed=13)
 
     # 4. the main path at full width and depth
     t0 = time.perf_counter()
@@ -3330,6 +3816,13 @@ def main() -> int:
     check_vlm2vec(llava.to("cuda"), qllava, counters, gpu)
     del llava, qllava
     print(f"[phase 11] {time.perf_counter() - t0:.1f} s on {gpu}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 13. the T5 and BLIP score families
+    t0 = time.perf_counter()
+    check_t5_family(counters, gpu)
+    print(f"[phase 13] {time.perf_counter() - t0:.1f} s on {gpu}")
 
     def entry(name, source, replaces, path_launches, shape):
         """One kernel's line: the largest max |diff| over its shapes, and

@@ -6,9 +6,12 @@ The score model resolves as in the JAX CLI:
   * a CLIP config name (e.g. ViT-L-14-336) -> CLIPScore
   * 'siglip:<arch>' -> SigLIP sigmoid pairing (--siglip-tokenizer points at
     a local sentencepiece .model)
-  * a registered VQAScore name (llava-v1.5-7b, ...) with --checkpoint
-    <score bundle> -> scores.registry.get_score_model (the bundle must hold
-    its tokenizer/ directory: this CLI passes no tokenizer)
+  * a registered VQAScore or ITMScore name (llava-v1.5-7b,
+    clip-flant5-xxl, instructblip-flant5-xxl, blip2-itm, blip2-itc,
+    image-reward-v1, ...) with --checkpoint <score bundle> ->
+    scores.registry.get_score_model (the bundle must hold its tokenizer/
+    directory, and InstructBLIP's its qformer_tokenizer/: this CLI passes
+    no tokenizer)
 
 ``--device`` (default ``cuda``) exits with an error without a card unless
 given ``--device cpu``.

@@ -175,10 +175,10 @@ def to_device(batch: Dict[str, np.ndarray], device, dtype):
 def save_merged(path: str, cfg, merged) -> None:
     """The merged model as a score bundle in the JAX layout (fp32
     params.npz), ready for ``build_score_model`` and ``cli/eval_mmeb.py``."""
-    from ..core.convert import jax_params_from_llava
+    from ..core.convert import jax_params_from_module
     from ..scores.build import save_score_bundle
 
-    save_score_bundle(path, "llava", cfg, jax_params_from_llava(merged),
+    save_score_bundle(path, "llava", cfg, jax_params_from_module(merged),
                       conversation="chat")
 
 
@@ -327,7 +327,7 @@ def main(argv=None):
     def save_trainable(tag: str):
         if not out_dir:
             return
-        from ..core.convert import jax_params_from_llava
+        from ..core.convert import jax_params_from_module
         from ..core.factory import save_params_npz
 
         path = os.path.join(out_dir, f"adapter-{tag}.npz" if model_args.lora
@@ -336,7 +336,7 @@ def main(argv=None):
             tree = {k: {n: t.detach().float().cpu().numpy()
                         for n, t in ab.items()} for k, ab in trainable.items()}
         else:
-            tree = jax_params_from_llava(model)
+            tree = jax_params_from_module(model)
         save_params_npz(tree, path)
         log.info("saved %s", path)
 

@@ -19,14 +19,20 @@ a Dense ``kernel`` [in, out] is ``nn.Linear.weight`` [out, in], a LayerNorm
 port's ``models/llava.py`` :class:`Llava`, as the JAX
 ``convert_llava_state_dict`` reads it;
 :func:`llava_state_dict_from_jax_params` carries the JAX ``Llava`` params
-(a score bundle's ``params.npz``, int8 trunks included) across, and
-:func:`jax_params_from_llava` carries the port's model back.
+(a score bundle's ``params.npz``, int8 trunks included) across.
 
 :func:`siglip_state_dict_from_hf` loads HF ``SiglipModel`` weights into the
 port's SigLIP (``models/siglip.py``), as the JAX
-``convert_siglip_state_dict`` reads them;
-:func:`siglip_state_dict_from_jax_params` carries the JAX ``Siglip`` params
-across, for the tests.
+``convert_siglip_state_dict`` reads them.
+
+The models whose module names are flax's (the Llama trunk, SigLIP,
+CLIP-FlanT5's T5, InstructBLIP-FlanT5, BLIP-2, ImageReward):
+:func:`state_dict_from_flax` carries a flax tree into the port
+(:func:`llava_state_dict_from_jax_params` and
+:func:`clip_t5_state_dict_from_jax_params` add their CLIP tower), and
+:func:`jax_params_from_module` carries any of these models (and LLaVA)
+back; ``convert_*_state_dict`` read the HF layouts of the T5 and BLIP
+families into the same flax trees the JAX converters give.
 """
 
 from __future__ import annotations
@@ -229,34 +235,6 @@ def siglip_state_dict_from_hf(sd: Mapping[str, Any]
     return out
 
 
-def siglip_state_dict_from_jax_params(params: Mapping[str, Any]
-                                      ) -> Dict[str, torch.Tensor]:
-    """flax params of ``clip_embeds_tpu.models.siglip.Siglip`` (numpy
-    arrays) -> the port's :class:`Siglip` state dict of fp32 tensors: Dense
-    kernels [in, out] become ``[out, in]`` weights, LayerNorm scales
-    weights, ``blocks_{i}`` ``blocks.{i}``, the MAP head's
-    ``in_proj_kernel`` [W, 3W] its ``in_proj_weight`` [3W, W]."""
-    out: Dict[str, torch.Tensor] = {}
-
-    def walk(p: Mapping[str, Any], prefix: str) -> None:
-        for name, value in p.items():
-            key = prefix + (name.replace("blocks_", "blocks.")
-                            if name.startswith("blocks_") else name)
-            if isinstance(value, Mapping):
-                walk(value, key + ".")
-            elif name == "kernel":
-                out[prefix + "weight"] = _t(np.asarray(value).T)
-            elif name in ("scale", "embedding"):
-                out[prefix + "weight"] = _t(value)
-            elif name == "in_proj_kernel":
-                out[prefix + "in_proj_weight"] = _t(np.asarray(value).T)
-            else:  # bias, in_proj_bias, probe, position_embedding, logits
-                out[key] = _t(np.asarray(value))
-
-    walk(params, "")
-    return out
-
-
 # -- LLaVA -------------------------------------------------------------------
 
 
@@ -353,46 +331,9 @@ def llava_state_dict_from_jax_params(params: Mapping[str, Any], cfg
     sd = _vision_tower(params["vision_tower"], "vision_tower", head=False)
     for name, lin in params["multi_modal_projector"].items():
         sd.update(_linear(lin, f"multi_modal_projector.{name}"))
-    sd.update(llama_state_dict_from_jax_params(params["language_model"],
-                                               "language_model."))
+    sd.update(state_dict_from_flax(params["language_model"],
+                                   "language_model."))
     return _tapped_blocks(sd, cfg)
-
-
-def llama_state_dict_from_jax_params(params: Mapping[str, Any],
-                                     prefix: str = ""
-                                     ) -> Dict[str, torch.Tensor]:
-    """flax params of ``clip_embeds_tpu.models.llama.LlamaForCausalLM``
-    (numpy arrays) -> the port's ``models/llama.py`` state dict under
-    ``prefix``: Dense kernels transposed to ``[out, in]`` weights,
-    ``layers_{i}`` as ``layers.{i}``, the embedding table as
-    ``embed_tokens.weight``, and each QuantDense as QuantLinear buffers
-    (see :func:`llava_state_dict_from_jax_params`)."""
-    sd: Dict[str, torch.Tensor] = {}
-
-    def walk(node: Mapping[str, Any], prefix: str) -> None:
-        if "kernel_q" in node:  # a QuantDense
-            sd[prefix + "weight_q"] = torch.from_numpy(
-                np.ascontiguousarray(np.asarray(node["kernel_q"]).T))
-            sd[prefix + "scale"] = _t(node["scale"])
-            if "bias" in node:
-                sd[prefix + "bias"] = _t(node["bias"])
-            sd[prefix + "act_scale"] = _t(np.asarray(
-                node.get("act_scale", 1.0)).reshape(()))
-            sd[prefix + "act_max"] = torch.zeros(())
-            return
-        for name, value in node.items():
-            key = name.replace("layers_", "layers.")
-            if isinstance(value, Mapping):
-                walk(value, f"{prefix}{key}.")
-            elif name == "kernel":
-                sd[prefix + "weight"] = _t(np.asarray(value).T)
-            elif name == "embedding":
-                sd[prefix + "weight"] = _t(value)
-            else:  # RMSNorm weight, bias
-                sd[prefix + key] = _t(value)
-
-    walk(params, prefix)
-    return sd
 
 
 def flax_module_path(name: str, sep: str = "/") -> str:
@@ -422,32 +363,38 @@ def lora_targets_by_key(model: torch.nn.Module) -> Dict[str, torch.nn.Module]:
             if isinstance(m, (torch.nn.Linear, QuantLinear))}
 
 
-def jax_params_from_llava(model: torch.nn.Module) -> Dict[str, Any]:
-    """The port's :class:`Llava` -> flax ``Llava`` params (nested dicts of
-    numpy arrays: float32, int8 ``kernel_q`` for a quantised trunk, with
-    ``act_scale`` where a layer is static), the layout of a score
-    bundle's ``params.npz``. The vision tower has no ``ln_post`` and no
-    output projection, as a flax ``Llava.init`` makes none."""
+def jax_params_from_module(model: torch.nn.Module) -> Dict[str, Any]:
+    """Any of the port's models whose module names are flax's (LLaVA,
+    CLIP-FlanT5, InstructBLIP, BLIP-2, ImageReward) -> its flax params:
+    nested dicts of numpy arrays, float32 and int8 ``kernel_q``, the
+    layout of a score bundle's ``params.npz``. A linear layer's ``weight``
+    [out, in] is a Dense ``kernel`` [in, out]; an embedding's ``weight``
+    its ``embedding``; a LayerNorm's ``weight`` its ``scale``; an RMS or
+    T5 norm keeps ``weight``; a packed attention's ``in_proj_weight`` is
+    ``in_proj/kernel``; the CLIP tower's ``conv1`` is ``patch_embed``; a
+    list index joins its list's name with '_'; any other parameter keeps
+    its name."""
     from ..models.layers import LayerNorm, MultiHeadAttention
     from ..models.llama import RMSNorm
     from ..models.quant import QuantLinear
+    from ..models.t5 import T5LayerNorm
+    from ..models.vit import VisionTransformer
 
     def arr(t: torch.Tensor) -> np.ndarray:
         t = t.detach().cpu()
-        return (t.numpy() if t.dtype == torch.int8
-                else t.float().numpy())
+        return np.ascontiguousarray(
+            t.numpy() if t.dtype == torch.int8 else t.float().numpy())
 
     tree: Dict[str, Any] = {}
 
     def put(path: str, leaf: Dict[str, np.ndarray]) -> None:
         node = tree
-        for part in path.split(".")[:-1]:
+        for part in (path.split(".") if path else []):
             node = node.setdefault(part, {})
-        node.setdefault(path.split(".")[-1], {}).update(
-            {k: np.ascontiguousarray(v) for k, v in leaf.items()})
+        node.update(leaf)
 
     for name, m in model.named_modules():
-        path = flax_module_path(name, ".")
+        path = flax_module_path(name, ".") if name else ""
         if isinstance(m, QuantLinear):
             leaf = {"kernel_q": arr(m.weight_q).T, "scale": arr(m.scale)}
             if m.bias is not None:
@@ -462,20 +409,442 @@ def jax_params_from_llava(model: torch.nn.Module) -> Dict[str, Any]:
             put(path, leaf)
         elif isinstance(m, torch.nn.Embedding):
             put(path, {"embedding": arr(m.weight)})
-        elif isinstance(m, RMSNorm):
+        elif isinstance(m, (RMSNorm, T5LayerNorm)):
             put(path, {"weight": arr(m.weight)})
         elif isinstance(m, LayerNorm):
             put(path, {"scale": arr(m.weight), "bias": arr(m.bias)})
-        elif isinstance(m, MultiHeadAttention) and not hasattr(m, "in_proj"):
-            put(path + ".in_proj", {"kernel": arr(m.in_proj_weight).T,
-                                    "bias": arr(m.in_proj_bias)})
-    v = model.vision_tower
-    conv = arr(v.conv1.weight)  # [W, 3, p, p]
-    width, cin, p, _ = conv.shape
-    tree["vision_tower"].update({
-        "patch_embed": {"kernel": np.ascontiguousarray(
-            conv.transpose(2, 3, 1, 0).reshape(p * p * cin, width))},
-        "class_embedding": arr(v.class_embedding),
-        "positional_embedding": arr(v.positional_embedding),
-    })
+        elif isinstance(m, torch.nn.Conv2d):
+            continue  # the CLIP tower's patchify, written with the tower
+        elif isinstance(m, MultiHeadAttention):
+            if not hasattr(m, "in_proj"):
+                put(path + ".in_proj", {"kernel": arr(m.in_proj_weight).T,
+                                        "bias": arr(m.in_proj_bias)})
+        else:
+            own = {k: arr(v) for k, v in m.named_parameters(recurse=False)}
+            if isinstance(m, VisionTransformer):
+                conv = arr(m.conv1.weight)
+                width, cin, p, _ = conv.shape
+                own["patch_embed"] = {"kernel": np.ascontiguousarray(
+                    conv.transpose(2, 3, 1, 0).reshape(p * p * cin, width))}
+            if own:
+                put(path, own)
     return tree
+
+
+# -- flax trees in, generically ------------------------------------------------
+
+# the flax names of lists of modules: ``block_3`` is the port's ``block.3``
+_LIST_NAMES = ("block", "blocks", "layer", "layers", "resblocks", "mlp")
+
+
+def _port_name(name: str) -> str:
+    head, _, idx = name.rpartition("_")
+    return f"{head}.{idx}" if head in _LIST_NAMES and idx.isdigit() else name
+
+
+def state_dict_from_flax(params: Mapping[str, Any], prefix: str = "",
+                         packed_in_proj: bool = True
+                         ) -> Dict[str, torch.Tensor]:
+    """A flax param tree (numpy arrays) of one of the port's models whose
+    module names are flax's -> its state dict under ``prefix``, the
+    inverse of :func:`jax_params_from_module` without the CLIP tower's
+    conv: Dense kernels [in, out] become ``[out, in]`` weights, embeddings
+    and LayerNorm scales ``weight``, an ``in_proj`` Dense the packed
+    attention's ``in_proj_weight`` / ``in_proj_bias`` (with
+    ``packed_in_proj=False``, for SigLIP's blocks, a linear ``in_proj``),
+    SigLIP's MAP head's ``in_proj_kernel`` its ``in_proj_weight``,
+    ``block_{i}`` ``block.{i}`` (``_LIST_NAMES``), and each QuantDense the
+    QuantLinear buffers (a dynamic layer's ``act_scale`` and every
+    ``act_max`` start at 1 and 0)."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def walk(node: Mapping[str, Any], prefix: str) -> None:
+        if "kernel_q" in node:  # a QuantDense
+            sd[prefix + "weight_q"] = torch.from_numpy(
+                np.ascontiguousarray(np.asarray(node["kernel_q"]).T))
+            sd[prefix + "scale"] = _t(node["scale"])
+            if "bias" in node:
+                sd[prefix + "bias"] = _t(node["bias"])
+            sd[prefix + "act_scale"] = _t(np.asarray(
+                node.get("act_scale", 1.0)).reshape(()))
+            sd[prefix + "act_max"] = torch.zeros(())
+            return
+        for name, value in node.items():
+            if isinstance(value, Mapping):
+                if packed_in_proj and name == "in_proj" and "kernel" in value:
+                    sd[prefix + "in_proj_weight"] = _t(
+                        np.asarray(value["kernel"]).T)
+                    sd[prefix + "in_proj_bias"] = _t(value["bias"])
+                else:
+                    walk(value, f"{prefix}{_port_name(name)}.")
+            elif name in ("kernel", "in_proj_kernel"):
+                sd[prefix + name.replace("kernel", "weight")] = _t(
+                    np.asarray(value).T)
+            elif name in ("embedding", "scale"):
+                sd[prefix + "weight"] = _t(value)
+            else:  # bias, a norm's weight, an embedding parameter
+                sd[prefix + name] = _t(value)
+
+    walk(params, prefix)
+    return sd
+
+
+def clip_t5_state_dict_from_jax_params(params: Mapping[str, Any], cfg
+                                       ) -> Dict[str, torch.Tensor]:
+    """flax params of ``clip_embeds_tpu.models.clip_t5.CLIPT5`` (numpy
+    arrays, a score bundle's tree, int8 T5 projections included) -> the
+    state dict of the port's :class:`~..models.clip_t5.CLIPT5` of config
+    ``cfg``. As for LLaVA, the tower's ``ln_post``, projection and blocks
+    past the tap (in a tree converted from HF) are not carried."""
+    sd = _vision_tower(params["vision_tower"], "vision_tower", head=False)
+    for name, lin in params["multi_modal_projector"].items():
+        sd.update(_linear(lin, f"multi_modal_projector.{name}"))
+    sd.update(state_dict_from_flax(params["t5"], "t5."))
+    return _tapped_blocks(sd, cfg)
+
+
+# -- HF layouts: T5, BLIP-2, InstructBLIP, CLIP-FlanT5, ImageReward ----------
+#
+# Each ``convert_*`` reads what the JAX function of the same name
+# (``core/torch_convert.py``, ``models/blip.py``) reads and returns the same
+# flax-layout tree of numpy arrays; :func:`state_dict_from_flax` (or
+# :func:`clip_t5_state_dict_from_jax_params`) carries it into the port.
+
+
+def _flax_linear(sd: Mapping[str, Any], prefix: str) -> Dict[str, np.ndarray]:
+    out = {"kernel": _hf(sd, prefix + ".weight").T}
+    if prefix + ".bias" in sd:
+        out["bias"] = _hf(sd, prefix + ".bias")
+    return out
+
+
+def _flax_dense_nb(sd: Mapping[str, Any], prefix: str
+                   ) -> Dict[str, np.ndarray]:
+    return {"kernel": _hf(sd, prefix + ".weight").T}
+
+
+def _flax_ln(sd: Mapping[str, Any], prefix: str) -> Dict[str, np.ndarray]:
+    return {"scale": _hf(sd, prefix + ".weight"),
+            "bias": _hf(sd, prefix + ".bias")}
+
+
+def _count(sd: Mapping[str, Any], pattern: str) -> int:
+    n = 0
+    while pattern.format(n) in sd:
+        n += 1
+    return n
+
+
+def _t5_attn(sd: Mapping[str, Any], prefix: str) -> Dict[str, Any]:
+    out: Dict[str, Any] = {name: _flax_dense_nb(sd, f"{prefix}.{name}")
+                           for name in ("q", "k", "v", "o")}
+    if f"{prefix}.relative_attention_bias.weight" in sd:
+        out["relative_attention_bias"] = {"embedding": _hf(
+            sd, f"{prefix}.relative_attention_bias.weight")}
+    return out
+
+
+def _t5_stack(sd: Mapping[str, Any], prefix: str, is_decoder: bool
+              ) -> Dict[str, Any]:
+    stack: Dict[str, Any] = {}
+    for i in range(_count(sd, prefix + ".block.{}.layer.0.layer_norm.weight")):
+        p = f"{prefix}.block.{i}.layer"
+        blk: Dict[str, Any] = {
+            "self_ln": {"weight": _hf(sd, f"{p}.0.layer_norm.weight")},
+            "self_attn": _t5_attn(sd, f"{p}.0.SelfAttention"),
+        }
+        ff = 1
+        if is_decoder:
+            blk["cross_ln"] = {"weight": _hf(sd, f"{p}.1.layer_norm.weight")}
+            blk["cross_attn"] = _t5_attn(sd, f"{p}.1.EncDecAttention")
+            ff = 2
+        blk["ff_ln"] = {"weight": _hf(sd, f"{p}.{ff}.layer_norm.weight")}
+        dense = f"{p}.{ff}.DenseReluDense"
+        names = (("wi_0", "wi_1", "wo") if f"{dense}.wi_0.weight" in sd
+                 else ("wi", "wo"))
+        blk["ff"] = {n: _flax_dense_nb(sd, f"{dense}.{n}") for n in names}
+        stack[f"block_{i}"] = blk
+    stack["final_ln"] = {"weight": _hf(sd, f"{prefix}.final_layer_norm.weight")}
+    return stack
+
+
+def convert_t5_state_dict(sd: Mapping[str, Any], prefix: str = ""
+                          ) -> Dict[str, Any]:
+    """HF ``T5ForConditionalGeneration`` -> the flax tree of
+    ``models/t5.py`` (``lm_head`` where the checkpoint has one)."""
+    sd = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+    params: Dict[str, Any] = {
+        "shared": {"embedding": _hf(sd, "shared.weight")},
+        "encoder": _t5_stack(sd, "encoder", is_decoder=False),
+        "decoder": _t5_stack(sd, "decoder", is_decoder=True),
+    }
+    if "lm_head.weight" in sd:
+        params["lm_head"] = _flax_dense_nb(sd, "lm_head")
+    return params
+
+
+def _bert_attn(sd: Mapping[str, Any], prefix: str) -> Dict[str, Any]:
+    return {
+        "query": _flax_linear(sd, f"{prefix}.attention.query"),
+        "key": _flax_linear(sd, f"{prefix}.attention.key"),
+        "value": _flax_linear(sd, f"{prefix}.attention.value"),
+        "out_dense": _flax_linear(sd, f"{prefix}.output.dense"),
+        "out_ln": _flax_ln(sd, f"{prefix}.output.LayerNorm"),
+    }
+
+
+def _blip2_vision(sd: Mapping[str, Any], prefix: str = "vision_model"
+                  ) -> Dict[str, Any]:
+    """HF Blip2 / InstructBlip vision model -> the tower's flax tree. The
+    qkv bias is read as ``self_attn.qkv.bias`` ([q_bias; 0; v_bias], the
+    layout HF builds); a state dict that holds ``q_bias`` / ``v_bias``
+    apart raises rather than load without them."""
+    conv = _hf(sd, f"{prefix}.embeddings.patch_embedding.weight")
+    width, cin, p, _ = conv.shape
+    blocks: Dict[str, Any] = {}
+    for i in range(_count(sd, prefix + ".encoder.layers.{}.layer_norm1.weight")):
+        pre = f"{prefix}.encoder.layers.{i}"
+        if f"{pre}.self_attn.qkv.bias" not in sd and (
+                f"{pre}.self_attn.q_bias" in sd):
+            raise ValueError(
+                f"{pre}.self_attn holds q_bias / v_bias apart: store them "
+                "as self_attn.qkv.bias = [q_bias; 0; v_bias]")
+        blocks[f"resblocks_{i}"] = {
+            "ln_1": _flax_ln(sd, f"{pre}.layer_norm1"),
+            "attn": {
+                "in_proj": _flax_linear(sd, f"{pre}.self_attn.qkv"),
+                "out_proj": _flax_linear(sd, f"{pre}.self_attn.projection"),
+            },
+            "ln_2": _flax_ln(sd, f"{pre}.layer_norm2"),
+            "mlp": {
+                "c_fc": _flax_linear(sd, f"{pre}.mlp.fc1"),
+                "c_proj": _flax_linear(sd, f"{pre}.mlp.fc2"),
+            },
+        }
+    return {
+        "patch_embed": {
+            "kernel": conv.transpose(2, 3, 1, 0).reshape(p * p * cin, width),
+            "bias": _hf(sd, f"{prefix}.embeddings.patch_embedding.bias"),
+        },
+        "class_embedding": _hf(
+            sd, f"{prefix}.embeddings.class_embedding").reshape(-1),
+        "positional_embedding": _hf(
+            sd, f"{prefix}.embeddings.position_embedding").reshape(-1, width),
+        "transformer": blocks,
+        "post_layernorm": _flax_ln(sd, f"{prefix}.post_layernorm"),
+    }
+
+
+def _qformer_layers(sd: Mapping[str, Any], prefix: str = "qformer"
+                    ) -> Dict[str, Any]:
+    """HF Blip2 / InstructBlip Q-Former layers -> ``layer_{i}`` trees
+    (without the input LayerNorm, whose key differs between the two)."""
+    layers: Dict[str, Any] = {}
+    n = _count(sd, prefix + ".encoder.layer.{}.attention.attention.query.weight")
+    for i in range(n):
+        pre = f"{prefix}.encoder.layer.{i}"
+        layer: Dict[str, Any] = {
+            "attention": _bert_attn(sd, f"{pre}.attention"),
+            "ffn_query": {
+                "intermediate": _flax_linear(
+                    sd, f"{pre}.intermediate_query.dense"),
+                "output": _flax_linear(sd, f"{pre}.output_query.dense"),
+                "ln": _flax_ln(sd, f"{pre}.output_query.LayerNorm"),
+            },
+        }
+        if f"{pre}.crossattention.attention.query.weight" in sd:
+            layer["crossattention"] = _bert_attn(sd, f"{pre}.crossattention")
+        if f"{pre}.intermediate.dense.weight" in sd:
+            layer["ffn"] = {
+                "intermediate": _flax_linear(sd, f"{pre}.intermediate.dense"),
+                "output": _flax_linear(sd, f"{pre}.output.dense"),
+                "ln": _flax_ln(sd, f"{pre}.output.LayerNorm"),
+            }
+        layers[f"layer_{i}"] = layer
+    return layers
+
+
+def _query_tokens(sd: Mapping[str, Any]) -> np.ndarray:
+    q = _hf(sd, "query_tokens")
+    return q.reshape(-1, q.shape[-1])
+
+
+def convert_blip2_state_dict(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """HF ``Blip2ForImageTextRetrieval`` -> the flax tree of
+    ``models/blip2.py Blip2ITM``."""
+    return {
+        "vision_model": _blip2_vision(sd),
+        "query_tokens": _query_tokens(sd),
+        "word_embeddings": {
+            "embedding": _hf(sd, "embeddings.word_embeddings.weight")},
+        "position_embeddings": {
+            "embedding": _hf(sd, "embeddings.position_embeddings.weight")},
+        "qformer": dict(_qformer_layers(sd),
+                        input_ln=_flax_ln(sd, "qformer.layernorm")),
+        "vision_projection": _flax_linear(sd, "vision_projection"),
+        "text_projection": _flax_linear(sd, "text_projection"),
+        "itm_head": _flax_linear(sd, "itm_head"),
+    }
+
+
+def convert_instructblip_state_dict(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """HF ``InstructBlipForConditionalGeneration`` (FlanT5 LM) -> the flax
+    tree of ``models/instructblip.py InstructBlipT5``."""
+    return {
+        "vision_model": _blip2_vision(sd),
+        "query_tokens": _query_tokens(sd),
+        "word_embeddings": {"embedding": _hf(
+            sd, "qformer.embeddings.word_embeddings.weight")},
+        "position_embeddings": {"embedding": _hf(
+            sd, "qformer.embeddings.position_embeddings.weight")},
+        "qformer": dict(_qformer_layers(sd),
+                        input_ln=_flax_ln(sd, "qformer.embeddings.layernorm")),
+        "language_projection": _flax_linear(sd, "language_projection"),
+        "t5": convert_t5_state_dict(sd, prefix="language_model."),
+    }
+
+
+def convert_hf_clip_vision_state_dict(sd: Mapping[str, Any],
+                                      prefix: str = "vision_model."
+                                      ) -> Dict[str, Any]:
+    """HF ``CLIPVisionModel`` -> the flax tree of a ``VisionTransformer``:
+    q/k/v packed into ``in_proj`` (q, k, v stacked), ``pre_layrnorm``
+    (sic) as ``ln_pre``; a zero ``proj``, which the hidden tap never
+    reads."""
+    sd = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+    conv = _hf(sd, "embeddings.patch_embedding.weight")
+    width, cin, p, _ = conv.shape
+    blocks: Dict[str, Any] = {}
+    for i in range(_count(sd, "encoder.layers.{}.layer_norm1.weight")):
+        pre = f"encoder.layers.{i}.self_attn"
+        blocks[f"resblocks_{i}"] = {
+            "ln_1": _flax_ln(sd, f"encoder.layers.{i}.layer_norm1"),
+            "attn": {
+                "in_proj": {
+                    "kernel": np.concatenate([_hf(
+                        sd, f"{pre}.{x}_proj.weight") for x in "qkv"]).T,
+                    "bias": np.concatenate([_hf(
+                        sd, f"{pre}.{x}_proj.bias") for x in "qkv"]),
+                },
+                "out_proj": _flax_linear(sd, f"{pre}.out_proj"),
+            },
+            "ln_2": _flax_ln(sd, f"encoder.layers.{i}.layer_norm2"),
+            "mlp": {
+                "c_fc": _flax_linear(sd, f"encoder.layers.{i}.mlp.fc1"),
+                "c_proj": _flax_linear(sd, f"encoder.layers.{i}.mlp.fc2"),
+            },
+        }
+    return {
+        "patch_embed": {"kernel": conv.transpose(2, 3, 1, 0).reshape(
+            p * p * cin, width)},
+        "class_embedding": _hf(sd, "embeddings.class_embedding"),
+        "positional_embedding": _hf(sd, "embeddings.position_embedding.weight"),
+        "ln_pre": _flax_ln(sd, "pre_layrnorm"),
+        "transformer": blocks,
+        "ln_post": _flax_ln(sd, "post_layernorm"),
+        "proj": np.zeros((width, width), np.float32),
+    }
+
+
+def convert_clip_t5_state_dict(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """``CLIPT5ForConditionalGeneration`` (the clip-flant5-* checkpoints)
+    -> the flax tree of ``models/clip_t5.py CLIPT5``: plain T5 keys at the
+    top level, ``vision_tower.vision_tower.*`` (an HF CLIPVisionModel) and
+    ``mm_projector.{0,2}`` (the mlp2x_gelu Sequential)."""
+    vision = convert_hf_clip_vision_state_dict(
+        sd, prefix="vision_tower.vision_tower.vision_model.")
+    t5_sd = {k: v for k, v in sd.items()
+             if not k.startswith(("vision_tower.", "mm_projector.",
+                                  "embed_tokens."))}
+    return {
+        "vision_tower": vision,
+        "multi_modal_projector": {
+            "linear_1": _flax_linear(sd, "mm_projector.0"),
+            "linear_2": _flax_linear(sd, "mm_projector.2"),
+        },
+        "t5": convert_t5_state_dict(t5_sd),
+    }
+
+
+def convert_blip_vision_state_dict(sd: Mapping[str, Any],
+                                   prefix: str = "blip.visual_encoder."
+                                   ) -> Dict[str, Any]:
+    """Original-BLIP / timm ViT layout -> the flax tree of
+    ``models/blip.py BlipVisionTower``."""
+    sd = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+    conv = _hf(sd, "patch_embed.proj.weight")
+    width, cin, p, _ = conv.shape
+    blocks: Dict[str, Any] = {}
+    for i in range(_count(sd, "blocks.{}.norm1.weight")):
+        pre = f"blocks.{i}"
+        blocks[f"resblocks_{i}"] = {
+            "ln_1": _flax_ln(sd, f"{pre}.norm1"),
+            "attn": {"in_proj": _flax_linear(sd, f"{pre}.attn.qkv"),
+                     "out_proj": _flax_linear(sd, f"{pre}.attn.proj")},
+            "ln_2": _flax_ln(sd, f"{pre}.norm2"),
+            "mlp": {"c_fc": _flax_linear(sd, f"{pre}.mlp.fc1"),
+                    "c_proj": _flax_linear(sd, f"{pre}.mlp.fc2")},
+        }
+    return {
+        "patch_embed": {
+            "kernel": conv.transpose(2, 3, 1, 0).reshape(p * p * cin, width),
+            "bias": _hf(sd, "patch_embed.proj.bias"),
+        },
+        "cls_token": _hf(sd, "cls_token").reshape(-1),
+        "pos_embed": _hf(sd, "pos_embed").reshape(-1, width),
+        "blocks": blocks,
+        "norm": _flax_ln(sd, "norm"),
+    }
+
+
+def convert_med_text_state_dict(sd: Mapping[str, Any],
+                                prefix: str = "blip.text_encoder."
+                                ) -> Dict[str, Any]:
+    """med BertModel layout (``attention.self.query``, ...) -> the flax
+    tree of ``models/blip.py BlipTextEncoder``."""
+    sd = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+    if any(k.startswith("bert.") for k in sd):
+        sd = {k[len("bert."):]: v for k, v in sd.items()
+              if k.startswith("bert.")}
+
+    def med_attn(pre: str) -> Dict[str, Any]:
+        return {
+            "query": _flax_linear(sd, f"{pre}.self.query"),
+            "key": _flax_linear(sd, f"{pre}.self.key"),
+            "value": _flax_linear(sd, f"{pre}.self.value"),
+            "out_dense": _flax_linear(sd, f"{pre}.output.dense"),
+            "out_ln": _flax_ln(sd, f"{pre}.output.LayerNorm"),
+        }
+
+    params: Dict[str, Any] = {
+        "word_embeddings": {
+            "embedding": _hf(sd, "embeddings.word_embeddings.weight")},
+        "position_embeddings": {
+            "embedding": _hf(sd, "embeddings.position_embeddings.weight")},
+        "embeddings_ln": _flax_ln(sd, "embeddings.LayerNorm"),
+    }
+    for i in range(_count(sd, "encoder.layer.{}.attention.self.query.weight")):
+        pre = f"encoder.layer.{i}"
+        params[f"layer_{i}"] = {
+            "attention": med_attn(f"{pre}.attention"),
+            "crossattention": med_attn(f"{pre}.crossattention"),
+            "ffn": {
+                "intermediate": _flax_linear(sd, f"{pre}.intermediate.dense"),
+                "output": _flax_linear(sd, f"{pre}.output.dense"),
+                "ln": _flax_ln(sd, f"{pre}.output.LayerNorm"),
+            },
+        }
+    return params
+
+
+def convert_image_reward_state_dict(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """THUDM ImageReward checkpoint -> the flax tree of ``models/blip.py
+    ImageReward``. The MLP's linear layers are ``mlp.layers.{0,2,4,6,7}``
+    (the dropouts at 1, 3, 5 have no parameters)."""
+    params: Dict[str, Any] = {
+        "visual_encoder": convert_blip_vision_state_dict(sd),
+        "text_encoder": convert_med_text_state_dict(sd),
+    }
+    for i, idx in enumerate((0, 2, 4, 6, 7)):
+        params[f"mlp_{i}"] = _flax_linear(sd, f"mlp.layers.{idx}")
+    return params

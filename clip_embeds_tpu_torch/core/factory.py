@@ -3,7 +3,8 @@ local open_clip state dict (counterpart of ``clip_embeds_tpu/core/
 factory.py``; nothing is downloaded); and the JAX package's ``.npz``
 parameter files (``save_params_npz`` / ``load_params_npz``: flax trees
 flattened to "a/b/kernel" keys), in which the PACL/SPARC heads travel; and
-:func:`init_llava`, a seeded LLaVA built where it will run."""
+:func:`init_llava` and :func:`init_score_model`, a seeded LLaVA or T5 /
+BLIP family model built where it will run."""
 
 from __future__ import annotations
 
@@ -202,3 +203,82 @@ def init_llava(cfg, seed: int = 0,
             else:
                 nn.init.normal_(p, std=0.02, generator=g)
     return model.eval()
+
+
+def _t5_std(name: str, cfg) -> float:
+    """HF ``T5PreTrainedModel._init_weights``' std (factor 1.0) of a T5
+    parameter named within the T5 module; ``lm_head`` at d_model^-0.5
+    (HF draws it at 1.0, whose logits of std ~sqrt(d_model) would put
+    every seeded score near exp(-100))."""
+    d, kv, heads = cfg.d_model, cfg.d_kv, cfg.num_heads
+    if name == "shared.weight":
+        return 1.0
+    leaf = name.split(".")[-2]
+    return {"q": (d * kv) ** -0.5, "k": d ** -0.5, "v": d ** -0.5,
+            "o": (heads * kv) ** -0.5, "relative_attention_bias": d ** -0.5,
+            "wi_0": d ** -0.5, "wi_1": d ** -0.5, "wi": d ** -0.5,
+            "wo": cfg.d_ff ** -0.5, "lm_head": d ** -0.5}[leaf]
+
+
+@torch.no_grad()
+def init_score_model(model: nn.Module, seed: int = 0,
+                     device: Union[str, torch.device] = "cuda",
+                     dtype: torch.dtype = torch.bfloat16,
+                     t5: Optional[nn.Module] = None) -> nn.Module:
+    """Seeded random weights, drawn on ``device`` in ``dtype`` from a
+    ``torch.Generator`` of that device, for one of the T5 / BLIP family
+    models (``CLIPT5``, ``InstructBlipT5``, ``Blip2ITM``, ``ImageReward``)
+    built on the meta device; no host copy is made. The T5 trunk takes
+    HF's T5 scales (:func:`_t5_std`); the vision towers open_clip's block
+    scales (the patchify at (3 p^2)^-1/2, the class and positional
+    embeddings at width^-1/2); the Q-Former, the BERT text encoder and the
+    projections BERT's std 0.02, ImageReward's MLP in^-1/2 (so its reward
+    spreads); norms at one, biases at zero. With ``t5`` (a model's
+    ``t5`` module, e.g. CLIP-FlanT5's) that trunk is shared instead of
+    drawn: InstructBLIP-FlanT5 and CLIP-FlanT5 share one T5-XXL."""
+    from ..models.layers import Transformer
+    from ..models.t5 import T5LayerNorm
+
+    device = torch.device(device)
+    shared = t5 is not None
+    for name, child in model.named_children():
+        if not (shared and name == "t5"):
+            child.to(dtype).to_empty(device=device)
+    for name, p in list(model.named_parameters(recurse=False)):
+        setattr(model, name, nn.Parameter(
+            torch.empty(p.shape, dtype=dtype, device=device)))
+    if shared:
+        model.t5 = t5
+    g = torch.Generator(device=device).manual_seed(seed)
+    done = set()  # the towers' blocks and every norm, set first
+    for name, m in model.named_modules():
+        if name.startswith("t5") and shared:
+            continue
+        if isinstance(m, (nn.LayerNorm, T5LayerNorm)):
+            m.weight.fill_(1.0)
+            if getattr(m, "bias", None) is not None:
+                m.bias.zero_()
+            done.update(id(p) for p in m.parameters())
+        elif isinstance(m, Transformer):
+            width = m.resblocks[0].ln_1.weight.shape[0]
+            _init_tower(m.resblocks, width, len(m.resblocks), g)
+            done.update(id(p) for p in m.parameters())
+    for name, p in model.named_parameters():
+        if id(p) in done or (shared and name.startswith("t5.")):
+            continue
+        if name.startswith("t5."):
+            std = _t5_std(name[len("t5."):], model.cfg.t5)
+        elif name.endswith("bias"):
+            p.zero_()
+            continue
+        elif name.endswith(("class_embedding", "cls_token",
+                            "positional_embedding", "pos_embed")):
+            std = p.shape[-1] ** -0.5
+        elif name.endswith(("patch_embed.weight", "conv1.weight")):
+            std = p[0].numel() ** -0.5
+        elif name.startswith("mlp."):
+            std = p.shape[-1] ** -0.5
+        else:
+            std = 0.02
+        p.normal_(0.0, std, generator=g)
+    return model.requires_grad_(False).eval()

@@ -114,11 +114,12 @@ class MLP(nn.Module):
 
 class ResidualAttentionBlock(nn.Module):
     def __init__(self, width: int, heads: int, mlp_ratio: float = 4.0,
-                 quick_gelu: bool = False, quant: Quant = False):
+                 quick_gelu: bool = False, quant: Quant = False,
+                 ln_eps: float = 1e-5):
         super().__init__()
-        self.ln_1 = LayerNorm(width)
+        self.ln_1 = LayerNorm(width, eps=ln_eps)
         self.attn = MultiHeadAttention(width, heads, quant)
-        self.ln_2 = LayerNorm(width)
+        self.ln_2 = LayerNorm(width, eps=ln_eps)
         self.mlp = MLP(width, mlp_ratio, quick_gelu, quant)
 
     def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
@@ -138,7 +139,7 @@ class FusedTrainBlock(ResidualAttentionBlock):
     def __init__(self, width: int, heads: int, mlp_ratio: float = 4.0,
                  quick_gelu: bool = False, bwd_impl: str = "vjp",
                  ln_eps: float = 1e-5):
-        super().__init__(width, heads, mlp_ratio, quick_gelu)
+        super().__init__(width, heads, mlp_ratio, quick_gelu, ln_eps=ln_eps)
         self.heads, self.bwd_impl = heads, bwd_impl
         self.act_name = "quick" if quick_gelu else "erf"
         self.ln_eps = ln_eps
@@ -189,12 +190,13 @@ class Transformer(nn.Module):
     'fused-train' or 'fused-train-res' (:class:`FusedTrainBlock` with the
     'vjp' or 'residual' backward; it saves only (x, params), so ``remat``
     does not apply to it, as in JAX). ``remat`` (composable blocks, while
-    grad is enabled): False, True (full), 'dots' or 'attn'."""
+    grad is enabled): False, True (full), 'dots' or 'attn'. ``ln_eps``: the
+    blocks' LayerNorm epsilon (1e-6 in the BLIP and EVA towers)."""
 
     def __init__(self, width: int, layers: int, heads: int,
                  mlp_ratio: float = 4.0, quick_gelu: bool = False,
                  quant: Quant = False, block_impl: str = "composable",
-                 remat: Remat = False):
+                 remat: Remat = False, ln_eps: float = 1e-5):
         super().__init__()
         if block_impl not in ("composable", "fused-train", "fused-train-res"):
             raise ValueError(f"block_impl {block_impl!r}")
@@ -204,11 +206,12 @@ class Transformer(nn.Module):
             if quant:
                 raise ValueError("the fused training blocks are not quantised")
             bwd = "residual" if block_impl.endswith("-res") else "vjp"
-            blocks = (FusedTrainBlock(width, heads, mlp_ratio, quick_gelu, bwd)
+            blocks = (FusedTrainBlock(width, heads, mlp_ratio, quick_gelu, bwd,
+                                      ln_eps)
                       for _ in range(layers))
         else:
             blocks = (ResidualAttentionBlock(width, heads, mlp_ratio,
-                                             quick_gelu, quant)
+                                             quick_gelu, quant, ln_eps)
                       for _ in range(layers))
         self.resblocks = nn.ModuleList(blocks)
         self.block_impl = block_impl

@@ -29,7 +29,10 @@ layer with none adds nothing. On the card the int8 product comes out of
 product. With gradients, the int8 codes pass none (the round), and the
 dynamic scale passes what JAX's does: ``y = acc * (a * scale)`` with
 ``a = max|x| / 127`` carries a gradient to the abs-max entry of ``x``.
-Not ported: the T5 trunk quantiser.
+
+:func:`quantize_clip_t5_trunk` quantises the T5 encoder's and decoder's
+projections (``T5_QUANT_LAYER_NAMES``) of a CLIP-FlanT5 or an
+InstructBLIP-FlanT5.
 """
 
 from __future__ import annotations
@@ -56,6 +59,10 @@ LLAMA_QUANT_LAYER_NAMES = (
     "q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj",
     "down_proj",
 )
+# the T5 encoder's and decoder's projections (self/cross attention q/k/v/o,
+# gated-GELU wi_0/wi_1/wo, the ReLU variant's wi); the shared embedding,
+# the norms, the relative-position bias and the lm_head stay floating point
+T5_QUANT_LAYER_NAMES = ("q", "k", "v", "o", "wi_0", "wi_1", "wi", "wo")
 
 
 def quantize_weight(w: torch.Tensor):
@@ -374,3 +381,39 @@ def llava_trunk_pairs(sd: Iterable[str]):
                 and parts[-1] == "weight"):
             pairs.append((key, key[: -len(".weight")]))
     return pairs
+
+
+def t5_trunk_pairs(sd: Iterable[str]):
+    """The (fp weight key, QuantLinear path) pairs of the T5 encoder's and
+    decoder's ``T5_QUANT_LAYER_NAMES`` projections in a CLIP-FlanT5 or
+    InstructBLIP state dict (``t5.{encoder,decoder}.block.<i>...``)."""
+    pairs = []
+    for key in sd:
+        parts = key.split(".")
+        if (key.startswith(("t5.encoder.block.", "t5.decoder.block."))
+                and parts[-2] in T5_QUANT_LAYER_NAMES
+                and parts[-1] == "weight"):
+            pairs.append((key, key[: -len(".weight")]))
+    return pairs
+
+
+def quantize_clip_t5_trunk(model: nn.Module, mode: Quant = "dynamic",
+                           dtype: Optional[torch.dtype] = None) -> nn.Module:
+    """A new model of ``model``'s class (``models/clip_t5.py CLIPT5`` or
+    ``models/instructblip.py InstructBlipT5``) on its device, built with
+    ``quant_t5=mode``, whose T5 projections are int8 :class:`QuantLinear`
+    quantised from ``model``'s weights one at a time (counterpart of
+    ``quantize_clip_t5_trunk``); the vision tower, projector or Q-Former,
+    ``shared``, the norms and ``lm_head`` keep their tensors, cast to
+    ``dtype`` (default: ``model``'s; with the same dtype they are shared,
+    not copied). ``model`` is left as it is. Scoring CLIP-FlanT5-XXL on 8
+    images x 4 texts peaks at 15.85 GiB with this trunk against 23.77 GiB
+    in bf16 (``chip_smoke.py`` phase 13; NVIDIA H100 80GB HBM3, 700.00
+    W)."""
+    dtype = dtype or model.t5.shared.weight.dtype
+    sd = model.state_dict()
+    with torch.device("meta"):
+        qmodel = type(model)(model.cfg, quant_t5=mode)
+    qmodel.load_state_dict(quantize_linears(sd, t5_trunk_pairs(sd), dtype),
+                           assign=True)
+    return qmodel.eval()

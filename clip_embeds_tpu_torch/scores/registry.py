@@ -4,10 +4,10 @@
 
 CLIPScore names follow the '<pretrained>:<arch>' format over the registry's
 pretrained table; the port builds those of its hand-written configs. The
-VQA and ITM families need converted weights (a score bundle, see
-``scores/build.py``); of them the port builds the LLaVA family and GPT-4V,
-and the others raise naming their ROADMAP.md item. Models are placed on
-``device`` (default the card).
+VQA, ITM and BLIP-2 ITC families need converted weights (a score bundle,
+see ``scores/build.py``): LLaVA, CLIP-FlanT5, InstructBLIP-FlanT5, BLIP-2
+ITM / ITC and ImageReward; GPT-4V needs its transport passed in. Models
+are placed on ``device`` (default the card).
 """
 
 from __future__ import annotations

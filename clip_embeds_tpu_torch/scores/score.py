@@ -1,7 +1,10 @@
 """Public Score API: m x n (images x texts) scoring + dataset batch_forward.
-The port's ``Score``, ``VQAScore`` and ``CLIPScore`` (counterpart of
-``clip_embeds_tpu/scores/score.py``; the T5, InstructBLIP and ITM
-factories are not ported yet, ROADMAP.md queue 1 item 13).
+The port's ``Score`` and its factories, ``VQAScore`` (LLaVA),
+``T5VQAScore`` (CLIP-FlanT5), ``InstructBlipVQAScore``, ``CLIPScore``,
+``ImageRewardScore`` and ``ITMScore`` (BLIP-2) (counterpart of
+``clip_embeds_tpu/scores/score.py``). Each model runs on ``device``
+(default the card; without one the factory raises unless given
+``device='cpu'``).
 
 Reference: t2v_metrics/t2v_metrics/score.py:13-92 — ``Score(images, texts)``
 returns an m x n matrix by pairing each image with every text;
@@ -145,3 +148,53 @@ def CLIPScore(model, **kw) -> Score:
         return np.einsum("nd,nd->n", img, txt)
 
     return Score(pair_forward)
+
+
+def T5VQAScore(model, tokenize, group_size: int = 8, **kw) -> Score:
+    """VQAScore over the port's CLIP-FlanT5, t2v_metrics' default
+    VQAScore backbone (clip-flant5-xxl): the m x n broadcast encodes each
+    image once (:class:`~.vqa_score.T5VQAScorer`)."""
+    from .vqa_score import T5VQAScorer
+
+    scorer = T5VQAScorer(model, tokenize, **kw)
+    return Score(scorer.forward, scorer.forward_image_texts,
+                 scorer.forward_groups, group_size=group_size)
+
+
+def InstructBlipVQAScore(model, qformer_tokenize, t5_tokenize,
+                         **kw) -> Score:
+    """VQAScore over the port's InstructBLIP-FlanT5: the m x n broadcast
+    caches the EVA-g tower per image (the Q-Former and T5 read the text,
+    so they run per pair)."""
+    from .vqa_score import InstructBlipVQAScorer
+
+    scorer = InstructBlipVQAScorer(model, qformer_tokenize, t5_tokenize,
+                                   **kw)
+    return Score(scorer.forward, scorer.forward_image_texts)
+
+
+def ImageRewardScore(model, tokenize, image_size: int = 224,
+                     max_length: int = 35, batch_size: int = 8,
+                     device="cuda") -> Score:
+    """ImageReward ITMScore: the standardised BLIP reward-head score per
+    (image, text) pair, texts cut and padded to 35 tokens as the
+    reference's tokenizer does."""
+    from .vqa_score import PairBatches
+
+    return Score(PairBatches(model, model, tokenize, image_size,
+                             max_length, batch_size, device,
+                             "ImageRewardScore"))
+
+
+def ITMScore(model, tokenize, image_size: int = 224, max_length: int = 35,
+             batch_size: int = 8, device="cuda") -> Score:
+    """BLIP-2 ITM matching probability, softmax(itm_logits)[:, 1] (the
+    softmax in fp32)."""
+    from .vqa_score import PairBatches
+
+    def fn(pixels, ids, mask):
+        logits = model.itm_logits(pixels, ids, mask).float()
+        return logits.softmax(dim=-1)[:, 1]
+
+    return Score(PairBatches(model, fn, tokenize, image_size, max_length,
+                             batch_size, device, "ITMScore"))

@@ -1,6 +1,9 @@
 """VQAScore: P(answer="Yes" | image, question) = exp(-mean CE), over the
-port's LLaVA (counterpart of ``clip_embeds_tpu/scores/vqa_score.py``: the
-templates, the tokenisation, :class:`VQAScorer` and :class:`GPT4VScorer`).
+port's LLaVA, InstructBLIP-FlanT5 and CLIP-FlanT5 (counterpart of
+``clip_embeds_tpu/scores/vqa_score.py``: the templates, the tokenisation,
+:class:`VQAScorer`, :class:`InstructBlipVQAScorer`, :class:`T5VQAScorer`
+and :class:`GPT4VScorer`), and :class:`PairBatches`, the pair loop of the
+ITM-style scores (BLIP-2 ITM / ITC, ImageReward) on the same placement.
 
 Reference: t2v_metrics llava_model.py: question/answer templates, the 'chat'
 conversation format with SYSTEM_MSG, <image>-splitting tokenisation
@@ -9,8 +12,7 @@ trailing-whitespace correction, and per-sample (-CE).exp().
 
 The tokenizer is passed in: any callable text -> List[int] (an HF Llama
 tokenizer through :func:`hf_tokenizer_adapter` where ``transformers`` and
-the tokenizer files exist, or a toy tokenizer). Not ported yet: the
-T5 and InstructBLIP scorers (ROADMAP.md queue 1 item 13).
+the tokenizer files exist, or a toy tokenizer).
 """
 
 from __future__ import annotations
@@ -168,7 +170,61 @@ def _shared_prefix(prepared) -> Optional[int]:
     return prefix_len
 
 
-class VQAScorer:
+class _DeviceScorer:
+    """The device placement and tensor helpers the scorers share: the
+    model on ``device`` (default the card; without one it raises unless
+    given ``device='cpu'``), in eval mode, computing in ``dtype``."""
+
+    def _place(self, model, device, dtype: torch.dtype, name: str) -> None:
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"{name}: no CUDA device is available; "
+                               "pass device='cpu' to score on the CPU")
+        self.model = model.to(device).eval()
+        self.device = device
+        self.dtype = dtype
+
+    def _tensor(self, a: np.ndarray, dtype=None) -> torch.Tensor:
+        t = torch.from_numpy(a)
+        if a.dtype == np.int32:
+            t = t.long()
+        return t.to(self.device, dtype)
+
+
+class PairBatches(_DeviceScorer):
+    """The pair loop of the ITM-style scores: texts tokenised, cut and
+    zero-padded to ``max_length`` (the reference's 35), images through the
+    'clip' preprocess, ``batch_size`` pairs a call of ``fn(pixels, ids,
+    mask) -> [b]`` on ``device``."""
+
+    def __init__(self, model, fn, tokenize, image_size: int,
+                 max_length: int = 35, batch_size: int = 8,
+                 device="cuda", name: str = "score"):
+        self._place(model, device, next(model.parameters()).dtype, name)
+        self.fn, self.tokenize = fn, tokenize
+        self.image_size, self.max_length = image_size, max_length
+        self.batch_size = batch_size
+
+    def __call__(self, images, texts) -> np.ndarray:
+        out = np.zeros((len(images),), np.float32)
+        for s in range(0, len(images), self.batch_size):
+            rows = [self.tokenize(t)[: self.max_length]
+                    for t in texts[s : s + self.batch_size]]
+            ids = np.zeros((len(rows), self.max_length), np.int64)
+            mask = np.zeros((len(rows), self.max_length), bool)
+            for i, r in enumerate(rows):
+                ids[i, : len(r)] = r
+                mask[i, : len(r)] = True
+            pixels = preprocess_batch(list(images[s : s + self.batch_size]),
+                                      self.image_size, "clip")
+            with torch.inference_mode():
+                got = self.fn(self._tensor(pixels, self.dtype),
+                              self._tensor(ids), self._tensor(mask))
+            out[s : s + len(rows)] = got.float().cpu().numpy()
+        return out
+
+
+class VQAScorer(_DeviceScorer):
     """Batched VQAScore over the port's LLaVA, on ``device`` (default the
     card; without one it raises unless given ``device='cpu'``) in the
     model's dtype. Three paths: :meth:`forward` (pairs, the full masked
@@ -190,13 +246,9 @@ class VQAScorer:
         suffix_pad_to_multiple: int = 16,
         device: Union[str, torch.device] = "cuda",
     ):
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("VQAScorer: no CUDA device is available; "
-                               "pass device='cpu' to score on the CPU")
-        self.model = model.to(device).eval()
-        self.device = device
-        self.dtype = model.language_model.embed_tokens.weight.dtype
+        self._place(model, device,
+                    model.language_model.embed_tokens.weight.dtype,
+                    "VQAScorer")
         self.tokenize = tokenize
         self.bos_token_id = bos_token_id
         self.pad_token_id = pad_token_id
@@ -206,12 +258,6 @@ class VQAScorer:
         self.pad_to_multiple = pad_to_multiple
         self.suffix_pad_to_multiple = suffix_pad_to_multiple
         self.image_size = model.cfg.vision.image_size
-
-    def _tensor(self, a: np.ndarray, dtype=None) -> torch.Tensor:
-        t = torch.from_numpy(a)
-        if a.dtype == np.int32:
-            t = t.long()
-        return t.to(self.device, dtype)
 
     def _pixels(self, images) -> torch.Tensor:
         return self._tensor(preprocess_batch(list(images), self.image_size,
@@ -447,6 +493,311 @@ class VQAScorer:
             IGNORE_INDEX)
         return _exp_neg_mean_ce(logits[:, :-1].float(),
                                 full_labels[:, 1:]).cpu().numpy()
+
+
+def _pad_rows(rows, pad_value: int, multiple: int):
+    """Right-padded ids [n, width] (width a multiple of ``multiple``) and
+    their bool mask."""
+    n = len(rows)
+    width = _pad_to(max(len(r) for r in rows), multiple)
+    ids = np.full((n, width), pad_value, np.int32)
+    mask = np.zeros((n, width), bool)
+    for i, r in enumerate(rows):
+        ids[i, : len(r)] = r
+        mask[i, : len(r)] = True
+    return ids, mask
+
+
+def _decoder_inputs(a_ids):
+    """(labels with IGNORE_INDEX pads, decoder mask), padded to 8."""
+    a, dec_mask = _pad_rows(a_ids, 0, 8)
+    return np.where(dec_mask, a, IGNORE_INDEX).astype(np.int32), dec_mask
+
+
+# -- InstructBLIP (Q-Former + FlanT5) ---------------------------------------
+
+INSTRUCTBLIP_QUESTION_TEMPLATE = (
+    'Question: Does this figure show "{}"? Please answer yes or no.'
+)
+INSTRUCTBLIP_ANSWER_TEMPLATE = "yes"  # instructblip uses lowercase
+
+
+class InstructBlipVQAScorer(_DeviceScorer):
+    """VQAScore over an InstructBLIP-FlanT5 model: the question goes both
+    to the Q-Former (a BERT tokenizer) as the instruction and to the T5
+    encoder; the decoder teacher-forces the answer; score = exp(-mean
+    CE). :meth:`forward_image_texts` runs the EVA-g tower once for the
+    image and replays it across the texts."""
+
+    def __init__(
+        self,
+        model,  # models.instructblip.InstructBlipT5
+        qformer_tokenize: TokenizeFn,
+        t5_tokenize: TokenizeFn,
+        qformer_pad_id: int = 0,
+        t5_pad_id: int = 0,
+        max_txt_len: int = 128,        # lavis blip2_t5_instruct default
+        max_output_txt_len: int = 256,
+        batch_size: int = 8,
+        pad_to_multiple: int = 32,
+        device: Union[str, torch.device] = "cuda",
+    ):
+        self._place(model, device, model.t5.shared.weight.dtype,
+                    "InstructBlipVQAScorer")
+        self.qformer_tokenize = qformer_tokenize
+        self.t5_tokenize = t5_tokenize
+        self.qformer_pad_id = qformer_pad_id
+        self.t5_pad_id = t5_pad_id
+        self.max_txt_len = max_txt_len
+        self.max_output_txt_len = max_output_txt_len
+        self.batch_size = batch_size
+        self.pad_to_multiple = pad_to_multiple
+        self.image_size = model.cfg.vision.image_size
+
+    def _pixels(self, images) -> torch.Tensor:
+        # the reference's instructblip preprocess: shortest-edge bicubic
+        # resize, centre crop, CLIP statistics
+        return self._tensor(preprocess_batch(list(images), self.image_size,
+                                             "clip"), self.dtype)
+
+    def _tokenize(self, texts, question_template, answer_template):
+        questions = [question_template.format(t) for t in texts]
+        answers = [answer_template.format(t) for t in texts]
+        return ([self.qformer_tokenize(q)[: self.max_txt_len]
+                 for q in questions],
+                [self.t5_tokenize(q)[: self.max_txt_len] for q in questions],
+                [self.t5_tokenize(a)[: self.max_output_txt_len]
+                 for a in answers])
+
+    def _inputs(self, q_ids, t_ids, a_ids):
+        m = self.pad_to_multiple
+        q, q_mask = _pad_rows(q_ids, self.qformer_pad_id, m)
+        t, t_mask = _pad_rows(t_ids, self.t5_pad_id, m)
+        labels, dec_mask = _decoder_inputs(a_ids)
+        return [self._tensor(x) for x in (q, t, labels, q_mask, t_mask,
+                                          dec_mask)]
+
+    def forward(
+        self,
+        images: Sequence[ImageLike],
+        texts: Sequence[str],
+        question_template: str = INSTRUCTBLIP_QUESTION_TEMPLATE,
+        answer_template: str = INSTRUCTBLIP_ANSWER_TEMPLATE,
+    ) -> np.ndarray:
+        assert len(images) == len(texts)
+        q_ids, t_ids, a_ids = self._tokenize(texts, question_template,
+                                             answer_template)
+        out = np.zeros((len(images),), np.float32)
+        for s in range(0, len(images), self.batch_size):
+            e = s + self.batch_size
+            out[s:e] = self._chunk(self._pixels(images[s:e]), None,
+                                   q_ids[s:e], t_ids[s:e], a_ids[s:e])
+        return out
+
+    @torch.inference_mode()
+    def _chunk(self, pixels, embeds, q_ids, t_ids, a_ids) -> np.ndarray:
+        q, t, labels, q_mask, t_mask, dec_mask = self._inputs(q_ids, t_ids,
+                                                              a_ids)
+        if embeds is None:
+            logits = self.model(pixels, q, t, labels, q_mask, t_mask,
+                                dec_mask)
+        else:
+            logits = self.model.forward_with_vision(
+                embeds.expand(len(q_ids), -1, -1), q, t, labels, q_mask,
+                t_mask, dec_mask)
+        return _exp_neg_mean_ce(logits.float(), labels).cpu().numpy()
+
+    def forward_image_texts(
+        self,
+        image: ImageLike,
+        texts: Sequence[str],
+        question_template: str = INSTRUCTBLIP_QUESTION_TEMPLATE,
+        answer_template: str = INSTRUCTBLIP_ANSWER_TEMPLATE,
+    ) -> np.ndarray:
+        """One image x n texts with the EVA-g tower run once: the Q-Former
+        and T5 read the candidate text, so they run per pair."""
+        with torch.inference_mode():
+            embeds = self.model.encode_vision(self._pixels([image]))
+        q_ids, t_ids, a_ids = self._tokenize(texts, question_template,
+                                             answer_template)
+        out = np.zeros((len(texts),), np.float32)
+        for s in range(0, len(texts), self.batch_size):
+            e = s + self.batch_size
+            out[s:e] = self._chunk(None, embeds, q_ids[s:e], t_ids[s:e],
+                                   a_ids[s:e])
+        return out
+
+
+# -- CLIP-FlanT5 (encoder-decoder) ----------------------------------------
+
+
+def format_question_t5(question: str, style: str = "t5_chat") -> str:
+    """The clip_t5 conversation formats."""
+    if style == "t5_plain":
+        return DEFAULT_IMAGE_TOKEN + question
+    if style == "t5_chat":
+        return (
+            SYSTEM_MSG + " USER: " + DEFAULT_IMAGE_TOKEN + "\n" + question
+            + " ASSISTANT: "
+        )
+    if style == "t5_chat_no_system":
+        return "USER: " + DEFAULT_IMAGE_TOKEN + "\n" + question + " ASSISTANT: "
+    if style == "t5_chat_no_system_no_user":
+        return DEFAULT_IMAGE_TOKEN + "\n" + question + " : "
+    raise NotImplementedError(style)
+
+
+def t5_tokenizer_image_token(
+    prompt: str,
+    tokenize: TokenizeFn,
+    image_token_index: int = IMAGE_TOKEN_INDEX,
+) -> List[int]:
+    """The no-BOS splice: the chunks around each <image> tokenised, the
+    sentinel between them."""
+    chunks = [tokenize(c) for c in prompt.split(DEFAULT_IMAGE_TOKEN)]
+    ids: List[int] = []
+    for i, chunk in enumerate(chunks):
+        ids.extend(chunk)
+        if i < len(chunks) - 1:
+            ids.append(image_token_index)
+    return ids
+
+
+class T5VQAScorer(_DeviceScorer):
+    """VQAScore over a CLIP-FlanT5 model: the encoder takes image +
+    question, the decoder teacher-forces the answer; score = exp(-mean
+    CE). Three paths: :meth:`forward` (pairs, the tower run per chunk of
+    pairs), :meth:`forward_image_texts` (one tower pass for the image,
+    then the texts batched against its features) and
+    :meth:`forward_groups` (one tower pass for k images, then all k x n
+    pairs batched). The encoder is bidirectional, so past the image
+    features nothing is shared across texts."""
+
+    def __init__(
+        self,
+        model,  # models.clip_t5.CLIPT5
+        tokenize: TokenizeFn,
+        pad_token_id: int = 0,
+        conversation_style: str = "t5_chat",
+        context_len: int = 2048,
+        batch_size: int = 8,
+        pad_to_multiple: int = 64,
+        device: Union[str, torch.device] = "cuda",
+    ):
+        self._place(model, device, model.t5.shared.weight.dtype,
+                    "T5VQAScorer")
+        self.tokenize = tokenize
+        self.pad_token_id = pad_token_id
+        self.style = conversation_style
+        self.context_len = context_len
+        self.batch_size = batch_size
+        self.pad_to_multiple = pad_to_multiple
+        self.image_size = model.cfg.vision.image_size
+
+    def _pixels(self, images) -> torch.Tensor:
+        return self._tensor(preprocess_batch(list(images), self.image_size,
+                                             "llava"), self.dtype)
+
+    def _tokenize_pairs(self, texts, question_template, answer_template):
+        questions = [format_question_t5(question_template.format(t),
+                                        self.style) for t in texts]
+        answers = [answer_template.format(t) for t in texts]
+        q_ids = [t5_tokenizer_image_token(q, self.tokenize)[: self.context_len]
+                 for q in questions]
+        a_ids = [self.tokenize(a)[: self.context_len] for a in answers]
+        return q_ids, a_ids
+
+    def batch_inputs(self, q_ids, a_ids):
+        """(input_ids, encoder mask, labels, decoder mask) on the device:
+        the questions padded to ``pad_to_multiple``, the answers to 8."""
+        ids, enc_mask = _pad_rows(q_ids, self.pad_token_id,
+                                  self.pad_to_multiple)
+        labels, dec_mask = _decoder_inputs(a_ids)
+        return [self._tensor(x) for x in (ids, enc_mask, labels, dec_mask)]
+
+    def forward(
+        self,
+        images: Sequence[ImageLike],
+        texts: Sequence[str],
+        question_template: str = DEFAULT_QUESTION_TEMPLATE,
+        answer_template: str = DEFAULT_ANSWER_TEMPLATE,
+    ) -> np.ndarray:
+        assert len(images) == len(texts)
+        q_ids, a_ids = self._tokenize_pairs(texts, question_template,
+                                            answer_template)
+        out = np.zeros((len(images),), np.float32)
+        for s in range(0, len(images), self.batch_size):
+            e = s + self.batch_size
+            out[s:e] = self._scores(self._pixels(images[s:e]), None,
+                                    q_ids[s:e], a_ids[s:e])
+        return out
+
+    @torch.inference_mode()
+    def _scores(self, pixels, feats, q_ids, a_ids) -> np.ndarray:
+        ids, enc_mask, labels, dec_mask = self.batch_inputs(q_ids, a_ids)
+        if feats is None:
+            logits = self.model(ids, pixels, labels, enc_mask, dec_mask)
+        else:
+            logits = self.model.forward_with_features(ids, feats, labels,
+                                                      enc_mask, dec_mask)
+        return _exp_neg_mean_ce(logits.float(), labels).cpu().numpy()
+
+    @torch.inference_mode()
+    def encode_image_features(self, images: Sequence[ImageLike]
+                              ) -> torch.Tensor:
+        """The vision tower and projector, once per image: [k, n_image,
+        d_model] on the device."""
+        return self.model.encode_images(self._pixels(images))
+
+    def _pairs_with_features(self, feats, img_idx, q_ids, a_ids
+                             ) -> np.ndarray:
+        """Pairs (q_ids[p], a_ids[p]) against feats[img_idx[p]], batched;
+        the features stay on the device across batches."""
+        n = len(q_ids)
+        idx = torch.as_tensor(np.asarray(img_idx, np.int64),
+                              device=self.device)
+        out = np.zeros((n,), np.float32)
+        for s in range(0, n, self.batch_size):
+            e = s + self.batch_size
+            out[s:e] = self._scores(None, feats[idx[s:e]], q_ids[s:e],
+                                    a_ids[s:e])
+        return out
+
+    def forward_image_texts(
+        self,
+        image: ImageLike,
+        texts: Sequence[str],
+        question_template: str = DEFAULT_QUESTION_TEMPLATE,
+        answer_template: str = DEFAULT_ANSWER_TEMPLATE,
+    ) -> np.ndarray:
+        """One image x n texts: one tower pass, then n batched T5 passes."""
+        feats = self.encode_image_features([image])
+        q_ids, a_ids = self._tokenize_pairs(texts, question_template,
+                                            answer_template)
+        return self._pairs_with_features(feats, [0] * len(texts), q_ids,
+                                         a_ids)
+
+    def forward_groups(
+        self,
+        images: Sequence[ImageLike],
+        texts_per_image: Sequence[Sequence[str]],
+        question_template: str = DEFAULT_QUESTION_TEMPLATE,
+        answer_template: str = DEFAULT_ANSWER_TEMPLATE,
+    ) -> np.ndarray:
+        """k images x n texts each -> [k, n]: one batched tower pass for the
+        k images, then T5 over all k * n pairs in batches."""
+        k, n = len(images), len(texts_per_image[0])
+        assert all(len(t) == n for t in texts_per_image)
+        feats = self.encode_image_features(images)
+        q_ids, a_ids, img_idx = [], [], []
+        for i, texts in enumerate(texts_per_image):
+            qi, ai = self._tokenize_pairs(texts, question_template,
+                                          answer_template)
+            q_ids += qi
+            a_ids += ai
+            img_idx += [i] * n
+        return self._pairs_with_features(feats, img_idx, q_ids,
+                                         a_ids).reshape(k, n)
 
 
 # -- GPT-4V (API-backed) ------------------------------------------------------

@@ -137,9 +137,9 @@ def gradient_faults(model, qmodel, gpu):
     for layers in (model.cfg.llama.num_layers, cs.V2V_GRAD_LAYERS):
         cut = cs.cut_config(model.cfg, layers)
         # remat: memory only, at full depth
-        small = cs.llava_view(model, cut, remat=True)
+        small = cs.model_view(model, cut, remat=True)
         ref = cs.v2v_cast(small, f32, remat=True, **lora)
-        qsmall = cs.llava_view(qmodel, cut, quant_llm="dynamic", remat=True,
+        qsmall = cs.model_view(qmodel, cut, quant_llm="dynamic", remat=True,
                                **lora)
         batch = next(_synthetic_mixed_batches(
             cs.V2V_GRAD_BATCH, cut.vision.image_size, cs.V2V_SEED))

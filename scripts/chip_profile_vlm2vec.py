@@ -68,7 +68,7 @@ def main() -> int:
     gpu = cs.gpu_line()
     model = init_llava(LlavaConfig(), seed=cs.LLAVA_SEED, device="cuda",
                        dtype=torch.bfloat16)
-    qmodel = cs.llava_view(quantize_llava_trunk(model), quant_llm="dynamic",
+    qmodel = cs.model_view(quantize_llava_trunk(model), quant_llm="dynamic",
                            lora_rank=cs.V2V_RANK,
                            lora_alpha=float(cs.V2V_ALPHA), remat=True)
     size = model.cfg.vision.image_size

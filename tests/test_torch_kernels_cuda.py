@@ -1162,7 +1162,7 @@ def test_bundle_int8_trunk_on_card_is_quantised_from_fp32(cuda, tmp_path):
     int8 codes and fp32 scales equal those of the fp32 load on the CPU,
     which tests/test_torch_vqa_score.py holds to JAX's."""
     from clip_embeds_tpu_torch.core.config import VisionConfig
-    from clip_embeds_tpu_torch.core.convert import jax_params_from_llava
+    from clip_embeds_tpu_torch.core.convert import jax_params_from_module
     from clip_embeds_tpu_torch.core.factory import init_llava
     from clip_embeds_tpu_torch.models.llama import LlamaConfig
     from clip_embeds_tpu_torch.models.llava import LlavaConfig
@@ -1176,7 +1176,7 @@ def test_bundle_int8_trunk_on_card_is_quantised_from_fp32(cuda, tmp_path):
         vision=VisionConfig(image_size=224, patch_size=14, width=128,
                             layers=3, head_width=64))
     src = init_llava(cfg, seed=0, device="cpu", dtype=torch.float32)
-    save_score_bundle(str(tmp_path), "llava", cfg, jax_params_from_llava(src),
+    save_score_bundle(str(tmp_path), "llava", cfg, jax_params_from_module(src),
                       conversation="chat")
 
     def quant_layers(device):
@@ -1424,3 +1424,92 @@ def test_patch_dropout_step_on_card(cuda, block_impl):
     assert torch.isfinite(loss)
     for name, p in model.named_parameters():
         assert p.grad is not None and torch.isfinite(p.grad).all(), name
+
+
+def test_t5_family_routes_on_card_match_plain_path(cuda):
+    """The T5 / BLIP families' towers on the card in bf16 (the flash
+    kernel once a block: a 3-block CLIP tower tapped at -2, an EVA-style
+    tower at head dim 88, a BLIP ViT at 145 rows) against the fp32 plain
+    path on the CPU; the W8A8 T5 trunk's 7 + 11 int8_linear launches a
+    layer a pass."""
+    from clip_embeds_tpu_torch.core.config import VisionConfig
+    from clip_embeds_tpu_torch.core.factory import init_score_model
+    from clip_embeds_tpu_torch.models.blip import (
+        BlipConfig, BlipTextConfig, ImageReward)
+    from clip_embeds_tpu_torch.models.blip2 import QFormerConfig
+    from clip_embeds_tpu_torch.models.clip_t5 import CLIPT5, CLIPT5Config
+    from clip_embeds_tpu_torch.models.instructblip import (
+        InstructBlipConfig, InstructBlipT5)
+    from clip_embeds_tpu_torch.models.quant import quantize_clip_t5_trunk
+    from clip_embeds_tpu_torch.models.t5 import T5Config
+    from clip_embeds_tpu_torch.ops.fused_block import int8_linear
+    from clip_embeds_tpu_torch.scores.score import ImageRewardScore
+    from clip_embeds_tpu_torch.scores.vqa_score import (
+        InstructBlipVQAScorer, T5VQAScorer)
+
+    t5 = T5Config(vocab_size=512, d_model=256, d_kv=32, d_ff=512,
+                  num_layers=2, num_heads=8)
+    clip_cfg = CLIPT5Config(t5=t5, vision=VisionConfig(
+        image_size=192, patch_size=16, width=128, layers=3, head_width=64))
+    ib_cfg = InstructBlipConfig(
+        vision=VisionConfig(image_size=192, patch_size=16, width=176,
+                            layers=2, head_width=88, mlp_ratio=2.0),
+        qformer=QFormerConfig(vocab_size=512, hidden_size=64, num_layers=2,
+                              num_heads=4, intermediate_size=128,
+                              encoder_hidden_size=176),
+        t5=t5, num_query_tokens=4)
+
+    def build(cls, cfg, device, dtype, seed, **kw):
+        with torch.device("meta"):
+            m = cls(cfg)
+        return init_score_model(m, seed, device, dtype, **kw)
+
+    def tokenize(text):
+        return [2 + sum(map(ord, w)) % 500 for w in text.split()] + [1]
+
+    rng = np.random.default_rng(43)
+    images = [rng.integers(0, 256, (60, 80, 3), dtype=np.uint8)
+              for _ in range(2)]
+    texts = ["a cat", "two dogs on a red mat", "a box"]
+    model = build(CLIPT5, clip_cfg, "cpu", torch.float32, 0)
+    ib = build(InstructBlipT5, ib_cfg, "cpu", torch.float32, 1, t5=model.t5)
+    want = T5VQAScorer(model, tokenize, device="cpu").forward_groups(
+        images, [texts] * 2)
+    ib_want = InstructBlipVQAScorer(ib, tokenize, tokenize,
+                                    device="cpu").forward(images * 3,
+                                                          texts * 2)
+    # the same draws (the T5 trunk comes last in both), then the trunk
+    # shared as on the CPU
+    gpu = build(CLIPT5, clip_cfg, "cpu", torch.float32, 0).to(
+        cuda, torch.bfloat16)
+    gpu_ib = build(InstructBlipT5, ib_cfg, "cpu", torch.float32, 1).to(
+        cuda, torch.bfloat16)
+    gpu_ib.t5 = gpu.t5
+    flash_attention.launches = 0
+    got = T5VQAScorer(gpu, tokenize, device=cuda).forward_groups(
+        images, [texts] * 2)
+    assert flash_attention.launches == clip_cfg.tower_blocks
+    np.testing.assert_allclose(np.log(got), np.log(want), atol=0.05)
+    flash_attention.launches = 0
+    ib_got = InstructBlipVQAScorer(gpu_ib, tokenize, tokenize,
+                                   device=cuda).forward(images * 3, texts * 2)
+    assert flash_attention.launches == ib_cfg.vision.layers  # one chunk
+    np.testing.assert_allclose(np.log(ib_got), np.log(ib_want), atol=0.05)
+    q = T5VQAScorer(quantize_clip_t5_trunk(gpu), tokenize, device=cuda)
+    int8_linear.launches = 0
+    got8 = q.forward_groups(images, [texts] * 2)
+    assert int8_linear.launches == 7 * 2 + 11 * 2  # one chunk of 6 pairs
+    np.testing.assert_allclose(np.log(got8), np.log(want), atol=0.2)
+    ir_cfg = BlipConfig(
+        vision=VisionConfig(image_size=192, patch_size=16, width=128,
+                            layers=2, head_width=64),
+        text=BlipTextConfig(vocab_size=512, hidden_size=64, num_layers=2,
+                            num_heads=4, intermediate_size=128))
+    ir = build(ImageReward, ir_cfg, "cpu", torch.float32, 2)
+    ir_want = ImageRewardScore(ir, tokenize, image_size=192,
+                               device="cpu")(images, texts)
+    flash_attention.launches = 0
+    ir_got = ImageRewardScore(ir.to(cuda, torch.bfloat16), tokenize,
+                              image_size=192, device=cuda)(images, texts)
+    assert flash_attention.launches == 2 * ir_cfg.vision.layers
+    np.testing.assert_allclose(ir_got, ir_want, atol=0.1)

@@ -23,10 +23,10 @@ from clip_embeds_tpu.models.quant import quantize_llava_trunk as jquantize
 from clip_embeds_tpu.scores.build import config_to_dict
 
 from clip_embeds_tpu_torch.core.convert import (
-    jax_params_from_llava,
-    llama_state_dict_from_jax_params,
+    jax_params_from_module,
     llava_state_dict_from_hf,
     llava_state_dict_from_jax_params,
+    state_dict_from_flax,
 )
 from clip_embeds_tpu_torch.core.factory import init_llava
 from clip_embeds_tpu_torch.models import llama as pllama
@@ -128,7 +128,7 @@ def test_llama_logits_match_jax(kv_heads, padded):
         None if mask is None else jnp.asarray(mask)))
     port = pllama.LlamaForCausalLM(
         config_from_dict(pllama.LlamaConfig, config_to_dict(cfg))).eval()
-    port.load_state_dict(llama_state_dict_from_jax_params(params))
+    port.load_state_dict(state_dict_from_flax(params))
     with torch.no_grad():
         got = port(_t(ids), None if mask is None else _t(mask)).numpy()
     if padded:  # padded queries are masked garbage in both
@@ -413,12 +413,12 @@ def test_int8_trunk_codes_and_logits_match_jax(tiny):
 
 
 def test_weights_round_trip_between_packages(tiny):
-    """The port's model -> the JAX tree (``jax_params_from_llava``) gives
+    """The port's model -> the JAX tree (``jax_params_from_module``) gives
     the JAX model the port's logits, and reads back to the same state."""
     model, _, _ = tiny
     cfg = port_cfg(jax_tiny_cfg())
     port = init_llava(cfg, seed=3, device="cpu", dtype=torch.float32)
-    tree = jax_params_from_llava(port)
+    tree = jax_params_from_module(port)
     ids = np.asarray([[1, 9, IMG, 17, 23, 40]], np.int32)
     px = _pixels(12)
     want = np.asarray(model.apply({"params": tree}, jnp.asarray(ids),

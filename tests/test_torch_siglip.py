@@ -34,7 +34,7 @@ from clip_embeds_tpu_torch.core import config as port_config
 from clip_embeds_tpu_torch.core import openclip_registry as port_registry
 from clip_embeds_tpu_torch.core.convert import (
     siglip_state_dict_from_hf,
-    siglip_state_dict_from_jax_params,
+    state_dict_from_flax,
 )
 from clip_embeds_tpu_torch.losses.siglip import siglip_loss
 from clip_embeds_tpu_torch.models import serving
@@ -68,7 +68,7 @@ def models():
         lambda a: np.asarray(a) + 0.05 * rng.standard_normal(
             np.shape(a)).astype(np.float32), params)
     tm = port_siglip.Siglip(_configs(port_siglip))
-    tm.load_state_dict(siglip_state_dict_from_jax_params(params))
+    tm.load_state_dict(state_dict_from_flax(params, packed_in_proj=False))
     return jm, params, tm.eval()
 
 
@@ -155,8 +155,8 @@ def test_hf_loader_matches_jax_converter():
     that loads them strictly."""
     sd = _hf_state_dict(np.random.default_rng(2))
     got = siglip_state_dict_from_hf(sd)
-    want = siglip_state_dict_from_jax_params(
-        jax_siglip.convert_siglip_state_dict(sd))
+    want = state_dict_from_flax(jax_siglip.convert_siglip_state_dict(sd),
+                                packed_in_proj=False)
     assert got.keys() == want.keys()
     for k in want:
         assert torch.equal(got[k], want[k]), k

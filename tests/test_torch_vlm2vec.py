@@ -31,7 +31,7 @@ from clip_embeds_tpu.train import arguments as jargs
 from clip_embeds_tpu.train import vlm2vec as jv2v
 from clip_embeds_tpu.train.steps import TrainState as JTrainState
 
-from clip_embeds_tpu_torch.core.convert import (jax_params_from_llava,
+from clip_embeds_tpu_torch.core.convert import (jax_params_from_module,
                                                 lora_targets_by_key)
 from clip_embeds_tpu_torch.core.factory import flatten_params
 from clip_embeds_tpu_torch.data import mmeb
@@ -225,7 +225,7 @@ def test_lora_tree_functions_match_jax(base):
     # materialize / merge_lora: the port's merged weights are JAX's
     want = jlora.merge_lora(params, tree, alpha=ALPHA)
     merged = lora.merge_lora(model, tree, alpha=ALPHA)
-    got = flatten_params(jax_params_from_llava(merged))
+    got = flatten_params(jax_params_from_module(merged))
     want = flatten_params(jax.device_get(want))
     for k in got:
         np.testing.assert_allclose(got[k], want[k], rtol=1e-6, atol=1e-6)
@@ -266,7 +266,7 @@ def test_adapter_npz_round_trip_both_ways(base, tmp_path):
                     str(ppath))
     want = flatten_params(jax.device_get(
         jlora.merge_lora(params, dict(np.load(ppath)), alpha=ALPHA)))
-    got = flatten_params(jax_params_from_llava(
+    got = flatten_params(jax_params_from_module(
         lora.merge_lora(model, dict(np.load(jpath)), alpha=ALPHA)))
     for k in got:
         np.testing.assert_allclose(got[k], want[k], rtol=1e-6, atol=1e-6)

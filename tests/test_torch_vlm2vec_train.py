@@ -16,7 +16,7 @@ from clip_embeds_tpu.models import quant as jquant
 from clip_embeds_tpu.train import vlm2vec as jv2v
 from clip_embeds_tpu.train.steps import TrainState as JTrainState
 
-from clip_embeds_tpu_torch.core.convert import jax_params_from_llava
+from clip_embeds_tpu_torch.core.convert import jax_params_from_module
 from clip_embeds_tpu_torch.core.factory import flatten_params
 from clip_embeds_tpu_torch.models import lora
 from clip_embeds_tpu_torch.train.vlm2vec import (
@@ -82,7 +82,7 @@ def test_train_step_matches_jax(base, mode, chunks):
                                rtol=1e-5)
     assert state.step == 1
     if how == "full":
-        got = flatten_params(jax_params_from_llava(model))
+        got = flatten_params(jax_params_from_module(model))
         want = flatten_params(jax.device_get(jstate.params))
         assert set(got) <= set(want)
         for k in got:

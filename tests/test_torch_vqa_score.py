@@ -3,7 +3,8 @@ size (a 2-layer trunk of width 64, a 2-layer 32-px tower, a toy word
 tokenizer): the prompt formats and the tokenisation, the three VQAScorer
 paths, the Score m x n and batch_forward routes (chunked at
 ``group_size``), the W8A8 trunk, score bundles in both directions, the
-registry and the default configs, GPT-4V's injected transport, the
+registry and the default configs of every family, the 13 T5 / BLIP
+names' routes from JAX bundles, GPT-4V's injected transport, the
 benchmark copies, and ``cli/t2v_eval.py``."""
 
 import inspect
@@ -33,7 +34,7 @@ from clip_embeds_tpu.scores.score import VQAScore as JVQAScore
 
 from clip_embeds_tpu_torch.cli.t2v_eval import main as t2v_main
 from clip_embeds_tpu_torch.core.convert import (
-    jax_params_from_llava,
+    jax_params_from_module,
     llava_state_dict_from_jax_params,
     state_dict_from_jax_params,
 )
@@ -50,9 +51,9 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 SMALL = dict(batch_size=2, pad_to_multiple=8, suffix_pad_to_multiple=4)
 LLAVA_NAMES = (jregistry.LLAVA_MODELS + jregistry.LLAVA_LLAMA_MODELS
                + jregistry.LLAVA16_MODELS)
-UNPORTED = (jregistry.CLIP_T5_MODELS + jregistry.INSTRUCTBLIP_MODELS
-            + jregistry.BLIP2_ITM_MODELS + jregistry.BLIP2_ITC_MODELS
-            + jregistry.IMAGE_REWARD_MODELS)
+ITEM13_NAMES = (jregistry.CLIP_T5_MODELS + jregistry.INSTRUCTBLIP_MODELS
+                + jregistry.BLIP2_ITM_MODELS + jregistry.BLIP2_ITC_MODELS
+                + jregistry.IMAGE_REWARD_MODELS)
 
 
 def toy_tokenize(text):
@@ -255,7 +256,7 @@ def test_bundle_int8_trunk_is_quantised_from_fp32(tiny, tmp_path, dtype):
 def test_port_bundle_loads_in_jax(tiny, tmp_path):
     _, _, port = tiny
     pbuild.save_score_bundle(str(tmp_path), "llava", port.cfg,
-                             jax_params_from_llava(port),
+                             jax_params_from_module(port),
                              conversation="chat", extra={"source": "port"})
     with open(tmp_path / "config.json") as fh:
         assert json.load(fh)["source"] == "port"
@@ -268,22 +269,100 @@ def test_port_bundle_loads_in_jax(tiny, tmp_path):
                                **TOL)
 
 
-@pytest.mark.parametrize("name", LLAVA_NAMES)
+@pytest.mark.parametrize("name", LLAVA_NAMES + ITEM13_NAMES)
 def test_default_model_config_matches_jax(name):
     assert (pbuild.config_to_dict(pbuild.default_model_config(name))
             == jbuild.config_to_dict(jbuild.default_model_config(name)))
     assert pbuild.VQA_CONVERSATIONS == jbuild.VQA_CONVERSATIONS
 
 
-@pytest.mark.parametrize("name", UNPORTED)
-def test_unported_families_name_their_roadmap_item(tmp_path, name):
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1 item 13"):
-        pbuild.default_model_config(name)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1 item 13"):
-        pregistry.get_score_model(name, checkpoint=str(tmp_path),
-                                  device="cpu")
+def _tiny_family(name):
+    """(family, the JAX config at 2 layers and widths 48-64, the port's
+    model class) of a T5 / BLIP name."""
+    from clip_embeds_tpu.models import blip as jblip
+    from clip_embeds_tpu.models import blip2 as jblip2
+    from clip_embeds_tpu.models import clip_t5 as jclip_t5
+    from clip_embeds_tpu.models import instructblip as jib
+    from clip_embeds_tpu.models import t5 as jt5
+
+    from clip_embeds_tpu_torch.models import blip as pblip
+    from clip_embeds_tpu_torch.models import blip2 as pblip2
+    from clip_embeds_tpu_torch.models import clip_t5 as pclip_t5
+    from clip_embeds_tpu_torch.models import instructblip as pib
+
+    vision = JVisionConfig(image_size=32, patch_size=16, width=64, layers=2,
+                           head_width=32)
+    qformer = jblip2.QFormerConfig(vocab_size=256, hidden_size=48,
+                                   num_layers=2, num_heads=4,
+                                   intermediate_size=96,
+                                   encoder_hidden_size=64)
+    if name in jregistry.CLIP_T5_MODELS:
+        return ("clip_t5", jclip_t5.CLIPT5Config(t5=jt5.t5_tiny_config(),
+                                                 vision=vision),
+                pclip_t5.CLIPT5)
+    if name in jregistry.INSTRUCTBLIP_MODELS:
+        return ("instructblip", jib.InstructBlipConfig(
+            vision=vision, qformer=qformer, t5=jt5.t5_tiny_config(),
+            num_query_tokens=4), pib.InstructBlipT5)
+    if name in jregistry.IMAGE_REWARD_MODELS:
+        return ("image_reward", jblip.BlipConfig(
+            vision=vision, text=jblip.BlipTextConfig(
+                vocab_size=256, hidden_size=48, num_layers=2, num_heads=4,
+                intermediate_size=96, max_position_embeddings=64)),
+                pblip.ImageReward)
+    return ("blip2", jblip2.Blip2Config(vision=vision, qformer=qformer,
+                                        num_query_tokens=4,
+                                        image_text_hidden_size=16),
+            pblip2.Blip2ITM)
+
+
+@pytest.fixture(scope="module")
+def item13_cache(tmp_path_factory):
+    """One bundle a family and one JAX result a (family, conversation,
+    score kind), shared by the 13 names' cases."""
+    return {"bundles": {}, "jax": {}, "root": tmp_path_factory}
+
+
+@pytest.mark.parametrize("name", ITEM13_NAMES)
+def test_item13_names_route_to_a_live_scorer(item13_cache, name):
+    """Each T5 / BLIP name builds a live scorer from a bundle through the
+    registry on the CPU, whose scores equal JAX's scorer's on the same
+    bundle within 1e-5 (JAX's scorer runs once for the names that build
+    the same one). The bundle's weights are the port's seeded init
+    (``init_score_model``) moved by noise, written in JAX's layout: the
+    family test files hold flax-initialised weights, and this saves a
+    JAX init compile a family."""
+    from clip_embeds_tpu_torch.core.factory import init_score_model
+
+    family, jcfg, cls = _tiny_family(name)
+    bundles = item13_cache["bundles"]
+    if family not in bundles:
+        cfg = pbuild.config_from_dict(
+            type(pbuild.default_model_config(name)),
+            jbuild.config_to_dict(jcfg))
+        with torch.device("meta"):
+            port = cls(cfg)
+        init_score_model(port, seed=0, device="cpu", dtype=torch.float32)
+        rng = np.random.default_rng(1)
+        params = jax.tree.map(
+            lambda a: (a + 0.05 * rng.standard_normal(a.shape)).astype(
+                np.float32), jax_params_from_module(port))
+        path = str(item13_cache["root"].mktemp(family))
+        jbuild.save_score_bundle(path, family, jcfg, params)
+        bundles[family] = path
+    kw = dict(checkpoint=bundles[family], tokenize=toy_tokenize,
+              batch_size=2)
+    if family == "instructblip":
+        kw["qformer_tokenize"] = toy_tokenize
+    images, texts = [_image(20), _image(21)], ["a cat", "a dog on a mat"]
+    got = pregistry.get_score_model(name, device="cpu", **kw)(images, texts)
+    assert got.shape == (2, 2) and np.isfinite(got).all()
+    key = (family, jbuild.VQA_CONVERSATIONS.get(name),
+           name in jregistry.BLIP2_ITC_MODELS)
+    if key not in item13_cache["jax"]:
+        item13_cache["jax"][key] = jregistry.get_score_model(name, **kw)(
+            images, texts)
+    np.testing.assert_allclose(got, item13_cache["jax"][key], **TOL)
 
 
 def test_registry_tables_match_jax():
