@@ -37,7 +37,13 @@ Phases, each of which raises on failure:
      ViT-L/16's 4x16x197x64, beside scaled_dot_product_attention, and
      int8_linear at T5-XXL's projections (5120 and 64 rows; 4096 -> 4096,
      4096 -> 10240, 10240 -> 4096) with bf16 F.linear's time beside it,
-     limits from scripts/chip_probe_t5.py;
+     limits from scripts/chip_probe_t5.py; and phase 14's shapes: the
+     attention forward at Phi-3's causal trunk (4x32x2555x96, head dim
+     96, a partial last Q tile) and Phi-3-V's 68-crop tower call
+     (68x16x577x64), and int8_linear at Qwen2-7B's W8A8 projections over
+     1224 rows (q 3584 -> 3584 and k / v 3584 -> 512 with their biases,
+     o, gate / up 3584 -> 18944, down 18944 -> 3584), limits from
+     scripts/chip_probe_backbones.py;
   4. the main paths: ViT-L/14-336 (OpenAI config, seeded random weights,
      all 24 + 12 layers) serves 3 image and 3 text requests of 8 through
      embed_image_batches / embed_text_batches, the CLI's helpers: first in
@@ -193,6 +199,25 @@ Phases, each of which raises on failure:
      bundles in the JAX layout through scores.registry.get_score_model in
      bf16, exact launches, against the plain fp32 path. Limits from
      scripts/chip_probe_t5.py.
+ 14. (run last, after 13) VLM2Vec's other backbones at full width from
+     seeded weights, one at a time: Phi-3.5-V (Phi-3-mini 32 x 3072, 32
+     heads of 96, ViT-L/14-336 to layer -2) and Qwen2-VL-7B (the 32 x
+     1280 tower with 2-D RoPE, 28 x 3584 trunk layers, GQA 28/4, M-RoPE)
+     at full depth, Qwen2-VL also with the W8A8 trunk
+     (quantize_llava_trunk, int8_linear with q/k/v biases); LLaVA-NeXT
+     (anyres 672^2, the 7B trunk) and Qwen2.5-VL-7B (the window tower)
+     with their trunks cut to 8 layers. Each serves b4 image query rows
+     (Phi-3-V: a square and a 2:1 image, 1 + 16 HD crops; LLaVA-NeXT: two
+     square and two 2:1 images in one call; Qwen: 448^2, 16 windows),
+     text target rows, a mixed batch and the forward's logits through
+     embed_last_token / forward, each family's own host processor on
+     seeded images, with exact launches (flash_attention 23 a CLIP tower
+     call, the trunk's layers more on the unmasked forward, none in a
+     masked trunk or a Qwen tower; int8_linear 196 a W8A8 trunk pass),
+     finite unit-norm embeddings, the mixed batch against its rows each on
+     its own, bf16 against the plain fp32 path on the trunk cut to 2
+     layers (the witness beside it), W8A8 against bf16, embeds/s by CUDA
+     events and peak memory. Limits from scripts/chip_probe_backbones.py.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device it exits
@@ -522,6 +547,43 @@ T5_INT8_COS = 0.995
 # 0.0021, 0.0024, 0.0209; with the text mask ignored (a fault) ITM 0.033,
 # the reward 0.504
 BLIP_ITM_TOL, BLIP_ITC_TOL, REWARD_TOL = 0.01, 0.01, 0.1
+# phase 14: VLM2Vec's other backbones at full width, seeded weights
+# (ROADMAP item 14): Phi-3.5-V (Phi-3-mini 32 x 3072, 32 heads of 96, and
+# ViT-L/14-336 to layer -2) and Qwen2-VL-7B (the 32 x 1280 tower, 28 x
+# 3584 trunk layers, GQA 28/4 at hd 128, M-RoPE) at full depth, Qwen2-VL
+# also with the W8A8 trunk; LLaVA-NeXT (ViT-L/14-336, anyres 672^2, the
+# 7B trunk) and Qwen2.5-VL-7B (the window tower) with their trunks cut to
+# VB_TRUNK_CUT layers. VB_BATCH rows a call: image query rows (8 to
+# VB_TEXT text tokens after the image), text target rows (under
+# VB_TARGET), a mixed batch; Phi-3-V images of PHI_SIZES (w, h) at
+# hd_num PHI_HD_NUM (grids 4 x 4 and 3 x 5: 68 crops in a tower call),
+# LLaVA-NeXT NEXT_SIZES, the Qwen towers QWEN_SIZE^2 (256 image tokens;
+# 16 windows)
+VB_SEED, VB_BATCH, VB_TIME_ITERS = 14, 4, 3
+VB_TEXT, VB_TARGET = 45, 64
+PHI_HD_NUM, QWEN_SIZE = 16, 448
+PHI_SIZES = {"square": (480, 480), "2:1": (640, 320)}
+NEXT_SIZES = ((600, 600), (800, 400))
+VB_TRUNK_CUT, VB_PLAIN_LAYERS = 8, 2
+# limits on the least row cosine (readings on the H100,
+# scripts/chip_probe_backbones.py; PERF.md): a mixed batch against its rows
+# each on its own, bf16 against the plain fp32 path on the trunk cut to
+# VB_PLAIN_LAYERS layers (the witness printed beside it), W8A8 against bf16
+VB_SPLIT_COS, VB_FP32_COS, VB_INT8_COS = 0.995, 0.9998, 0.8
+# phase 3, the attention forward at phase 14's new shapes: Phi-3's causal
+# trunk at hd 96 over a square-image batch (1 + 2509 + 45 = 2555 rows, a
+# partial last Q tile) and Phi-3-V's tower call over 4 x (1 + 16) crops;
+# limits on the mean |kernel - plain| from scripts/chip_probe_backbones.py
+VB_FLASH_CASES = (((4, 32, 2555, 96), True, 5e-4),
+                  ((68, 16, 577, 64), False, 5e-4))
+# phase 3, int8_linear at Qwen2-7B's W8A8 projections over a b4 request's
+# rows (4 x 306 = 1224): q (3584 -> 3584) and k / v (3584 -> 512) with
+# their biases, o (3584 -> 3584), gate / up (3584 -> 18944) and down
+# (18944 -> 3584); (M, N, K, bias)
+QWEN_INT8_LINEAR_CASES = ((1224, 3584, 3584, True), (1224, 512, 3584, True),
+                          (1224, 3584, 3584, False),
+                          (1224, 18944, 3584, False),
+                          (1224, 3584, 18944, False))
 # H100 SXM data-sheet peaks (dense): bf16 and int8 tensor cores, HBM3
 PEAK_BF16, PEAK_INT8, HBM_BYTES_PER_S = 989e12, 1979e12, 3.35e12
 # phase 3, the image tower under --force-patch-dropout 0.5: 1 + 288 = 289
@@ -810,6 +872,9 @@ def check_kernels(rng):
     t5_rng = np.random.default_rng(13)
     for shape, causal, mean_tol in T5_FAMILY_FLASH_CASES:
         cases.append(flash_forward_case(t5_rng, shape, causal, mean_tol)[0])
+    vb_rng = np.random.default_rng(VB_SEED)
+    for shape, causal, mean_tol in VB_FLASH_CASES:
+        cases.append(flash_forward_case(vb_rng, shape, causal, mean_tol)[0])
     results = {}
     for (name, kernel, plain, tol, n_valid, mean_tol, bound, library,
          flops) in cases:
@@ -1006,19 +1071,24 @@ def check_int8_linear(gpu, cases=INT8_LINEAR_CASES, seed=3):
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     out = {}
-    for m, n, k in cases:
+    for m, n, k, *has_bias in cases:
+        has_bias = bool(has_bias and has_bias[0])
         x = torch.randn(m, k, generator=g, device="cuda").bfloat16()
         w = 0.02 * torch.randn(n, k, generator=g, device="cuda")
+        bias = (0.5 * torch.randn(n, generator=g, device="cuda")
+                if has_bias else None)
         for mode in ("dynamic", "static"):
-            lin = QuantLinear(k, n, mode, bias=False).cuda()
+            lin = QuantLinear(k, n, mode, bias=has_bias).cuda()
             lin.weight_q, lin.scale = quantize_weight(w)
+            if has_bias:
+                lin.bias.copy_(bias)
             amax = x.float().abs().max()
             lin.act_scale.copy_(INT8_LINEAR_STATIC * amax / 127.0)
             got = lin(x)
             a = (lin.act_scale if mode == "static"
                  else (lin.act_max / 127.0).clamp_min(1e-8))
             want = qdot(x.float(), a, lin.weight_q, lin.scale,
-                        None).to(torch.bfloat16)
+                        bias).to(torch.bfloat16)
             apart = int((got != want).sum())
             if got.shape != (m, n) or apart or (
                     mode == "dynamic" and lin.act_max != amax):
@@ -1028,24 +1098,27 @@ def check_int8_linear(gpu, cases=INT8_LINEAR_CASES, seed=3):
                     f"{float(lin.act_max)} (abs-max {float(amax)})")
             del got, want
         ops = 2 * m * n * k
-        nbytes = 2 * m * k + n * k + 4 * n + 2 * m * n
+        nbytes = 2 * m * k + n * k + 4 * n * (1 + has_bias) + 2 * m * n
         bound, bound_by = bound_ms(int8_ops=ops, nbytes=nbytes)
         ms = cuda_ms(lambda: int8_linear(x, a, lin.weight_q, lin.scale,
-                                         None))
+                                         lin.bias))
         xq = torch.clamp(torch.round(x.float() / a), -127, 127).to(
             torch.int8)
         wb = w.bfloat16()
-        lin_ms = cuda_ms(lambda: F.linear(x, wb))
+        bb = None if bias is None else bias.bfloat16()
+        lin_ms = cuda_ms(lambda: F.linear(x, wb, bb))
         plain_ms = cuda_ms(lambda: qdot(x.float(), a, lin.weight_q,
-                                        lin.scale, None), iters=2, warmup=1)
-        print(f"[int8_linear] {m}x{n}x{k}: dynamic and static bit-equal to "
+                                        lin.scale, lin.bias), iters=2,
+                           warmup=1)
+        print(f"[int8_linear] {m}x{n}x{k}{' bias' if has_bias else ''}: "
+              f"dynamic and static bit-equal to "
               f"qdot in bf16; kernel {ms:.4f} ms, {ops / ms / 1e9:.1f} "
               f"TOP/s, {100 * bound / ms:.1f}% of the bound {bound:.4f} ms "
               f"({bound_by}); plain qdot {plain_ms:.4f} ms; torch._int_mm "
               f"{int_mm_ms(xq, lin.weight_q)}, bf16 F.linear {lin_ms:.4f} "
               f"ms on {gpu}")
-        out[(m, n, k)] = (ms, plain_ms, bound, bound_by, lin_ms)
-        del x, w, wb, xq, lin
+        out[(m, n, k, has_bias)] = (ms, plain_ms, bound, bound_by, lin_ms)
+        del x, w, wb, bb, xq, lin
     return out
 
 
@@ -1638,17 +1711,25 @@ def serving_routes(model, ref, images, texts, rng):
     }
 
 
+def smooth_photo(rng, w, h):
+    """A smooth random RGB field [h, w, 3] uint8 with mild noise, drawn
+    from ``rng`` (pure noise decodes atypically slowly)."""
+    from PIL import Image
+
+    low = Image.fromarray(rng.integers(0, 256, (6, 8, 3), np.uint8))
+    img = np.asarray(low.resize((w, h), Image.BICUBIC), np.int16)
+    img = img + rng.integers(-6, 7, img.shape, np.int16)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
 def write_photos(paths, seed):
-    """640x480 JPEGs of smooth random fields with mild noise, one seed a
-    file (pure noise decodes atypically slowly), written on all cores."""
+    """640x480 JPEGs of :func:`smooth_photo`, one seed a file, written on
+    all cores."""
     from PIL import Image
 
     def one(i):
-        rng = np.random.default_rng([seed, i])
-        low = Image.fromarray(rng.integers(0, 256, (6, 8, 3), np.uint8))
-        img = np.asarray(low.resize(PHOTO[::-1], Image.BICUBIC), np.int16)
-        img = img + rng.integers(-6, 7, img.shape, np.int16)
-        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+        Image.fromarray(smooth_photo(np.random.default_rng([seed, i]),
+                                     PHOTO[1], PHOTO[0])).save(
             paths[i], quality=90)
 
     os.makedirs(os.path.dirname(paths[0]), exist_ok=True)
@@ -2775,10 +2856,12 @@ def model_view(model, cfg=None, strict=True, **kw):
 
 
 def cut_config(cfg, trunk, tower=None):
-    """``cfg`` with its Llama trunk cut to ``trunk`` layers and, given
-    ``tower``, its vision tower to that many."""
-    cfg = dataclasses.replace(
-        cfg, llama=dataclasses.replace(cfg.llama, num_layers=trunk))
+    """``cfg`` with its Llama trunk (``llama``, or ``text`` in Phi-3-V and
+    the Qwen families) cut to ``trunk`` layers and, given ``tower``, its
+    CLIP tower to that many."""
+    name = "llama" if hasattr(cfg, "llama") else "text"
+    cfg = dataclasses.replace(cfg, **{name: dataclasses.replace(
+        getattr(cfg, name), num_layers=trunk)})
     if tower is not None:
         cfg = dataclasses.replace(
             cfg, vision=dataclasses.replace(cfg.vision, layers=tower))
@@ -3629,6 +3712,434 @@ def check_t5_family(counters, gpu):
         print(f"[phase 13] (c) {time.perf_counter() - t0:.1f} s on {gpu}")
 
 
+# -- phase 14: VLM2Vec's other backbones ---------------------------------------
+
+
+def vb_pack(rows, width):
+    """Token rows (int lists) -> right-padded ids [B, width] (pad 0) and
+    the bool mask of the real tokens."""
+    ids = np.zeros((len(rows), width), np.int64)
+    mask = np.zeros((len(rows), width), bool)
+    for i, row in enumerate(rows):
+        ids[i, :len(row)] = row
+        mask[i, :len(row)] = True
+    return ids, mask
+
+
+def vb_texts(rng, b, lo, hi, vocab, full=False):
+    """b seeded text token lists of [lo, hi) tokens (``hi - 1`` each with
+    ``full``), ids in [2, vocab)."""
+    return [rng.integers(2, vocab, hi - 1 if full else int(
+        rng.integers(lo, hi))).tolist() for _ in range(b)]
+
+
+def phi3v_family(model):
+    """Phi-3-V's requests through its own host processor on seeded images:
+    b4 query rows (BOS, the image's negative ids, 8-45 text tokens,
+    right-padded) of a square and of a 2:1 image (grids 4 x 4 and 3 x 5 at
+    hd_num 16), the square batch again with 45 text tokens a row for the
+    unmasked forward (2555 rows), b4 text-only target rows, and a mixed
+    batch (two square-image rows, two text rows). Returns (the calls: name
+    -> (f(model, inputs), launches), the inputs, the split call: the mixed
+    batch's rows each on its own)."""
+    from clip_embeds_tpu_torch.models.phi3_v import (
+        phi3v_num_image_tokens, phi3v_process_image)
+
+    rng = np.random.default_rng(VB_SEED)
+    cfg, b = model.cfg, VB_BATCH
+    vocab = cfg.text.vocab_size - 64
+    inputs, grids = {}, {}
+    for name, (w, h) in PHI_SIZES.items():
+        crops = [phi3v_process_image(smooth_photo(rng, w, h), PHI_HD_NUM,
+                                     PHI_HD_NUM) for _ in range(b)]
+        grid = crops[0][1]
+        assert all(g == grid for _, g in crops), [g for _, g in crops]
+        grids[name] = grid
+        image = [1] + [-1] * phi3v_num_image_tokens(*grid)
+        width = len(image) + VB_TEXT
+        ids, mask = vb_pack([image + t for t in vb_texts(
+            rng, b, 8, VB_TEXT + 1, vocab)], width)
+        inputs[name] = dict(ids=ids, mask=mask,
+                            px=np.stack([c for c, _ in crops]))
+        if name == "square":
+            inputs["full"] = dict(ids=vb_pack([image + t for t in vb_texts(
+                rng, b, 0, VB_TEXT + 1, vocab, full=True)], width)[0],
+                px=inputs[name]["px"])
+    ids, mask = vb_pack(vb_texts(rng, b, 8, VB_TARGET, vocab), VB_TARGET)
+    inputs["tgt"] = dict(ids=ids, mask=mask)
+    sq = inputs["square"]
+    rows = [sq["ids"][i][sq["mask"][i]].tolist() for i in range(2)] + \
+        vb_texts(rng, b - 2, 8, VB_TARGET, vocab)
+    ids, mask = vb_pack(rows, sq["ids"].shape[1])
+    px = sq["px"].copy()
+    px[2:] = 0
+    inputs["mixed"] = dict(ids=ids, mask=mask, px=px)
+    tb, layers = cfg.tower_blocks, cfg.text.num_layers
+    g_sq, g_wide = grids["square"], grids["2:1"]
+
+    def embed(key, grid):
+        return lambda m, r: m.embed_last_token(
+            r[key]["ids"], r[key]["px"], *grid, r[key]["mask"])
+
+    calls = {
+        "image rows square": (embed("square", g_sq),
+                              {"flash_attention": tb}),
+        "image rows 2:1": (embed("2:1", g_wide), {"flash_attention": tb}),
+        "text rows": (lambda m, r: m.embed_last_token(
+            r["tgt"]["ids"], None, 1, 1, r["tgt"]["mask"]), {}),
+        "mixed": (embed("mixed", g_sq), {"flash_attention": tb}),
+        "forward": (lambda m, r: m(r["full"]["ids"], r["full"]["px"],
+                                   *g_sq)[:, -1],
+                    {"flash_attention": tb + layers}),
+    }
+
+    def split(m, r):
+        mix, out = r["mixed"], []
+        for i in range(b):
+            n = len(rows[i])
+            out.append(m.embed_last_token(
+                mix["ids"][i:i + 1, :n],
+                mix["px"][i:i + 1] if i < 2 else None, *g_sq,
+                mix["mask"][i:i + 1, :n]))
+        return torch.cat(out)
+
+    return calls, inputs, split
+
+
+def llava_next_family(model):
+    """LLaVA-NeXT's requests (anyres at 672^2, the default pinpoints): b4
+    query rows (BOS, the sentinel, 8-45 text tokens) of two square and two
+    2:1 images in one call (5 crops a row, 2928 feature slots), b4
+    text-only target rows, and a mixed batch (two image rows; two text
+    rows holding the sentinel in their padding, their slots all
+    invalid). ``forward`` reads the last valid row of the query rows,
+    under the merge's mask as always."""
+    from clip_embeds_tpu_torch.core.constants import (
+        OPENAI_DATASET_MEAN, OPENAI_DATASET_STD)
+    from clip_embeds_tpu_torch.models.llava import IMAGE_TOKEN_INDEX
+    from clip_embeds_tpu_torch.models.llava_next import (
+        anyres_pack_plan, process_anyres_image)
+
+    rng = np.random.default_rng(VB_SEED + 1)
+    cfg, b = model.cfg, VB_BATCH
+    vocab = cfg.llama.vocab_size
+    size, patch = cfg.vision.image_size, cfg.vision.patch_size
+    px, plans = [], []
+    for w, h in NEXT_SIZES * (b // 2):
+        crops, hw = process_anyres_image(
+            smooth_photo(rng, w, h), size, cfg.grid_pinpoints,
+            OPENAI_DATASET_MEAN, OPENAI_DATASET_STD)
+        px.append(crops)
+        plans.append(anyres_pack_plan(hw, cfg.grid_pinpoints, size, patch,
+                                      cfg.max_features))
+    width = 2 + VB_TEXT
+    texts = vb_texts(rng, b, 8, VB_TEXT + 1, vocab)
+    ids, mask = vb_pack([[1, IMAGE_TOKEN_INDEX] + t for t in texts], width)
+    stack = lambda k: np.stack([getattr(p, k) for p in plans])
+    qry = dict(ids=ids, mask=mask, px=np.stack(px), gather=stack("gather"),
+               newline=stack("is_newline"), valid=stack("valid"))
+    ids, mask = vb_pack(vb_texts(rng, b, 8, VB_TARGET, vocab), VB_TARGET)
+    tgt = dict(ids=ids, mask=mask)
+    rows = [[1, IMAGE_TOKEN_INDEX] + t for t in texts[:2]] + [
+        [1] + t for t in vb_texts(rng, b - 2, 8, VB_TEXT, vocab)]
+    ids, mask = vb_pack(rows, width)
+    for i in range(2, b):  # the sentinel in the padding, its slots invalid
+        ids[i, len(rows[i])] = IMAGE_TOKEN_INDEX
+    valid = qry["valid"].copy()
+    valid[2:] = False
+    inputs = dict(qry=qry, tgt=tgt,
+                  mixed=dict(qry, ids=ids, mask=mask, valid=valid))
+    tb = cfg.tower_blocks
+    args = ("ids", "px", "gather", "newline", "valid", "mask")
+
+    def embed(key):
+        return lambda m, r: m.embed_last_token(*(r[key][k] for k in args))
+
+    def forward(m, r):
+        q = r["qry"]
+        logits = m(*(q[k] for k in args))
+        last = q["mask"].sum(1) - 2 + cfg.max_features  # the last text
+        return logits[torch.arange(b, device=last.device), last]
+
+    calls = {
+        "image rows": (embed("qry"), {"flash_attention": tb}),
+        "text rows": (lambda m, r: m.embed_last_token(
+            r["tgt"]["ids"], attention_mask=r["tgt"]["mask"]), {}),
+        "mixed": (embed("mixed"), {"flash_attention": tb}),
+        "forward": (forward, {"flash_attention": tb}),
+    }
+
+    def split(m, r):
+        mix, out = r["mixed"], []
+        for i in range(b):
+            if i < 2:
+                out.append(m.embed_last_token(*(mix[k][i:i + 1]
+                                                for k in args)))
+            else:
+                n = len(rows[i])
+                out.append(m.embed_last_token(
+                    mix["ids"][i:i + 1, :n],
+                    attention_mask=mix["mask"][i:i + 1, :n]))
+        return torch.cat(out)
+
+    return calls, inputs, split
+
+
+def qwen_pixels(img, vcfg):
+    """One image through Qwen2-VL's host processing: smart_resize, a
+    bicubic resize, CLIP normalisation, the merge-grouped patches."""
+    from PIL import Image
+
+    from clip_embeds_tpu_torch.core.constants import (
+        OPENAI_DATASET_MEAN, OPENAI_DATASET_STD)
+    from clip_embeds_tpu_torch.models.qwen2_vl import (
+        image_to_patches, smart_resize)
+
+    h, w = smart_resize(img.shape[0], img.shape[1])
+    arr = np.asarray(Image.fromarray(img).resize((w, h), Image.BICUBIC),
+                     np.float32) / 255.0
+    arr = (arr - np.asarray(OPENAI_DATASET_MEAN, np.float32)) / np.asarray(
+        OPENAI_DATASET_STD, np.float32)
+    return image_to_patches(arr.transpose(2, 0, 1), vcfg)
+
+
+def qwen_family(model):
+    """Qwen2-VL's or Qwen2.5-VL's requests (448^2 images: 32 x 32 patches,
+    256 merged tokens; 16 windows in Qwen2.5's tower): b4 query rows (3
+    text tokens, vision start, 256 image pads, vision end, 8-45 text
+    tokens) with get_rope_index's 3-D positions, the same with 45 text
+    tokens a row for the unmasked forward (305 rows), b4 text-only target
+    rows, and a mixed batch (two image rows, two text rows whose patches
+    are zeros)."""
+    from clip_embeds_tpu_torch.models.qwen2_vl import get_rope_index
+
+    cfg, b = model.cfg, VB_BATCH
+    rng = np.random.default_rng(VB_SEED + 2)
+    vocab = cfg.vision_start_token_id - 8
+    pairs = [qwen_pixels(smooth_photo(rng, QWEN_SIZE, QWEN_SIZE), cfg.vision)
+             for _ in range(b)]
+    grid = pairs[0][1]
+    n_img = int(np.prod(grid)) // cfg.vision.spatial_merge_size ** 2
+    patches = np.stack([p for p, _ in pairs])
+
+    def image_row(text):
+        return (rng.integers(2, vocab, 3).tolist()
+                + [cfg.vision_start_token_id]
+                + [cfg.image_token_id] * n_img
+                + [cfg.vision_start_token_id + 1] + text)
+
+    width = 5 + n_img + VB_TEXT
+    inputs = {}
+    for key, full in (("qry", False), ("full", True)):
+        rows = [image_row(t) for t in vb_texts(rng, b, 8, VB_TEXT + 1, vocab,
+                                                full=full)]
+        ids, mask = vb_pack(rows, width)
+        inputs[key] = dict(ids=ids, mask=mask, patches=patches,
+                           pos=get_rope_index(ids, [grid] * b, mask, cfg))
+    ids, mask = vb_pack(vb_texts(rng, b, 8, VB_TARGET, vocab), VB_TARGET)
+    inputs["tgt"] = dict(ids=ids, mask=mask,
+                         pos=get_rope_index(ids, [], mask, cfg))
+    q = inputs["qry"]
+    rows = [q["ids"][i][q["mask"][i]].tolist() for i in range(2)] + \
+        vb_texts(rng, b - 2, 8, VB_TEXT, vocab)
+    ids, mask = vb_pack(rows, width)
+    mixed_patches = patches.copy()
+    mixed_patches[2:] = 0
+    inputs["mixed"] = dict(ids=ids, mask=mask, patches=mixed_patches,
+                           pos=get_rope_index(ids, [grid] * 2, mask, cfg))
+    layers = cfg.text.num_layers
+
+    def embed(key, image=True):
+        return lambda m, r: m.embed_last_token(
+            r[key]["ids"], r[key]["patches"] if image else None,
+            grid if image else None, r[key]["mask"], r[key]["pos"])
+
+    calls = {
+        "image rows": (embed("qry"), {}),
+        "text rows": (embed("tgt", False), {}),
+        "mixed": (embed("mixed"), {}),
+        "forward": (lambda m, r: m(r["full"]["ids"], r["full"]["patches"],
+                                   grid, None, r["full"]["pos"])[:, -1],
+                    {"flash_attention": layers}),
+    }
+
+    def split(m, r):
+        mix, out = r["mixed"], []
+        for i in range(b):
+            n = len(rows[i])
+            ids, mask = mix["ids"][i:i + 1, :n], mix["mask"][i:i + 1, :n]
+            pos = torch.from_numpy(get_rope_index(
+                ids.cpu().numpy(), [grid] if i < 2 else [],
+                mask.cpu().numpy(), cfg)).to(ids.device)
+            out.append(m.embed_last_token(
+                ids, mix["patches"][i:i + 1] if i < 2 else None,
+                grid if i < 2 else None, mask, pos))
+        return torch.cat(out)
+
+    return calls, inputs, split
+
+
+def vb_to_device(inputs, dtype):
+    """Every request's arrays on the card: ids and positions int64, masks
+    bool, pixels and patches in ``dtype``."""
+    out = {}
+    for key, req in inputs.items():
+        out[key] = {}
+        for k, v in req.items():
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            out[key][k] = (t.to(dtype) if t.is_floating_point() else t).to(
+                "cuda")
+    return out
+
+
+def vb_serve(label, family, routes, counters, gpu):
+    """Each call of ``family`` on each of ``routes`` ({route: (model,
+    launches added to every call)}) with its launches held exactly,
+    embeddings finite and unit-norm, logits finite; embeds/s by CUDA
+    events and peak memory. Returns {(route, call): output, fp32}."""
+    calls, inputs, _ = family
+    outs = {}
+    on = vb_to_device(inputs, torch.bfloat16)
+    for route, (m, extra) in routes.items():
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            for name, (fn, want) in calls.items():
+                out = counted(counters, f"{label} {route} {name}",
+                              lambda: fn(m, on), {**want, **extra},
+                              tag="backbones").float()
+                bad = not bool(torch.isfinite(out).all())
+                if name != "forward":
+                    bad |= bool((out.norm(dim=-1) - 1).abs().max() > 2e-2)
+                if bad:
+                    raise AssertionError(f"{label} {route} {name}: not "
+                                         f"finite, or not unit-norm")
+                outs[route, name] = out
+                times = event_times(lambda: fn(m, on), VB_TIME_ITERS)
+                ms = sum(times) / len(times)
+                rate = ("" if name == "forward" else
+                        f"{VB_BATCH / ms * 1e3:.2f} embeds/s, ")
+                print(f"[backbones] {label} {route} {name} b{VB_BATCH}: "
+                      f"{rate}{ms:.1f} ms (the mean of {len(times)} calls; "
+                      f"range {min(times):.1f}-{max(times):.1f}) on {gpu}")
+        print(f"[backbones] {label} {route} peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {gpu}")
+    return outs
+
+
+def vb_agreement(model, family, outs):
+    """Least row cosines of ``family`` on the bf16 ``model``: the mixed
+    batch against its rows each on its own; the first image rows'
+    embeddings and the forward's last logits row on the trunk cut to
+    VB_PLAIN_LAYERS layers (full width, the tower whole), the bf16 kernel
+    route and the no-kernel witness each against the plain fp32 path."""
+    calls, inputs, split = family
+    on = vb_to_device(inputs, torch.bfloat16)
+    with torch.inference_mode():
+        alone = split(model, on).float()
+    read = {"mixed vs split rows": row_cos(
+        outs["bf16", "mixed"].cpu().numpy(), alone.cpu().numpy()).min()}
+    cut = model_view(model, cut_config(model.cfg, VB_PLAIN_LAYERS))
+    ref = cast_copy(cut, torch.float32)
+    on32 = vb_to_device(inputs, torch.float32)
+    image = next(k for k in calls if k.startswith("image rows"))
+    for name in (image, "forward"):
+        fn = calls[name][0]
+        with torch.inference_mode():
+            got = fn(cut, on).float().cpu().numpy()
+            plain = fn(ref, on32).float().cpu().numpy()
+            with plain_attention():
+                witness = fn(cut, on).float().cpu().numpy()
+        read[f"{name} bf16 vs plain fp32"] = row_cos(got, plain).min()
+        read[f"{name} witness vs plain fp32"] = row_cos(witness,
+                                                         plain).min()
+    del cut, ref, on32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: float(v) for k, v in read.items()}
+
+
+def vb_check(label, read, gpu):
+    """Holds the readings to VB_SPLIT_COS, VB_FP32_COS and VB_INT8_COS
+    (the witness's are printed beside the kernel route's)."""
+    print(f"[backbones] {label} least row cosine: {read} (limits: split "
+          f"{VB_SPLIT_COS}, fp32 {VB_FP32_COS}, int8 {VB_INT8_COS}) on "
+          f"{gpu}")
+    bad = {k: v for k, v in read.items() if "witness" not in k and v < (
+        VB_SPLIT_COS if k.startswith("mixed") else
+        VB_INT8_COS if k.startswith("int8") else VB_FP32_COS)}
+    if bad:
+        raise AssertionError(f"{label} disagrees: {bad}")
+
+
+def vb_family_run(label, model, make_family, counters, gpu, qmodel=None):
+    """One family of phase 14: every call with its launches, rates and
+    peak, then the agreement readings held to their limits. With
+    ``qmodel`` (the W8A8 twin) each call runs there too (int8_linear 7 a
+    trunk layer a pass) and its image and text rows are held to bf16's."""
+    t0 = time.perf_counter()
+    family = make_family(model)
+    routes = {"bf16": (model, {})}
+    if qmodel is not None:
+        routes["int8"] = (qmodel, {
+            "int8_linear": 7 * qmodel.cfg.text.num_layers})
+    outs = vb_serve(label, family, routes, counters, gpu)
+    read = vb_agreement(model, family, outs)
+    if qmodel is not None:
+        for name in ("image rows", "text rows"):
+            read[f"int8 vs bf16 ({name})"] = float(row_cos(
+                outs["int8", name].cpu().numpy(),
+                outs["bf16", name].cpu().numpy()).min())
+    vb_check(label, read, gpu)
+    print(f"[backbones] {label}: {time.perf_counter() - t0:.1f} s on {gpu}")
+    return read
+
+
+def vb_models():
+    """Phase 14's four families: (label, a seeded constructor on the
+    card, the request maker, with a W8A8 twin)."""
+    from clip_embeds_tpu_torch.core.factory import init_vlm
+    from clip_embeds_tpu_torch.models.llava_next import LlavaNextConfig
+    from clip_embeds_tpu_torch.models.qwen2_vl import Qwen25VLConfig
+
+    return (
+        ("phi3.5-v", lambda: init_vlm("phi3_v", seed=VB_SEED),
+         phi3v_family, False),
+        ("llava-next", lambda: init_vlm("llava_next", cut_config(
+            LlavaNextConfig(), VB_TRUNK_CUT), seed=VB_SEED),
+         llava_next_family, False),
+        ("qwen2-vl-7b", lambda: init_vlm("qwen2_vl", seed=VB_SEED),
+         qwen_family, True),
+        ("qwen2.5-vl-7b", lambda: init_vlm("qwen2_5_vl", cut_config(
+            Qwen25VLConfig(), VB_TRUNK_CUT), seed=VB_SEED),
+         qwen_family, False),
+    )
+
+
+def check_vlm_backbones(counters, gpu):
+    """Phase 14: VLM2Vec's other backbones at full width from seeded
+    weights: Phi-3.5-V (full depth), LLaVA-NeXT (the trunk cut to
+    VB_TRUNK_CUT layers), Qwen2-VL-7B (full depth, bf16 and W8A8) and
+    Qwen2.5-VL-7B (the trunk cut to VB_TRUNK_CUT layers), one at a time.
+    Returns the readings by family."""
+    from clip_embeds_tpu_torch.models.quant import quantize_llava_trunk
+    from clip_embeds_tpu_torch.ops.fused_block import int8_linear
+
+    counters = dict(counters, int8_linear=int8_linear)
+    out = {}
+    for label, build, make_family, int8 in vb_models():
+        t0 = time.perf_counter()
+        model = build()
+        qmodel = quantize_llava_trunk(model, "dynamic") if int8 else None
+        print(f"[backbones] {label} built in "
+              f"{time.perf_counter() - t0:.1f} s on {gpu}")
+        out[label] = vb_family_run(label, model, make_family, counters, gpu,
+                                   qmodel)
+        del model, qmodel
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card",
@@ -3668,6 +4179,7 @@ def main() -> int:
         check_gemms_s8(np.random.default_rng(2), gpu)
         check_int8_linear(gpu)
         check_int8_linear(gpu, T5_INT8_LINEAR_CASES, seed=13)
+        check_int8_linear(gpu, QWEN_INT8_LINEAR_CASES, seed=VB_SEED)
 
     # 4. the main path at full width and depth
     t0 = time.perf_counter()
@@ -3823,6 +4335,13 @@ def main() -> int:
     t0 = time.perf_counter()
     check_t5_family(counters, gpu)
     print(f"[phase 13] {time.perf_counter() - t0:.1f} s on {gpu}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 14. VLM2Vec's other backbones
+    t0 = time.perf_counter()
+    check_vlm_backbones(counters, gpu)
+    print(f"[phase 14] {time.perf_counter() - t0:.1f} s on {gpu}")
 
     def entry(name, source, replaces, path_launches, shape):
         """One kernel's line: the largest max |diff| over its shapes, and

@@ -18,8 +18,9 @@ a Dense ``kernel`` [in, out] is ``nn.Linear.weight`` [out, in], a LayerNorm
 ``LlavaForConditionalGeneration`` state dict (either key layout) into the
 port's ``models/llava.py`` :class:`Llava`, as the JAX
 ``convert_llava_state_dict`` reads it;
-:func:`llava_state_dict_from_jax_params` carries the JAX ``Llava`` params
-(a score bundle's ``params.npz``, int8 trunks included) across.
+:func:`vlm_state_dict_from_jax_params` carries the JAX ``Llava`` params
+(a score bundle's ``params.npz``, int8 trunks included) across, and those
+of VLM2Vec's other backbones.
 
 :func:`siglip_state_dict_from_hf` loads HF ``SiglipModel`` weights into the
 port's SigLIP (``models/siglip.py``), as the JAX
@@ -28,7 +29,7 @@ port's SigLIP (``models/siglip.py``), as the JAX
 The models whose module names are flax's (the Llama trunk, SigLIP,
 CLIP-FlanT5's T5, InstructBLIP-FlanT5, BLIP-2, ImageReward):
 :func:`state_dict_from_flax` carries a flax tree into the port
-(:func:`llava_state_dict_from_jax_params` and
+(:func:`vlm_state_dict_from_jax_params` and
 :func:`clip_t5_state_dict_from_jax_params` add their CLIP tower), and
 :func:`jax_params_from_module` carries any of these models (and LLaVA)
 back; ``convert_*_state_dict`` read the HF layouts of the T5 and BLIP
@@ -260,11 +261,12 @@ def _normalize_llava_keys(sd: Mapping[str, Any]) -> Dict[str, Any]:
     return out
 
 
-def _tapped_blocks(sd: Dict[str, torch.Tensor], cfg
-                   ) -> Dict[str, torch.Tensor]:
-    """``sd`` without the vision blocks past the LLaVA tap
-    (``cfg.tower_blocks``), which the port's tower does not hold."""
-    pre = "vision_tower.transformer.resblocks."
+def _tapped_blocks(sd: Dict[str, torch.Tensor], cfg,
+                   tower: str = "vision_tower") -> Dict[str, torch.Tensor]:
+    """``sd`` without the blocks of the CLIP tower under ``tower`` past
+    the hidden tap (``cfg.tower_blocks``), which the port's tower does not
+    hold."""
+    pre = f"{tower}.transformer.resblocks."
     return {k: v for k, v in sd.items() if not (
         k.startswith(pre)
         and int(k[len(pre):].split(".")[0]) >= cfg.tower_blocks)}
@@ -275,65 +277,13 @@ def llava_state_dict_from_hf(sd: Mapping[str, Any], cfg
     """HF ``LlavaForConditionalGeneration`` state dict (llava-hf layout,
     old or new key spelling) -> the state dict of fp32 tensors of the
     port's :class:`Llava` of config ``cfg`` (``models/llava.py
-    LlavaConfig``). The HF CLIP tower's separate q/k/v projections are
-    packed into ``attn.in_proj`` (q, k, v stacked), ``pre_layrnorm`` (sic)
-    is ``ln_pre``, fc1/fc2 are ``c_fc``/``c_proj``; the projector and the
-    Llama trunk keep HF's names, the token embedding moves to
-    ``language_model.embed_tokens``. Other keys (``post_layernorm``, which
-    the tap never reads, ``position_ids``) are ignored."""
-    sd = _normalize_llava_keys(sd)
-    out: Dict[str, torch.Tensor] = {}
-
-    def copy(src: str, dst: str) -> None:
-        out[dst] = _t(_hf(sd, src))
-
-    vis, dst = "vision_tower.vision_model.", "vision_tower."
-    copy(vis + "embeddings.patch_embedding.weight", dst + "conv1.weight")
-    copy(vis + "embeddings.class_embedding", dst + "class_embedding")
-    copy(vis + "embeddings.position_embedding.weight",
-         dst + "positional_embedding")
-    for part in ("weight", "bias"):
-        copy(f"{vis}pre_layrnorm.{part}", f"{dst}ln_pre.{part}")
-    i = 0
-    while f"{vis}encoder.layers.{i}.layer_norm1.weight" in sd:
-        src, blk = f"{vis}encoder.layers.{i}", f"{dst}transformer.resblocks.{i}"
-        for part in ("weight", "bias"):
-            out[f"{blk}.attn.in_proj_{part}"] = _t(np.concatenate(
-                [_hf(sd, f"{src}.self_attn.{x}_proj.{part}") for x in "qkv"]))
-            for a, b in (("self_attn.out_proj", "attn.out_proj"),
-                         ("layer_norm1", "ln_1"), ("layer_norm2", "ln_2"),
-                         ("mlp.fc1", "mlp.c_fc"), ("mlp.fc2", "mlp.c_proj")):
-                copy(f"{src}.{a}.{part}", f"{blk}.{b}.{part}")
-        i += 1
-    for key in sd:
-        if key.startswith("multi_modal_projector."):
-            copy(key, key)
-        elif key == "language_model.model.embed_tokens.weight":
-            copy(key, "language_model.embed_tokens.weight")
-        elif key.startswith(("language_model.model.layers.",
-                             "language_model.model.norm.",
-                             "language_model.lm_head.")):
-            copy(key, key)
-    return _tapped_blocks(out, cfg)
-
-
-def llava_state_dict_from_jax_params(params: Mapping[str, Any], cfg
-                                     ) -> Dict[str, torch.Tensor]:
-    """flax params of ``clip_embeds_tpu.models.llava.Llava`` (numpy arrays,
-    e.g. a score bundle's ``params.npz``) -> the state dict of the port's
-    :class:`Llava` of config ``cfg``: fp32 tensors, and for a quantised trunk the QuantLinear
-    buffers (``kernel_q`` [in, out] -> int8 ``weight_q`` [out, in],
-    ``scale``, ``bias``, ``act_scale``; a dynamic layer's ``act_scale``
-    and every ``act_max`` start at 1 and 0). The vision tower's
-    ``ln_post``, output projection and blocks past the tap, where the
-    tree has them (a tree converted from HF), are not carried: the LLaVA
-    tap never reads them."""
-    sd = _vision_tower(params["vision_tower"], "vision_tower", head=False)
-    for name, lin in params["multi_modal_projector"].items():
-        sd.update(_linear(lin, f"multi_modal_projector.{name}"))
-    sd.update(state_dict_from_flax(params["language_model"],
-                                   "language_model."))
-    return _tapped_blocks(sd, cfg)
+    LlavaConfig``), through the flax tree the JAX converter gives
+    (:func:`convert_llava_state_dict`): the HF CLIP tower's separate
+    q/k/v projections packed into ``attn.in_proj`` (q, k, v stacked),
+    ``pre_layrnorm`` (sic) as ``ln_pre``; keys the port's model does not
+    hold (``post_layernorm``, which the tap never reads, ``position_ids``)
+    are dropped."""
+    return vlm_state_dict_from_jax_params(convert_llava_state_dict(sd), cfg)
 
 
 def flax_module_path(name: str, sep: str = "/") -> str:
@@ -848,3 +798,201 @@ def convert_image_reward_state_dict(sd: Mapping[str, Any]) -> Dict[str, Any]:
     for i, idx in enumerate((0, 2, 4, 6, 7)):
         params[f"mlp_{i}"] = _flax_linear(sd, f"mlp.layers.{idx}")
     return params
+
+
+# -- VLM2Vec's backbones: LLaVA-NeXT, Phi-3-V, Qwen2-VL, Qwen2.5-VL -----------
+#
+# The HF converters are copies of the JAX package's (``core/
+# torch_convert.py``, ``models/phi3_v.py``) and return the same flax trees;
+# :func:`vlm_state_dict_from_jax_params` carries such a tree (or one the JAX
+# package initialised) into the port's model, and
+# :func:`jax_params_from_module` carries the port's model back.
+
+
+def convert_llama_state_dict(sd: Mapping[str, Any], prefix: str = ""
+                             ) -> Dict[str, Any]:
+    """HF ``LlamaForCausalLM`` (or Qwen2, with q/k/v biases) -> the flax
+    tree of the JAX ``LlamaForCausalLM``."""
+    sd = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+    layers: Dict[str, Any] = {}
+    for i in range(_count(sd, "model.layers.{}.input_layernorm.weight")):
+        p = f"model.layers.{i}"
+        layers[f"layers_{i}"] = {
+            "input_layernorm": {"weight": _hf(sd, p + ".input_layernorm"
+                                                  ".weight")},
+            "post_attention_layernorm": {
+                "weight": _hf(sd, p + ".post_attention_layernorm.weight")},
+            "self_attn": {name: _flax_linear(sd, f"{p}.self_attn.{name}")
+                          for name in ("q_proj", "k_proj", "v_proj",
+                                       "o_proj")},
+            "mlp": {name: _flax_dense_nb(sd, f"{p}.mlp.{name}")
+                    for name in ("gate_proj", "up_proj", "down_proj")},
+        }
+    params: Dict[str, Any] = {
+        "embed_tokens": {"embedding": _hf(sd, "model.embed_tokens.weight")},
+        "model": dict(layers, norm={"weight": _hf(sd, "model.norm.weight")}),
+    }
+    if "lm_head.weight" in sd:
+        params["lm_head"] = _flax_dense_nb(sd, "lm_head")
+    return params
+
+
+def convert_llava_state_dict(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """HF ``LlavaForConditionalGeneration`` (either key spelling) -> the
+    flax tree of the JAX ``Llava``."""
+    sd = _normalize_llava_keys(sd)
+    return {
+        "vision_tower": convert_hf_clip_vision_state_dict(
+            sd, prefix="vision_tower.vision_model."),
+        "multi_modal_projector": {
+            "linear_1": _flax_linear(sd, "multi_modal_projector.linear_1"),
+            "linear_2": _flax_linear(sd, "multi_modal_projector.linear_2"),
+        },
+        "language_model": convert_llama_state_dict(sd,
+                                                   prefix="language_model."),
+    }
+
+
+def convert_llava_next_state_dict(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """HF ``LlavaNextForConditionalGeneration`` -> the flax tree of the JAX
+    ``LlavaNext``: the LLaVA layout and the learned ``image_newline``."""
+    sd = dict(sd)
+    key = "image_newline" if "image_newline" in sd else "model.image_newline"
+    newline = _hf(sd, key)
+    del sd[key]
+    params = convert_llava_state_dict(sd)
+    params["image_newline"] = newline
+    return params
+
+
+def convert_phi3v_image_embedding_state_dict(sd: Mapping[str, Any],
+                                             prefix: str = ""
+                                             ) -> Dict[str, Any]:
+    """The reference's ``Phi3ImageEmbedding`` -> the flax tree of the JAX
+    ``Phi3VImageEmbedding``: ``img_processor.vision_model.*`` (an HF
+    CLIPVisionModel), ``glb_GN``, ``sub_GN`` and
+    ``img_projection.{0,2}`` (projection_cls 'mlp')."""
+    sd = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+    return {
+        "img_processor": convert_hf_clip_vision_state_dict(
+            sd, prefix="img_processor.vision_model."),
+        "glb_GN": _hf(sd, "glb_GN").reshape(-1),
+        "sub_GN": _hf(sd, "sub_GN").reshape(-1),
+        "proj_1": _flax_linear(sd, "img_projection.0"),
+        "proj_2": _flax_linear(sd, "img_projection.2"),
+    }
+
+
+def convert_phi3_v_state_dict(sd: Mapping[str, Any], cfg=None
+                              ) -> Dict[str, Any]:
+    """A whole HF Phi-3-V checkpoint -> the flax tree of the JAX ``Phi3V``:
+    the trunk through the packed qkv / gate_up split (``models/phi3.py``)
+    and the vision embedding (``model.vision_embed_tokens.*``)."""
+    from ..models.phi3 import convert_phi3_state_dict
+    from ..models.phi3_v import Phi3VConfig
+
+    cfg = cfg or Phi3VConfig()
+    lm = convert_phi3_state_dict(
+        {k: v for k, v in sd.items()
+         if not k.startswith("model.vision_embed_tokens.")}, cfg.text)
+    vision = convert_phi3v_image_embedding_state_dict(
+        sd, prefix="model.vision_embed_tokens.")
+    return {"language_model": lm, "vision_embed": vision}
+
+
+def _qwen_keys(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """The newer HF Qwen-VL layout (``model.visual.*``,
+    ``model.language_model.*``) renamed to the older (``visual.*``,
+    ``model.*``)."""
+    sd = dict(sd)
+    if not any(k.startswith("model.visual.") for k in sd):
+        return sd
+    out = {}
+    for k, v in sd.items():
+        if k.startswith("model.visual."):
+            k = "visual." + k[len("model.visual."):]
+        elif k.startswith("model.language_model."):
+            k = "model." + k[len("model.language_model."):]
+        out[k] = v
+    return out
+
+
+def _qwen_visual(sd: Mapping[str, Any], block, norm) -> Dict[str, Any]:
+    conv = _hf(sd, "visual.patch_embed.proj.weight")  # [D, C, tp, p, p]
+    blocks = {f"blocks_{i}": block(f"visual.blocks.{i}")
+              for i in range(_count(sd, "visual.blocks.{}.norm1.weight"))}
+    return dict(
+        blocks,
+        # conv3d with kernel == stride over the processor's (C, tp, ph, pw)
+        patch_embed={"kernel": conv.reshape(conv.shape[0], -1).T},
+        ln_q=norm("visual.merger.ln_q"),
+        merger_fc1=_flax_linear(sd, "visual.merger.mlp.0"),
+        merger_fc2=_flax_linear(sd, "visual.merger.mlp.2"),
+    )
+
+
+def convert_qwen2_vl_state_dict(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """HF ``Qwen2VLForConditionalGeneration`` (either key layout) -> the
+    flax tree of the JAX ``Qwen2VL``."""
+    sd = _qwen_keys(sd)
+
+    def block(pre):
+        return {"norm1": _flax_ln(sd, f"{pre}.norm1"),
+                "norm2": _flax_ln(sd, f"{pre}.norm2"),
+                "qkv": _flax_linear(sd, f"{pre}.attn.qkv"),
+                "proj": _flax_linear(sd, f"{pre}.attn.proj"),
+                "fc1": _flax_linear(sd, f"{pre}.mlp.fc1"),
+                "fc2": _flax_linear(sd, f"{pre}.mlp.fc2")}
+
+    return {"visual": _qwen_visual(sd, block, lambda p: _flax_ln(sd, p)),
+            "language_model": convert_llama_state_dict(
+                {k: v for k, v in sd.items() if not k.startswith("visual.")})}
+
+
+def convert_qwen2_5_vl_state_dict(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """HF ``Qwen2_5_VLForConditionalGeneration`` -> the flax tree of the
+    JAX ``Qwen25VL``: Qwen2-VL's layouts with RMSNorms (weight only) and
+    the gate / up / down SiLU MLP in the vision blocks, an RMS ``ln_q``."""
+    sd = _qwen_keys(sd)
+
+    def rms(prefix):
+        return {"weight": _hf(sd, prefix + ".weight")}
+
+    def block(pre):
+        return {"norm1": rms(f"{pre}.norm1"), "norm2": rms(f"{pre}.norm2"),
+                "qkv": _flax_linear(sd, f"{pre}.attn.qkv"),
+                "proj": _flax_linear(sd, f"{pre}.attn.proj"),
+                **{name: _flax_linear(sd, f"{pre}.mlp.{name}")
+                   for name in ("gate_proj", "up_proj", "down_proj")}}
+
+    return {"visual": _qwen_visual(sd, block, rms),
+            "language_model": convert_llama_state_dict(
+                {k: v for k, v in sd.items() if not k.startswith("visual.")})}
+
+
+def vlm_state_dict_from_jax_params(params: Mapping[str, Any], cfg
+                                   ) -> Dict[str, torch.Tensor]:
+    """The flax tree of one of VLM2Vec's backbones (the JAX ``Llava``,
+    ``LlavaNext``, ``Phi3V``, ``Qwen2VL`` or ``Qwen25VL``; numpy arrays,
+    e.g. a score bundle's ``params.npz``, int8 trunks included) -> the
+    state dict of the port's model of config ``cfg``: fp32 tensors, and
+    for a quantised trunk the QuantLinear buffers (``kernel_q`` [in, out]
+    -> int8 ``weight_q`` [out, in], ``scale``, ``bias``, ``act_scale``; a
+    dynamic layer's ``act_scale`` and every ``act_max`` start at 1 and 0).
+    The CLIP tower (``vision_tower`` or ``vision_embed.img_processor``)
+    goes through the open_clip layout without ``ln_post``, the output
+    projection or the blocks past the tap (a tree converted from HF has
+    them); everything else by its flax names (:func:`state_dict_from_flax`).
+    """
+    tree = {k: dict(v) if isinstance(v, Mapping) else v
+            for k, v in params.items()}
+    if "vision_tower" in tree:
+        tower, clip = "vision_tower", tree.pop("vision_tower")
+    elif "vision_embed" in tree:
+        tower = "vision_embed.img_processor"
+        clip = tree["vision_embed"].pop("img_processor")
+    else:
+        return state_dict_from_flax(tree)
+    sd = state_dict_from_flax(tree)
+    sd.update(_vision_tower(clip, tower, head=False))
+    return _tapped_blocks(sd, cfg, tower)

@@ -3,8 +3,9 @@ local open_clip state dict (counterpart of ``clip_embeds_tpu/core/
 factory.py``; nothing is downloaded); and the JAX package's ``.npz``
 parameter files (``save_params_npz`` / ``load_params_npz``: flax trees
 flattened to "a/b/kernel" keys), in which the PACL/SPARC heads travel; and
-:func:`init_llava` and :func:`init_score_model`, a seeded LLaVA or T5 /
-BLIP family model built where it will run."""
+:func:`init_llava`, :func:`init_score_model` and :func:`init_vlm`, a
+seeded LLaVA, T5 / BLIP family model or VLM2Vec backbone built where it
+will run."""
 
 from __future__ import annotations
 
@@ -163,45 +164,67 @@ def load_params_npz(path: str) -> Dict[str, Any]:
         return unflatten_params({k: data[k] for k in data.files})
 
 
-@torch.no_grad()
 def init_llava(cfg, seed: int = 0,
                device: Union[str, torch.device] = "cuda",
                dtype: torch.dtype = torch.bfloat16):
     """A :class:`~..models.llava.Llava` of config ``cfg`` with seeded random
-    weights, allocated on ``device`` in ``dtype`` and drawn there from a
-    ``torch.Generator`` of that device: the vision tower at open_clip's
-    block scales, the projector and the Llama trunk at HF's
-    ``initializer_range`` (normals of std 0.02, zero biases, norms at
-    one). No copy is made on the host, so a 7B model is built on the card
-    directly. A seed gives other values on another device type (each has
-    its own generator stream)."""
-    from ..models.llava import Llava
+    weights: :func:`init_vlm` of the ``llava_15`` family."""
+    return init_vlm("llava_15", cfg, seed, device, dtype)
 
-    device = torch.device(device)
+
+@torch.no_grad()
+def init_vlm(name: str, cfg=None, seed: int = 0,
+             device: Union[str, torch.device] = "cuda",
+             dtype: torch.dtype = torch.bfloat16) -> nn.Module:
+    """One of VLM2Vec's backbones (``name``: a family of
+    ``models/backbones.py`` or an HF model name; ``cfg`` defaults to the
+    family's config) with seeded random weights, built on the meta device,
+    allocated on ``device`` in ``dtype`` and drawn there from a
+    ``torch.Generator`` of that device (no host copy), so a 7B model is
+    built on the card directly: norms at one and zero, every CLIP tower
+    at open_clip's scales (the patchify at (3 p^2)^-1/2, the class and
+    positional embeddings at width^-1/2, the blocks at open_clip's block
+    scales), LLaVA-NeXT's ``image_newline`` at hidden^-1/2 (the JAX
+    init), other biases zero, other weights (trunks, projections, the
+    Qwen towers, Phi-3-V's separators) normals of std 0.02 (HF's
+    ``initializer_range``). A seed gives other values on another device
+    type (each has its own generator stream). Without a card ``device``
+    must be 'cpu'.
+    Qwen2-VL's W8A8 twin: ``models/quant.py quantize_llava_trunk``."""
+    from ..models.backbones import get_backbone
+    from ..models.llama import RMSNorm
+    from ..models.vit import VisionTransformer
+
+    device = resolve_device(str(device))
+    backbone = get_backbone(name)
     with torch.device("meta"):
-        model = Llava(cfg).to(dtype)
-    model.to_empty(device=device)
+        model = backbone.model_cls(cfg or backbone.config_factory())
+    model.to(dtype).to_empty(device=device)
     g = torch.Generator(device=device).manual_seed(seed)
-    vis, v = model.vision_tower, cfg.vision
-    nn.init.normal_(vis.conv1.weight, std=(3 * v.patch_size ** 2) ** -0.5,
-                    generator=g)
-    nn.init.normal_(vis.class_embedding, std=v.width ** -0.5, generator=g)
-    nn.init.normal_(vis.positional_embedding, std=v.width ** -0.5,
-                    generator=g)
-    _init_tower(vis.transformer.resblocks, v.width, v.layers, g)
-    for name, p in model.named_parameters():
-        if name.endswith(("ln_1.weight", "ln_2.weight", "ln_pre.weight",
-                          "ln_post.weight", "norm.weight",
-                          "layernorm.weight")):
-            p.fill_(1.0)
-        elif name.endswith(("ln_1.bias", "ln_2.bias", "ln_pre.bias",
-                            "ln_post.bias")):
+    done = set()
+    for m in model.modules():
+        if isinstance(m, (nn.LayerNorm, RMSNorm)):
+            m.weight.fill_(1.0)
+            if getattr(m, "bias", None) is not None:
+                m.bias.zero_()
+        elif isinstance(m, VisionTransformer):
+            v = m.cfg
+            nn.init.normal_(m.conv1.weight, std=(3 * v.patch_size ** 2)
+                            ** -0.5, generator=g)
+            for p in (m.class_embedding, m.positional_embedding):
+                nn.init.normal_(p, std=v.width ** -0.5, generator=g)
+            _init_tower(m.transformer.resblocks, v.width, v.layers, g)
+        else:
+            continue
+        done.update(id(p) for p in m.parameters())
+    for pname, p in model.named_parameters():
+        if id(p) in done:
+            continue
+        if pname.endswith("bias"):
             p.zero_()
-        elif not name.startswith("vision_tower."):
-            if name.endswith("bias"):
-                p.zero_()
-            else:
-                nn.init.normal_(p, std=0.02, generator=g)
+        else:
+            std = p.shape[-1] ** -0.5 if pname == "image_newline" else 0.02
+            nn.init.normal_(p, std=std, generator=g)
     return model.eval()
 
 

@@ -23,15 +23,20 @@ returns them explicitly beside the hidden states. ``lora_rank`` /
 ``lora_alpha`` build the seven projections a layer with the unmaterialized
 LoRA side-path (``models/quant.py``), and ``remat`` recomputes each block
 in the backward (``torch.utils.checkpoint``, JAX's ``nn.remat`` per
-block; training only). Not ported: the ``decode`` KV cache, M-RoPE
-(``mrope_cos_sin``) and the ``scan_layers`` layout.
+block; training only). ``positions`` of shape [B, 3, N] (Qwen2-VL's
+(t, h, w) ids) take multimodal RoPE (:func:`mrope_cos_sin`) on a model
+with ``mrope_section`` and their row 0 on a 1-D RoPE model, as JAX's trunk
+dispatches them. Not ported: the ``decode`` KV cache and the
+``scan_layers`` layout.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
@@ -56,8 +61,8 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
     attention_bias: bool = False  # Qwen2-style q/k/v biases
-    # Qwen2-VL multimodal RoPE sections; kept for config round trips, not
-    # ported (ROADMAP.md queue 1 item 14)
+    # Qwen2-VL multimodal RoPE: per-axis (t, h, w) channel sections summing
+    # to head_dim/2. None -> standard 1D RoPE
     mrope_section: Optional[Tuple[int, ...]] = None
 
     @property
@@ -103,6 +108,37 @@ def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float
     angles = positions[..., None].float() * inv_freq  # [B, N, hd/2]
     emb = torch.cat([angles, angles], dim=-1)
     return torch.cos(emb), torch.sin(emb)
+
+
+@functools.lru_cache(maxsize=16)
+def mrope_axis_index(section: Tuple[int, ...], head_dim: int,
+                     device: str = "cpu") -> torch.Tensor:
+    """[head_dim] int64: the axis (0 t, 1 h, 2 w) each channel rotates by,
+    ``list(section) * 2`` runs cycling t, h, w; built on the host, as JAX
+    builds its one-hot, and kept on ``device`` (a copy from pageable host
+    memory would wait for the device at every call). Read-only: callers
+    share it."""
+    sel = np.concatenate([np.full(s, i % 3) for i, s in
+                          enumerate(list(section) * 2)])
+    if sel.shape[0] != head_dim:
+        raise ValueError(f"mrope_section {tuple(section)} covers "
+                         f"{sel.shape[0]} channels, not head_dim {head_dim}")
+    return torch.from_numpy(sel).to(device)
+
+
+def mrope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
+                  section: Sequence[int]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Multimodal RoPE: positions [B, 3, N] of (t, h, w) -> fp32 (cos, sin)
+    [B, N, head_dim], each channel taking the rotation of one axis
+    (:func:`mrope_axis_index`). A gather along the axis picks what JAX's
+    contraction with its one-hot sums (one term, exactly), with no fp32
+    product on the card."""
+    index = mrope_axis_index(tuple(section), head_dim, str(positions.device))
+    cos, sin = rope_cos_sin(positions, head_dim, theta)  # [B, 3, N, hd]
+    b, _, n, _ = cos.shape
+    index = index.expand(b, 1, n, head_dim)
+    return cos.gather(1, index)[:, 0], sin.gather(1, index)[:, 0]
 
 
 def apply_rotary(x: torch.Tensor, cos: torch.Tensor,
@@ -223,10 +259,6 @@ class LlamaModel(nn.Module):
                  lora_rank: int = 0, lora_alpha: float = 16.0,
                  remat: bool = False):
         super().__init__()
-        if cfg.mrope_section is not None:
-            raise NotImplementedError(
-                "M-RoPE (Qwen2-VL) is not ported yet: ROADMAP.md queue 1 "
-                "item 14")
         self.cfg = cfg
         self.remat = remat
         self.layers = nn.ModuleList(
@@ -239,13 +271,20 @@ class LlamaModel(nn.Module):
                 sow_kv: bool = False, prefix_mask=None,
                 suffix_block: Optional[int] = None):
         """Hidden states [B, N, D]; with ``sow_kv`` also the per-layer
-        post-RoPE, pre-repeat ((k, v), ...), each [B, kv_heads, N, hd]."""
+        post-RoPE, pre-repeat ((k, v), ...), each [B, kv_heads, N, hd].
+        ``positions``: [B, N], or [B, 3, N] (t, h, w) ids."""
         cfg = self.cfg
         b, n, _ = inputs_embeds.shape
         if positions is None:
             positions = torch.arange(n, device=inputs_embeds.device
                                      ).expand(b, n)
-        cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+        if cfg.mrope_section is not None and positions.dim() == 3:
+            cos, sin = mrope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
+                                     cfg.mrope_section)
+        else:
+            if positions.dim() == 3:  # M-RoPE ids on a 1-D RoPE model
+                positions = positions[:, 0]
+            cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
         x = inputs_embeds
         kv: List[KV] = []
         remat = self.remat and torch.is_grad_enabled()

@@ -113,6 +113,29 @@ def _gather_rows(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 1, index[..., None].expand(-1, -1, x.shape[-1]))
 
 
+def place_in_order(mask: torch.Tensor, features: torch.Tensor,
+                   embeds: torch.Tensor) -> torch.Tensor:
+    """``embeds`` [B, L, D] with the positions where ``mask`` [B, L] is set
+    taken, in order, by the rows of ``features`` [B, S, D] (the
+    reference's index_put / masked_scatter, as a cumsum gather)."""
+    idx = (torch.cumsum(mask.long(), dim=1) - 1).clamp(0,
+                                                       features.shape[1] - 1)
+    gathered = _gather_rows(features.to(embeds.dtype), idx)
+    return torch.where(mask[..., None], gathered, embeds)
+
+
+def tapped_tower(vision: VisionConfig, feature_layer: int,
+                 quick_gelu: bool) -> VisionTransformer:
+    """The CLIP tower a hidden tap at ``feature_layer`` (-2) reads: the
+    blocks up to the tap and no ``ln_post`` or output projection, which
+    the tap never reaches (a flax init creates none of them)."""
+    tower = VisionTransformer(vision, embed_dim=vision.width,
+                              quick_gelu=quick_gelu)
+    del tower.transformer.resblocks[vision.layers + 1 + feature_layer:]
+    del tower.ln_post, tower.proj
+    return tower
+
+
 class MultiModalProjector(nn.Module):
     def __init__(self, in_features: int, hidden_size: int):
         super().__init__()
@@ -139,14 +162,8 @@ class Llava(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.lora_rank, self.lora_alpha = lora_rank, lora_alpha
-        self.vision_tower = VisionTransformer(
-            cfg.vision, embed_dim=cfg.vision.width,
-            quick_gelu=cfg.vision_quick_gelu)
-        # the hidden tap never reaches the last block(s) or the head
-        # (flax never creates them)
-        blocks = self.vision_tower.transformer.resblocks
-        del blocks[cfg.tower_blocks:]
-        del self.vision_tower.ln_post, self.vision_tower.proj
+        self.vision_tower = tapped_tower(cfg.vision, cfg.feature_layer,
+                                         cfg.vision_quick_gelu)
         self.multi_modal_projector = MultiModalProjector(
             cfg.vision.width, cfg.llama.hidden_size)
         self.language_model = LlamaForCausalLM(

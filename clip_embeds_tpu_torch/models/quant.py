@@ -17,7 +17,7 @@ compute dtype, as flax keeps QuantDense's params fp32: cast a quantised
 model with :func:`cast_floating`, not ``.to(dtype)``.
 
 :func:`quantize_llava_trunk` quantises the seven projections of each
-layer of a LLaVA Llama trunk (``LLAMA_QUANT_LAYER_NAMES``).
+layer of a LLaVA or Qwen2-VL Llama trunk (``LLAMA_QUANT_LAYER_NAMES``).
 
 The unmaterialized LoRA side-path (``_lora_delta``, ``LoraDense`` and the
 ``lora_rank`` of ``QuantDense``): a layer built with ``lora_rank`` > 0
@@ -349,20 +349,20 @@ def calibrate_act_scales(model: nn.Module, batches: Iterable,
 def quantize_llava_trunk(model: nn.Module, mode: Quant = "dynamic",
                          dtype: Optional[torch.dtype] = None,
                          **llava_kw) -> nn.Module:
-    """A new :class:`~.llava.Llava` on ``model``'s device whose Llama
-    trunk's seven projections a layer (``LLAMA_QUANT_LAYER_NAMES``) are
-    int8 :class:`QuantLinear` quantised from ``model``'s weights
-    (counterpart of ``quantize_llava_trunk``); the vision tower,
-    projector, embeddings, norms and ``lm_head`` keep their tensors, cast
-    to ``dtype`` (default: ``model``'s; with the same dtype they are
-    shared, not copied). ``model`` is left as it is. ``llava_kw``
-    (``lora_rank``, ``lora_alpha``, ``remat``) go to the new model."""
-    from .llava import Llava
-
+    """A new model of ``model``'s class (``models/llava.py Llava`` or
+    ``models/qwen2_vl.py Qwen2VL``: the JAX ``quantize_llava_trunk`` serves
+    both trees) on ``model``'s device whose Llama trunk's seven
+    projections a layer (``LLAMA_QUANT_LAYER_NAMES``) are int8
+    :class:`QuantLinear` quantised from ``model``'s weights, q/k/v
+    biases kept fp32; the vision tower, projector, embeddings, norms and
+    ``lm_head`` keep their tensors, cast to ``dtype`` (default:
+    ``model``'s; with the same dtype they are shared, not copied).
+    ``model`` is left as it is. ``llava_kw`` (``lora_rank``,
+    ``lora_alpha``, ``remat``) go to the new model."""
     dtype = dtype or model.language_model.embed_tokens.weight.dtype
     sd = model.state_dict()
     with torch.device("meta"):
-        qmodel = Llava(model.cfg, quant_llm=mode, **llava_kw)
+        qmodel = type(model)(model.cfg, quant_llm=mode, **llava_kw)
     qmodel.load_state_dict(quantize_linears(sd, llava_trunk_pairs(sd), dtype),
                            assign=True)
     return qmodel.eval()

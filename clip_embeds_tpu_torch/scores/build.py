@@ -269,11 +269,11 @@ def llava_from_params(params: Dict[str, Any], cfg: LlavaConfig,
     params; the tower, projector, embeddings, norms and lm_head stay
     floating point. ``llava_kw`` (``lora_rank``, ``lora_alpha``,
     ``remat``) go to the model."""
-    from ..core.convert import llava_state_dict_from_jax_params
+    from ..core.convert import vlm_state_dict_from_jax_params
     from ..models.llava import Llava
     from ..models.quant import llava_trunk_pairs
 
-    fp = llava_state_dict_from_jax_params(params, cfg)
+    fp = vlm_state_dict_from_jax_params(params, cfg)
     return _load_on(Llava, cfg, fp, device, dtype,
                     llava_trunk_pairs(fp) if quant else None,
                     quant_llm="dynamic" if quant else "", **llava_kw)

@@ -31,7 +31,9 @@ class ModelArguments:
         default=None, metadata={"help": "model name or checkpoint path"}
     )
     model_backbone: str = field(
-        default="llava_15", metadata={"help": "vlm backbone family"}
+        default="llava_15",
+        metadata={"help": "vlm backbone family or HF model name, resolved "
+                  "by models/backbones.py get_backbone"}
     )
     processor_name: Optional[str] = field(
         default=None, metadata={"help": "processor name (defaults to model)"}

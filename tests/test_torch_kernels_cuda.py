@@ -9,7 +9,10 @@ PACL/SPARC slice on the card (the frozen-tower routes' patch tokens, a
 head step, the head scorers' route), and the SigLIP shapes (attention at
 head dims 72, 80, 88 and 104 from separate and packed buffers, the GEMMs
 at N and K = 4304, the SO400M-width blocks and a two-layer tower on every
-serving route).
+serving route), and VLM2Vec's other backbones (the attention causal at
+head dim 96, int8_linear with a bias at N = 512, a tiny Phi-3-V,
+LLaVA-NeXT, Qwen2-VL with its W8A8 trunk and Qwen2.5-VL on the card
+against the plain path).
 Marked ``cuda``; without a card they skip. On the card:
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py``."""
 
@@ -1513,3 +1516,196 @@ def test_t5_family_routes_on_card_match_plain_path(cuda):
                               image_size=192, device=cuda)(images, texts)
     assert flash_attention.launches == 2 * ir_cfg.vision.layers
     np.testing.assert_allclose(ir_got, ir_want, atol=0.1)
+
+
+@pytest.mark.parametrize("mode", ["dynamic", "static"])
+def test_int8_linear_with_bias_at_qwen2_kv_width(cuda, mode):
+    """QuantLinear with a bias at Qwen2-7B's K/V projection (3584 -> 512,
+    the narrowest N a W8A8 trunk has run): bit-equal to qdot's exact
+    product plus the fp32 bias, rounded to bf16; a dropped bias would not
+    be."""
+    from clip_embeds_tpu_torch.models.quant import QuantLinear, quantize_weight
+    from clip_embeds_tpu_torch.ops.fused_block import qdot
+
+    rng = np.random.default_rng(50)
+    x = _bf16(rng, 2, 153, 3584)
+    w = torch.from_numpy(rng.standard_normal((512, 3584)).astype(
+        np.float32) * 0.02).to(cuda)
+    lin = QuantLinear(3584, 512, mode, bias=True).to(cuda)
+    lin.weight_q, lin.scale = quantize_weight(w)
+    lin.bias.copy_(torch.from_numpy(0.5 * rng.standard_normal(512).astype(
+        np.float32)))
+    lin.act_scale.fill_(0.0213)
+    with torch.inference_mode():
+        got = lin(x)
+    a = (lin.act_scale if mode == "static"
+         else x.float().abs().amax() / 127.0)
+    want = qdot(x.float(), a, lin.weight_q, lin.scale,
+                lin.bias).to(torch.bfloat16)
+    no_bias = qdot(x.float(), a, lin.weight_q, lin.scale,
+                   None).to(torch.bfloat16)
+    assert got.shape == (2, 153, 512) and torch.equal(got, want)
+    assert not torch.equal(got, no_bias)
+
+
+@pytest.mark.parametrize("n", [128, 641, 2555])
+def test_flash_kernel_causal_head_dim_96(cuda, n):
+    """Phi-3's causal trunk at head dim 96 (32 heads of 96 over ~2.5k rows
+    with a square Phi-3-V image), from the trunk's [B, N, H, D] layout
+    viewed as [B, H, N, D], against the plain version."""
+    rng = np.random.default_rng(n)
+    q, k, v = (_bf16(rng, 1, n, 4, 96).transpose(1, 2) for _ in range(3))
+    with torch.inference_mode():
+        got = flash_attention(q, k, v, causal=True)
+        want = flash_attention_reference(q, k, v, causal=True)
+    assert got.shape == want.shape == (1, 4, n, 96)
+    diff = (got.float() - want.float()).abs()
+    assert diff.max().item() <= 0.02, diff.max().item()
+    assert diff.mean().item() <= 2e-4, diff.mean().item()
+
+
+def _vlm_on_card_and_cpu(family, cfg):
+    """A seeded bf16 model on the card and its fp32 copy on the CPU."""
+    from clip_embeds_tpu_torch.core.factory import init_vlm
+
+    model = init_vlm(family, cfg, seed=0, device="cuda")
+    ref = init_vlm(family, cfg, seed=0, device="cuda")
+    return model, ref.float().cpu()
+
+
+def _least_cos(a, b):
+    return torch.nn.functional.cosine_similarity(
+        a.float().cpu(), b.float().cpu(), dim=-1).min().item()
+
+
+def test_phi3_v_on_card_matches_plain_path(cuda):
+    """A tiny Phi-3-V (168-px crops: 145 tower rows; a trunk at head dim
+    96) on the card: the tower takes the flash kernel once a block, the
+    unmasked forward once a trunk layer more, the masked embedding none in
+    the trunk; both agree with the fp32 plain path on the CPU."""
+    from clip_embeds_tpu_torch.core.config import VisionConfig
+    from clip_embeds_tpu_torch.models.llama import LlamaConfig
+    from clip_embeds_tpu_torch.models.phi3_v import Phi3VConfig
+
+    cfg = Phi3VConfig(
+        text=LlamaConfig(vocab_size=512, hidden_size=192,
+                         intermediate_size=384, num_layers=2, num_heads=2),
+        vision=VisionConfig(image_size=168, patch_size=14, width=128,
+                            layers=3, head_width=64))
+    model, ref = _vlm_on_card_and_cpu("phi3_v", cfg)
+    s = 6 * 13 + 1 + 6 * 7  # a 1 x 2 grid of 12 x 12 patches a crop
+    rng = np.random.default_rng(51)
+    ids = torch.from_numpy(rng.integers(2, 500, (2, 160))).long()
+    ids[:, 1:1 + s] = -1
+    mask = torch.ones_like(ids)
+    mask[1, 150:] = 0
+    px = torch.from_numpy(rng.standard_normal((2, 4, 168, 168, 3)).astype(
+        np.float32))
+    on = dict(ids=ids.to(cuda), px=px.to(cuda, torch.bfloat16),
+              mask=mask.to(cuda))
+    with torch.inference_mode():
+        flash_attention.launches = 0
+        got = model.embed_last_token(on["ids"], on["px"], 1, 2, on["mask"])
+        assert flash_attention.launches == cfg.tower_blocks
+        flash_attention.launches = 0
+        logits = model(on["ids"], on["px"], 1, 2)[:, -1]
+        assert flash_attention.launches == cfg.tower_blocks + 2
+        want = ref.embed_last_token(ids, px, 1, 2, mask)
+        want_logits = ref(ids, px, 1, 2)[:, -1]
+    assert _least_cos(got, want) > 0.99
+    assert _least_cos(logits, want_logits) > 0.99
+
+
+def test_llava_next_on_card_matches_plain_path(cuda):
+    """A tiny LLaVA-NeXT on the card: one tower call over every crop (the
+    flash kernel once a block), the masked trunk plain; agrees with the
+    fp32 plain path on the CPU."""
+    from clip_embeds_tpu_torch.core.config import VisionConfig
+    from clip_embeds_tpu_torch.models.llama import LlamaConfig
+    from clip_embeds_tpu_torch.models.llava import IMAGE_TOKEN_INDEX
+    from clip_embeds_tpu_torch.models.llava_next import (
+        LlavaNextConfig, anyres_pack_plan)
+
+    pins = ((168, 336), (336, 168), (336, 336))
+    cfg = LlavaNextConfig(
+        llama=LlamaConfig(vocab_size=512, hidden_size=256,
+                          intermediate_size=512, num_layers=2, num_heads=2),
+        vision=VisionConfig(image_size=168, patch_size=14, width=128,
+                            layers=3, head_width=64),
+        grid_pinpoints=pins)
+    model, ref = _vlm_on_card_and_cpu("llava_next", cfg)
+    rng = np.random.default_rng(52)
+    plans = [anyres_pack_plan(hw, pins, 168, 14, cfg.max_features)
+             for hw in ((200, 400), (300, 300))]
+    ids = torch.from_numpy(rng.integers(2, 500, (2, 20))).long()
+    ids[:, 1] = IMAGE_TOKEN_INDEX
+    mask = torch.ones_like(ids)
+    mask[1, 15:] = 0
+    args = [ids, torch.from_numpy(rng.standard_normal(
+        (2, 5, 168, 168, 3)).astype(np.float32))] + [
+        torch.from_numpy(np.stack([getattr(p, k) for p in plans]))
+        for k in ("gather", "is_newline", "valid")] + [mask]
+    on = [a.to(cuda, torch.bfloat16) if a.is_floating_point() else
+          a.to(cuda) for a in args]
+    with torch.inference_mode():
+        flash_attention.launches = 0
+        got = model.embed_last_token(*on)
+        assert flash_attention.launches == cfg.tower_blocks
+        want = ref.embed_last_token(*args)
+    assert _least_cos(got, want) > 0.99
+
+
+@pytest.mark.parametrize("v25", [False, True], ids=["qwen2", "qwen2.5"])
+def test_qwen_vl_on_card_matches_plain_path(cuda, v25):
+    """A tiny Qwen2-VL / Qwen2.5-VL (trunk at head dim 128, GQA 2/1,
+    M-RoPE) on the card: the unmasked forward takes the flash kernel once
+    a trunk layer (the towers' attention is plain, as in JAX); W8A8
+    Qwen2-VL runs int8_linear 7 times a layer a pass with q/k/v biases;
+    each agrees with the fp32 plain path on the CPU (W8A8 with bf16)."""
+    from clip_embeds_tpu_torch.models.llama import LlamaConfig
+    from clip_embeds_tpu_torch.models.quant import quantize_llava_trunk
+    from clip_embeds_tpu_torch.models.qwen2_vl import (
+        Qwen25VLConfig, Qwen25VLVisionConfig, Qwen2VLConfig,
+        Qwen2VLVisionConfig, get_rope_index)
+    from clip_embeds_tpu_torch.ops.fused_block import int8_linear
+
+    text = LlamaConfig(vocab_size=1024, hidden_size=256,
+                       intermediate_size=512, num_layers=2, num_heads=2,
+                       num_kv_heads=1, rope_theta=1e6, rms_norm_eps=1e-6,
+                       attention_bias=True, mrope_section=(16, 24, 24))
+    ids_kw = dict(image_token_id=1000, video_token_id=1001,
+                  vision_start_token_id=1002)
+    if v25:
+        cfg = Qwen25VLConfig(text=text, vision=Qwen25VLVisionConfig(
+            depth=3, embed_dim=64, intermediate_size=128, hidden_size=256,
+            num_heads=2, fullatt_block_indexes=(1,)), **ids_kw)
+        family = "qwen2_5_vl"
+    else:
+        cfg = Qwen2VLConfig(text=text, vision=Qwen2VLVisionConfig(
+            depth=2, embed_dim=64, hidden_size=256, num_heads=2), **ids_kw)
+        family = "qwen2_vl"
+    model, ref = _vlm_on_card_and_cpu(family, cfg)
+    grid = (1, 16, 16)
+    rng = np.random.default_rng(53)
+    ids = rng.integers(2, 900, (2, 140))
+    ids[:, 3:67] = 1000
+    pos = torch.from_numpy(get_rope_index(ids, [grid] * 2, None, cfg))
+    ids = torch.from_numpy(ids).long()
+    patches = torch.from_numpy(rng.standard_normal((2, 256, 1176)).astype(
+        np.float32))
+    on = (ids.to(cuda), patches.to(cuda, torch.bfloat16), grid, None,
+          pos.to(cuda))
+    with torch.inference_mode():
+        flash_attention.launches = 0
+        got = model(*on)[:, -1]
+        assert flash_attention.launches == 2
+        want = ref(ids, patches, grid, None, pos)[:, -1]
+    assert _least_cos(got, want) > 0.99
+    if v25:
+        return
+    qmodel = quantize_llava_trunk(model, "dynamic")
+    with torch.inference_mode():
+        int8_linear.launches = 0
+        got8 = qmodel(*on)[:, -1]
+        assert int8_linear.launches == 7 * 2
+    assert _least_cos(got8, got) > 0.95

@@ -25,8 +25,8 @@ from clip_embeds_tpu.scores.build import config_to_dict
 from clip_embeds_tpu_torch.core.convert import (
     jax_params_from_module,
     llava_state_dict_from_hf,
-    llava_state_dict_from_jax_params,
     state_dict_from_flax,
+    vlm_state_dict_from_jax_params,
 )
 from clip_embeds_tpu_torch.core.factory import init_llava
 from clip_embeds_tpu_torch.models import llama as pllama
@@ -80,7 +80,7 @@ def tiny():
     params = perturbed(params, 1)
     cfg = port_cfg(jcfg)
     port = pllava.Llava(cfg).eval()
-    port.load_state_dict(llava_state_dict_from_jax_params(params, cfg))
+    port.load_state_dict(vlm_state_dict_from_jax_params(params, cfg))
     return model, params, port
 
 
@@ -405,7 +405,7 @@ def test_int8_trunk_codes_and_logits_match_jax(tiny):
                                    jnp.asarray(px)))
     from_jax = pllava.Llava(port.cfg, quant_llm="dynamic").eval()
     from_jax.load_state_dict(
-        llava_state_dict_from_jax_params(jax.device_get(jq), port.cfg))
+        vlm_state_dict_from_jax_params(jax.device_get(jq), port.cfg))
     with torch.no_grad():
         for m in (qport, from_jax):
             got = m(_t(ids), _t(px)).numpy()
@@ -426,7 +426,7 @@ def test_weights_round_trip_between_packages(tiny):
     with torch.no_grad():
         got = port(_t(ids), _t(px)).numpy()
     np.testing.assert_allclose(got, want, **TOL)
-    back = llava_state_dict_from_jax_params(tree, cfg)
+    back = vlm_state_dict_from_jax_params(tree, cfg)
     for k, v in port.state_dict().items():
         np.testing.assert_array_equal(back[k].numpy(), v.numpy())
 

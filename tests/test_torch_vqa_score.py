@@ -35,8 +35,8 @@ from clip_embeds_tpu.scores.score import VQAScore as JVQAScore
 from clip_embeds_tpu_torch.cli.t2v_eval import main as t2v_main
 from clip_embeds_tpu_torch.core.convert import (
     jax_params_from_module,
-    llava_state_dict_from_jax_params,
     state_dict_from_jax_params,
+    vlm_state_dict_from_jax_params,
 )
 from clip_embeds_tpu_torch.evals import benchmarks as pbench
 from clip_embeds_tpu_torch.evals import tau as ptau
@@ -89,7 +89,7 @@ def tiny():
     cfg = pbuild.config_from_dict(pllava.LlavaConfig,
                                   jbuild.config_to_dict(jcfg))
     port = pllava.Llava(cfg).eval()
-    port.load_state_dict(llava_state_dict_from_jax_params(params, cfg))
+    port.load_state_dict(vlm_state_dict_from_jax_params(params, cfg))
     return model, params, port
 
 
