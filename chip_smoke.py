@@ -218,6 +218,28 @@ Phases, each of which raises on failure:
      its own, bf16 against the plain fp32 path on the trunk cut to 2
      layers (the witness beside it), W8A8 against bf16, embeds/s by CUDA
      events and peak memory. Limits from scripts/chip_probe_backbones.py.
+ 15. (run after 12, in its fixture directory on phase 6's seed-0
+     weights) the rest of the CLIP training loop through cli/train.py
+     main: (a) --distill-model ViT-L-14-336 --distill-pretrained with a
+     teacher state dict written from the seed, 3 steps at b32 on the
+     composable route with exact launches (the teacher's forward adds 24
+     flash_attention a step), the teacher bit-equal and without gradients,
+     distilled samples/s by CUDA events beside phase 6's plain rate, peak
+     memory, and the distillation gradients at b8 against the plain fp32
+     path beside the no-kernel witness under phase 6's limits; (b) one
+     epoch at lr 0 on the recipe's TSV with --val-data (256 pairs) and
+     --imagenet-val (10 classes x 8 JPEGs, the shipped 1000-class,
+     80-template metadata: 100 classifier calls of 800 prompts) on the
+     composable and fused-train-res routes, exact launches of the eval
+     passes, validation samples/s, the classifier's seconds and prompts/s,
+     the results.jsonl lines, and the val features, |delta clip_val_loss|,
+     the classifier on 50 classes and the zero-shot logits against the
+     plain fp32 path with their clear decisions; evals/flickr.py
+     evaluate_retrieval on 64 JPEGs x 5 captions; (c) 2 epochs with
+     --delete-previous-checkpoint, blocking saves, then --async-checkpoints
+     with --remote-sync to a local mirror every second: each epoch's wall,
+     the mirror byte-equal to the commits and without .tmp_* files. Limits
+     from scripts/chip_probe_train_loop.py.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device it exits
@@ -234,6 +256,7 @@ import json
 import logging
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -617,6 +640,38 @@ RECIPE_ROUTES = {
 # phase 12 (d): --force-patch-dropout 0.5 unlocked, PATCH_DROP_STEPS steps
 # at TRAIN_BATCH on each of phase 6's routes, with phase 6's launches
 PATCH_DROP, PATCH_DROP_ROWS, PATCH_DROP_STEPS = 0.5, 289, 2
+# phase 15: the rest of the CLIP training loop through cli/train.py main
+# (ROADMAP items 5f, 5g and 5c's distillation half), in phase 12's fixture
+# directory on phase 6's seed-0 weights. (a) --distill-model MODEL
+# --distill-pretrained teacher.pt (phase 6's weights, each entry but the
+# logit scale scaled by 1 + LOOP_TEACHER_NOISE x a seeded normal),
+# LOOP_DISTILL_STEPS steps at TRAIN_BATCH, composable; (b) one epoch on
+# the recipe's TSV (RECIPE_TSV // TRAIN_BATCH = 1 step) at lr 0, so that
+# the evals see phase 6's weights on both RECIPE_ROUTES and one plain
+# fp32 reference serves both,
+# with --val-data over LOOP_VAL_SAMPLES of phase 12's JPEGs and
+# --imagenet-val over LOOP_ZS_CLASSES class dirs x LOOP_ZS_PER_CLASS
+# JPEGs on the shipped 1000-class, 80-template metadata (100 classifier
+# calls of 800 prompts); the plain fp32 reference's classifier on
+# LOOP_ZS_REF_CLASSES classes (the fixture's 10 and more drawn from
+# LOOP_SEED: the 80,000 prompts in fp32 would take ~20 s a run), and
+# evals/flickr.py evaluate_retrieval over LOOP_FLICKR_IMAGES JPEGs x 5
+# captions; (c) LOOP_CKPT_EPOCHS epochs of the TSV with blocking saves,
+# then with --async-checkpoints and a local --remote-sync mirror
+LOOP_SEED, LOOP_TEACHER_NOISE, LOOP_DISTILL_STEPS = 15, 0.1, 3
+LOOP_VAL_SAMPLES, LOOP_ZS_CLASSES, LOOP_ZS_PER_CLASS = 256, 10, 8
+LOOP_ZS_REF_CLASSES, LOOP_FLICKR_IMAGES, LOOP_CKPT_EPOCHS = 50, 64, 2
+# limits of (b) against the plain fp32 reference (readings on the H100,
+# scripts/chip_probe_train_loop.py; PERF.md): the val features' least row
+# cosine, |delta clip_val_loss|, the classifier columns' least cosine and
+# the largest |delta| of the zero-shot logits (logit scale 100). Sound, on
+# either route: 0.99990, 2.6e-5-1.4e-4, 0.99997, 0.19-0.20. Faults, each on
+# the bf16 composable model: patch dropout 0.5 left on 0.99759 (image) and
+# 0.489; the val loss at the logit scale's parameter instead of its exp
+# 0.0155; the classes indexed one off 0.8918 and 3.70; the
+# classifier's columns not renormalised 0.728 (its cosines are blind to it)
+LOOP_VAL_COS, LOOP_VAL_LOSS_TOL = 0.999, 0.002
+LOOP_ZS_COL_COS, LOOP_ZS_LOGIT_TOL = 0.999, 0.4
 
 
 def gpu_line() -> str:
@@ -1338,6 +1393,16 @@ def check_training(counters, gpu):
 # -- phase 12: the fine-tune recipe and the real-data loaders ---------------
 
 
+def recipe_jpeg(root, i):
+    """(annotation name, path) of phase 12's JPEG ``i``: the even ones under
+    the LCS-558K root, the odd ones under the DataMix-665K root."""
+    if i % 2 == 0:
+        name = f"{i // 2:05d}/{i:09d}.jpg"
+        return name, os.path.join(root, "lcs", name)
+    name = f"coco/train2017/{i:012d}.jpg"
+    return name, os.path.join(root, "datamix", name)
+
+
 def write_recipe_fixtures(root, seed):
     """Phase 12's fixtures under ``root``: RECIPE_JPEGS JPEGs of smooth
     random fields, of mixed sizes and aspect ratios (every eighth wider
@@ -1360,13 +1425,9 @@ def write_recipe_fixtures(root, seed):
     rng = np.random.default_rng(seed)
     names, paths = [], []
     for i in range(RECIPE_JPEGS):
-        if i % 2 == 0:
-            name = f"{i // 2:05d}/{i:09d}.jpg"
-            paths.append(os.path.join(root, "lcs", name))
-        else:
-            name = f"coco/train2017/{i:012d}.jpg"
-            paths.append(os.path.join(root, "datamix", name))
+        name, path = recipe_jpeg(root, i)
         names.append(name)
+        paths.append(path)
     sizes = [(int(rng.integers(120, 300)), int(rng.integers(640, 900)))
              if i % 8 == 0 else tuple(int(x) for x in rng.integers(180, 640,
                                                                     2))
@@ -1489,11 +1550,13 @@ def _tower_rows():
         hook)
 
 
-def recipe_run(counters, label, argv, per_step, steps, gpu):
+def recipe_run(counters, label, argv, per_step, steps, gpu, extra=None,
+               tag="recipe"):
     """cli/train.py main(argv) on ViT-L/14-336 (seed 0, phase 6's weights)
     with every launch count set to 0 just before: held to ``per_step``
-    launches a step for ``steps`` steps, finite losses; returns (state,
-    _TimedData, peak GiB)."""
+    launches a step for ``steps`` steps, plus ``extra`` launches in all
+    (phase 15's evals), finite losses; returns (state, _TimedData, peak
+    GiB)."""
     from clip_embeds_tpu_torch.cli import train as train_cli
 
     gc.collect()
@@ -1515,9 +1578,10 @@ def recipe_run(counters, label, argv, per_step, steps, gpu):
     finally:
         logging.getLogger().removeHandler(log)
     counts = {k: fn.launches for k, fn in counters.items()}
-    want = {k: steps * per_step.get(k, 0) for k in counters}
+    want = {k: steps * per_step.get(k, 0) + (extra or {}).get(k, 0)
+            for k in counters}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"[recipe] {label}: {state.step} steps of {TRAIN_BATCH} in "
+    print(f"[{tag}] {label}: {state.step} steps of {TRAIN_BATCH} in "
           f"{wall:.1f} s; losses {log.losses}; launches {counts}")
     if counts != want:
         raise AssertionError(f"{label}: launches {counts} != {want}")
@@ -1528,18 +1592,14 @@ def recipe_run(counters, label, argv, per_step, steps, gpu):
     return state, timed, peak
 
 
-def check_recipe(counters, base, train_rates, gpu):
-    """Phase 12: (a) the fixtures; (b) the recipe on each of
-    RECIPE_ROUTES; (c) its gradients at GRAD_BATCH on a real datamix batch
-    against plain fp32 beside the witness; (d) patch dropout unlocked on
-    phase 6's routes; (e) the CSV, WebDataset and auto loaders. ``base``:
-    phase 6's seed-0 state dict on the host."""
-    from clip_embeds_tpu_torch.cli import train as train_cli
+@contextlib.contextmanager
+def recipe_fixtures(base):
+    """Phase 12 (a): its fixture directory (yields (root, phrased)), with
+    the CLIs' seed-0 init taken from phase 6's seed-0 weights ``base``: the
+    same values, without drawing 428M normals on the host for each run.
+    Phase 15 runs inside it too."""
     from clip_embeds_tpu_torch.core import factory
-    from clip_embeds_tpu_torch.core.config import get_model_config
 
-    # the CLIs' seed-0 init from phase 6's seed-0 weights: the same values,
-    # without drawing 428M normals on the host for each run
     with tempfile.TemporaryDirectory() as root, patched(
             factory, "init_params",
             lambda model, seed=0: model.load_state_dict(base)):
@@ -1549,134 +1609,612 @@ def check_recipe(counters, base, train_rates, gpu):
               f"{RECIPE_SAMPLES} + {RECIPE_NO_IMAGE} annotations, "
               f"{RECIPE_TSV} TSV rows, {RECIPE_TAR} tar samples in "
               f"{time.perf_counter() - t0:.1f} s")
-        data = ["--train-data", f"{root}/ann.json", "--lcs-root",
-                f"{root}/lcs", "--datamix-root", f"{root}/datamix"]
-        recipe = ["--lock-image", "--usehardtext", "--augfiles",
-                  f"{root}/leftright.json", "--dataset-type", "datamix",
-                  *data]
-        # the loader's order: default_rng(seed + epoch) over the samples,
-        # max_hard_per_batch = TRAIN_BATCH // 4 rows a batch
-        order = np.arange(RECIPE_SAMPLES)
-        np.random.default_rng(0).shuffle(order)
-        want_hard = [min(TRAIN_BATCH // 4, sum(phrased[i] for i in chunk))
-                     for chunk in order.reshape(RECIPE_STEPS, -1)]
+        yield root, phrased
 
-        # (b) the recipe
-        for route, (flags, per_step) in RECIPE_ROUTES.items():
-            state, timed, peak = recipe_run(
-                counters, f"recipe {route}", recipe + flags, per_step,
-                RECIPE_STEPS, gpu)
-            (rate, share), (rate1, share1) = (timed.rates(TRAIN_BATCH),
-                                              timed.rates(TRAIN_BATCH, 1))
-            after = state.model.state_dict()
-            kept = [k for k in base if torch.equal(after[k].cpu(), base[k])]
-            visual = [k for k in base if k.startswith("visual.")]
-            if kept != visual:
-                raise AssertionError(f"recipe {route}: tensors left as they "
-                                     f"were {len(kept)}, visual "
-                                     f"{len(visual)}")
-            if timed.hard != want_hard:
-                raise AssertionError(f"recipe {route}: hard_valid sums "
-                                     f"{timed.hard} != {want_hard}")
-            print(f"[recipe] {route}: visual.* ({len(visual)} tensors) "
-                  f"bit-equal, the other {len(base) - len(visual)} moved; "
-                  f"hard_valid sums {timed.hard}; end to end "
-                  f"{rate:.1f} samples/s, host share {share:.3f} "
-                  f"(steps 2-{RECIPE_STEPS}: {rate1:.1f} samples/s, host "
-                  f"share {share1:.3f}; batches {timed.host} s in "
-                  f"next()); peak {peak:.2f} GiB; phase 6 synthetic "
-                  f"b{TRAIN_BATCH}, unlocked, device only: "
-                  f"{train_rates[route, TRAIN_BATCH]:.1f} samples/s; on "
-                  f"{gpu}")
-            del state, after
 
-        # (c) gradient agreement on a real datamix batch of GRAD_BATCH
-        args = train_cli.parse_args(["--model", MODEL, "--batch-size",
-                                     str(GRAD_BATCH), "--seed", "0",
-                                     *recipe])
-        cfg = get_model_config(MODEL, "openai")
-        batch = train_cli._to_device(
-            next(train_cli.build_data(args, cfg)[0]), torch.device("cuda"))
-        trainable = {k for k in base if not k.startswith("visual.")}
-        ref, ref_loss = train_grads(route_model("composable", None), batch,
-                                    True, trainable)
-        with plain_attention():
-            witness, _ = train_grads(route_model("composable"), batch, True,
-                                     trainable)
-        cos, worst, worst_name = grad_agreement(witness, ref)
-        print(f"[recipe] (c) witness (bf16, plain attention) gradients vs "
-              f"plain fp32 at b{GRAD_BATCH}, {int(batch['hard_valid'].sum())}"
-              f" hard texts: cosine {cos:.6f}, least per tensor {worst:.6f} "
-              f"({worst_name})")
-        cos_min = max(GRAD_COS_MIN, cos - GRAD_COS_BELOW_WITNESS)
-        for route in RECIPE_ROUTES:
-            gc.collect()
-            torch.cuda.empty_cache()
-            grads, loss = train_grads(route_model(route), batch, True,
-                                      trainable)
-            cos, worst, worst_name = grad_agreement(grads, ref)
-            print(f"[recipe] (c) {route} gradients vs plain fp32: cosine "
-                  f"{cos:.6f} (limit {cos_min:.6f}), least per tensor "
-                  f"{worst:.6f} ({worst_name}; limit "
-                  f"{GRAD_TENSOR_COS_MIN}); loss {loss:.6f} vs "
-                  f"{ref_loss:.6f}")
-            if not (cos >= cos_min and worst >= GRAD_TENSOR_COS_MIN):
-                raise AssertionError(f"recipe {route}: gradients disagree")
-        del ref, witness, grads
+def check_recipe(counters, base, train_rates, gpu, root, phrased):
+    """Phase 12 in ``root`` (:func:`recipe_fixtures`): (b) the recipe on
+    each of RECIPE_ROUTES; (c) its gradients at GRAD_BATCH on a real
+    datamix batch against plain fp32 beside the witness; (d) patch dropout
+    unlocked on phase 6's routes; (e) the CSV, WebDataset and auto
+    loaders. ``base``: phase 6's seed-0 state dict on the host."""
+    from clip_embeds_tpu_torch.cli import train as train_cli
+    from clip_embeds_tpu_torch.core.config import get_model_config
 
-        # (d) patch dropout, the image tower unlocked, on phase 6's routes
-        for route, (flags, per_step) in ROUTES.items():
-            rows, handle = _tower_rows()
-            try:
-                state, timed, peak = recipe_run(
-                    counters, f"patch dropout {route}",
-                    ["--force-patch-dropout", str(PATCH_DROP),
-                     "--train-num-samples",
-                     str(PATCH_DROP_STEPS * TRAIN_BATCH), *flags],
-                    per_step, PATCH_DROP_STEPS, gpu)
-            finally:
-                handle.remove()
-            if rows != [PATCH_DROP_ROWS] * PATCH_DROP_STEPS:
-                raise AssertionError(f"patch dropout {route}: image rows "
-                                     f"{rows}")
-            print(f"[recipe] (d) patch dropout {PATCH_DROP} {route}: image "
-                  f"blocks at {rows[0]} rows; synthetic, end to end: "
-                  f"{timed.rates(TRAIN_BATCH)[0]:.1f} samples/s, step 2 "
-                  f"{timed.rates(TRAIN_BATCH, 1)[0]:.1f}; peak {peak:.2f} "
-                  f"GiB on {gpu}")
-            del state
+    data = ["--train-data", f"{root}/ann.json", "--lcs-root",
+            f"{root}/lcs", "--datamix-root", f"{root}/datamix"]
+    recipe = ["--lock-image", "--usehardtext", "--augfiles",
+              f"{root}/leftright.json", "--dataset-type", "datamix",
+              *data]
+    # the loader's order: default_rng(seed + epoch) over the samples,
+    # max_hard_per_batch = TRAIN_BATCH // 4 rows a batch
+    order = np.arange(RECIPE_SAMPLES)
+    np.random.default_rng(0).shuffle(order)
+    want_hard = [min(TRAIN_BATCH // 4, sum(phrased[i] for i in chunk))
+                 for chunk in order.reshape(RECIPE_STEPS, -1)]
 
-        # (e) the other loaders, one step each, composable, image locked
-        drops = _Drops()
-        logging.getLogger().addHandler(drops)
+    # (b) the recipe
+    for route, (flags, per_step) in RECIPE_ROUTES.items():
+        state, timed, peak = recipe_run(
+            counters, f"recipe {route}", recipe + flags, per_step,
+            RECIPE_STEPS, gpu)
+        (rate, share), (rate1, share1) = (timed.rates(TRAIN_BATCH),
+                                          timed.rates(TRAIN_BATCH, 1))
+        after = state.model.state_dict()
+        kept = [k for k in base if torch.equal(after[k].cpu(), base[k])]
+        visual = [k for k in base if k.startswith("visual.")]
+        if kept != visual:
+            raise AssertionError(f"recipe {route}: tensors left as they "
+                                 f"were {len(kept)}, visual "
+                                 f"{len(visual)}")
+        if timed.hard != want_hard:
+            raise AssertionError(f"recipe {route}: hard_valid sums "
+                                 f"{timed.hard} != {want_hard}")
+        print(f"[recipe] {route}: visual.* ({len(visual)} tensors) "
+              f"bit-equal, the other {len(base) - len(visual)} moved; "
+              f"hard_valid sums {timed.hard}; end to end "
+              f"{rate:.1f} samples/s, host share {share:.3f} "
+              f"(steps 2-{RECIPE_STEPS}: {rate1:.1f} samples/s, host "
+              f"share {share1:.3f}; batches {timed.host} s in "
+              f"next()); peak {peak:.2f} GiB; phase 6 synthetic "
+              f"b{TRAIN_BATCH}, unlocked, device only: "
+              f"{train_rates[route, TRAIN_BATCH]:.1f} samples/s; on "
+              f"{gpu}")
+        del state, after
+
+    # (c) gradient agreement on a real datamix batch of GRAD_BATCH
+    args = train_cli.parse_args(["--model", MODEL, "--batch-size",
+                                 str(GRAD_BATCH), "--seed", "0",
+                                 *recipe])
+    cfg = get_model_config(MODEL, "openai")
+    batch = train_cli._to_device(
+        next(train_cli.build_data(args, cfg)[0]), torch.device("cuda"))
+    trainable = {k for k in base if not k.startswith("visual.")}
+    ref, ref_loss = train_grads(route_model("composable", None), batch,
+                                True, trainable)
+    with plain_attention():
+        witness, _ = train_grads(route_model("composable"), batch, True,
+                                 trainable)
+    cos, worst, worst_name = grad_agreement(witness, ref)
+    print(f"[recipe] (c) witness (bf16, plain attention) gradients vs "
+          f"plain fp32 at b{GRAD_BATCH}, {int(batch['hard_valid'].sum())}"
+          f" hard texts: cosine {cos:.6f}, least per tensor {worst:.6f} "
+          f"({worst_name})")
+    cos_min = max(GRAD_COS_MIN, cos - GRAD_COS_BELOW_WITNESS)
+    for route in RECIPE_ROUTES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        grads, loss = train_grads(route_model(route), batch, True,
+                                  trainable)
+        cos, worst, worst_name = grad_agreement(grads, ref)
+        print(f"[recipe] (c) {route} gradients vs plain fp32: cosine "
+              f"{cos:.6f} (limit {cos_min:.6f}), least per tensor "
+              f"{worst:.6f} ({worst_name}; limit "
+              f"{GRAD_TENSOR_COS_MIN}); loss {loss:.6f} vs "
+              f"{ref_loss:.6f}")
+        if not (cos >= cos_min and worst >= GRAD_TENSOR_COS_MIN):
+            raise AssertionError(f"recipe {route}: gradients disagree")
+    del ref, witness, grads
+
+    # (d) patch dropout, the image tower unlocked, on phase 6's routes
+    for route, (flags, per_step) in ROUTES.items():
+        rows, handle = _tower_rows()
         try:
-            for label, argv, dropped in (
-                    ("csv", ["--dataset-type", "csv", "--train-data",
-                             f"{root}/data.tsv"], 0),
-                    ("webdataset --no-train-aug (batch decode)",
-                     ["--dataset-type", "webdataset", "--train-data",
-                      f"{root}/shard-{{000..001}}.tar", "--no-train-aug"],
-                     1),
-                    ("auto .tsv", ["--dataset-type", "auto", "--train-data",
-                                   f"{root}/data.tsv"], 0),
-                    ("auto .tar", ["--dataset-type", "auto", "--train-data",
-                                   f"{root}/shard-000.tar",
-                                   f"{root}/shard-001.tar"], 1)):
-                drops.count = 0
-                state, timed, _ = recipe_run(
-                    counters, label, ["--lock-image", "--train-num-samples",
-                                      str(TRAIN_BATCH), *argv],
-                    RECIPE_ROUTES["composable"][1], 1, gpu)
-                if drops.count != dropped:
-                    raise AssertionError(f"{label}: {drops.count} samples "
-                                         f"dropped, want {dropped}")
-                print(f"[recipe] (e) {label}: 1 step, undecodable samples "
-                      f"dropped {dropped} (the batch refilled); "
-                      f"%.1f samples/s, host share %.3f on {gpu}"
-                      % timed.rates(TRAIN_BATCH))
-                del state
+            state, timed, peak = recipe_run(
+                counters, f"patch dropout {route}",
+                ["--force-patch-dropout", str(PATCH_DROP),
+                 "--train-num-samples",
+                 str(PATCH_DROP_STEPS * TRAIN_BATCH), *flags],
+                per_step, PATCH_DROP_STEPS, gpu)
         finally:
-            logging.getLogger().removeHandler(drops)
+            handle.remove()
+        if rows != [PATCH_DROP_ROWS] * PATCH_DROP_STEPS:
+            raise AssertionError(f"patch dropout {route}: image rows "
+                                 f"{rows}")
+        print(f"[recipe] (d) patch dropout {PATCH_DROP} {route}: image "
+              f"blocks at {rows[0]} rows; synthetic, end to end: "
+              f"{timed.rates(TRAIN_BATCH)[0]:.1f} samples/s, step 2 "
+              f"{timed.rates(TRAIN_BATCH, 1)[0]:.1f}; peak {peak:.2f} "
+              f"GiB on {gpu}")
+        del state
+
+    # (e) the other loaders, one step each, composable, image locked
+    drops = _Drops()
+    logging.getLogger().addHandler(drops)
+    try:
+        for label, argv, dropped in (
+                ("csv", ["--dataset-type", "csv", "--train-data",
+                         f"{root}/data.tsv"], 0),
+                ("webdataset --no-train-aug (batch decode)",
+                 ["--dataset-type", "webdataset", "--train-data",
+                  f"{root}/shard-{{000..001}}.tar", "--no-train-aug"],
+                 1),
+                ("auto .tsv", ["--dataset-type", "auto", "--train-data",
+                               f"{root}/data.tsv"], 0),
+                ("auto .tar", ["--dataset-type", "auto", "--train-data",
+                               f"{root}/shard-000.tar",
+                               f"{root}/shard-001.tar"], 1)):
+            drops.count = 0
+            state, timed, _ = recipe_run(
+                counters, label, ["--lock-image", "--train-num-samples",
+                                  str(TRAIN_BATCH), *argv],
+                RECIPE_ROUTES["composable"][1], 1, gpu)
+            if drops.count != dropped:
+                raise AssertionError(f"{label}: {drops.count} samples "
+                                     f"dropped, want {dropped}")
+            print(f"[recipe] (e) {label}: 1 step, undecodable samples "
+                  f"dropped {dropped} (the batch refilled); "
+                  f"%.1f samples/s, host share %.3f on {gpu}"
+                  % timed.rates(TRAIN_BATCH))
+            del state
+    finally:
+        logging.getLogger().removeHandler(drops)
+
+
+# -- phase 15: the rest of the training loop ---------------------------------
+
+
+def distill_grads(model, teacher, batch):
+    """Gradients of one batch's distillation loss (the student's InfoNCE
+    plus the KD term against ``teacher``), fp32, by parameter name."""
+    from clip_embeds_tpu_torch.train.steps import distill_train_loss
+
+    model.zero_grad(set_to_none=True)
+    loss, _ = distill_train_loss(model, teacher, batch)
+    loss.backward()
+    grads = {k: p.grad.float() for k, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return grads, loss.item()
+
+
+def write_teacher(base, path):
+    """Phase 15 (a)'s teacher state dict: ``base`` with each entry but the
+    logit scale scaled by 1 + LOOP_TEACHER_NOISE x a normal drawn on the
+    card from LOOP_SEED, in bf16 (the teacher's type; the logit scale
+    fp32): half the bytes to write and read."""
+    g = torch.Generator(device="cuda").manual_seed(LOOP_SEED)
+    sd = {}
+    for k, v in base.items():
+        if k != "logit_scale":
+            noise = torch.randn(v.shape, generator=g, device="cuda")
+            v = (v.cuda() * (1 + LOOP_TEACHER_NOISE * noise)).to(
+                torch.bfloat16).cpu()
+        sd[k] = v
+    torch.save(sd, path)
+
+
+def loop_distill(counters, train_rates, gpu, root):
+    """Phase 15 (a): distillation through the CLI, the teacher untouched,
+    samples/s and peak memory by CUDA events, gradients against plain
+    fp32 beside the witness."""
+    from clip_embeds_tpu_torch.cli import train as train_cli
+    from clip_embeds_tpu_torch.train.steps import make_distill_train_step
+
+    t0 = time.perf_counter()
+    tpath = os.path.join(root, "teacher.pt")
+    write_teacher(route_model("composable").state_dict(), tpath)
+    print(f"[loop] (a) teacher state dict written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    made = []
+
+    def build_teacher(*args, **kw):
+        teacher = real(*args, **kw)
+        made.append((teacher, {k: v.clone() for k, v in
+                               teacher.state_dict().items()}))
+        return teacher
+
+    # the teacher's forward: the image tower's 24 flash forwards (its
+    # 77-token text tower takes plain attention), no backward
+    per_step = {"flash_attention": 2 * 24, "flash_attention_bwd": 24}
+    with patched(train_cli, "build_teacher", build_teacher) as real:
+        state, timed, peak = recipe_run(
+            counters, "distill composable",
+            ["--train-num-samples", str(LOOP_DISTILL_STEPS * TRAIN_BATCH),
+             "--distill-model", MODEL, "--distill-pretrained", tpath],
+            per_step, LOOP_DISTILL_STEPS, gpu, tag="loop")
+    (teacher, before), = made
+    params = dict(teacher.named_parameters())
+    if any(p.requires_grad or p.grad is not None for p in params.values()) \
+            or not all(torch.equal(v, before[k])
+                       for k, v in teacher.state_dict().items()):
+        raise AssertionError("distill: the teacher moved or has gradients")
+
+    step = make_distill_train_step(state.model, teacher)
+    tb = train_batch(TRAIN_BATCH, seed=2)
+    torch.cuda.reset_peak_memory_stats()
+    step(state, tb)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        metrics = step(state, tb)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / 3
+    if not all(np.isfinite(float(metrics[k])) for k in
+               ("loss", "contrastive_loss", "distill_loss")):
+        raise AssertionError(f"distill: losses {metrics}")
+    print(f"[loop] (a) distill composable: teacher's {len(params)} "
+          f"tensors bit-equal, none with a gradient; launches a step "
+          f"{per_step}; contrastive {float(metrics['contrastive_loss']):.4f}"
+          f" distill {float(metrics['distill_loss']):.4f}; "
+          f"[throughput] distill_samples_per_s b{TRAIN_BATCH}: "
+          f"{TRAIN_BATCH / ms * 1e3:.1f} ({ms:.2f} ms/step, peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; the CLI "
+          f"run's peak {peak:.2f} GiB, end to end "
+          f"{timed.rates(TRAIN_BATCH, 1)[0]:.1f} samples/s); phase 6 plain "
+          f"b{TRAIN_BATCH}: {train_rates['composable', TRAIN_BATCH]:.1f} "
+          f"samples/s; on {gpu}")
+    del step, tb, made
+
+    # gradients at GRAD_BATCH against the plain fp32 path (the student's
+    # weights as the steps left them, the teacher's as its file holds
+    # them); the witness: both bf16 with no kernel
+    model = state.model
+    batch = train_batch(GRAD_BATCH, seed=1)
+    ref_student, ref_teacher = (route_model("composable", None)
+                                for _ in range(2))
+    ref_student.load_state_dict(model.state_dict())
+    ref_teacher.load_state_dict(teacher.state_dict())  # the file's values
+    ref_teacher.requires_grad_(False)
+    ref, ref_loss = distill_grads(ref_student, ref_teacher, batch)
+    del ref_student, ref_teacher, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    with plain_attention():
+        witness, _ = distill_grads(model, teacher, batch)
+    cos, worst, worst_name = grad_agreement(witness, ref)
+    print(f"[loop] (a) witness (bf16 student and teacher, plain attention) "
+          f"distill gradients vs plain fp32 at b{GRAD_BATCH}: cosine "
+          f"{cos:.6f}, least per tensor {worst:.6f} ({worst_name})")
+    cos_min = max(GRAD_COS_MIN, cos - GRAD_COS_BELOW_WITNESS)
+    grads, loss = distill_grads(model, teacher, batch)
+    cos, worst, worst_name = grad_agreement(grads, ref)
+    print(f"[loop] (a) composable distill gradients vs plain fp32: cosine "
+          f"{cos:.6f} (limit {cos_min:.6f}), least per tensor {worst:.6f} "
+          f"({worst_name}; limit {GRAD_TENSOR_COS_MIN}); loss {loss:.6f} "
+          f"vs {ref_loss:.6f}")
+    if not (cos >= cos_min and worst >= GRAD_TENSOR_COS_MIN):
+        raise AssertionError("distill: gradients disagree")
+    os.remove(tpath)
+
+
+def write_loop_fixtures(root):
+    """Phase 15 (b)'s files over phase 12's JPEGs: val.tsv (the first
+    LOOP_VAL_SAMPLES), an ImageFolder inet/ of LOOP_ZS_CLASSES dirs x
+    LOOP_ZS_PER_CLASS (hard links) and flickr/annotations.json (the first
+    LOOP_FLICKR_IMAGES, 5 captions each)."""
+    paths = [recipe_jpeg(root, i)[1] for i in range(RECIPE_JPEGS)]
+    rows = ["filepath\ttitle"] + [
+        f"{paths[i]}\ta photo of the {OBJECTS[i % len(OBJECTS)]} {i}"
+        for i in range(LOOP_VAL_SAMPLES)]
+    with open(os.path.join(root, "val.tsv"), "w") as fh:
+        fh.write("\n".join(rows) + "\n")
+    for c in range(LOOP_ZS_CLASSES):
+        d = os.path.join(root, "inet", f"n{c:08d}")
+        os.makedirs(d)
+        for j in range(LOOP_ZS_PER_CLASS):
+            os.link(paths[c * LOOP_ZS_PER_CLASS + j],
+                    os.path.join(d, f"{j:02d}.jpg"))
+    ann = [{"image": os.path.relpath(paths[i], root),
+            "captions": [f"the {OBJECTS[(i + j) % len(OBJECTS)]} of photo "
+                         f"{i}, view {j}" for j in range(5)]}
+           for i in range(LOOP_FLICKR_IMAGES)]
+    os.makedirs(os.path.join(root, "flickr"))
+    with open(os.path.join(root, "flickr", "annotations.json"), "w") as fh:
+        json.dump(ann, fh)
+
+
+def loop_eval_launches(route, cfg):
+    """The eval passes' launches on a route: LOOP_VAL_SAMPLES val pairs and
+    the zero-shot images in batches of TRAIN_BATCH, and 100 classifier
+    calls of the text tower (77 tokens: plain attention on composable
+    blocks, fused_block on the fused route)."""
+    v, t = cfg.vision.layers, cfg.text.layers
+    val = -(-LOOP_VAL_SAMPLES // TRAIN_BATCH)
+    zs = -(-LOOP_ZS_CLASSES * LOOP_ZS_PER_CLASS // TRAIN_BATCH)
+    calls = 1000 // 10
+    if route == "composable":
+        return {"flash_attention": v * (val + zs)}
+    return {"fused_block": (v + t) * val + v * zs + t * calls}
+
+
+def loop_reference_subset():
+    """The classes the plain fp32 classifier covers: the fixture's and
+    more drawn from LOOP_SEED, sorted."""
+    rng = np.random.default_rng(LOOP_SEED)
+    more = rng.choice(np.arange(LOOP_ZS_CLASSES, 1000),
+                      LOOP_ZS_REF_CLASSES - LOOP_ZS_CLASSES, replace=False)
+    return np.sort(np.concatenate([np.arange(LOOP_ZS_CLASSES), more]))
+
+
+def loop_eval_outputs(model, args, subset, classifier=None):
+    """The eval passes' outputs of ``model`` as the CLI computes them: the
+    val features, the logit scale, the classifier over ``subset`` (built
+    here where ``classifier`` is None: 800 prompts a call) and the
+    zero-shot images' features."""
+    from clip_embeds_tpu_torch.cli import train as train_cli
+    from clip_embeds_tpu_torch.evals import zero_shot
+    from clip_embeds_tpu_torch.text.tokenizer import get_tokenizer
+
+    dev = torch.device("cuda")
+    img, txt = train_cli.validation_features(model, args, dev)
+    if classifier is None:
+        classnames, templates = train_cli.imagenet_prompts(
+            zero_shot.load_imagenet_metadata())
+        tok = get_tokenizer(model.cfg.text.context_length)
+        classifier = zero_shot.build_zero_shot_classifier(
+            lambda p: train_cli.encode_prompts(model, tok, p, dev),
+            [classnames[i] for i in subset], templates)
+    samples, _ = train_cli.imagefolder_samples(args.imagenet_val)
+    zs = np.concatenate([
+        train_cli.encode_image_paths(model, samples[i:i + TRAIN_BATCH], dev)
+        for i in range(0, len(samples), TRAIN_BATCH)])
+    return {"img": img, "txt": txt, "classifier": classifier, "zs": zs,
+            "scale": model.logit_scale.detach().float().cpu().numpy()}
+
+
+def clear_decisions(got, want):
+    """(agree, clear) over rows: argmax of ``got`` against ``want``'s, on
+    rows whose ``want`` margin (top 1 - top 2) exceeds twice the largest
+    |got - want| (phase 7's rule)."""
+    diff = float(np.abs(got - want).max())
+    top2 = np.sort(want, axis=1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > 2 * diff
+    agree = got.argmax(1) == want.argmax(1)
+    return int(agree[clear].sum()), int(clear.sum()), diff
+
+
+def loop_readings(got, want):
+    """Phase 15 (b)'s agreement of one eval run ``got`` with the plain fp32
+    reference ``want`` (both from :func:`loop_eval_outputs`, classifiers
+    over the same classes)."""
+    from clip_embeds_tpu_torch.cli.train import validation_metrics
+
+    losses = [validation_metrics(o["img"], o["txt"], o["scale"])[
+        "clip_val_loss"] for o in (got, want)]
+    zs_got, zs_want = (100.0 * o["zs"] @ o["classifier"]
+                       for o in (got, want))
+    sims_got, sims_want = (o["img"] @ o["txt"].T for o in (got, want))
+    return {
+        "val_image_cos": float(row_cos(got["img"], want["img"]).min()),
+        "val_text_cos": float(row_cos(got["txt"], want["txt"]).min()),
+        "val_loss_diff": abs(losses[0] - losses[1]),
+        "classifier_cos": float(row_cos(got["classifier"].T,
+                                        want["classifier"].T).min()),
+        "zs_logit_diff": float(np.abs(zs_got - zs_want).max()),
+        "zs_decisions": clear_decisions(zs_got, zs_want),
+        "i2t_decisions": clear_decisions(sims_got, sims_want),
+        "t2i_decisions": clear_decisions(sims_got.T, sims_want.T)}
+
+
+def check_loop_readings(label, r):
+    print(f"[loop] (b) {label} vs plain fp32: val least row cosine image "
+          f"{r['val_image_cos']:.6f} text {r['val_text_cos']:.6f} (limit "
+          f"{LOOP_VAL_COS}), |d clip_val_loss| {r['val_loss_diff']:.3g} "
+          f"(limit {LOOP_VAL_LOSS_TOL}), classifier columns' least cosine "
+          f"{r['classifier_cos']:.6f} (limit {LOOP_ZS_COL_COS}), zero-shot "
+          f"logits max |d| {r['zs_logit_diff']:.3g} (limit "
+          f"{LOOP_ZS_LOGIT_TOL}); clear decisions agree (agree, clear, "
+          f"largest |d|): zero-shot {r['zs_decisions']}, image->text "
+          f"{r['i2t_decisions']}, text->image {r['t2i_decisions']}")
+    if not (min(r["val_image_cos"], r["val_text_cos"]) >= LOOP_VAL_COS
+            and r["val_loss_diff"] <= LOOP_VAL_LOSS_TOL
+            and r["classifier_cos"] >= LOOP_ZS_COL_COS
+            and r["zs_logit_diff"] <= LOOP_ZS_LOGIT_TOL
+            and all(r[k][0] == r[k][1] for k in
+                    ("zs_decisions", "i2t_decisions", "t2i_decisions"))):
+        raise AssertionError(f"{label}: the evals disagree with fp32")
+
+
+def loop_evals(counters, base, gpu, root):
+    """Phase 15 (b): validation and zero-shot after one epoch through the
+    CLI on RECIPE_ROUTES, held to the plain fp32 reference; Flickr
+    retrieval on the composable route's model."""
+    from clip_embeds_tpu_torch.cli import train as train_cli
+    from clip_embeds_tpu_torch.core.config import get_model_config
+    from clip_embeds_tpu_torch.evals.flickr import (
+        evaluate_retrieval, load_flickr_annotations)
+    from clip_embeds_tpu_torch.text.tokenizer import get_tokenizer
+
+    write_loop_fixtures(root)
+    subset = loop_reference_subset()
+    cfg = get_model_config(MODEL, "openai")
+    dev = torch.device("cuda")
+    argv = ["--dataset-type", "csv", "--train-data", f"{root}/data.tsv",
+            "--lr", "0", "--val-data", f"{root}/val.tsv",
+            "--val-num-samples", str(LOOP_VAL_SAMPLES), "--imagenet-val",
+            f"{root}/inet", "--report-to", "jsonl", "--logs",
+            f"{root}/logs"]
+    runs, flickr_model = {}, None
+    for route in RECIPE_ROUTES:
+        flags = RECIPE_ROUTES[route][0]
+        rec, secs = {}, {}
+
+        def recorder(name, real):
+            def fn(*args, **kw):
+                t = time.perf_counter()
+                out = real(*args, **kw)
+                secs[name] = secs.get(name, 0.0) + time.perf_counter() - t
+                rec.setdefault(name, []).append(out)
+                return out
+            return fn
+
+        with contextlib.ExitStack() as stack:
+            for name in ("validation_features", "zero_shot_classifier",
+                         "encode_image_paths"):
+                stack.enter_context(patched(train_cli, name, recorder(
+                    name, getattr(train_cli, name))))
+            state, _, peak = recipe_run(
+                counters, f"evals {route}",
+                [*argv, "--name", f"evals-{route}", *flags],
+                ROUTES[route][1], RECIPE_TSV // TRAIN_BATCH, gpu,
+                tag="loop", extra=loop_eval_launches(route, cfg))
+        after = state.model.state_dict()
+        if not all(torch.equal(after[k].cpu(), v) for k, v in base.items()):
+            raise AssertionError(f"evals {route}: lr 0 moved a weight")
+        (img, txt), = rec["validation_features"]
+        (classifier,) = rec["zero_shot_classifier"]
+        runs[route] = {"img": img, "txt": txt, "zs": np.concatenate(
+            rec["encode_image_paths"]), "classifier": classifier[:, subset],
+            "scale": state.model.logit_scale.detach().float().cpu().numpy()}
+        with open(f"{root}/logs/evals-{route}/results.jsonl") as fh:
+            lines = [json.loads(line) for line in fh]
+        if [sorted(x) for x in lines] != [
+                sorted(["epoch", "clip_val_loss", "num_samples",
+                        *(f"{d}_{m}" for d in ("image_to_text",
+                                               "text_to_image")
+                          for m in ("mean_rank", "median_rank", "R@1",
+                                    "R@5", "R@10"))]),
+                ["epoch", "imagenet-zeroshot-val-top1",
+                 "imagenet-zeroshot-val-top5"]] or classifier.shape != (
+                    state.model.cfg.embed_dim, 1000):
+            raise AssertionError(f"evals {route}: results.jsonl {lines}, "
+                                 f"classifier {classifier.shape}")
+        prompts = 1000 * 80
+        print(f"[loop] (b) {route}: results.jsonl {lines}; "
+              f"[throughput] validation {LOOP_VAL_SAMPLES} pairs in "
+              f"{secs['validation_features']:.2f} s "
+              f"({LOOP_VAL_SAMPLES / secs['validation_features']:.1f} "
+              f"samples/s from JPEGs); classifier {prompts} prompts in "
+              f"{secs['zero_shot_classifier']:.2f} s "
+              f"({prompts / secs['zero_shot_classifier']:.0f} prompts/s); "
+              f"peak {peak:.2f} GiB; on {gpu}")
+        if route == "composable":
+            flickr_model = state.model
+        del state, after
+
+    # the plain fp32 reference, with phase 6's weights
+    t0 = time.perf_counter()
+    ref = route_model("composable", None)
+    args = train_cli.parse_args(["--model", MODEL, "--batch-size",
+                                 str(TRAIN_BATCH), *argv])
+    want = loop_eval_outputs(ref, args, subset)
+    del ref
+    print(f"[loop] (b) plain fp32 reference: val, {len(subset)} classes' "
+          f"classifier, zero-shot images in {time.perf_counter() - t0:.1f} "
+          f"s")
+    for route, got in runs.items():
+        check_loop_readings(route, loop_readings(got, want))
+
+    # Flickr retrieval on the composable route's model
+    t0 = time.perf_counter()
+    tok = get_tokenizer(flickr_model.cfg.text.context_length)
+    ann = load_flickr_annotations(f"{root}/flickr")
+    out = evaluate_retrieval(
+        lambda paths: np.concatenate([
+            train_cli.encode_image_paths(flickr_model,
+                                         paths[i:i + TRAIN_BATCH], dev)
+            for i in range(0, len(paths), TRAIN_BATCH)]),
+        lambda caps: train_cli.encode_prompts(flickr_model, tok, caps, dev),
+        ann, root)
+    if not all(0.0 <= v <= 1.0 for v in out.values()):
+        raise AssertionError(f"flickr: {out}")
+    print(f"[loop] (b) evals/flickr.py evaluate_retrieval, "
+          f"{len(ann)} images x 5 captions (composable, bf16): {out} in "
+          f"{time.perf_counter() - t0:.2f} s on {gpu}")
+class _EpochWalls(logging.Handler):
+    """Collects the training CLI's 'epoch %d done in %.2f s' records."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.walls = []
+
+    def emit(self, record):
+        if str(record.msg).startswith("epoch %d done in"):
+            self.walls.append(float(record.args[1]))
+
+
+def same_bytes(a, b, chunk=1 << 26):
+    """Whether files ``a`` and ``b`` hold the same bytes (64 MiB reads)."""
+    if os.path.getsize(a) != os.path.getsize(b):
+        return False
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        while True:
+            x = fa.read(chunk)
+            if x != fb.read(chunk):
+                return False
+            if not x:
+                return True
+
+
+def loop_checkpoints(counters, gpu, root):
+    """Phase 15 (c): LOOP_CKPT_EPOCHS epochs through the CLI with
+    --delete-previous-checkpoint, blocking saves, then async saves with a
+    local mirror every second: each epoch's wall, the mirror holding the
+    kept checkpoint and every checkpoint a pass caught before its prune,
+    byte-equal to what was committed, and no .tmp_* file."""
+    from clip_embeds_tpu_torch.core import checkpoint as ckpt
+
+    kept = os.path.join(root, "committed")
+    os.makedirs(kept)
+    mirror = os.path.join(root, "mirror")
+    walls = {}
+    for label, extra in (
+            ("blocking", []),
+            ("async", ["--async-checkpoints", "--remote-sync", mirror,
+                       "--remote-sync-frequency", "1", "--report-to",
+                       "jsonl", "--logs", f"{root}/logs", "--name",
+                       "async"])):
+        directory = os.path.join(root, f"ckpt-{label}")
+
+        def write(d, path, state, keep_n):
+            real(d, path, state, keep_n)
+            # a second name for each committed file: the prune removes
+            # the first one
+            os.link(path, os.path.join(kept, f"{label}-"
+                                             f"{os.path.basename(path)}"))
+
+        log = _EpochWalls()
+        logging.getLogger().addHandler(log)
+        try:
+            with patched(ckpt, "_write", write) as real:
+                recipe_run(counters, f"checkpoints {label}", [
+                    "--dataset-type", "csv", "--train-data",
+                    f"{root}/data.tsv", "--epochs", str(LOOP_CKPT_EPOCHS),
+                    "--checkpoint-dir", directory,
+                    "--delete-previous-checkpoint", *extra],
+                    ROUTES["composable"][1],
+                    LOOP_CKPT_EPOCHS * (RECIPE_TSV // TRAIN_BATCH), gpu,
+                    tag="loop")
+        finally:
+            logging.getLogger().removeHandler(log)
+        last = f"{ckpt.CKPT_PREFIX}{LOOP_CKPT_EPOCHS}.pt"
+        if sorted(os.listdir(directory)) != [last]:
+            raise AssertionError(f"checkpoints {label}: "
+                                 f"{os.listdir(directory)}")
+        walls[label] = log.walls
+    names = sorted(os.listdir(mirror))
+    caught = [n for n in names if same_bytes(os.path.join(mirror, n),
+                                             os.path.join(kept, f"async-{n}"))]
+    # the kept checkpoint's second name is the file itself
+    if last not in names or caught != names or not os.path.samefile(
+            os.path.join(kept, f"async-{last}"),
+            os.path.join(root, "ckpt-async", last)):
+        raise AssertionError(f"mirror {names}: byte-equal {caught}")
+    size = os.path.getsize(os.path.join(mirror, last)) / 2 ** 30
+    print(f"[loop] (c) --delete-previous-checkpoint, {LOOP_CKPT_EPOCHS} "
+          f"epochs of {RECIPE_TSV // TRAIN_BATCH} step(s), {size:.2f} GiB a "
+          f"checkpoint: epoch walls "
+          f"blocking {walls['blocking']} s, async {walls['async']} s; the "
+          f"mirror holds {names}, each byte-equal to its commit (no .tmp_*"
+          f" file); on {gpu}")
+    for d in ("ckpt-blocking", "ckpt-async", "committed", "mirror"):
+        shutil.rmtree(os.path.join(root, d))
+
+
+def check_train_loop(counters, base, train_rates, gpu, root):
+    """Phase 15 in phase 12's fixture directory ``root``: (a) distillation,
+    (b) validation, zero-shot and Flickr retrieval, (c) checkpoints and
+    the mirror."""
+    for part in (lambda: loop_distill(counters, train_rates, gpu, root),
+                 lambda: loop_evals(counters, base, gpu, root),
+                 lambda: loop_checkpoints(counters, gpu, root)):
+        t0 = time.perf_counter()
+        part()
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[loop] part in {time.perf_counter() - t0:.1f} s on {gpu}")
 
 
 def serving_routes(model, ref, images, texts, rng):
@@ -4310,11 +4848,18 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 12. the source's fine-tune recipe and the real-data loaders, through
-    # the training CLI on phase 6's weights
+    # the training CLI on phase 6's weights; and 15. the rest of the
+    # training loop, in phase 12's fixture directory
     t0 = time.perf_counter()
-    check_recipe(counters, base, train_rates, gpu)
+    with recipe_fixtures(base) as (root, phrased):
+        check_recipe(counters, base, train_rates, gpu, root, phrased)
+        print(f"[phase 12] {time.perf_counter() - t0:.1f} s on {gpu}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        check_train_loop(counters, base, train_rates, gpu, root)
+        print(f"[phase 15] {time.perf_counter() - t0:.1f} s on {gpu}")
     del base
-    print(f"[phase 12] {time.perf_counter() - t0:.1f} s on {gpu}")
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -26,9 +26,30 @@ LCS-558K + DataMix-665K annotations, through the train augmentations:
 ``--dataset-type csv|webdataset|auto`` read a TSV or tar shards the same
 way; ``--force-patch-dropout p`` turns on FLIP patch dropout.
 
-The flags of the JAX CLI that are not ported yet exit with an error that
-names the ROADMAP.md item that will port them; none is parsed and ignored.
-``main(argv)`` returns the :class:`~..train.steps.TrainState`.
+At each epoch's end, in the JAX CLI's order: validation on ``--val-data``
+(a CSV/TSV or tar shards; retrieval recall and ``clip_val_loss`` over the
+first ``--val-num-samples``), ImageNet zero-shot on the ImageFolder root
+``--imagenet-val`` (the 1000 classnames and OpenAI's 80 templates), the
+checkpoint (``--async-checkpoints`` writes it on a thread) and the prune.
+The evals run the training route's blocks without patch dropout and
+without gradients. ``--report-to jsonl,tensorboard,wandb --logs DIR
+--name RUN`` append each eval's line to ``DIR/RUN/results.jsonl`` (and the
+sinks that import); ``--remote-sync DEST`` mirrors ``--checkpoint-dir``
+every ``--remote-sync-frequency`` seconds and once at the end.
+``--distill-model M --distill-pretrained TAG_OR_PATH`` adds open_clip's
+distillation loss from that frozen teacher:
+
+  python -m clip_embeds_tpu_torch.cli.train --model ViT-L-14-336 \\
+      --pretrained openai --dataset-type csv --train-data train.tsv \\
+      --val-data val.tsv --imagenet-val IMAGENET/val \\
+      --distill-model ViT-L-14-336 --distill-pretrained teacher.pt \\
+      --checkpoint-dir ckpt --async-checkpoints --remote-sync /mnt/mirror \\
+      --report-to jsonl --logs logs --name run1
+
+The flags of the JAX CLI that are not ported yet (CoCa's loss weights,
+``--fsdp``) exit with an error that names the ROADMAP.md item that will
+port them; none is parsed and ignored. ``main(argv)`` returns the
+:class:`~..train.steps.TrainState`.
 """
 
 from __future__ import annotations
@@ -38,25 +59,17 @@ import ast
 import logging
 import os
 import time
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 # JAX flags that this CLI does not take yet, by the ROADMAP.md item that
 # will port them
-_EXTRAS = "queue 1 item 5g (async checkpoints, logging, remote sync)"
 _UNPORTED_ITEMS = {
-    "queue 1 item 5c (distill and CoCa steps)": (
-        "--distill-model", "--distill-pretrained",
+    "queue 1 item 15 (the CoCa tower and its train step)": (
         "--coca-caption-loss-weight", "--coca-contrastive-loss-weight"),
-    "queue 1 item 5f (validation and zero-shot in training)": (
-        "--val-data", "--val-frequency", "--val-num-samples",
-        "--imagenet-val", "--zeroshot-frequency"),
     "queue 1 item 6 (multi-GPU)": ("--fsdp",),
-    _EXTRAS: ("--async-checkpoints", "--remote-sync",
-              "--remote-sync-frequency", "--remote-sync-protocol",
-              "--report-to", "--logs", "--name"),
 }
 _UNPORTED = {flag: item for item, flags in _UNPORTED_ITEMS.items()
              for flag in flags}
@@ -134,6 +147,11 @@ def parse_args(argv=None):
     p.add_argument("--siglip", action="store_true",
                    help="the sigmoid loss (losses/siglip.py) in place of "
                         "InfoNCE")
+    p.add_argument("--distill-model", default=None,
+                   help="the teacher's architecture to distill from "
+                        "(with --distill-pretrained)")
+    p.add_argument("--distill-pretrained", default=None,
+                   help="the teacher's weights: a tag or a state-dict path")
     p.add_argument("--grad-cache-chunks", type=int, default=0)
     p.add_argument("--accum-freq", type=int, default=1,
                    help="gradient accumulation; maps to the exact-gradient "
@@ -172,11 +190,35 @@ def parse_args(argv=None):
                         "start with '0')")
     p.add_argument("--datamix-root", default=None,
                    help="datamix: the DataMix-665K image root")
+    p.add_argument("--val-data", default=None,
+                   help="a CSV/TSV file or tar shards of held-out pairs")
+    p.add_argument("--val-frequency", type=int, default=1)
+    p.add_argument("--val-num-samples", type=int, default=512)
+    p.add_argument("--imagenet-val", default=None,
+                   help="an ImageFolder root of ImageNet val for zero-shot")
+    p.add_argument("--zeroshot-frequency", type=int, default=2)
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--resume", default=None, help="'latest' or a path")
     p.add_argument("--save-frequency", type=int, default=1)
     p.add_argument("--save-most-recent", action="store_true")
     p.add_argument("--delete-previous-checkpoint", action="store_true")
+    p.add_argument("--async-checkpoints", action="store_true",
+                   help="write each checkpoint on a thread while the next "
+                        "epoch runs")
+    p.add_argument("--remote-sync", default=None,
+                   help="a directory (or s3:// / gs:// URL) to mirror "
+                        "--checkpoint-dir to")
+    p.add_argument("--remote-sync-frequency", type=int, default=300,
+                   help="seconds between mirror passes")
+    p.add_argument("--remote-sync-protocol", default="s3",
+                   choices=["s3", "fsspec"],
+                   help="taken for the JAX CLI's sake: the destination's "
+                        "prefix picks the tool")
+    p.add_argument("--report-to", default="",
+                   help="comma list: jsonl,tensorboard,wandb")
+    p.add_argument("--logs", default=None,
+                   help="log root; metrics land in <logs>/<name>/")
+    p.add_argument("--name", default=None)
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
@@ -276,6 +318,182 @@ def build_data(args, model_cfg, epoch: int = 0
     ), len(ds) // args.batch_size
 
 
+def build_val_batches(args, model_cfg) -> Iterator[Dict[str, np.ndarray]]:
+    """Held-out pair batches, as the JAX CLI's: a CSV/TSV (by extension) in
+    file order with a short last batch, else tar shards in order, no
+    shuffle."""
+    from ..text.tokenizer import get_tokenizer
+
+    tokenizer = get_tokenizer(model_cfg.text.context_length)
+    if args.val_data.split(".")[-1] in ("csv", "tsv"):
+        from ..data.csv_dataset import CsvPairDataset, csv_batches
+
+        ds = CsvPairDataset(
+            args.val_data, img_key=args.csv_img_key,
+            caption_key=args.csv_caption_key, sep=args.csv_separator)
+        return csv_batches(ds, args.batch_size, model_cfg.vision.image_size,
+                           tokenizer, shuffle=False, drop_last=False)
+    from ..data.wds import ShardedTarDataset, decode_raw_image_text, \
+        wds_batches
+
+    ds = ShardedTarDataset(args.val_data, decode=decode_raw_image_text,
+                           shuffle_shards=False)
+    return wds_batches(ds, args.batch_size,
+                       image_size=model_cfg.vision.image_size,
+                       tokenizer=tokenizer, drop_last=False)
+
+
+# The eval passes. They run the model's own blocks (the training route's)
+# with no gradient and deterministic towers (no patch dropout), and return
+# L2-normalised fp32 features on the host.
+
+
+@torch.no_grad()
+def encode_image_paths(model, paths: Sequence[str], device: torch.device
+                       ) -> np.ndarray:
+    """Image files through the eval preprocess ('clip') and the tower."""
+    from ..image.preprocess import preprocess_batch
+
+    pixels = preprocess_batch(list(paths), model.cfg.vision.image_size,
+                              "clip")
+    return model.encode_image(torch.from_numpy(pixels).to(device),
+                              normalize=True).float().cpu().numpy()
+
+
+@torch.no_grad()
+def encode_prompts(model, tokenizer, prompts: Sequence[str],
+                   device: torch.device) -> np.ndarray:
+    ids = torch.from_numpy(tokenizer(list(prompts))).long().to(device)
+    return model.encode_text(ids, normalize=True).float().cpu().numpy()
+
+
+@torch.no_grad()
+def validation_features(model, args, device: torch.device
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+    """(image, text) features of the val set's first
+    ``--val-num-samples`` pairs, whole batches: the batch that reaches the
+    number is the last, as in the JAX CLI."""
+    img_f, txt_f = [], []
+    n = 0
+    for vb in build_val_batches(args, model.cfg):
+        vb = _to_device(vb, device)
+        out = model(vb["images"], vb["texts"])
+        img_f.append(out["image_features"].float().cpu().numpy())
+        txt_f.append(out["text_features"].float().cpu().numpy())
+        n += vb["images"].shape[0]
+        if n >= args.val_num_samples:
+            break
+    if not img_f:
+        return (np.zeros((0, model.cfg.embed_dim), np.float32),) * 2
+    return np.concatenate(img_f), np.concatenate(txt_f)
+
+
+def validation_metrics(img: np.ndarray, txt: np.ndarray,
+                       logit_scale: np.ndarray) -> Dict[str, float]:
+    """Retrieval recall and ranks both ways, ``clip_val_loss`` (the
+    symmetric cross-entropy over the whole set) at ``exp(logit_scale)``,
+    and ``num_samples`` (open_clip's ``evaluate``)."""
+    from ..evals.metrics import retrieval_metrics
+
+    scale = float(np.exp(logit_scale))
+    logits = scale * img @ txt.T
+    labels = np.arange(len(img))
+
+    def ce(lg):
+        lg = lg - lg.max(axis=1, keepdims=True)
+        return float(np.mean(np.log(np.exp(lg).sum(axis=1))
+                             - lg[labels, labels]))
+
+    metrics = retrieval_metrics(img, txt, scale)
+    metrics["clip_val_loss"] = (ce(logits) + ce(logits.T)) / 2
+    metrics["num_samples"] = float(len(img))
+    return metrics
+
+
+def run_validation(model, args, device: torch.device
+                   ) -> Optional[Dict[str, float]]:
+    img, txt = validation_features(model, args, device)
+    if not len(img):
+        return None
+    return validation_metrics(
+        img, txt, model.logit_scale.detach().float().cpu().numpy())
+
+
+def imagenet_prompts(meta: Dict[str, Sequence[str]]
+                     ) -> Tuple[Sequence[str], Sequence[str]]:
+    """(classnames, templates) of the shipped metadata: the 1000
+    classnames and OpenAI's 80 templates, open_clip's pair. (The JAX CLI
+    reads 'classnames' and 'templates', keys the file does not have.)"""
+    return meta["IMAGENET_CLASSNAMES"], meta["OPENAI_IMAGENET_TEMPLATES"]
+
+
+def zero_shot_classifier(model, device: torch.device) -> np.ndarray:
+    """[embed_dim, 1000]: the ImageNet classifier of the model's text
+    tower, 10 classes (800 prompts) an encode call."""
+    from ..evals import zero_shot
+    from ..text.tokenizer import get_tokenizer
+
+    tokenizer = get_tokenizer(model.cfg.text.context_length)
+    classnames, templates = imagenet_prompts(
+        zero_shot.load_imagenet_metadata())
+    return zero_shot.build_zero_shot_classifier(
+        lambda prompts: encode_prompts(model, tokenizer, prompts, device),
+        classnames, templates)
+
+
+def imagefolder_samples(root: str) -> Tuple[List[str], List[int]]:
+    """(paths, class indices) of an ImageFolder root: class directories
+    sorted, each indexed in that order into the classnames, files sorted."""
+    samples, targets = [], []
+    classes = sorted(d for d in os.listdir(root)
+                     if os.path.isdir(os.path.join(root, d)))
+    for ci, cls_dir in enumerate(classes):
+        full = os.path.join(root, cls_dir)
+        for fn in sorted(os.listdir(full)):
+            samples.append(os.path.join(full, fn))
+            targets.append(ci)
+    return samples, targets
+
+
+def run_zero_shot(model, args, device: torch.device) -> Dict[str, float]:
+    """ImageNet zero-shot top-1 / top-5 on ``--imagenet-val``."""
+    from ..evals.zero_shot import zero_shot_eval
+
+    classifier = zero_shot_classifier(model, device)
+    samples, targets = imagefolder_samples(args.imagenet_val)
+    acc = zero_shot_eval(
+        lambda paths: encode_image_paths(model, paths, device), classifier,
+        samples, targets, batch_size=args.batch_size)
+    return {f"imagenet-zeroshot-val-{k}": v for k, v in acc.items()}
+
+
+def build_teacher(args, device: torch.device, dtype: torch.dtype,
+                  cfg) -> torch.nn.Module:
+    """The frozen distillation teacher (``--distill-model``,
+    ``--distill-pretrained``: a tag, seeded as the JAX CLI's seed 0, or a
+    state-dict path) on composable blocks computing in ``dtype``: its
+    parameters in ``dtype``, the logit scale kept fp32, no gradient, eval
+    mode. A teacher that cannot take the student's batches exits here."""
+    from ..core.config import get_model_config
+    from ..core.factory import create_model
+
+    tcfg = get_model_config(args.distill_model, args.distill_pretrained)
+    geometry = (tcfg.vision.image_size, tcfg.text.context_length)
+    want = (cfg.vision.image_size, cfg.text.context_length)
+    if geometry != want:
+        raise SystemExit(
+            f"--distill-model {args.distill_model} takes images of "
+            f"{geometry[0]} px and {geometry[1]} tokens; --model "
+            f"{args.model}'s batches have {want[0]} px and {want[1]}")
+    teacher = create_model(args.distill_model, args.distill_pretrained,
+                           dtype=torch.float32, device=device,
+                           compute_dtype=dtype)
+    for name, p in teacher.named_parameters():
+        if name not in ("logit_scale", "logit_bias"):
+            p.data = p.data.to(dtype)
+    return teacher.requires_grad_(False)
+
+
 def _block_impl(args, device: torch.device, dtype: torch.dtype, cfg) -> str:
     """The block route: fused only on the card, where the kernels take the
     shapes the blocks will see (in bf16, the kernels' type): the image
@@ -337,6 +555,10 @@ def main(argv=None):
     if block_impl != "composable":
         # the fused blocks keep only (x, params) per block already
         remat = False
+    # distillation is on when both teacher flags are given, as in JAX
+    distill = args.distill_model is not None and \
+        args.distill_pretrained is not None
+    teacher = build_teacher(args, device, dtype, cfg) if distill else None
     model = create_model(
         args.model, args.pretrained, seed=args.seed, dtype=torch.float32,
         device=device, remat=remat, block_impl=block_impl,
@@ -389,12 +611,40 @@ def main(argv=None):
             start_epoch = int(restored["step"])
             logging.info("resumed at epoch %d", start_epoch)
 
-    step_fn = make_clip_train_step(model, use_hard_text=args.usehardtext,
-                                   grad_cache_chunks=args.grad_cache_chunks,
-                                   use_siglip=args.siglip, seed=args.seed)
+    if distill:
+        from ..train.steps import make_distill_train_step
+
+        step_fn = make_distill_train_step(model, teacher)
+    else:
+        step_fn = make_clip_train_step(
+            model, use_hard_text=args.usehardtext,
+            grad_cache_chunks=args.grad_cache_chunks,
+            use_siglip=args.siglip, seed=args.seed)
+
+    # the metrics fan-out (open_clip --report-to; core/logging_utils.py)
+    writer = None
+    if args.report_to or args.logs:
+        from ..core.logging_utils import MetricsLogger
+
+        run_name = args.name or time.strftime("run-%Y%m%d-%H%M%S")
+        writer = MetricsLogger(
+            log_dir=os.path.join(args.logs, run_name) if args.logs else None,
+            report_to=[r for r in args.report_to.split(",") if r],
+            run_name=run_name)
+
+    # the checkpoint directory mirrored on a thread (core/remote_sync.py)
+    syncer = None
+    if args.remote_sync and args.checkpoint_dir:
+        from ..core.remote_sync import RemoteSync
+
+        syncer = RemoteSync(args.checkpoint_dir, args.remote_sync,
+                            every_seconds=args.remote_sync_frequency)
+        syncer.start()
+
     prev_ckpt_step = None
-    logging.info("device=%s blocks=%s steps/epoch=%d", device, block_impl,
-                 steps_per_epoch)
+    logging.info("device=%s blocks=%s steps/epoch=%d%s", device, block_impl,
+                 steps_per_epoch,
+                 f" distill from {args.distill_model}" if distill else "")
     for epoch in range(start_epoch, args.epochs):
         if epoch > start_epoch or epoch > 0:
             data_iter, _ = build_data(args, model.cfg, epoch=epoch)
@@ -411,13 +661,33 @@ def main(argv=None):
                     "samples/s %.1f samples/s/chip %.1f",
                     epoch, i + 1, loss, sched(state.step), seen / dt,
                     seen / dt)
+                if writer:
+                    writer.log({"loss": loss, "lr": sched(state.step),
+                                "samples_per_s": seen / dt},
+                               step=state.step)
         done = epoch + 1
+        if args.val_data and (done % args.val_frequency == 0
+                              or done == args.epochs):
+            val = run_validation(model, args, device)
+            if val is not None:
+                logging.info("val epoch %d: %s", done,
+                             {k: round(v, 4) for k, v in val.items()})
+                if writer:
+                    writer.log_eval(val, done)
+        if args.imagenet_val and (done % args.zeroshot_frequency == 0
+                                  or done == args.epochs):
+            zs = run_zero_shot(model, args, device)
+            logging.info("zero-shot epoch %d: %s", done, zs)
+            if writer:
+                writer.log_eval(zs, done)
         if args.checkpoint_dir and (
                 (args.save_frequency > 0 and done % args.save_frequency == 0)
                 or done == args.epochs or args.save_most_recent):
-            sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
-            ckpt.save(args.checkpoint_dir, {"state_dict": sd, "step": done},
-                      step=done)
+            # an async save returns with the state copied to the host, and
+            # after the previous async save committed: pruning it is safe
+            ckpt.save(args.checkpoint_dir,
+                      {"state_dict": model.state_dict(), "step": done},
+                      step=done, blocking=not args.async_checkpoints)
             # --delete-previous-checkpoint, or the transient
             # --save-most-recent copy
             if prev_ckpt_step is not None and (
@@ -430,6 +700,11 @@ def main(argv=None):
                 if os.path.exists(old):
                     os.remove(old)
             prev_ckpt_step = done
+        logging.info("epoch %d done in %.2f s", epoch,
+                     time.perf_counter() - t0)
+    ckpt.wait_for_saves()
+    if syncer is not None:
+        syncer.stop(final_sync=True)
     logging.info("done: %d steps", state.step)
     return state
 

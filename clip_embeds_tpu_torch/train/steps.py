@@ -2,8 +2,9 @@
 ``make_clip_train_step``, the CLIP contrastive step (open_clip's
 ``train_one_epoch``: forward both towers, InfoNCE, SigLIP or hard-text loss,
 backward, AdamW update, optionally after global-norm clipping, then the
-logit scale clamped to ln(100)); and ``make_frozen_tower_train_step``, the
-PACL/SPARC step that trains a head on a frozen tower's features. Where the
+logit scale clamped to ln(100)); ``make_distill_train_step``, the same step
+with open_clip's knowledge distillation from a frozen teacher; and
+``make_frozen_tower_train_step``, the PACL/SPARC step that trains a head on a frozen tower's features. Where the
 config has FLIP patch dropout, the CLIP step draws it from a generator
 seeded from (seed, step), as the JAX step folds the step into
 ``PRNGKey(seed)``: the same seed gives the same run, not JAX's draw.
@@ -22,7 +23,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..losses.clip_loss import clip_loss, clip_loss_hard_text, clip_metrics
+from ..losses.clip_loss import (
+    clip_loss, clip_loss_hard_text, clip_metrics, distill_clip_loss)
 from ..losses.siglip import siglip_loss
 from .grad_cache import cache_grad_step
 from .optim import clip_by_global_norm
@@ -133,6 +135,48 @@ def make_clip_train_step(model: nn.Module, use_hard_text: bool = False,
         with torch.no_grad():
             model.logit_scale.clamp_(max=LOGIT_SCALE_MAX)
         return dict(metrics, loss=loss)
+
+    return train_step
+
+
+def distill_train_loss(model: nn.Module, teacher: nn.Module, batch: Batch
+                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(loss, metrics) of one distillation batch: the teacher forwards the
+    same 'images' and 'texts' under ``torch.no_grad()``, so no gradient
+    reaches it; the loss is the student's InfoNCE plus the KD
+    cross-entropy against the teacher's logits (open_clip
+    ``DistillClipLoss``; JAX ``make_distill_train_step``), both in the
+    metrics beside the in-batch accuracies."""
+    out = model(batch["images"], batch["texts"])
+    with torch.no_grad():
+        t_out = teacher(batch["images"], batch["texts"])
+    img, txt, scale = (out["image_features"], out["text_features"],
+                       out["logit_scale"])
+    contrastive, distill = distill_clip_loss(
+        img, txt, scale, t_out["image_features"], t_out["text_features"],
+        t_out["logit_scale"].float())
+    metrics = clip_metrics(img, txt, scale)
+    metrics.update(contrastive_loss=contrastive.detach(),
+                   distill_loss=distill.detach(),
+                   logit_scale=scale.detach())
+    return contrastive + distill, metrics
+
+
+def make_distill_train_step(model: nn.Module, teacher: nn.Module
+                            ) -> Callable[[TrainState, Batch], Dict]:
+    """``step(state, batch) -> metrics`` with :func:`distill_train_loss`
+    (open_clip ``--distill``). ``teacher`` stays outside the state: give it
+    ``requires_grad_(False)``; the optimizer never sees it. As in JAX the
+    towers run without patch dropout, and the logit scale is clamped as in
+    the plain step."""
+
+    def train_step(state: TrainState, batch: Batch) -> Dict:
+        loss, metrics = distill_train_loss(model, teacher, batch)
+        loss.backward()
+        state.apply_gradients()
+        with torch.no_grad():
+            model.logit_scale.clamp_(max=LOGIT_SCALE_MAX)
+        return dict(metrics, loss=loss.detach())
 
     return train_step
 

@@ -174,3 +174,22 @@ def test_seeded_init_is_deterministic():
                                c.state_dict().values()):
         assert torch.equal(va, vb), k
     assert not torch.equal(a.visual.proj, c.visual.proj)
+
+
+@pytest.mark.parametrize("name,pretrained", [
+    ("test-tiny", None), ("test-tiny", "openai"), ("test-pacl-tiny", None)])
+def test_factory_build_skips_only_the_overwritten_default_init(name,
+                                                              pretrained):
+    """create_model builds without PyTorch's default init: the same values
+    as a default-initialised CLIP given the seeded init (LayerNorms at
+    ones / zeros, the logit scale from the config)."""
+    from clip_embeds_tpu_torch.core.config import get_model_config
+    from clip_embeds_tpu_torch.core.factory import init_params
+    from clip_embeds_tpu_torch.models.clip import CLIP
+
+    want = CLIP(get_model_config(name, pretrained))
+    init_params(want, seed=3)
+    got = create_model(name, pretrained, seed=3)
+    assert got.state_dict().keys() == want.state_dict().keys()
+    for k, v in want.state_dict().items():
+        assert torch.equal(got.state_dict()[k], v), k

@@ -2,7 +2,8 @@
 from one random test-tiny checkpoint, on the CPU in fp32; --lock-image,
 --resume latest, the real-data loaders (datamix with hard texts, CSV,
 WebDataset, auto) through the train augmentations, the flags they bring,
-and the JAX flags that are not ported yet."""
+distillation from a teacher checkpoint, and the JAX flags that are not
+ported yet."""
 
 import io
 import json
@@ -43,6 +44,18 @@ def checkpoint(tmp_path_factory):
     return str(path), sd
 
 
+@pytest.fixture(scope="module")
+def teacher(tmp_path_factory, checkpoint):
+    """A teacher checkpoint: the student's entries moved by seeded noise."""
+    rng = np.random.default_rng(12)
+    sd = {k: v + torch.from_numpy(np.asarray(
+        0.02 * rng.standard_normal(v.shape), np.float32))
+        for k, v in checkpoint[1].items()}
+    path = tmp_path_factory.mktemp("teacher") / "teacher.pt"
+    torch.save(sd, path)
+    return str(path)
+
+
 # lr 1e-3 and warmup 1 so that two steps move every parameter measurably
 COMMON = ["--model", "test-tiny", "--dataset-type", "synthetic",
           "--precision", "fp32", "--batch-size", "8",
@@ -59,10 +72,13 @@ def _port(args):
     # batch 32: its 8 hard negatives shard over JAX's 8 CPU devices too
     ["--usehardtext", "--batch-size", "32", "--train-num-samples", "64"],
     ["--lr-scheduler", "const", "--grad-clip-norm", "1.0"],
-], ids=["infonce", "hardtext", "const_clip"])
-def test_two_steps_match_jax_cli(checkpoint, extra):
+    # the teacher from a state-dict file in both packages
+    ["--distill-model", "test-tiny", "--distill-pretrained", "{teacher}"],
+], ids=["infonce", "hardtext", "const_clip", "distill"])
+def test_two_steps_match_jax_cli(checkpoint, teacher, extra):
     path, sd = checkpoint
-    args = COMMON + ["--pretrained", path] + extra
+    args = COMMON + ["--pretrained", path] + [a.format(teacher=teacher)
+                                              for a in extra]
     state = _port(args)
     # the suite's conftest gives JAX 8 CPU devices; its CLI shards the
     # batch over them
@@ -135,8 +151,9 @@ def test_default_device_is_the_card(monkeypatch):
         port_train.main(COMMON)
 
 
-# the flags that items 5d and 5e ported, one case each (they exited with
-# their item before), with the values each sets
+# the flags that ROADMAP items 5d, 5e, 5f, 5g and 5c's distillation half
+# ported, one case each (they exited with their item before), with the
+# values each sets
 _PORTED = {
     "--force-patch-dropout": ["--force-patch-dropout", "0.5"],
     "--train-data": ["--train-data", "a.json", "b.json"],
@@ -155,12 +172,31 @@ _PORTED = {
     "--datamix-root": ["--datamix-root", "/data/dm"],
     **{f"--dataset-type {t}": ["--dataset-type", t]
        for t in ("datamix", "csv", "webdataset", "auto")},
+    "--val-data": ["--val-data", "val.tsv"],
+    "--val-frequency": ["--val-frequency", "3"],
+    "--val-num-samples": ["--val-num-samples", "64"],
+    "--imagenet-val": ["--imagenet-val", "/data/imagenet/val"],
+    "--zeroshot-frequency": ["--zeroshot-frequency", "1"],
+    "--async-checkpoints": ["--async-checkpoints"],
+    "--remote-sync": ["--remote-sync", "/mnt/mirror"],
+    "--remote-sync-frequency": ["--remote-sync-frequency", "10"],
+    "--remote-sync-protocol": ["--remote-sync-protocol", "fsspec"],
+    "--report-to": ["--report-to", "jsonl,tensorboard"],
+    "--logs": ["--logs", "logs"],
+    "--name": ["--name", "run1"],
+    "--distill-model": ["--distill-model", "ViT-B-32"],
+    "--distill-pretrained": ["--distill-pretrained", "teacher.pt"],
 }
 _PORTED_DESTS = ("force_patch_dropout", "train_data", "csv_img_key",
                  "csv_caption_key", "csv_separator", "dataset_resampled",
                  "train_data_upsampling_factors", "wds_shuffle_buffer",
                  "augfiles", "aug_cfg", "no_train_aug", "lcs_root",
-                 "datamix_root", "dataset_type")
+                 "datamix_root", "dataset_type", "val_data",
+                 "val_frequency", "val_num_samples", "imagenet_val",
+                 "zeroshot_frequency", "async_checkpoints", "remote_sync",
+                 "remote_sync_frequency", "remote_sync_protocol",
+                 "report_to", "logs", "name", "distill_model",
+                 "distill_pretrained")
 
 
 @pytest.mark.parametrize("name", sorted(_PORTED))
