@@ -43,7 +43,14 @@ Phases, each of which raises on failure:
      (68x16x577x64), and int8_linear at Qwen2-7B's W8A8 projections over
      1224 rows (q 3584 -> 3584 and k / v 3584 -> 512 with their biases,
      o, gate / up 3584 -> 18944, down 18944 -> 3584), limits from
-     scripts/chip_probe_backbones.py;
+     scripts/chip_probe_backbones.py; and phase 16's shapes: the attention
+     forward and backward at CoCa ViT-L/14's b32 train step
+     (32x16x257x64, a partial last Q tile) and the forward at a b4 tower
+     call (4x16x257x64), beside scaled_dot_product_attention, and
+     int8_linear at the W8A8 trunk's decode steps (1 and 8 rows: one row a
+     prompt; 4096 -> 4096, 4096 -> 11008, 11008 -> 4096) with bf16
+     F.linear's time beside it, limits from
+     scripts/chip_probe_generate.py;
   4. the main paths: ViT-L/14-336 (OpenAI config, seeded random weights,
      all 24 + 12 layers) serves 3 image and 3 text requests of 8 through
      embed_image_batches / embed_text_batches, the CLI's helpers: first in
@@ -195,10 +202,10 @@ Phases, each of which raises on failure:
      pairs/s and peak memory; (b) InstructBLIP-FlanT5-XXL (EVA-g, the
      Q-Former, the same T5 trunk) through forward and
      forward_image_texts, flash_attention 39 an EVA-g call, the same
-     checks; (c) blip2-itm, blip2-itc and image-reward-v1 from seeded fp32
-     bundles in the JAX layout through scores.registry.get_score_model in
-     bf16, exact launches, against the plain fp32 path. Limits from
-     scripts/chip_probe_t5.py.
+     checks; (c) blip2-itm, blip2-itc and image-reward-v1 from seeded
+     fp32 bundles in the JAX layout through
+     scores.registry.get_score_model in bf16, exact launches, against the
+     plain fp32 path. Limits from scripts/chip_probe_t5.py.
  14. (run last, after 13) VLM2Vec's other backbones at full width from
      seeded weights, one at a time: Phi-3.5-V (Phi-3-mini 32 x 3072, 32
      heads of 96, ViT-L/14-336 to layer -2) and Qwen2-VL-7B (the 32 x
@@ -240,6 +247,34 @@ Phases, each of which raises on failure:
      with --remote-sync to a local mirror every second: each epoch's wall,
      the mirror byte-equal to the commits and without .tmp_* files. Limits
      from scripts/chip_probe_train_loop.py.
+ 16. (run after 11, on phase 10's bf16 LLaVA-1.5-7B and its W8A8 twin)
+     generation and CoCa: (a) models/generate.py llava_greedy_generate
+     at b1 and b8 on What'sUp-A images, one image a prompt of 64 ids (639
+     trunk rows), 32 new tokens, no eos, bf16 and W8A8, with exact
+     launches (flash_attention 23 + 32 a call, none in a decode step;
+     int8_linear 224 x 32), the tokens against the argmax of the model's
+     own teacher-forced full forward wherever its top-2 margin clears
+     GEN_MARGIN, the same at b8 on the W8A8 twin with static activation
+     scales (calibrated on that forward, so a row's quantisation does not
+     depend on the rows beside it), bf16 against the plain fp32 path on
+     the trunk cut to 2 layers beside the no-kernel witness (the first
+     token's logits cosine, the tokens up to the first low-margin step),
+     W8A8 against bf16 (a reading), tokens/s and ms a decode step from
+     the median of 3 warm calls and prefill ms by CUDA events, peak
+     memory with the cache; (b) coca_ViT-L-14 at full width and depth
+     (24 x 1024 tower at 224/14, 12 x 768 text, 12 x 768 decoder, vocab
+     49408), seeded on the card: encode_image at b32 and encode_text at
+     b256 with exact launches (24 a tower call), finite unit-norm
+     embeddings against the plain fp32 path; coca_sample_generate top-k 1
+     and top-p 0.1 and coca_beam_generate with 6 beams at b8, seq_len 30:
+     well-formed tokens, top-k 1 against the teacher-forced
+     caption_logits' argmax where the margin clears COCA_MARGIN,
+     captions/s; (c) cli/train.py main --model coca_ViT-L-14 with both
+     loss weights, 3 steps at b32 in bf16: exact launches (#4 and #5, 24
+     each a step), finite contrastive and caption losses, moved
+     parameters, samples/s and peak memory by CUDA events, the b8
+     gradients against the plain fp32 path beside the witness under
+     phase 6's limits. Limits from scripts/chip_probe_generate.py.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device it exits
@@ -467,7 +502,7 @@ SIGLIP_TRAIN_ROUTE = {"composable --siglip": (
 LLAVA_SEED, LLAVA_GROUP, LLAVA_TEXTS = 10, 8, 4
 # calls a path is timed over: the paths run host code between launches,
 # and one call's time spreads up to 1.8x from one machine to the next
-LLAVA_TIME_ITERS, LLAVA_PREFILL_ITERS = 5, 10
+LLAVA_TIME_ITERS, LLAVA_PREFILL_ITERS = 3, 5
 LLAVA_WHATSUP, LLAVA_AGREE, LLAVA_WINO, LLAVA_PLAIN_IMAGES = 64, 16, 16, 2
 # limits on |delta log score| and the least cosine of the answer
 # positions' logits rows. Readings on the H100 (scripts/chip_probe_llava.py
@@ -497,8 +532,8 @@ V2V_SEED, V2V_TOKENS, V2V_BATCHES, V2V_TIME_ITERS = 11, 64, (8, 16), 3
 V2V_TRAIN_BATCH, V2V_TRAIN_STEPS, V2V_RANK, V2V_ALPHA = 64, 3, 16, 64
 # (b) and (c) run on the 7B cut to its first V2V_TRAIN_LAYERS trunk layers
 # at full width (the tower whole): at all 32 they took 148 s of host-bound
-# launches, time that phase 13 needs
-V2V_TRAIN_LAYERS = 8
+# launches, time that phases 13 and 16 need
+V2V_TRAIN_LAYERS = 4
 V2V_CHUNK = {"bf16": 2, "quant_base": 16}
 V2V_GRAD_BATCH = 2
 V2V_EVAL_QUERIES, V2V_EVAL_CANDS, V2V_EVAL_BATCH = 16, 8, 8
@@ -607,6 +642,18 @@ QWEN_INT8_LINEAR_CASES = ((1224, 3584, 3584, True), (1224, 512, 3584, True),
                           (1224, 3584, 3584, False),
                           (1224, 18944, 3584, False),
                           (1224, 3584, 18944, False))
+# phase 3, phase 16's shapes: CoCa ViT-L/14's tower (16 heads of 64 over
+# 1 + 256 = 257 rows, a partial last Q tile) in the b32 train step,
+# forward and backward, and at a b4 call; int8_linear at the W8A8 trunk's
+# decode steps, one row a prompt at b1 and b8, through the trunk's three
+# projection shapes. Mean limits: the backward's as FLASH_CASES', the
+# forward's as T5_FAMILY_FLASH_CASES' at 257 rows, from
+# scripts/chip_probe_generate.py
+GEN_FLASH_TRAIN_CASES = (((32, 16, 257, 64), False, 2e-5),)
+GEN_FLASH_CASES = (((4, 16, 257, 64), False, 2e-4),)
+GEN_INT8_LINEAR_CASES = tuple((m, n, k) for m in (1, 8)
+                              for n, k in ((4096, 4096), (11008, 4096),
+                                           (4096, 11008)))
 # H100 SXM data-sheet peaks (dense): bf16 and int8 tensor cores, HBM3
 PEAK_BF16, PEAK_INT8, HBM_BYTES_PER_S = 989e12, 1979e12, 3.35e12
 # phase 3, the image tower under --force-patch-dropout 0.5: 1 + 288 = 289
@@ -930,6 +977,10 @@ def check_kernels(rng):
     vb_rng = np.random.default_rng(VB_SEED)
     for shape, causal, mean_tol in VB_FLASH_CASES:
         cases.append(flash_forward_case(vb_rng, shape, causal, mean_tol)[0])
+    gen_rng = np.random.default_rng(GEN_SEED)
+    cases += flash_train_cases(gen_rng, GEN_FLASH_TRAIN_CASES)
+    for shape, causal, mean_tol in GEN_FLASH_CASES:
+        cases.append(flash_forward_case(gen_rng, shape, causal, mean_tol)[0])
     results = {}
     for (name, kernel, plain, tol, n_valid, mean_tol, bound, library,
          flops) in cases:
@@ -4678,6 +4729,450 @@ def check_vlm_backbones(counters, gpu):
     return out
 
 
+# -- phase 16: generation and CoCa ---------------------------------------------
+
+# (a) LLaVA-1.5-7B greedy decoding: prompts of GEN_PROMPT ids (BOS, the
+# image, 62 seeded word ids: 63 + 576 = 639 trunk rows, phase 3's prefill
+# shape), GEN_NEW_TOKENS new tokens without eos, at GEN_BATCHES; after the
+# counted call (the first at its shape, so also the warm-up), the whole
+# call and the prefill alone each timed over GEN_TIME_ITERS calls (the
+# median); the agreement on the trunk cut to GEN_CUT_LAYERS layers at full
+# width (the tower whole)
+GEN_SEED, GEN_PROMPT, GEN_NEW_TOKENS, GEN_BATCHES = 16, 64, 32, (1, 8)
+GEN_TIME_ITERS, GEN_CUT_LAYERS = 3, 2
+# limits (readings on the H100, scripts/chip_probe_generate.py; PERF.md):
+# a decoded token must equal the argmax of the model's own teacher-forced
+# full forward wherever that forward's top-2 logit margin exceeds
+# GEN_MARGIN (bf16: the decode steps' plain attention over the cache and
+# the forward's flash kernel round apart) or GEN_STATIC_MARGIN (the W8A8
+# twin with static scales: its int8 products exact, but inputs a bf16
+# rounding apart can land an int8 level apart) or
+# GEN_INT8_MARGIN (W8A8 with dynamic scales, gross faults only: the scale
+# is the abs-max of each call's rows, a decode step's 1-8 against the
+# forward's 670 a prompt, so the sound reading is as large as JAX's
+# position fault's); on the cut, bf16's tokens equal plain fp32's before
+# fp32's first step under GEN_FP32_MARGIN, and the first token's logits
+# cosine clears GEN_FP32_COS
+GEN_MARGIN, GEN_STATIC_MARGIN, GEN_INT8_MARGIN = 0.5, 1.0, 2.0
+GEN_FP32_MARGIN, GEN_FP32_COS = 0.5, 0.999
+# (b) CoCa ViT-L/14 (open_clip's coca_ViT-L-14), seeded: COCA_IMAGES
+# images and COCA_TEXTS texts a serving call, generation at COCA_GEN_BATCH
+# over COCA_SEQ_LEN slots (timed as (a) is), top-p COCA_TOP_P, COCA_BEAMS
+# beams; the top-k 1 tokens against the teacher-forced caption logits
+# where the margin exceeds COCA_MARGIN; bf16 embeddings against plain
+# fp32, least row cosine COCA_COS
+COCA_MODEL, COCA_SEED = "coca_ViT-L-14", 16
+COCA_IMAGES, COCA_TEXTS, COCA_GEN_BATCH, COCA_SEQ_LEN = 32, 256, 8, 30
+COCA_TOP_P, COCA_BEAMS, COCA_MIN_LEN = 0.1, 6, 5
+COCA_MARGIN, COCA_COS = 0.5, 0.99
+
+
+def gen_prompts(b, vocab, seed):
+    """``b`` prompts of GEN_PROMPT ids on the card: BOS, the image
+    sentinel, then seeded word ids (one image a row, no padding)."""
+    from clip_embeds_tpu_torch.models.llava import IMAGE_TOKEN_INDEX
+
+    rng = np.random.default_rng(seed)
+    ids = np.empty((b, GEN_PROMPT), np.int64)
+    ids[:, 0], ids[:, 1] = 1, IMAGE_TOKEN_INDEX
+    ids[:, 2:] = rng.integers(2, vocab, (b, GEN_PROMPT - 2))
+    return torch.from_numpy(ids).cuda()
+
+
+@torch.inference_mode()
+def teacher_forced(model, ids, px, tokens):
+    """fp32 logits [B, T, V] of the LLaVA ``model``'s own full forward over
+    the prompt and ``tokens`` [B, T] at the positions that predict each
+    token (the unpadded trunk: the flash kernel's causal route in bf16 on
+    the card)."""
+    embeds = model.merge(ids, model.encode_images(px))
+    lm = model.language_model
+    hidden = lm.trunk(torch.cat([embeds, lm.embed(tokens[:, :-1])], 1))
+    return lm.logits(hidden[:, embeds.shape[1] - 1:]).float()
+
+
+def margins(logits):
+    top2 = logits.topk(2, dim=-1).values
+    return top2[..., 0] - top2[..., 1]
+
+
+def forced_agreement(label, tokens, logits, bound, valid=None):
+    """The decoded ``tokens`` [B, T] against the argmax of ``logits`` [B,
+    T, V] at every step whose top-2 margin exceeds ``bound`` (and is
+    ``valid``); returns (steps held, steps, the largest margin of a step
+    whose token differs: the reading behind ``bound``) and raises on a
+    mismatch above ``bound``."""
+    m = margins(logits)
+    if valid is None:
+        valid = torch.ones_like(tokens, dtype=torch.bool)
+    differ = valid & (logits.argmax(-1) != tokens)
+    worst = float(m[differ].max()) if differ.any() else 0.0
+    clear = valid & (m > bound)
+    held, total = int(clear.sum()), int(valid.sum())
+    if worst > bound:
+        raise AssertionError(f"{label}: {int((differ & clear).sum())} "
+                             f"decoded tokens differ from the "
+                             f"teacher-forced argmax at a margin above "
+                             f"{bound} (up to {worst})")
+    return held, total, worst
+
+
+@contextlib.contextmanager
+def static_scales(qmodel, calibrate):
+    """``qmodel``'s QuantLinear layers in static mode, each activation
+    scale the abs-max that calibrate() shows it over 127
+    (models/quant.py inject_act_scales); dynamic again on exit."""
+    from clip_embeds_tpu_torch.models.quant import (
+        inject_act_scales, quant_layers)
+
+    layers = quant_layers(qmodel)
+    for q in layers:
+        q.act_max.zero_()
+    calibrate()
+    inject_act_scales(qmodel)
+    try:
+        yield qmodel
+    finally:
+        for q in layers:
+            q.mode = "dynamic"
+
+
+def first_low_margin(logits, bound):
+    """Per row, the first step whose top-2 margin is at most ``bound``
+    (the row's length where none is)."""
+    low = margins(logits) <= bound
+    idx = torch.arange(low.shape[1], device=low.device).expand_as(low)
+    return torch.where(low, idx, low.shape[1]).amin(dim=1)
+
+
+def gen_llava(model, qmodel, counters, gpu):
+    """Phase 16 (a): greedy answers of LLaVA-1.5-7B and its W8A8 twin."""
+    from clip_embeds_tpu_torch.evals.whatsup import load_annotation
+    from clip_embeds_tpu_torch.image.preprocess import preprocess_batch
+    from clip_embeds_tpu_torch.models.generate import llava_greedy_generate
+
+    cfg = model.cfg
+    layers, tb = cfg.llama.num_layers, cfg.tower_blocks
+    int8_per_pass = 7 * layers
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "whatsup")
+        write_whatsup(root, 7)
+        data, _ = load_annotation(root, "a")
+        paths = [os.path.join(root, d["image_path"][5:])
+                 for d in data[:max(GEN_BATCHES)]]
+        pixels = torch.from_numpy(preprocess_batch(
+            paths, cfg.vision.image_size, "llava")).to("cuda", torch.bfloat16)
+    first, decoded = {}, {}
+    for b in GEN_BATCHES:
+        ids = gen_prompts(b, cfg.llama.vocab_size, GEN_SEED)
+        px = pixels[:b]
+        for route, m in (("bf16", model), ("W8A8", qmodel)):
+            want = {"flash_attention": tb + layers}
+            if route == "W8A8":
+                want["int8_linear"] = int8_per_pass * GEN_NEW_TOKENS
+            label = f"{route} b{b}, {GEN_NEW_TOKENS} new tokens"
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            tokens = counted(counters, label, lambda: llava_greedy_generate(
+                m, ids, px, GEN_NEW_TOKENS), want, tag="generate")
+            peak = torch.cuda.max_memory_allocated()
+            if tokens.shape != (b, GEN_NEW_TOKENS) or not (
+                    (tokens >= 0) & (tokens < cfg.llama.vocab_size)).all():
+                raise AssertionError(f"{label}: tokens {tokens}")
+            logits = teacher_forced(m, ids, px, tokens)
+            bound = GEN_MARGIN if route == "bf16" else GEN_INT8_MARGIN
+            held, total, worst = forced_agreement(label, tokens, logits,
+                                                  bound)
+            first[route, b], decoded[route, b] = logits[:, 0], tokens
+            full = event_times(lambda: llava_greedy_generate(
+                m, ids, px, GEN_NEW_TOKENS), GEN_TIME_ITERS)
+            full_ms = float(np.median(full))
+            pre_ms = float(np.median(event_times(
+                lambda: llava_greedy_generate(m, ids, px, 1),
+                GEN_TIME_ITERS)))
+            step_ms = (full_ms - pre_ms) / (GEN_NEW_TOKENS - 1)
+            print(f"[generate] {label}: {held} of {total} steps clear the "
+                  f"margin {bound} and equal the teacher-forced argmax "
+                  f"(the largest margin of a differing step {worst:.4f}); "
+                  f"{b * GEN_NEW_TOKENS / full_ms * 1e3:.1f} tokens/s "
+                  f"({full_ms:.1f} ms a call, the median of {len(full)} "
+                  f"after the counted one; range {min(full):.1f}-"
+                  f"{max(full):.1f}), prefill {pre_ms:.2f} ms, "
+                  f"{step_ms:.2f} ms a decode step, peak "
+                  f"{peak / 2**30:.2f} GiB on {gpu}")
+    b = max(GEN_BATCHES)
+    cos = float(F.cosine_similarity(first["W8A8", b], first["bf16", b],
+                                    dim=-1).min())
+    print(f"[generate] W8A8 against bf16 at b{b}: the first token's logits "
+          f"least row cosine {cos:.6f} (a reading: random weights, no "
+          f"limit)")
+
+    # the W8A8 twin with static scales: each row quantised alone, so its
+    # decode steps and its full forward compute one function
+    ids, px = gen_prompts(b, cfg.llama.vocab_size, GEN_SEED), pixels[:b]
+    with static_scales(qmodel, lambda: teacher_forced(
+            qmodel, ids, px, decoded["W8A8", b])):
+        label = f"W8A8 static b{b}, {GEN_NEW_TOKENS} new tokens"
+        tokens = counted(counters, label, lambda: llava_greedy_generate(
+            qmodel, ids, px, GEN_NEW_TOKENS), {
+                "flash_attention": tb + layers,
+                "int8_linear": int8_per_pass * GEN_NEW_TOKENS},
+            tag="generate")
+        logits = teacher_forced(qmodel, ids, px, tokens)
+        held, total, worst = forced_agreement(label, tokens, logits,
+                                              GEN_STATIC_MARGIN)
+    print(f"[generate] {label}: {held} of {total} steps clear the margin "
+          f"{GEN_STATIC_MARGIN} and equal the teacher-forced argmax (the "
+          f"largest margin of a differing step {worst:.4f}) on {gpu}")
+
+    # bf16 against plain fp32 on the trunk cut to GEN_CUT_LAYERS layers
+    cut = cut_config(cfg, GEN_CUT_LAYERS)
+    mcut = model_view(model, cut)
+    ref = v2v_cast(mcut, torch.float32)
+    ids, px = gen_prompts(b, cfg.llama.vocab_size, GEN_SEED), pixels[:b]
+    runs = {}
+    for name, m, ctx in (("fp32", ref, contextlib.nullcontext()),
+                         ("bf16", mcut, contextlib.nullcontext()),
+                         ("witness", mcut, plain_attention())):
+        with ctx:
+            toks = llava_greedy_generate(
+                m, ids, px.to(next(m.parameters()).dtype), GEN_NEW_TOKENS)
+            runs[name] = (toks, teacher_forced(
+                m, ids, px.to(next(m.parameters()).dtype), toks))
+    ref_toks, ref_logits = runs["fp32"]
+    stop = first_low_margin(ref_logits, GEN_FP32_MARGIN)
+    for name in ("bf16", "witness"):
+        toks, logits = runs[name]
+        c = float(F.cosine_similarity(logits[:, 0], ref_logits[:, 0],
+                                      dim=-1).min())
+        equal = (toks == ref_toks).cumprod(dim=1).sum(dim=1)
+        at = equal.clamp_max(toks.shape[1] - 1)[:, None]
+        split = margins(ref_logits).gather(1, at)[:, 0]
+        split = float(split[equal < toks.shape[1]].max()) if (
+            equal < toks.shape[1]).any() else 0.0
+        print(f"[generate] {name} on the {GEN_CUT_LAYERS}-layer cut against "
+              f"plain fp32 at b{b}: first token's logits least row cosine "
+              f"{c:.6f} (limit {GEN_FP32_COS}), equal prefix "
+              f"{equal.tolist()} tokens, fp32's first step under margin "
+              f"{GEN_FP32_MARGIN} {stop.tolist()}, fp32's margin where they "
+              f"part {split:.4f}")
+        if name == "bf16" and (c < GEN_FP32_COS or (equal < stop).any()):
+            raise AssertionError(f"bf16 generation disagrees with plain "
+                                 f"fp32: cosine {c}, {equal} < {stop}")
+    del mcut, ref, runs
+
+
+def coca_well_formed(label, toks, vocab, forced_eos):
+    """SOT first, pads after the first eos, ids in range; with
+    ``forced_eos`` every row ends in an eos by the last slot."""
+    ok = bool((toks[:, 0] == SOT).all()
+              and ((toks >= 0) & (toks < vocab)).all())
+    for row in toks.tolist():
+        stop = row.index(EOT) if EOT in row else None
+        if stop is None:
+            ok &= not forced_eos
+        else:
+            ok &= all(t == 0 for t in row[stop + 1:])
+    if not ok:
+        raise AssertionError(f"{label}: malformed tokens {toks.tolist()}")
+
+
+def gen_coca(counters, gpu):
+    """Phase 16 (b) and (c): CoCa ViT-L/14 serving, captioning and
+    training."""
+    from clip_embeds_tpu_torch.cli.train import _to_device
+    from clip_embeds_tpu_torch.cli.train import main as train_main
+    from clip_embeds_tpu_torch.core.factory import create_model
+    from clip_embeds_tpu_torch.data.synthetic import synthetic_batches
+    from clip_embeds_tpu_torch.losses.coca import coca_loss
+    from clip_embeds_tpu_torch.models.generate import (
+        coca_beam_generate, coca_sample_generate, min_length_process)
+    from clip_embeds_tpu_torch.train import steps as train_steps
+    from clip_embeds_tpu_torch.train.optim import adamw
+    from clip_embeds_tpu_torch.train.schedules import const_lr
+
+    t0 = time.perf_counter()
+    ref = create_model(COCA_MODEL, seed=COCA_SEED, dtype=torch.float32,
+                       device="cuda")
+    model = cast_copy(ref, torch.bfloat16)
+    cfg = model.cfg
+    v, t, mm = cfg.vision, cfg.text, cfg.multimodal
+    print(f"[coca] {COCA_MODEL}: tower {v.layers}x{v.width} at "
+          f"{v.image_size}/{v.patch_size} ({v.num_patches + 1} rows), text "
+          f"{t.layers}x{t.width}, decoder {mm.layers}x{mm.width}, vocab "
+          f"{t.vocab_size}; {sum(p.numel() for p in ref.parameters()) / 1e6:.1f}"
+          f" M parameters, fp32 and bf16 built on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    batch = _to_device(next(synthetic_batches(
+        COCA_TEXTS, v.image_size, t.context_length, seed=COCA_SEED)),
+        torch.device("cuda"))
+    images, texts = batch["images"][:COCA_IMAGES], batch["texts"]
+
+    # (b) serving
+    with torch.inference_mode():
+        img = counted(counters, f"encode_image b{COCA_IMAGES}",
+                      lambda: model.encode_image(images.bfloat16()),
+                      {"flash_attention": v.layers}, tag="coca")
+        txt = counted(counters, f"encode_text b{COCA_TEXTS}",
+                      lambda: model.encode_text(texts), {}, tag="coca")
+        img_ref, txt_ref = ref.encode_image(images), ref.encode_text(texts)
+        rates = {name: n / cuda_ms(fn, iters=5, warmup=1) * 1e3
+                 for name, n, fn in (
+                     ("images", COCA_IMAGES,
+                      lambda: model.encode_image(images.bfloat16())),
+                     ("texts", COCA_TEXTS, lambda: model.encode_text(texts)))}
+    cos = {}
+    for name, got, want in (("image", img, img_ref), ("text", txt, txt_ref)):
+        norms = got.float().norm(dim=-1)
+        if not (torch.isfinite(got).all()
+                and (norms - 1).abs().max() < 2e-2):
+            raise AssertionError(f"coca {name} embeddings: norms {norms}")
+        cos[name] = float(F.cosine_similarity(got.float(), want,
+                                              dim=-1).min())
+    print(f"[coca] bf16 against plain fp32, least row cosine (limit "
+          f"{COCA_COS}): {cos}; {rates['images']:.1f} images/s, "
+          f"{rates['texts']:.1f} texts/s on {gpu}")
+    if min(cos.values()) < COCA_COS:
+        raise AssertionError(f"coca embeddings disagree: {cos}")
+    del img_ref, txt_ref
+
+    # (b) captioning
+    x8 = images[:COCA_GEN_BATCH].bfloat16()
+    gen_kw = dict(seq_len=COCA_SEQ_LEN, min_seq_len=COCA_MIN_LEN)
+    gen = torch.Generator(device=x8.device)
+    calls = {
+        "top-k 1": lambda: coca_sample_generate(
+            model, x8, gen, generation_type="top_k", top_k=1, **gen_kw),
+        f"top-p {COCA_TOP_P}": lambda: coca_sample_generate(
+            model, x8, gen.manual_seed(COCA_SEED), top_p=COCA_TOP_P,
+            **gen_kw),
+        f"beam {COCA_BEAMS}": lambda: coca_beam_generate(
+            model, x8, num_beams=COCA_BEAMS, **gen_kw),
+    }
+    out = {}
+    for name, fn in calls.items():
+        toks = counted(counters, f"{name} b{COCA_GEN_BATCH}", fn,
+                       {"flash_attention": v.layers}, tag="coca")
+        coca_well_formed(name, toks, t.vocab_size, not name.startswith("b"))
+        out[name] = toks
+        times = event_times(fn, GEN_TIME_ITERS)
+        ms = float(np.median(times))
+        print(f"[coca] {name}: {COCA_GEN_BATCH / ms * 1e3:.2f} captions/s "
+              f"({ms:.1f} ms a call of {COCA_GEN_BATCH}, the median of "
+              f"{len(times)} after the counted one); lengths "
+              f"{[(r.index(EOT) + 1) if EOT in r else COCA_SEQ_LEN for r in toks.tolist()]}"
+              f" on {gpu}")
+    toks = out["top-k 1"]
+    with torch.inference_mode():
+        logits = model.caption_logits(model.image_tokens(x8)[1],
+                                      toks)[:, :-1].float()
+        for step in range(logits.shape[1]):
+            logits[:, step] = min_length_process(logits[:, step], step + 1,
+                                                 COCA_MIN_LEN, EOT)
+    slots = torch.arange(COCA_SEQ_LEN, device=toks.device)
+    stop = torch.where(toks == EOT, slots, COCA_SEQ_LEN).amin(dim=1,
+                                                            keepdim=True)
+    slot = slots[None, 1:]
+    valid = (slot <= stop) & (slot < COCA_SEQ_LEN - 1)
+    held, total, worst = forced_agreement("coca top-k 1", toks[:, 1:],
+                                          logits, COCA_MARGIN, valid)
+    print(f"[coca] top-k 1: {held} of {total} sampled slots clear the "
+          f"margin {COCA_MARGIN} and equal the teacher-forced argmax (the "
+          f"largest margin of a differing slot {worst:.4f})")
+    del model, out, logits, calls
+
+    # (c) training through the CLI
+    steps_seen = []
+    real_step = train_steps.make_coca_train_step
+
+    def recording(*a, **kw):
+        step = real_step(*a, **kw)
+
+        def run(state, b):
+            metrics = step(state, b)
+            steps_seen.append({k: float(x) for k, x in metrics.items()})
+            return metrics
+        return run
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    logging.getLogger().setLevel(logging.INFO)
+    for fn in counters.values():
+        fn.launches = 0
+    with patched(train_steps, "make_coca_train_step", recording):
+        t0 = time.perf_counter()
+        state = train_main([
+            "--model", COCA_MODEL, "--seed", str(COCA_SEED),
+            "--batch-size", str(TRAIN_BATCH), "--train-num-samples",
+            str(TRAIN_STEPS * TRAIN_BATCH), "--lr", "1e-5", "--warmup", "1",
+            "--log-every", "1", "--coca-caption-loss-weight", "2.0",
+            "--coca-contrastive-loss-weight", "1.0"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = {k: fn.launches for k, fn in counters.items()}
+    want = {k: 0 for k in counters}
+    want.update(flash_attention=TRAIN_STEPS * v.layers,
+                flash_attention_bwd=TRAIN_STEPS * v.layers)
+    before = ref.state_dict()
+    after = state.model.state_dict()
+    moved = sum(not torch.equal(after[k], x) for k, x in before.items())
+    losses = [(s["contrastive_loss"], s["caption_loss"]) for s in steps_seen]
+    print(f"[coca] cli.train.main {TRAIN_STEPS} steps of {TRAIN_BATCH} in "
+          f"{wall:.1f} s: (contrastive, caption) losses {losses}; launches "
+          f"{counts}; {moved} of {len(before)} parameter tensors moved")
+    if counts != want:
+        raise AssertionError(f"coca training: launches {counts} != {want}")
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"coca training: losses {losses}")
+    if moved != len(before):
+        raise AssertionError(f"coca training: {moved} of {len(before)} "
+                             f"tensors moved")
+    del state, after
+
+    # (c) throughput by CUDA events, and the b8 gradients
+    def coca_grads(m, b):
+        m.zero_grad(set_to_none=True)
+        coca_loss(m(b["images"], b["texts"]))["loss"].backward()
+        grads = {k: p.grad.float() for k, p in m.named_parameters()}
+        m.zero_grad(set_to_none=True)
+        return grads
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    route = create_model(COCA_MODEL, seed=COCA_SEED, dtype=torch.float32,
+                         device="cuda", compute_dtype=torch.bfloat16,
+                         train=True)
+    step = real_step(route)
+    state = train_steps.TrainState(route, adamw(route, 1e-5),
+                                   const_lr(1e-5))
+    tb = {k: x[:TRAIN_BATCH] for k, x in batch.items()}
+    torch.cuda.reset_peak_memory_stats()
+    step(state, tb)
+    ms = float(np.mean(event_times(lambda: step(state, tb), 3)))
+    print(f"[throughput] coca train_samples_per_s b{TRAIN_BATCH}: "
+          f"{TRAIN_BATCH / ms * 1e3:.1f} ({ms:.2f} ms/step, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB) on {gpu}")
+    del state, step
+    route.load_state_dict(before)
+    b8 = {k: x[:GRAD_BATCH] for k, x in batch.items()}
+    ref.train()
+    want = coca_grads(ref, b8)
+    with plain_attention():
+        witness = coca_grads(route, b8)
+    wcos, wworst, wname = grad_agreement(witness, want)
+    grads = coca_grads(route, b8)
+    cos, worst, name = grad_agreement(grads, want)
+    cos_min = max(GRAD_COS_MIN, wcos - GRAD_COS_BELOW_WITNESS)
+    print(f"[coca] b{GRAD_BATCH} gradients against plain fp32: cosine "
+          f"{cos:.6f} (limit {cos_min:.6f}), least per tensor {worst:.6f} "
+          f"({name}; limit {GRAD_TENSOR_COS_MIN}); the witness {wcos:.6f}, "
+          f"{wworst:.6f} ({wname})")
+    if not (cos >= cos_min and worst >= GRAD_TENSOR_COS_MIN):
+        raise AssertionError("coca training: gradients disagree")
+    del ref, route, grads, witness, want
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card",
@@ -4693,7 +5188,7 @@ def main() -> int:
     from clip_embeds_tpu_torch.ops.flash_attention import (
         flash_attention, flash_attention_bwd)
     from clip_embeds_tpu_torch.ops.fused_block import (
-        fused_block, fused_block_int8, fused_block_residuals)
+        fused_block, fused_block_int8, fused_block_residuals, int8_linear)
 
     # 1. device
     gpu = gpu_line()
@@ -4718,6 +5213,7 @@ def main() -> int:
         check_int8_linear(gpu)
         check_int8_linear(gpu, T5_INT8_LINEAR_CASES, seed=13)
         check_int8_linear(gpu, QWEN_INT8_LINEAR_CASES, seed=VB_SEED)
+        check_int8_linear(gpu, GEN_INT8_LINEAR_CASES, seed=GEN_SEED)
 
     # 4. the main path at full width and depth
     t0 = time.perf_counter()
@@ -4871,8 +5367,24 @@ def main() -> int:
     # 11. VLM2Vec over phase 10's LLaVA-1.5-7B and its W8A8 trunk
     t0 = time.perf_counter()
     check_vlm2vec(llava.to("cuda"), qllava, counters, gpu)
-    del llava, qllava
     print(f"[phase 11] {time.perf_counter() - t0:.1f} s on {gpu}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 16. (a) generation on the same LLaVA and its W8A8 twin; (b), (c)
+    # CoCa, on a card without them
+    t0 = time.perf_counter()
+    gen_llava(llava, qllava, dict(counters, int8_linear=int8_linear), gpu)
+    t16 = time.perf_counter() - t0
+    print(f"[phase 16] (a) {t16:.1f} s on {gpu}")
+    del llava, qllava
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gen_coca(counters, gpu)
+    t16b = time.perf_counter() - t0
+    print(f"[phase 16] (b) and (c) {t16b:.1f} s; phase 16 {t16 + t16b:.1f}"
+          f" s on {gpu}")
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -46,9 +46,22 @@ distillation loss from that frozen teacher:
       --checkpoint-dir ckpt --async-checkpoints --remote-sync /mnt/mirror \\
       --report-to jsonl --logs logs --name run1
 
-The flags of the JAX CLI that are not ported yet (CoCa's loss weights,
-``--fsdp``) exit with an error that names the ROADMAP.md item that will
-port them; none is parsed and ignored. ``main(argv)`` returns the
+A registry CoCa (``--model coca_ViT-L-14``) trains with CoCa's step:
+the contrastive loss at ``--coca-contrastive-loss-weight`` plus the
+caption loss at ``--coca-caption-loss-weight``, on composable blocks:
+
+  python -m clip_embeds_tpu_torch.cli.train --model coca_ViT-L-14 \
+      --dataset-type synthetic --batch-size 32 --train-num-samples 96 \
+      --coca-caption-loss-weight 2.0 --coca-contrastive-loss-weight 1.0
+
+The flags that a route's step would drop exit before the first step,
+naming the flag, where the JAX CLI runs on without them: with
+distillation ``--siglip``, ``--usehardtext`` and ``--grad-cache-chunks`` /
+``--accum-freq`` above 1; with a CoCa those, ``--force-patch-dropout``,
+``--fused-train-blocks``, ``--grad-checkpointing`` and the distillation
+flags. The flags of the JAX CLI that are not ported yet (``--fsdp``) exit
+with an error that names the ROADMAP.md item that will port them; none is
+parsed and ignored. ``main(argv)`` returns the
 :class:`~..train.steps.TrainState`.
 """
 
@@ -67,8 +80,6 @@ import torch
 # JAX flags that this CLI does not take yet, by the ROADMAP.md item that
 # will port them
 _UNPORTED_ITEMS = {
-    "queue 1 item 15 (the CoCa tower and its train step)": (
-        "--coca-caption-loss-weight", "--coca-contrastive-loss-weight"),
     "queue 1 item 6 (multi-GPU)": ("--fsdp",),
 }
 _UNPORTED = {flag: item for item, flags in _UNPORTED_ITEMS.items()
@@ -152,6 +163,9 @@ def parse_args(argv=None):
                         "(with --distill-pretrained)")
     p.add_argument("--distill-pretrained", default=None,
                    help="the teacher's weights: a tag or a state-dict path")
+    p.add_argument("--coca-caption-loss-weight", type=float, default=2.0)
+    p.add_argument("--coca-contrastive-loss-weight", type=float,
+                   default=1.0)
     p.add_argument("--grad-cache-chunks", type=int, default=0)
     p.add_argument("--accum-freq", type=int, default=1,
                    help="gradient accumulation; maps to the exact-gradient "
@@ -523,6 +537,28 @@ def _block_impl(args, device: torch.device, dtype: torch.dtype, cfg) -> str:
             else "fused-train")
 
 
+def dropped_flags(args, coca: bool, distill: bool) -> List[str]:
+    """The flags set in ``args`` that the chosen step would drop: the
+    distillation step takes neither the SigLIP nor the hard-text loss nor
+    grad-cache; CoCa's step none of those, and its factory none of the
+    block, remat or patch-dropout options (JAX's ``create_model`` forwards
+    none of them to ``create_coca_model``)."""
+    flags = []
+    if coca:
+        flags += [f for f, on in (
+            ("--force-patch-dropout", args.force_patch_dropout is not None),
+            ("--fused-train-blocks", args.fused_train_blocks),
+            ("--grad-checkpointing", args.grad_checkpointing),
+            ("--distill-model", distill)) if on]
+    if coca or distill:
+        flags += [f for f, on in (
+            ("--siglip", args.siglip),
+            ("--usehardtext", args.usehardtext),
+            ("--grad-cache-chunks", args.grad_cache_chunks > 1),
+            ("--accum-freq", args.accum_freq > 1)) if on]
+    return flags
+
+
 def _to_device(batch: Dict[str, np.ndarray], device: torch.device):
     out = {}
     for k, v in batch.items():
@@ -544,20 +580,29 @@ def main(argv=None):
     from ..train.optim import adamw
     from ..train.schedules import const_lr, const_lr_cooldown, cosine_lr
     from ..train.steps import TrainState, make_clip_train_step
+    from ..core.openclip_registry import is_coca, resolve_coca_config
 
+    # distillation is on when both teacher flags are given, as in JAX
+    distill = args.distill_model is not None and \
+        args.distill_pretrained is not None
+    coca = is_coca(args.model)
+    dropped = dropped_flags(args, coca, distill)
+    if dropped:
+        step = "CoCa's step" if coca else "the distillation step"
+        it = "it" if len(dropped) == 1 else "them"
+        raise SystemExit(f"{', '.join(dropped)}: {step} would drop {it} "
+                         f"(the JAX CLI does, silently); leave {it} out")
     device = resolve_device(args.device)
     dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
     remat = args.grad_checkpointing and (
         args.grad_checkpointing_policy
         if args.grad_checkpointing_policy in ("dots", "attn") else True)
-    cfg = get_model_config(args.model, args.pretrained)
+    cfg = (resolve_coca_config(args.model.replace("/", "-")) if coca
+           else get_model_config(args.model, args.pretrained))
     block_impl = _block_impl(args, device, dtype, cfg)
     if block_impl != "composable":
         # the fused blocks keep only (x, params) per block already
         remat = False
-    # distillation is on when both teacher flags are given, as in JAX
-    distill = args.distill_model is not None and \
-        args.distill_pretrained is not None
     teacher = build_teacher(args, device, dtype, cfg) if distill else None
     model = create_model(
         args.model, args.pretrained, seed=args.seed, dtype=torch.float32,
@@ -615,6 +660,12 @@ def main(argv=None):
         from ..train.steps import make_distill_train_step
 
         step_fn = make_distill_train_step(model, teacher)
+    elif coca:
+        from ..train.steps import make_coca_train_step
+
+        step_fn = make_coca_train_step(
+            model, caption_loss_weight=args.coca_caption_loss_weight,
+            clip_loss_weight=args.coca_contrastive_loss_weight)
     else:
         step_fn = make_clip_train_step(
             model, use_hard_text=args.usehardtext,

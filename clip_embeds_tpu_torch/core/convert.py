@@ -26,6 +26,11 @@ of VLM2Vec's other backbones.
 port's SigLIP (``models/siglip.py``), as the JAX
 ``convert_siglip_state_dict`` reads them.
 
+CoCa's modules keep open_clip's names, so an open_clip CoCa state dict
+loads with ``load_state_dict`` (and the JAX package's
+``convert_coca_state_dict`` reads the port's ``state_dict()`` as it is);
+:func:`coca_state_dict_from_flax` carries a JAX CoCa's flax tree in.
+
 The models whose module names are flax's (the Llama trunk, SigLIP,
 CLIP-FlanT5's T5, InstructBLIP-FlanT5, BLIP-2, ImageReward):
 :func:`state_dict_from_flax` carries a flax tree into the port
@@ -996,3 +1001,43 @@ def vlm_state_dict_from_jax_params(params: Mapping[str, Any], cfg
     sd = state_dict_from_flax(tree)
     sd.update(_vision_tower(clip, tower, head=False))
     return _tapped_blocks(sd, cfg, tower)
+
+
+# -- CoCa ---------------------------------------------------------------------
+
+
+def coca_state_dict_from_flax(params: Mapping[str, Any]
+                              ) -> Dict[str, torch.Tensor]:
+    """The JAX CoCa's flax params (numpy) -> the port's (open_clip) state
+    dict, the inverse of the JAX ``convert_coca_state_dict``: the blocks,
+    norms, embeddings and projections through :func:`state_dict_from_flax`,
+    then the three places where flax's names are not open_clip's: the
+    patch kernel, rebuilt into ``visual.conv1.weight``; the pooler's
+    ``q/k/v_proj`` Dense layers, into ``attn.{q,k,v}_proj_weight`` and one
+    packed ``attn.in_proj_bias``; and each ``cross_attn_{i}``, whose
+    packed projection and ``out_proj`` sit under ``cross_attn.{i}.attn``."""
+    sd = state_dict_from_flax(params)
+    kernel = np.asarray(params["visual"]["patch_embed"]["kernel"])
+    width = kernel.shape[1]
+    p = int(round((kernel.shape[0] // 3) ** 0.5))
+    del sd["visual.patch_embed.weight"]
+    sd["visual.conv1.weight"] = _t(kernel.reshape(p, p, 3, width).transpose(
+        3, 2, 0, 1))
+    pool = "visual.attn_pool."
+    biases = []
+    for n in "qkv":
+        sd[f"{pool}attn.{n}_proj_weight"] = sd.pop(f"{pool}{n}_proj.weight")
+        biases.append(sd.pop(f"{pool}{n}_proj.bias"))
+    sd[pool + "attn.in_proj_bias"] = torch.cat(biases)
+    for k in (pool + "out_proj.weight", pool + "out_proj.bias"):
+        sd[k.replace("out_proj", "attn.out_proj")] = sd.pop(k)
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in sd.items():
+        head, _, rest = k.partition(".")
+        if k.startswith("text_decoder.cross_attn_"):
+            i, _, leaf = rest[len("cross_attn_"):].partition(".")
+            if leaf.startswith(("in_proj_", "out_proj")):
+                leaf = "attn." + leaf
+            k = f"text_decoder.cross_attn.{i}.{leaf}"
+        out[k] = v
+    return out

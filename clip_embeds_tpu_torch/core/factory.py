@@ -1,6 +1,7 @@
 """Model factory: name -> the port's CLIP, with seeded random weights or a
 local open_clip state dict (counterpart of ``clip_embeds_tpu/core/
-factory.py``; nothing is downloaded); and the JAX package's ``.npz``
+factory.py``; nothing is downloaded), or for a registry ``coca_*`` name
+the port's CoCa (:func:`create_coca_model`); and the JAX package's ``.npz``
 parameter files (``save_params_npz`` / ``load_params_npz``: flax trees
 flattened to "a/b/kernel" keys), in which the PACL/SPARC heads travel; and
 :func:`init_llava`, :func:`init_score_model` and :func:`init_vlm`, a
@@ -21,7 +22,7 @@ from torch import nn
 
 from ..models.clip import CLIP
 from ..models.layers import Remat
-from .config import get_model_config
+from .config import MODEL_CONFIGS, get_model_config
 from .convert import load_open_clip_state_dict
 
 _CKPT_EXTS = (".pt", ".pth", ".bin")
@@ -124,7 +125,21 @@ def create_model(
     returned in train mode when ``train``, else in eval mode.
     ``force_quick_gelu`` and ``force_patch_dropout`` override the config
     (open_clip's ``--force-quick-gelu`` / ``--force-patch-dropout``).
+    A registry ``coca_*`` name (outside the hand-written configs) builds a
+    CoCa through :func:`create_coca_model`, which takes ``pretrained``,
+    ``seed``, ``dtype``, ``device``, ``compute_dtype``,
+    ``force_quick_gelu`` and ``train``; as JAX's ``create_model``, it
+    forwards none of ``remat``, ``block_impl`` or ``force_patch_dropout``
+    (``cli/train.py`` exits on the flags that set them).
     """
+    from .openclip_registry import is_coca
+
+    if name not in MODEL_CONFIGS and is_coca(name):
+        # CoCa archs build their own model class, as in JAX
+        return create_coca_model(
+            name.replace("/", "-"), pretrained, seed=seed, dtype=dtype,
+            device=device, compute_dtype=compute_dtype,
+            force_quick_gelu=force_quick_gelu, train=train)
     cfg = get_model_config(name, pretrained)
     if force_quick_gelu:
         cfg = cfg.replace(quick_gelu=True)
@@ -143,6 +158,102 @@ def create_model(
     else:
         init_params(model, seed)
     return model.to(device=device, dtype=dtype).train(train)
+
+
+# the pretrained tags whose CoCa checkpoints need QuickGELU (none in the
+# registry, as in JAX)
+_QUICK_GELU_TAGS_COCA: tuple = ()
+
+
+@torch.no_grad()
+def init_coca(model: nn.Module, g: torch.Generator) -> None:
+    """Seeded values, in place, for every tensor of a CoCa whose storage
+    is allocated but not set: norms at one and zero, the three towers'
+    blocks at open_clip's block scales (:func:`_init_tower`), the patchify
+    at (3 p^2)^-1/2, the class and positional embeddings and the
+    projections at width^-1/2, the token embedding at 0.02, the text
+    positions and CLS at 0.01, the pooler's queries at 1 (as JAX's), the
+    other weights at fan-in^-1/2, biases zero, the logit scale at the
+    config's."""
+    from ..models.coca import CoCa
+
+    assert isinstance(model, CoCa)
+    cfg = model.cfg
+    done = set()
+    for m in model.modules():
+        if isinstance(m, nn.LayerNorm):
+            m.reset_parameters()
+        elif isinstance(getattr(m, "resblocks", None), nn.ModuleList):
+            width = m.resblocks[0].ln_1.weight.shape[0]
+            _init_tower(m.resblocks, width, len(m.resblocks), g)
+            m = m.resblocks
+        else:
+            continue
+        done.update(id(p) for p in m.parameters())
+    v = cfg.vision
+    named = {
+        "visual.conv1.weight": (3 * v.patch_size ** 2) ** -0.5,
+        "visual.class_embedding": v.width ** -0.5,
+        "visual.positional_embedding": v.width ** -0.5,
+        "visual.proj": cfg.embed_dim ** -0.5,
+        "visual.attn_pool.query": 1.0,
+        "text.token_embedding.weight": 0.02,
+        "text.positional_embedding": 0.01,
+        "text.cls_emb": 0.01,
+        "text.text_projection": cfg.text.width ** -0.5,
+        "text_decoder.text_projection": cfg.multimodal.width ** -0.5,
+    }
+    for pname, p in model.named_parameters():
+        if id(p) in done:
+            continue
+        if pname == "logit_scale":
+            p.fill_(float(cfg.init_logit_scale))
+        elif pname.endswith("bias"):
+            p.zero_()
+        else:
+            std = named.get(pname, p.shape[-1] ** -0.5)
+            nn.init.normal_(p, std=std, generator=g)
+
+
+def create_coca_model(
+    name: str,
+    pretrained: Optional[str] = None,
+    seed: int = 0,
+    dtype: torch.dtype = torch.float32,
+    device: Union[str, torch.device] = "cpu",
+    compute_dtype: Optional[torch.dtype] = None,
+    force_quick_gelu: bool = False,
+    train: bool = False,
+) -> nn.Module:
+    """A ``models/coca.py CoCa`` of registry name ``name`` (JAX
+    ``create_coca_model``) on ``device`` with parameters in ``dtype``:
+    from the open_clip CoCa state dict at ``pretrained`` (a ``.pt`` /
+    ``.pth`` / ``.bin`` path) or seeded (:func:`init_coca`), built on the
+    meta device and drawn on ``device`` from a ``torch.Generator`` of that
+    device, so a seed gives other values on another device type.
+    ``compute_dtype`` (default ``dtype``) is the dtype the towers compute
+    in; train mode when ``train``."""
+    from ..models.coca import CoCa
+    from .openclip_registry import resolve_coca_config
+
+    device = resolve_device(str(device))
+    cfg = resolve_coca_config(name)
+    if force_quick_gelu or pretrained in _QUICK_GELU_TAGS_COCA:
+        cfg = dataclasses.replace(cfg, quick_gelu=True)
+    with torch.device("meta"):
+        model = CoCa(cfg, compute_dtype=compute_dtype)
+    if pretrained and os.path.exists(pretrained):
+        sd = torch.load(pretrained, map_location="cpu", weights_only=True)
+        sd = sd.get("state_dict", sd)
+        model.to_empty(device="cpu")
+        load_open_clip_state_dict(model, sd)
+        model.to(device=device, dtype=dtype)
+    elif pretrained and pretrained.endswith(_CKPT_EXTS):
+        raise FileNotFoundError(pretrained)
+    else:
+        model.to(dtype).to_empty(device=device)
+        init_coca(model, torch.Generator(device=device).manual_seed(seed))
+    return model.train(train)
 
 
 def flatten_params(params: Dict[str, Any], prefix: str = ""

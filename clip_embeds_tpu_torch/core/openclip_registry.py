@@ -1,16 +1,21 @@
-"""The SigLIP part of the open_clip model-config registry (a copy of the
-SigLIP subset of ``clip_embeds_tpu/core/openclip_registry.py``; the rest of
+"""The SigLIP and CoCa parts of the open_clip model-config registry (a copy
+of those parts of ``clip_embeds_tpu/core/openclip_registry.py``; the rest of
 the registry is not ported yet), and its table of pretrained tags.
 
-``siglip_registry.json`` beside this file holds the registry entries whose
-vision tower is a timm ``vit_*_siglip_*`` tower, copied from the JAX
-package's ``reference_registry.json`` (open_clip's model-config JSONs).
-:func:`classify_model` names the backend of such an entry: 'siglip' (the
-dual encoder of ``models/siglip.py``) or 'hf-text' (a SigLIP vision tower
-under an HF text tower, the nllb-clip hybrids, not built here);
+``openclip_registry.json`` beside this file holds the registry entries
+whose vision tower is a timm ``vit_*_siglip_*`` tower and the four
+``coca_*`` entries, copied from the JAX package's
+``reference_registry.json`` (open_clip's model-config JSONs).
+:func:`classify_model` names the backend of such an entry: 'coca' (an
+entry with a ``multimodal_cfg``), 'siglip' (the dual encoder of
+``models/siglip.py``) or 'hf-text' (a SigLIP vision tower under an HF text
+tower, the nllb-clip hybrids, not built here);
 :func:`resolve_siglip_config` maps a 'siglip' entry onto
-:class:`~..models.siglip.SiglipConfig`. ``tests/test_torch_siglip.py``
-holds both to the JAX package for every entry. ``pretrained_tags.json``
+:class:`~..models.siglip.SiglipConfig`, :func:`resolve_coca_config` a
+'coca' one onto :class:`~..models.coca.CoCaConfig` (``coca_roberta-ViT-B-32``,
+whose text tower is HF's RoBERTa, raises as in JAX).
+``tests/test_torch_siglip.py`` and ``tests/test_torch_coca.py`` hold them
+to the JAX package for every entry. ``pretrained_tags.json``
 holds the architecture -> tags part of the registry's pretrained table (the
 download records are not copied); :func:`list_pretrained` reads it, as the
 JAX function of that name reads the whole table.
@@ -23,7 +28,7 @@ import os
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 _REGISTRY_PATH = os.path.join(os.path.dirname(__file__),
-                              "siglip_registry.json")
+                              "openclip_registry.json")
 _registry_cache: Optional[Dict[str, Any]] = None
 
 # public shapes for the timm SigLIP ViT towers (width, layers, heads, mlp)
@@ -61,7 +66,14 @@ def _parse_timm_siglip(name: str) -> Optional[Dict[str, int]]:
 
 
 def list_siglip_models() -> Tuple[str, ...]:
-    return tuple(sorted(_registry()["model_configs"]))
+    """The SigLIP-tower entries (SigLIP and the hf-text hybrids)."""
+    return tuple(sorted(k for k, v in _registry()["model_configs"].items()
+                        if v.get("multimodal_cfg") is None))
+
+
+def list_coca_models() -> Tuple[str, ...]:
+    return tuple(sorted(k for k, v in _registry()["model_configs"].items()
+                        if v.get("multimodal_cfg") is not None))
 
 
 def get_raw_model_config(name: str) -> Optional[Dict[str, Any]]:
@@ -69,12 +81,14 @@ def get_raw_model_config(name: str) -> Optional[Dict[str, Any]]:
 
 
 def classify_model(name: str) -> Tuple[str, str]:
-    """(backend, detail) of a registry name: ('siglip', timm tower),
-    ('hf-text', ...) for a SigLIP tower under an HF text tower, or
-    ('unknown', ...) for a name outside the SigLIP subset."""
+    """(backend, detail) of a registry name: ('coca', ...), ('siglip',
+    timm tower), ('hf-text', ...) for a SigLIP tower under an HF text
+    tower, or ('unknown', ...) for a name outside the ported subset."""
     raw = get_raw_model_config(name)
     if raw is None:
-        return "unknown", f"no SigLIP model config named {name!r}"
+        return "unknown", f"no SigLIP or CoCa model config named {name!r}"
+    if raw.get("multimodal_cfg") is not None:
+        return "coca", "attentional pool + multimodal decoder"
     t = raw.get("text_cfg", {})
     timm = raw.get("vision_cfg", {}).get("timm_model_name", "")
     if t.get("hf_model_name"):
@@ -127,6 +141,52 @@ def resolve_siglip_config(name: str):
             max_position_embeddings=t.get("context_length", 64),
         ),
     )
+
+
+def resolve_coca_config(name: str):
+    """Map a registry ``coca_*`` entry onto models/coca.py CoCaConfig (the
+    JAX function's fields and defaults)."""
+    from ..models.coca import CoCaConfig, MultimodalConfig
+    from .config import TextConfig, VisionConfig
+
+    raw = get_raw_model_config(name)
+    if raw is None:
+        raise KeyError(name)
+    v, t, m = raw["vision_cfg"], raw["text_cfg"], raw["multimodal_cfg"]
+    if t.get("hf_model_name"):
+        raise NotImplementedError(
+            f"{name!r}: CoCa with an HF text tower is not built")
+    vision = VisionConfig(
+        image_size=v.get("image_size", 224),
+        patch_size=v.get("patch_size", 32),
+        width=v.get("width", 768), layers=v.get("layers", 12),
+        head_width=v.get("head_width", 64),
+        mlp_ratio=v.get("mlp_ratio", 4.0),
+    )
+    text = TextConfig(
+        context_length=t.get("context_length", 76),
+        vocab_size=t.get("vocab_size", 49408),
+        width=t.get("width", 512), heads=t.get("heads", 8),
+        layers=t.get("layers", 12),
+    )
+    multimodal = MultimodalConfig(
+        context_length=m.get("context_length", 76),
+        width=m.get("width", 512), heads=m.get("heads", 8),
+        layers=m.get("layers", 12), mlp_ratio=m.get("mlp_ratio", 4.0),
+    )
+    return CoCaConfig(
+        embed_dim=raw["embed_dim"], vision=vision, text=text,
+        multimodal=multimodal,
+        attn_pooler_queries=v.get("attn_pooler_queries", 256),
+        attn_pooler_heads=v.get("attn_pooler_heads", 8),
+    )
+
+
+def is_coca(name: str) -> bool:
+    """Whether ``name`` (with '/' read as '-') is a registry CoCa entry."""
+    key = name.replace("/", "-")
+    return (get_raw_model_config(key) is not None
+            and classify_model(key)[0] == "coca")
 
 
 def list_pretrained(as_str: bool = False

@@ -84,7 +84,11 @@ class MultiHeadAttention(nn.Module):
             self.in_proj_bias = nn.Parameter(torch.zeros(3 * width))
         self.out_proj = linear(quant, width, width)
 
-    def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, causal: bool = False,
+                mask: Optional[torch.Tensor] = None,
+                impl: str = "auto") -> torch.Tensor:
+        """``mask`` (bool, broadcastable to [B, H, n, n], True where a key
+        is kept) and ``impl`` go to ``dot_product_attention``."""
         b, n, _ = x.shape
         hd = self.width // self.heads
         if hasattr(self, "in_proj"):
@@ -94,7 +98,8 @@ class MultiHeadAttention(nn.Module):
                            self.in_proj_bias.to(x.dtype))
         # [B, n, 3, H, hd] -> three [B, H, n, hd] views of the packed buffer
         q, k, v = qkv.view(b, n, 3, self.heads, hd).permute(2, 0, 3, 1, 4)
-        out = dot_product_attention(q, k, v, causal=causal)
+        out = dot_product_attention(q, k, v, causal=causal, mask=mask,
+                                    impl=impl)
         out = out.transpose(1, 2).reshape(b, n, self.width)
         return self.out_proj(out)
 
@@ -122,8 +127,10 @@ class ResidualAttentionBlock(nn.Module):
         self.ln_2 = LayerNorm(width, eps=ln_eps)
         self.mlp = MLP(width, mlp_ratio, quick_gelu, quant)
 
-    def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
-        x = x + self.attn(self.ln_1(x), causal=causal)
+    def forward(self, x: torch.Tensor, causal: bool = False,
+                mask: Optional[torch.Tensor] = None,
+                impl: str = "auto") -> torch.Tensor:
+        x = x + self.attn(self.ln_1(x), causal=causal, mask=mask, impl=impl)
         return x + self.mlp(self.ln_2(x))
 
 

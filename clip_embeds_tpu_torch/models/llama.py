@@ -15,7 +15,18 @@ Attention has two modes, as in JAX:
   kernel; a padding mask keeps plain attention);
 * a suffix pass over a cached prefix's per-layer K/V (``prefix_kv``):
   the prefix fully visible, causal within the suffix, optionally
-  block-diagonal (``suffix_block``), on plain attention.
+  block-diagonal (``suffix_block``), on plain attention;
+* the decode KV cache (JAX's ``decode=True``, its flax ``cache``
+  collection), passed explicitly: ``trunk(..., cache=KVCache)`` writes the
+  chunk's post-RoPE K/V at the cache's write index, in place, and returns
+  ``(hidden, cache)`` with the index advanced. A chunk at index 0 without
+  a padding mask (the prefill) attends over its own K/V on the causal
+  route, so an unmasked bf16 prefill on the card takes the flash kernel;
+  JAX runs plain attention over the whole cache there, whose keys past the
+  chunk get exactly zero weight, so the function is the same. Any other
+  chunk (a decode step) runs plain attention over the filled prefix of
+  the cache with the causal-by-absolute-position mask and ``kv_mask``
+  (over the cache's slots), as JAX does over all of them.
 
 JAX sows the post-RoPE, pre-GQA-repeat K/V into the flax ``kv``
 collection; the port has no collections, so ``trunk(..., sow_kv=True)``
@@ -26,8 +37,7 @@ in the backward (``torch.utils.checkpoint``, JAX's ``nn.remat`` per
 block; training only). ``positions`` of shape [B, 3, N] (Qwen2-VL's
 (t, h, w) ids) take multimodal RoPE (:func:`mrope_cos_sin`) on a model
 with ``mrope_section`` and their row 0 on a 1-D RoPE model, as JAX's trunk
-dispatches them. Not ported: the ``decode`` KV cache and the
-``scan_layers`` layout.
+dispatches them. Not ported: the ``scan_layers`` layout.
 """
 
 from __future__ import annotations
@@ -46,6 +56,31 @@ from ..ops.attention import dot_product_attention
 from .quant import Quant, linear
 
 KV = Tuple[torch.Tensor, torch.Tensor]
+
+
+@dataclasses.dataclass
+class KVCache:
+    """The decode cache of a trunk: per layer ``k[i]`` / ``v[i]`` [B,
+    kv_heads, max_len, head_dim] in the model's dtype (JAX's ``cached_k``
+    / ``cached_v``), and ``index``, the next slot to write (JAX's
+    ``cache_index``; a host int here, so stepping it never waits for the
+    device). The trunk writes the tensors in place."""
+
+    k: List[torch.Tensor]
+    v: List[torch.Tensor]
+    index: int = 0
+
+    @classmethod
+    def empty(cls, cfg: "LlamaConfig", batch_size: int, max_len: int,
+              dtype: torch.dtype, device) -> "KVCache":
+        shape = (batch_size, cfg.kv_heads, max_len, cfg.head_dim)
+        zeros = [torch.zeros(shape, dtype=dtype, device=device)
+                 for _ in range(2 * cfg.num_layers)]
+        return cls(zeros[::2], zeros[1::2], 0)
+
+    @property
+    def max_len(self) -> int:
+        return self.k[0].shape[2]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,10 +205,13 @@ class LlamaAttention(nn.Module):
 
     def forward(self, x, cos, sin, kv_mask=None, prefix: Optional[KV] = None,
                 sow_kv: bool = False, prefix_mask=None,
-                suffix_block: Optional[int] = None
+                suffix_block: Optional[int] = None,
+                cache: Optional[Tuple[KV, int]] = None
                 ) -> Tuple[torch.Tensor, Optional[KV]]:
         """Returns (out [B, n, d], the post-RoPE pre-repeat (k, v) in x's
-        dtype when ``sow_kv``, else None)."""
+        dtype when ``sow_kv``, else None). ``cache``: this layer's
+        ((cached_k, cached_v), write index); the chunk's K/V are written
+        there in place."""
         cfg = self.cfg
         b, n, _ = x.shape
         hd, rep = cfg.head_dim, cfg.num_heads // cfg.kv_heads
@@ -210,6 +248,30 @@ class LlamaAttention(nn.Module):
             mask = mask[None, None] & ok[:, None, None, :]
             out = dot_product_attention(q, k_all, v_all, causal=False,
                                         mask=mask, impl="reference")
+        elif cache is not None:
+            (ck, cv), idx = cache
+            end = idx + n
+            if end > ck.shape[2]:
+                raise ValueError(f"the KV cache holds {ck.shape[2]} slots; "
+                                 f"this chunk needs {end}")
+            ck[:, :, idx:end] = k.to(ck.dtype)
+            cv[:, :, idx:end] = v.to(cv.dtype)
+            if idx == 0 and kv_mask is None:
+                # the prefill: the keys past the chunk would get zero weight
+                out = dot_product_attention(q, _repeat_kv(k, rep),
+                                            _repeat_kv(v, rep), causal=True)
+            else:
+                # key j visible to query i (absolute position idx + i) iff
+                # j <= idx + i, over the filled slots
+                j = torch.arange(end, device=x.device)
+                mask = (j[None, :] <= idx + torch.arange(
+                    n, device=x.device)[:, None])[None, None]
+                if kv_mask is not None:
+                    mask = mask & kv_mask[:, None, None, :end].bool()
+                out = dot_product_attention(
+                    q, _repeat_kv(ck[:, :, :end], rep),
+                    _repeat_kv(cv[:, :, :end], rep), causal=False,
+                    mask=mask, impl="reference")
         else:
             mask = None if kv_mask is None else kv_mask[:, None, None, :]
             out = dot_product_attention(q, _repeat_kv(k, rep),
@@ -244,9 +306,10 @@ class LlamaBlock(nn.Module):
         self.mlp = LlamaMLP(cfg, quant, lora_rank, lora_alpha)
 
     def forward(self, x, cos, sin, kv_mask=None, prefix=None, sow_kv=False,
-                prefix_mask=None, suffix_block=None):
+                prefix_mask=None, suffix_block=None, cache=None):
         h, sown = self.self_attn(self.input_layernorm(x), cos, sin, kv_mask,
-                                 prefix, sow_kv, prefix_mask, suffix_block)
+                                 prefix, sow_kv, prefix_mask, suffix_block,
+                                 cache)
         x = x + h
         return x + self.mlp(self.post_attention_layernorm(x)), sown
 
@@ -269,9 +332,12 @@ class LlamaModel(nn.Module):
     def forward(self, inputs_embeds, attention_mask=None, positions=None,
                 prefix_kv: Optional[Sequence[KV]] = None,
                 sow_kv: bool = False, prefix_mask=None,
-                suffix_block: Optional[int] = None):
+                suffix_block: Optional[int] = None,
+                cache: Optional[KVCache] = None):
         """Hidden states [B, N, D]; with ``sow_kv`` also the per-layer
-        post-RoPE, pre-repeat ((k, v), ...), each [B, kv_heads, N, hd].
+        post-RoPE, pre-repeat ((k, v), ...), each [B, kv_heads, N, hd];
+        with ``cache`` also the cache, its index advanced by N (the
+        ``attention_mask`` is then over the cache's slots, [B, max_len]).
         ``positions``: [B, N], or [B, 3, N] (t, h, w) ids."""
         cfg = self.cfg
         b, n, _ = inputs_embeds.shape
@@ -288,9 +354,11 @@ class LlamaModel(nn.Module):
         x = inputs_embeds
         kv: List[KV] = []
         remat = self.remat and torch.is_grad_enabled()
-        if remat and (prefix_kv is not None or sow_kv):
-            raise ValueError("remat is a training feature: no prefix_kv or "
-                             "sow_kv under it")
+        if remat and (prefix_kv is not None or sow_kv or cache is not None):
+            raise ValueError("remat is a training feature: no prefix_kv, "
+                             "sow_kv or cache under it")
+        if cache is not None and (prefix_kv is not None or sow_kv):
+            raise ValueError("the decode cache takes no prefix_kv or sow_kv")
         for i, layer in enumerate(self.layers):
             if remat:
                 x, sown = torch.utils.checkpoint.checkpoint(
@@ -298,10 +366,14 @@ class LlamaModel(nn.Module):
                 continue
             x, sown = layer(x, cos, sin, attention_mask,
                             None if prefix_kv is None else prefix_kv[i],
-                            sow_kv, prefix_mask, suffix_block)
+                            sow_kv, prefix_mask, suffix_block,
+                            None if cache is None else
+                            ((cache.k[i], cache.v[i]), cache.index))
             if sow_kv:
                 kv.append(sown)
         x = self.norm(x)
+        if cache is not None:
+            return x, dataclasses.replace(cache, index=cache.index + n)
         return (x, tuple(kv)) if sow_kv else x
 
 
@@ -325,9 +397,9 @@ class LlamaForCausalLM(nn.Module):
 
     def trunk(self, inputs_embeds, attention_mask=None, positions=None,
               prefix_kv=None, sow_kv=False, prefix_mask=None,
-              suffix_block=None):
+              suffix_block=None, cache: Optional[KVCache] = None):
         return self.model(inputs_embeds, attention_mask, positions,
-                          prefix_kv, sow_kv, prefix_mask, suffix_block)
+                          prefix_kv, sow_kv, prefix_mask, suffix_block, cache)
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         if self.lm_head is None:

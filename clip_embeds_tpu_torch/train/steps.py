@@ -8,6 +8,8 @@ with open_clip's knowledge distillation from a frozen teacher; and
 config has FLIP patch dropout, the CLIP step draws it from a generator
 seeded from (seed, step), as the JAX step folds the step into
 ``PRNGKey(seed)``: the same seed gives the same run, not JAX's draw.
+``make_coca_train_step`` is CoCa's: the weighted contrastive loss plus the
+teacher-forced caption loss, then the same update and clamp.
 
 PyTorch updates the parameters in place, so the state is a small mutable
 object: the model, its optimizer, the update count and the learning-rate
@@ -177,6 +179,32 @@ def make_distill_train_step(model: nn.Module, teacher: nn.Module
         with torch.no_grad():
             model.logit_scale.clamp_(max=LOGIT_SCALE_MAX)
         return dict(metrics, loss=loss.detach())
+
+    return train_step
+
+
+def make_coca_train_step(model: nn.Module, caption_loss_weight: float = 2.0,
+                         clip_loss_weight: float = 1.0
+                         ) -> Callable[[TrainState, Batch], Dict]:
+    """``step(state, batch) -> metrics`` for a ``models/coca.py CoCa``
+    (JAX ``make_coca_train_step``; open_clip ``--coca-caption-loss-weight``
+    / ``--coca-contrastive-loss-weight``): the weighted InfoNCE plus the
+    caption cross-entropy over the non-pad labels, AdamW, and the logit
+    scale clamped as in the CLIP step. 'images' [B, S, S, 3], 'texts'
+    [B, L]; the metrics hold both weighted losses beside their sum."""
+    from ..losses.coca import coca_loss
+
+    def train_step(state: TrainState, batch: Batch) -> Dict:
+        out = model(batch["images"], batch["texts"])
+        losses = coca_loss(out, caption_loss_weight, clip_loss_weight,
+                           pad_id=model.cfg.pad_id)
+        losses["loss"].backward()
+        state.apply_gradients()
+        with torch.no_grad():
+            model.logit_scale.clamp_(max=LOGIT_SCALE_MAX)
+        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics["logit_scale"] = out["logit_scale"].detach()
+        return metrics
 
     return train_step
 

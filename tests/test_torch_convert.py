@@ -69,6 +69,32 @@ def test_model_config_shared_with_jax_package():
         get_model_config("ViT-SO400M-14-SigLIP")
 
 
+def test_coca_registry_entries_match_jax():
+    """The four coca_* entries of the port's registry copy: the raw JSONs,
+    the backend and the resolved CoCaConfig equal JAX's; the RoBERTa one
+    raises in both."""
+    from clip_embeds_tpu.core import openclip_registry as jax_registry
+    from clip_embeds_tpu_torch.core import openclip_registry as port_registry
+
+    names = port_registry.list_coca_models()
+    assert names == ("coca_ViT-B-32", "coca_ViT-L-14", "coca_base",
+                     "coca_roberta-ViT-B-32")
+    for name in names:
+        assert port_registry.get_raw_model_config(name) == \
+            jax_registry.get_raw_model_config(name)
+        assert port_registry.classify_model(name) == \
+            jax_registry.classify_model(name) == (
+                "coca", "attentional pool + multimodal decoder")
+        if name == "coca_roberta-ViT-B-32":
+            for reg in (port_registry, jax_registry):
+                with pytest.raises(NotImplementedError, match="HF text"):
+                    reg.resolve_coca_config(name)
+            continue
+        assert dataclasses.asdict(port_registry.resolve_coca_config(
+            name)) == dataclasses.asdict(
+                jax_registry.resolve_coca_config(name)), name
+
+
 def test_tokenizer_matches_jax_package():
     from clip_embeds_tpu_torch.text.tokenizer import get_tokenizer
 

@@ -12,7 +12,9 @@ at N and K = 4304, the SO400M-width blocks and a two-layer tower on every
 serving route), and VLM2Vec's other backbones (the attention causal at
 head dim 96, int8_linear with a bias at N = 512, a tiny Phi-3-V,
 LLaVA-NeXT, Qwen2-VL with its W8A8 trunk and Qwen2.5-VL on the card
-against the plain path).
+against the plain path), and generation and CoCa (int8_linear at a
+decode step's 1 and 8 rows, a tiny greedy decode and a CoCa train step on
+the card against the CPU's plain path).
 Marked ``cuda``; without a card they skip. On the card:
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py``."""
 
@@ -1709,3 +1711,150 @@ def test_qwen_vl_on_card_matches_plain_path(cuda, v25):
         got8 = qmodel(*on)[:, -1]
         assert int8_linear.launches == 7 * 2
     assert _least_cos(got8, got) > 0.95
+
+
+# -- generation and CoCa -----------------------------------------------------
+
+
+@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("n, k", [(4096, 4096), (11008, 4096),
+                                  (4096, 11008)])
+@pytest.mark.parametrize("mode", ["dynamic", "static"])
+def test_int8_linear_at_decode_rows(cuda, mode, n, k, m):
+    """QuantLinear's card route at a decode step's 1 and 8 rows (one a
+    prompt; the A tile boxes 128) through the 7B trunk's three projection
+    shapes: bit-equal to qdot rounded to bf16."""
+    from clip_embeds_tpu_torch.models.quant import QuantLinear, quantize_weight
+    from clip_embeds_tpu_torch.ops.fused_block import qdot
+
+    rng = np.random.default_rng(50 + m)
+    x = _bf16(rng, m, 1, k)
+    w = torch.from_numpy(rng.standard_normal((n, k)).astype(
+        np.float32) * 0.02).to(cuda)
+    lin = QuantLinear(k, n, mode, bias=False).to(cuda)
+    lin.weight_q, lin.scale = quantize_weight(w)
+    lin.act_scale.fill_(0.5 * x.float().abs().max().item() / 127.0)
+    with torch.inference_mode():
+        got = lin(x)
+    a = (lin.act_scale if mode == "static"
+         else x.float().abs().amax() / 127.0)
+    want = qdot(x.float(), a, lin.weight_q, lin.scale,
+                None).to(torch.bfloat16)
+    assert got.shape == (m, 1, n) and torch.equal(got, want)
+
+
+def test_greedy_generate_on_card_matches_cpu(cuda):
+    """A two-layer LLaVA at head dim 128 in bf16 on the card and its W8A8
+    twin: llava_greedy_generate launches the flash kernel once a vision
+    block and once a trunk layer in the prefill (none in a decode step)
+    and int8_linear 7 times a layer a pass; the first token's logits
+    against the fp32 plain path on the CPU, and the tokens against the
+    argmax of the card model's own full forward where the margin is clear."""
+    from clip_embeds_tpu_torch.core.config import VisionConfig
+    from clip_embeds_tpu_torch.core.factory import init_llava
+    from clip_embeds_tpu_torch.models.generate import llava_greedy_generate
+    from clip_embeds_tpu_torch.models.llama import LlamaConfig
+    from clip_embeds_tpu_torch.models.llava import (
+        IMAGE_TOKEN_INDEX, LlavaConfig)
+    from clip_embeds_tpu_torch.models.quant import quantize_llava_trunk
+    from clip_embeds_tpu_torch.ops.fused_block import int8_linear
+
+    cfg = LlavaConfig(
+        llama=LlamaConfig(vocab_size=512, hidden_size=256,
+                          intermediate_size=512, num_layers=2, num_heads=2),
+        vision=VisionConfig(image_size=224, patch_size=14, width=128,
+                            layers=3, head_width=64))
+    model = init_llava(cfg, seed=0, device=cuda, dtype=torch.bfloat16)
+    ref = init_llava(cfg, seed=0, device=cuda, dtype=torch.bfloat16)
+    ref = ref.float().cpu()
+    rng = np.random.default_rng(42)
+    ids = np.concatenate([np.ones((2, 1), np.int64),
+                          np.full((2, 1), IMAGE_TOKEN_INDEX),
+                          rng.integers(2, 512, (2, 10))], 1)
+    px = rng.standard_normal((2, 224, 224, 3)).astype(np.float32)
+    ids_c = torch.from_numpy(ids).to(cuda)
+    px_c = torch.from_numpy(px).to(cuda, torch.bfloat16)
+    flash_attention.launches = 0
+    toks = llava_greedy_generate(model, ids_c, px_c, 6)
+    assert flash_attention.launches == cfg.tower_blocks + 2
+    assert toks.shape == (2, 6)
+    with torch.inference_mode():
+        embeds = model.merge(ids_c, model.encode_images(px_c))
+        lm = model.language_model
+        full = lm.logits(lm.trunk(torch.cat(
+            [embeds, lm.embed(toks[:, :-1])], 1))[:, embeds.shape[1] - 1:]
+        ).float()
+        top2 = full.topk(2, -1).values
+        clear = top2[..., 0] - top2[..., 1] > 0.1
+        assert torch.equal(full.argmax(-1)[clear], toks[clear])
+        want = ref.language_model.logits(ref.language_model.trunk(ref.merge(
+            torch.from_numpy(ids), ref.encode_images(torch.from_numpy(
+                px)))))[:, -1]
+    cos = torch.nn.functional.cosine_similarity(full[:, 0].cpu(), want,
+                                                dim=-1)
+    assert (cos > 0.99).all()
+    qmodel = quantize_llava_trunk(model)
+    int8_linear.launches = 0
+    qtoks = llava_greedy_generate(qmodel, ids_c, px_c, 6)
+    assert int8_linear.launches == 7 * 2 * 6 and qtoks.shape == (2, 6)
+
+
+def test_coca_step_on_card_matches_cpu(cuda):
+    """A two-layer CoCa whose tower has CoCa ViT-L/14's attention shape
+    (16 heads of 64 over 257 rows) in bf16 compute on fp32 masters: a
+    train step launches the flash forward and backward once a tower block
+    each, the losses and gradients against the fp32 plain path on the
+    CPU, and top-k 1 captions well formed."""
+    from clip_embeds_tpu_torch.core.config import TextConfig, VisionConfig
+    from clip_embeds_tpu_torch.core.factory import init_coca
+    from clip_embeds_tpu_torch.losses.coca import coca_loss
+    from clip_embeds_tpu_torch.models.coca import (
+        CoCa, CoCaConfig, MultimodalConfig)
+    from clip_embeds_tpu_torch.models.generate import coca_sample_generate
+
+    cfg = CoCaConfig(
+        embed_dim=256,
+        vision=VisionConfig(image_size=224, patch_size=14, width=1024,
+                            layers=2),
+        text=TextConfig(context_length=20, vocab_size=1024, width=256,
+                        heads=4, layers=2),
+        multimodal=MultimodalConfig(context_length=20, width=256, heads=4,
+                                    layers=2),
+        attn_pooler_queries=16, attn_pooler_heads=4)
+    with torch.device("meta"):
+        ref = CoCa(cfg)
+    ref.to_empty(device="cpu")
+    init_coca(ref, torch.Generator().manual_seed(0))
+    model = CoCa(cfg, compute_dtype=torch.bfloat16).to(cuda)
+    model.load_state_dict(ref.state_dict())
+    rng = np.random.default_rng(43)
+    texts = np.zeros((4, 20), np.int64)
+    texts[:, 0], texts[:, 1:12], texts[:, 12] = 1022, rng.integers(
+        1, 1000, (4, 11)), 1023
+    images = rng.standard_normal((4, 224, 224, 3)).astype(np.float32)
+    losses, grads = {}, {}
+    for name, m, dev in (("card", model, cuda), ("cpu", ref, "cpu")):
+        flash_attention.launches = flash_attention_bwd.launches = 0
+        out = coca_loss(m(torch.from_numpy(images).to(dev),
+                          torch.from_numpy(texts).to(dev)))
+        out["loss"].backward()
+        torch.cuda.synchronize()
+        if name == "card":
+            assert (flash_attention.launches,
+                    flash_attention_bwd.launches) == (2, 2)
+        losses[name] = {k: float(v) for k, v in out.items()}
+        grads[name] = torch.cat([p.grad.float().cpu().flatten()
+                                 for p in m.parameters()])
+    for k in losses["cpu"]:
+        assert abs(losses["card"][k] - losses["cpu"][k]) < 0.05 * abs(
+            losses["cpu"][k]) + 0.05, k
+    cos = torch.nn.functional.cosine_similarity(grads["card"],
+                                                grads["cpu"], dim=0)
+    assert cos > 0.99
+    model.eval()
+    toks = coca_sample_generate(
+        model, torch.from_numpy(images).to(cuda, torch.bfloat16),
+        seq_len=12, generation_type="top_k", top_k=1, sot_token_id=1022,
+        eos_token_id=1023)
+    assert toks.shape == (4, 12) and (toks[:, 0] == 1022).all()
+    assert ((toks == 1023).any(dim=1)).all()

@@ -151,8 +151,8 @@ def test_default_device_is_the_card(monkeypatch):
         port_train.main(COMMON)
 
 
-# the flags that ROADMAP items 5d, 5e, 5f, 5g and 5c's distillation half
-# ported, one case each (they exited with their item before), with the
+# the flags that ROADMAP items 5d, 5e, 5f, 5g, 5c's distillation half and
+# 15's CoCa half ported, one case each (they exited with their item before), with the
 # values each sets
 _PORTED = {
     "--force-patch-dropout": ["--force-patch-dropout", "0.5"],
@@ -186,6 +186,11 @@ _PORTED = {
     "--name": ["--name", "run1"],
     "--distill-model": ["--distill-model", "ViT-B-32"],
     "--distill-pretrained": ["--distill-pretrained", "teacher.pt"],
+    # CoCa's loss weights (queue 1 item 15's CoCa half), in
+    # test_unported_flags_exit_with_their_roadmap_item before
+    "--coca-caption-loss-weight": ["--coca-caption-loss-weight", "1.5"],
+    "--coca-contrastive-loss-weight": ["--coca-contrastive-loss-weight",
+                                       "0.5"],
 }
 _PORTED_DESTS = ("force_patch_dropout", "train_data", "csv_img_key",
                  "csv_caption_key", "csv_separator", "dataset_resampled",
@@ -196,7 +201,8 @@ _PORTED_DESTS = ("force_patch_dropout", "train_data", "csv_img_key",
                  "zeroshot_frequency", "async_checkpoints", "remote_sync",
                  "remote_sync_frequency", "remote_sync_protocol",
                  "report_to", "logs", "name", "distill_model",
-                 "distill_pretrained")
+                 "distill_pretrained", "coca_caption_loss_weight",
+                 "coca_contrastive_loss_weight")
 
 
 @pytest.mark.parametrize("name", sorted(_PORTED))
