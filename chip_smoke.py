@@ -50,7 +50,11 @@ Phases, each of which raises on failure:
      int8_linear at the W8A8 trunk's decode steps (1 and 8 rows: one row a
      prompt; 4096 -> 4096, 4096 -> 11008, 11008 -> 4096) with bf16
      F.linear's time beside it, limits from
-     scripts/chip_probe_generate.py;
+     scripts/chip_probe_generate.py; and phase 17's shapes: the attention
+     forward at EVA01-g-14's b32 tower call (32x16x257x88) beside
+     scaled_dot_product_attention, and fused_block / fused_block_int8 at
+     ViT-H-14-378's b4 image request (730 rows padded to 736, width 1280,
+     16 heads of 80, MLP 5120, exact GELU) under the ViT-L limits;
   4. the main paths: ViT-L/14-336 (OpenAI config, seeded random weights,
      all 24 + 12 layers) serves 3 image and 3 text requests of 8 through
      embed_image_batches / embed_text_batches, the CLI's helpers: first in
@@ -203,7 +207,7 @@ Phases, each of which raises on failure:
      Q-Former, the same T5 trunk) through forward and
      forward_image_texts, flash_attention 39 an EVA-g call, the same
      checks; (c) blip2-itm, blip2-itc and image-reward-v1 from seeded
-     fp32 bundles in the JAX layout through
+     fp32 bundles in the JAX layout, held in memory, through
      scores.registry.get_score_model in bf16, exact launches, against the
      plain fp32 path. Limits from scripts/chip_probe_t5.py.
  14. (run last, after 13) VLM2Vec's other backbones at full width from
@@ -275,6 +279,24 @@ Phases, each of which raises on failure:
      parameters, samples/s and peak memory by CUDA events, the b8
      gradients against the plain fp32 path beside the witness under
      phase 6's limits. Limits from scripts/chip_probe_generate.py.
+
+ 17. (run last, after 14) the open_clip tower zoo from seeded weights, at
+     the published widths: (a) EVA01-g-14 at full width and depth through
+     cli/embed.py main (64 JPEGs at b32, 256 captions at b256), bf16 and
+     the plain fp32 path (--fp32: every attention plain), row cosine >=
+     ZOO_COS, exact launches (#4 40 a tower call; the 77-token texts
+     none), img/s and texts/s end to end and on the card; (b) one registry
+     model per remaining family at b8 against its plain fp32 path:
+     ViT-H-14-378 on the fused bf16 route and --int8 (int8 against bf16 >=
+     ZOO_COS), EVA02-L-14-336, EVA02-E-14, RN50x64, convnext_xxlarge,
+     ViTamin-L-336, swin_base_patch4_window7_224,
+     vit_medium_patch16_gap_256, vit_relpos_medium_patch16_cls_224,
+     MobileCLIP-B, MobileCLIP-S2, the hf-text CLIPs
+     xlm-roberta-large-ViT-H-14, mt5-xl-ViT-H-14 and nllb-clip-large-siglip
+     (images and masked texts), and LLM2CLIP (ViT-L/14-336 and its
+     adapter); exact launches (#4 on the ViT / SigLIP towers, none on the
+     plain towers and texts), row cosine >= ZOO_COS, img/s on the card.
+     No depth is cut.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device it exits
@@ -654,6 +676,32 @@ GEN_FLASH_CASES = (((4, 16, 257, 64), False, 2e-4),)
 GEN_INT8_LINEAR_CASES = tuple((m, n, k) for m in (1, 8)
                               for n, k in ((4096, 4096), (11008, 4096),
                                            (4096, 11008)))
+# phase 3, the zoo's new shapes (phase 17): the attention forward at
+# EVA01-g-14's b32 tower call (257 rows, 16 heads of 88) under the EVA-g
+# limit of T5_FAMILY_FLASH_CASES, and ViT-H-14-378's b4 image block (730
+# rows padded to 736, width 1280, head dim 80, MLP 5120, exact GELU)
+# through fused_block and fused_block_int8 under the ViT-L serving limits
+ZOO_FLASH_CASES = (((32, 16, 257, 88), False, 2e-4),)
+ZOO_BLOCK_CASES = (((4, 736, 1280, 16, 730, False), 0.004, None, 0.012),)
+# phase 17: the open_clip tower zoo (ROADMAP.md item 15) from seeded
+# weights at the published widths and depths. (a) EVA01-g-14 through
+# cli/embed.py: ZOO_EVA_IMAGES JPEGs at ZOO_EVA_BATCH, ZOO_EVA_TEXTS
+# captions at ZOO_EVA_TEXT_BATCH; (b) ZOO_CLIPS and ZOO_HF_TEXT at
+# ZOO_BATCH, and LLM2CLIP; device times over ZOO_TIME_ITERS calls. Every
+# route against its plain fp32 path at PERF.md §2's row cosine, and
+# ViT-H-14-378's int8 route against its bf16 one at bench.py's
+# INT8_MIN_COS (the same 0.99)
+ZOO_SEED, ZOO_COS, ZOO_BATCH, ZOO_TIME_ITERS = 17, 0.99, 8, 3
+ZOO_EVA_IMAGES, ZOO_EVA_BATCH, ZOO_EVA_TEXTS, ZOO_EVA_TEXT_BATCH = \
+    64, 32, 256, 256
+ZOO_CLIPS = ("EVA02-L-14-336", "EVA02-E-14", "RN50x64", "convnext_xxlarge",
+             "ViTamin-L-336", "swin_base_patch4_window7_224",
+             "vit_medium_patch16_gap_256",
+             "vit_relpos_medium_patch16_cls_224", "MobileCLIP-B",
+             "MobileCLIP-S2")
+ZOO_HF_TEXT = ("xlm-roberta-large-ViT-H-14", "mt5-xl-ViT-H-14",
+               "nllb-clip-large-siglip")
+ZOO_TEXT_LEN = 32
 # H100 SXM data-sheet peaks (dense): bf16 and int8 tensor cores, HBM3
 PEAK_BF16, PEAK_INT8, HBM_BYTES_PER_S = 989e12, 1979e12, 3.35e12
 # phase 3, the image tower under --force-patch-dropout 0.5: 1 + 288 = 289
@@ -795,8 +843,9 @@ def block_inputs(rng, b, n, d, mlp, bias_std=0.5):
 def int8_block_inputs(args, heads, kv, causal, act="quick", eps=1e-5):
     """fused_block_int8 inputs from fused_block's: the weights quantised by
     the port's quantize_weight, the static scales calibrated by a dynamic
-    pass over the same x of a quantised ResidualAttentionBlock (QuickGELU)
-    or, for act "tanh", a quantised SiglipBlock (bidirectional)."""
+    pass over the same x of a quantised ResidualAttentionBlock (QuickGELU,
+    or exact GELU for act "erf") or, for act "tanh", a quantised
+    SiglipBlock (bidirectional)."""
     from clip_embeds_tpu_torch.models.layers import ResidualAttentionBlock
     from clip_embeds_tpu_torch.models.quant import (
         calibrate_act_scales, quantize_linears, quantize_state_dict)
@@ -828,7 +877,8 @@ def int8_block_inputs(args, heads, kv, causal, act="quick", eps=1e-5):
           "mlp.c_fc.weight": w1, "mlp.c_fc.bias": b1,
           "mlp.c_proj.weight": w2, "mlp.c_proj.bias": b2}
     with torch.device("meta"):
-        block = ResidualAttentionBlock(d, heads, mlp / d, quick_gelu=True,
+        block = ResidualAttentionBlock(d, heads, mlp / d,
+                                       quick_gelu=act == "quick",
                                        quant="dynamic")
     block.load_state_dict(quantize_state_dict(sd), assign=True)
     calibrate_act_scales(block, [(x[:, :kv], causal)])
@@ -981,6 +1031,23 @@ def check_kernels(rng):
     cases += flash_train_cases(gen_rng, GEN_FLASH_TRAIN_CASES)
     for shape, causal, mean_tol in GEN_FLASH_CASES:
         cases.append(flash_forward_case(gen_rng, shape, causal, mean_tol)[0])
+    cases += zoo_kernel_cases(np.random.default_rng(ZOO_SEED))
+    return run_kernel_cases(cases)
+
+
+def zoo_kernel_cases(rng):
+    """Phase 3's cases at phase 17's new shapes (ZOO_FLASH_CASES,
+    ZOO_BLOCK_CASES)."""
+    cases = [flash_forward_case(rng, shape, causal, mean_tol)[0]
+             for shape, causal, mean_tol in ZOO_FLASH_CASES]
+    return cases + block_kernel_cases(rng, ZOO_BLOCK_CASES,
+                                      lambda d: 4 * d, "erf", 1e-5, " erf")
+
+
+def run_kernel_cases(cases):
+    """Each case's kernel against its plain version under its limits, and
+    the times: {name: dict(err, ms, plain_ms, bound_ms, bound_by,
+    library_ms)}."""
     results = {}
     for (name, kernel, plain, tol, n_valid, mean_tol, bound, library,
          flops) in cases:
@@ -4214,9 +4281,10 @@ def check_t5_vqascore(counters, gpu, images, texts):
     torch.cuda.empty_cache()
 
 
-def check_blip_scores(counters, gpu, images, texts, tmp):
+def check_blip_scores(counters, gpu, images, texts):
     """Phase 13 (c): blip2-itm, blip2-itc and image-reward-v1 at full
-    width from seeded fp32 bundles in the JAX layout, through
+    width from seeded fp32 bundles in the JAX layout (held in memory, not
+    written: the loader is patched to hand them over), through
     get_score_model in bf16 with exact launches (#4 39 an EVA-g call, 24 a
     BLIP ViT-L call: one an image of the m x n broadcast), against the
     plain fp32 path (the bundle's source model, fp32 on the card)."""
@@ -4224,8 +4292,9 @@ def check_blip_scores(counters, gpu, images, texts, tmp):
     from clip_embeds_tpu_torch.core.factory import init_score_model
     from clip_embeds_tpu_torch.models.blip import ImageReward
     from clip_embeds_tpu_torch.models.blip2 import Blip2ITM
+    from clip_embeds_tpu_torch.scores import build as score_build
     from clip_embeds_tpu_torch.scores.build import (
-        _blip2_itc_score, default_model_config, save_score_bundle)
+        _blip2_itc_score, config_to_dict, default_model_config)
     from clip_embeds_tpu_torch.scores.registry import get_score_model
     from clip_embeds_tpu_torch.scores.score import ITMScore, ImageRewardScore
 
@@ -4243,15 +4312,19 @@ def check_blip_scores(counters, gpu, images, texts, tmp):
         with torch.device("meta"):
             src = cls(cfg)
         src = init_score_model(src, T5_SEED + 2, "cuda", torch.float32)
-        bundle = os.path.join(tmp, family)
-        save_score_bundle(bundle, family, cfg, jax_params_from_module(src))
-        size = os.path.getsize(os.path.join(bundle, "params.npz"))
+        # the bundle's contents, held in memory: the registry route reads
+        # them through the loader's place instead of 4.4 GB of .npz
+        bundle = ({"family": family, "model": config_to_dict(cfg)},
+                  jax_params_from_module(src))
         print(f"[t5] {family} bundle: {sum(p.numel() for p in src.parameters()) / 1e9:.3f} "
-              f"B parameters, params.npz {size / 2**30:.2f} GiB, written in "
+              f"B parameters in the JAX layout, in memory, made in "
               f"{time.perf_counter() - t0:.1f} s")
         for name, tol, factory in names:
             t0 = time.perf_counter()
-            score = get_score_model(name, checkpoint=bundle, tokenize=tok)
+            with patched(score_build, "load_score_bundle",
+                         lambda path, b=bundle: b):
+                score = get_score_model(name, checkpoint=f"<{family}>",
+                                        tokenize=tok)
             t_load = time.perf_counter() - t0
             t0 = time.perf_counter()
             got = counted(counters, f"{name} bf16, {k} images x "
@@ -4297,7 +4370,7 @@ def check_t5_family(counters, gpu):
         print(f"[phase 13] (a) and (b) {time.perf_counter() - t0:.1f} s on "
               f"{gpu}")
         t0 = time.perf_counter()
-        check_blip_scores(counters, gpu, images, texts, tmp)
+        check_blip_scores(counters, gpu, images, texts)
         print(f"[phase 13] (c) {time.perf_counter() - t0:.1f} s on {gpu}")
 
 
@@ -5173,6 +5246,344 @@ def gen_coca(counters, gpu):
     del ref, route, grads, witness, want
 
 
+# -- phase 17: the open_clip tower zoo -------------------------------------
+
+
+def zoo_clip(name, seed):
+    """The fp32 CLIP of registry name ``name``, allocated on the card and
+    drawn there from a CUDA generator (``init_params``): no host copy."""
+    from torch import nn
+
+    from clip_embeds_tpu_torch.core.config import get_model_config
+    from clip_embeds_tpu_torch.core.factory import init_params
+    from clip_embeds_tpu_torch.models.clip import CLIP
+
+    with torch.device("meta"):
+        model = CLIP(get_model_config(name))
+    model.to_empty(device="cuda")
+    for m in model.modules():
+        if isinstance(m, (nn.LayerNorm, nn.BatchNorm2d)):
+            m.reset_parameters()
+    init_params(model, seed, torch.Generator("cuda").manual_seed(seed))
+    return model.eval()
+
+
+def zoo_seeded(model, seed):
+    """A CustomTextCLIP or LLM2CLIP built on the meta device, allocated on
+    the card and drawn there (``init_custom_text_clip``)."""
+    from clip_embeds_tpu_torch.models.custom_text_clip import (
+        init_custom_text_clip)
+
+    model.to_empty(device="cuda")
+    return init_custom_text_clip(
+        model, torch.Generator("cuda").manual_seed(seed)).eval()
+
+
+def zoo_bf16(ref):
+    """A bf16 copy of the fp32 model ``ref`` (the same weights)."""
+    import copy
+
+    return copy.deepcopy(ref).to(torch.bfloat16)
+
+
+def zoo_pixels(size, seed, n=ZOO_BATCH):
+    rng = np.random.default_rng([ZOO_SEED, seed])
+    return torch.from_numpy(rng.standard_normal((n, size, size, 3)).astype(
+        np.float32)).cuda()
+
+
+def zoo_agree(label, got, want, limit=ZOO_COS):
+    """Finite rows of the same shape whose least row cosine reaches
+    ``limit``; returns it."""
+    got, want = (t.float().cpu().numpy() for t in (got, want))
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise AssertionError(f"{label}: shape {got.shape} against "
+                             f"{want.shape}, finite {np.isfinite(got).all()}")
+    cos = float(row_cos(got, want).min())
+    if cos < limit:
+        raise AssertionError(f"{label}: least row cosine {cos:.5f} < {limit}")
+    return cos
+
+
+def zoo_eva_cli(counters, gpu, tmp):
+    """Phase 17 (a): EVA01-g-14 at full width and depth through
+    cli/embed.py main, bf16 and --fp32 (the plain path: fp32 attention is
+    never the kernel), the CLI's create_model handed the two models built
+    once on the card."""
+    from clip_embeds_tpu_torch.cli import embed as embed_cli
+
+    t0 = time.perf_counter()
+    ref = zoo_clip("EVA01-g-14", ZOO_SEED)
+    model = zoo_bf16(ref)
+    cfg = model.cfg
+    print(f"[zoo] EVA01-g-14: vision {cfg.vision.layers} x "
+          f"{cfg.vision.width}, {cfg.vision.heads} heads of "
+          f"{cfg.vision.head_width}, {cfg.vision.num_patches + 1} rows; "
+          f"{sum(p.numel() for p in ref.parameters()) / 1e9:.3f} B "
+          f"parameters, built on the card in {time.perf_counter() - t0:.1f}"
+          " s")
+
+    def create_model(name, pretrained=None, dtype=torch.float32,
+                     device="cuda", **kw):
+        if (name, pretrained, torch.device(device).type, kw) != (
+                "EVA01-g-14", None, "cuda", {}):
+            raise AssertionError(f"phase 17 shares no model for {name}")
+        return {torch.bfloat16: model, torch.float32: ref}[dtype]
+
+    img_dir = os.path.join(tmp, "eva_images")
+    write_photos([os.path.join(img_dir, f"{i:03d}.jpg")
+                  for i in range(ZOO_EVA_IMAGES)], ZOO_SEED)
+    rng = np.random.default_rng(ZOO_SEED)
+    words = ["a", "photo", "of", "the", "cat", "dog", "left", "right",
+             "red", "mug", "on", "table", "two", "birds", "under", "tree"]
+    captions = os.path.join(tmp, "captions.txt")
+    with open(captions, "w") as f:
+        for _ in range(ZOO_EVA_TEXTS):
+            f.write(" ".join(rng.choice(words, int(rng.integers(3, 20))))
+                    + "\n")
+    common = ["--model", "EVA01-g-14", "--device", "cuda"]
+    runs = {}
+    with patched(embed_cli, "create_model", create_model):
+        for kind, argv, batch, per_call in (
+                ("images", ["--input", img_dir, "--workers",
+                            str(os.cpu_count())], ZOO_EVA_BATCH,
+                 {"flash_attention": cfg.vision.layers}),
+                ("texts", ["--input-texts", captions], ZOO_EVA_TEXT_BATCH,
+                 {})):
+            calls = (ZOO_EVA_IMAGES if kind == "images"
+                     else ZOO_EVA_TEXTS) // batch
+            for prec in ("bf16", "fp32"):
+                out = os.path.join(tmp, f"eva_{kind}_{prec}.npy")
+                want = ({k: v * calls for k, v in per_call.items()}
+                        if prec == "bf16" else {})
+                ret, line = counted(
+                    counters, f"EVA01-g-14 cli/embed.py {kind} {prec}, "
+                    f"{calls} call(s) of {batch}",
+                    lambda a=argv, o=out, p=prec: run_main(
+                        embed_cli.main, common + a + [
+                            "--output", o, "--batch-size", str(batch)] + (
+                            ["--fp32"] if p == "fp32" else [])), want,
+                    tag="zoo")
+                if ret != 0:
+                    raise AssertionError(f"cli/embed.py {kind}: rc {ret}")
+                runs[kind, prec] = (np.load(out), line)
+    for kind in ("images", "texts"):
+        (bf, line), (fp, line32) = runs[kind, "bf16"], runs[kind, "fp32"]
+        cos = zoo_agree(f"EVA01-g-14 {kind} bf16 vs fp32",
+                        torch.from_numpy(bf), torch.from_numpy(fp))
+        rate = line[f"{kind}_per_sec"]
+        print(f"[zoo] EVA01-g-14 {kind}: row cosine bf16 vs plain fp32 "
+              f"{cos:.5f} (limit {ZOO_COS}); end to end {rate} {kind}/s "
+              f"bf16, {line32[f'{kind}_per_sec']} fp32 (route "
+              f"{line['route']}) on {gpu}")
+    with torch.inference_mode():
+        px = zoo_pixels(cfg.vision.image_size, 0, ZOO_EVA_BATCH).to(
+            torch.bfloat16)
+        ms = cuda_ms(lambda: model.encode_image(px, normalize=True),
+                     iters=ZOO_TIME_ITERS, warmup=1)
+        ids = torch.from_numpy(np.stack([
+            np.pad([SOT] + list(rng.integers(1, SOT, 12)) + [EOT],
+                   (0, cfg.text.context_length - 14))
+            for _ in range(ZOO_EVA_TEXT_BATCH)])).cuda()
+        ms_t = cuda_ms(lambda: model.encode_text(ids, normalize=True),
+                       iters=ZOO_TIME_ITERS, warmup=1)
+    print(f"[zoo] EVA01-g-14 on the card: {ZOO_EVA_BATCH / ms * 1e3:.1f} "
+          f"img/s (b{ZOO_EVA_BATCH}, {ms:.2f} ms), "
+          f"{ZOO_EVA_TEXT_BATCH / ms_t * 1e3:.1f} texts/s "
+          f"(b{ZOO_EVA_TEXT_BATCH}, {ms_t:.2f} ms) on {gpu}")
+
+
+def zoo_image_family(name, counters, gpu, idx):
+    """Phase 17 (b): one registry CLIP of a zoo tower family at b8, bf16
+    against the plain fp32 path; its tower launches no kernel."""
+    t0 = time.perf_counter()
+    ref = zoo_clip(name, ZOO_SEED + idx)
+    model = zoo_bf16(ref)
+    v = model.cfg.vision
+    built = time.perf_counter() - t0
+    px = zoo_pixels(v.image_size, idx)
+    with torch.inference_mode():
+        got = counted(counters, f"{name} ({v.tower}) bf16 b{ZOO_BATCH}",
+                      lambda: model.encode_image(px.to(torch.bfloat16),
+                                                 normalize=True), {},
+                      tag="zoo")
+        want = ref.encode_image(px, normalize=True)
+        cos = zoo_agree(f"{name} bf16 vs fp32", got, want)
+        ms = cuda_ms(lambda: model.encode_image(px.to(torch.bfloat16)),
+                     iters=ZOO_TIME_ITERS, warmup=1)
+    n = sum(p.numel() for p in model.visual.parameters())
+    print(f"[zoo] {name}: {v.tower} tower, {n / 1e6:.1f} M parameters at "
+          f"{v.image_size} px; row cosine bf16 vs plain fp32 {cos:.5f}; "
+          f"{ZOO_BATCH / ms * 1e3:.1f} img/s (b{ZOO_BATCH}, {ms:.2f} ms), "
+          f"built in {built:.1f} s on {gpu}")
+
+
+def zoo_vit_h_378(counters, gpu):
+    """Phase 17 (b): ViT-H-14-378 on the fused bf16 routes (images through
+    fused_encode_image, texts through the CLI's fused text route) and
+    --int8 (fused_block_int8, int8 weights from the fp32 ones), against
+    the plain fp32 path and int8 against bf16."""
+    from clip_embeds_tpu_torch.cli.embed import (
+        embed_image_batches, embed_text_batches, image_route, text_route)
+    from clip_embeds_tpu_torch.models.serving import fused_encode_image
+
+    t0 = time.perf_counter()
+    ref = zoo_clip("ViT-H-14-378", ZOO_SEED)
+    model = zoo_bf16(ref)
+    cfg, bf16 = model.cfg, torch.bfloat16
+    if not (text_route(model) == "fused"
+            and image_route(ref, True, bf16) == "fused_int8"):
+        raise AssertionError("ViT-H-14-378 would not take the fused routes")
+    built = time.perf_counter() - t0
+    px = zoo_pixels(cfg.vision.image_size, 20)
+    images, texts = synthetic_requests(np.random.default_rng(ZOO_SEED),
+                                       cfg)
+    ids = torch.from_numpy(texts[0]).cuda()
+    lv, lt = cfg.vision.layers - 1, cfg.text.layers  # CLS-only last block
+    with torch.inference_mode():
+        img = counted(counters,
+                      f"ViT-H-14-378 fused_encode_image b{ZOO_BATCH}",
+                      lambda: fused_encode_image(model, px.to(bf16)),
+                      {"fused_block": lv}, tag="zoo")
+        txt = torch.from_numpy(counted(
+            counters, f"ViT-H-14-378 fused texts b{ZOO_BATCH}",
+            lambda: embed_text_batches(model, [texts[0]], ZOO_BATCH),
+            {"fused_block": lt}, tag="zoo"))
+        img32 = ref.encode_image(px, normalize=True)
+        txt32 = ref.encode_text(ids.long(), normalize=True)
+        cos = {"image": zoo_agree("ViT-H-14-378 image bf16 vs fp32", img,
+                                  img32),
+               "text": zoo_agree("ViT-H-14-378 text bf16 vs fp32", txt,
+                                 txt32.cpu())}
+        for c in counters.values():
+            c.launches = 0
+        img8 = torch.from_numpy(embed_image_batches(
+            ref, [px.cpu().numpy()], ZOO_BATCH, int8=True, dtype=bf16))
+        n8 = counters["fused_block_int8"].launches
+        if n8 != lv:
+            raise AssertionError(f"ViT-H-14-378 int8: fused_block_int8 "
+                                 f"launches {n8} != {lv}")
+        cos["int8_image_vs_bf16"] = zoo_agree(
+            "ViT-H-14-378 int8 vs bf16", img8, img.cpu())
+        ms = cuda_ms(lambda: fused_encode_image(model, px.to(bf16)),
+                     iters=ZOO_TIME_ITERS, warmup=1)
+        ms_c = cuda_ms(lambda: model.encode_image(px.to(bf16)),
+                       iters=ZOO_TIME_ITERS, warmup=1)
+    print(f"[zoo] ViT-H-14-378: {cfg.vision.layers} x {cfg.vision.width}, "
+          f"{cfg.vision.num_patches + 1} rows; least row cosines {cos} "
+          f"(limit {ZOO_COS}); fused_block_int8 {n8} a call; fused bf16 "
+          f"{ZOO_BATCH / ms * 1e3:.1f} img/s ({ms:.2f} ms), composable "
+          f"{ZOO_BATCH / ms_c * 1e3:.1f} img/s ({ms_c:.2f} ms) at "
+          f"b{ZOO_BATCH}; built in {built:.1f} s on {gpu}")
+
+
+def zoo_hf_text(name, counters, gpu, idx):
+    """Phase 17 (b): an hf-text CLIP (a ViT-H-14 or SigLIP SO400M tower,
+    an XLM-R / mT5 / NLLB text tower) at b8: its images through #4, its
+    masked texts plain, bf16 against the plain fp32 path."""
+    from clip_embeds_tpu_torch.models.custom_text_clip import (
+        build_custom_text_clip)
+
+    t0 = time.perf_counter()
+    with torch.device("meta"):
+        ref = build_custom_text_clip(name)
+    ref = zoo_seeded(ref, ZOO_SEED + idx)
+    model = zoo_bf16(ref)
+    cfg = model.cfg
+    built = time.perf_counter() - t0
+    if cfg.siglip_vision is not None:
+        size, layers = cfg.siglip_vision.image_size, cfg.siglip_vision.layers
+    else:
+        size, layers = cfg.vision.image_size, cfg.vision.layers
+    px = zoo_pixels(size, idx)
+    rng = np.random.default_rng([ZOO_SEED, idx])
+    ids = rng.integers(2, model.text.cfg.vocab_size,
+                       (ZOO_BATCH, ZOO_TEXT_LEN))
+    mask = np.ones_like(ids)
+    for i, n in enumerate(rng.integers(4, ZOO_TEXT_LEN + 1, ZOO_BATCH)):
+        mask[i, n:] = 0
+        ids[i, n:] = 1
+    ids, mask = (torch.from_numpy(a).cuda() for a in (ids, mask))
+    with torch.inference_mode():
+        img = counted(counters, f"{name} images bf16 b{ZOO_BATCH}",
+                      lambda: model.encode_image(px.to(torch.bfloat16),
+                                                 normalize=True),
+                      {"flash_attention": layers}, tag="zoo")
+        txt = counted(counters, f"{name} texts bf16 b{ZOO_BATCH}",
+                      lambda: model.encode_text(ids, mask, normalize=True),
+                      {}, tag="zoo")
+        cos = {"image": zoo_agree(f"{name} image bf16 vs fp32", img,
+                                  ref.encode_image(px, normalize=True)),
+               "text": zoo_agree(f"{name} text bf16 vs fp32", txt,
+                                 ref.encode_text(ids, mask,
+                                                 normalize=True))}
+        ms = cuda_ms(lambda: model.encode_image(px.to(torch.bfloat16)),
+                     iters=ZOO_TIME_ITERS, warmup=1)
+        ms_t = cuda_ms(lambda: model.encode_text(ids, mask),
+                       iters=ZOO_TIME_ITERS, warmup=1)
+    print(f"[zoo] {name}: {cfg.hf_model_name} text, "
+          f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B "
+          f"parameters; least row cosines {cos} (limit {ZOO_COS}); "
+          f"{ZOO_BATCH / ms * 1e3:.1f} img/s ({ms:.2f} ms), "
+          f"{ZOO_BATCH / ms_t * 1e3:.1f} texts/s ({ms_t:.2f} ms) at "
+          f"b{ZOO_BATCH}; built in {built:.1f} s on {gpu}")
+
+
+def zoo_llm2clip(counters, gpu):
+    """Phase 17 (b): LLM2CLIP (ViT-L/14-336 through #4, the adapter on
+    LLM2Vec embeddings) at b8, bf16 against the plain fp32 path."""
+    from clip_embeds_tpu_torch.models.llm2clip import LLM2CLIP
+
+    t0 = time.perf_counter()
+    with torch.device("meta"):
+        ref = LLM2CLIP()
+    ref = zoo_seeded(ref, ZOO_SEED + 40)
+    model = zoo_bf16(ref)
+    cfg = model.cfg
+    built = time.perf_counter() - t0
+    px = zoo_pixels(cfg.vision.image_size, 40)
+    emb = torch.from_numpy(np.random.default_rng(ZOO_SEED).standard_normal(
+        (ZOO_BATCH, cfg.text_embedding_dim)).astype(np.float32)).cuda()
+    with torch.inference_mode():
+        img = counted(counters, f"LLM2CLIP images bf16 b{ZOO_BATCH}",
+                      lambda: model.get_image_features(
+                          px.to(torch.bfloat16), normalize=True),
+                      {"flash_attention": cfg.vision.layers}, tag="zoo")
+        txt = model.get_text_features(emb, normalize=True)
+        cos = {"image": zoo_agree("LLM2CLIP image bf16 vs fp32", img,
+                                  ref.get_image_features(px,
+                                                         normalize=True)),
+               "text": zoo_agree("LLM2CLIP text bf16 vs fp32", txt,
+                                 ref.get_text_features(emb,
+                                                       normalize=True))}
+        ms = cuda_ms(lambda: model.get_image_features(px.to(torch.bfloat16)),
+                     iters=ZOO_TIME_ITERS, warmup=1)
+    print(f"[zoo] LLM2CLIP: least row cosines {cos} (limit {ZOO_COS}); "
+          f"{ZOO_BATCH / ms * 1e3:.1f} img/s ({ms:.2f} ms) at b{ZOO_BATCH};"
+          f" built in {built:.1f} s on {gpu}")
+
+
+def check_zoo(counters, gpu):
+    """Phase 17: (a) EVA01-g-14 through cli/embed.py; (b) one model of
+    every other zoo family, the hf-text CLIPs and LLM2CLIP, one at a
+    time; each phase part's seconds."""
+    def part(label, fn, *args):
+        t0 = time.perf_counter()
+        fn(*args)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[phase 17] {label}: {time.perf_counter() - t0:.1f} s")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        part("(a) EVA01-g-14", zoo_eva_cli, counters, gpu, tmp)
+    part("(b) ViT-H-14-378", zoo_vit_h_378, counters, gpu)
+    for idx, name in enumerate(ZOO_CLIPS):
+        part(f"(b) {name}", zoo_image_family, name, counters, gpu, idx + 1)
+    for idx, name in enumerate(ZOO_HF_TEXT):
+        part(f"(b) {name}", zoo_hf_text, name, counters, gpu, idx + 30)
+    part("(b) LLM2CLIP", zoo_llm2clip, counters, gpu)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card",
@@ -5399,6 +5810,13 @@ def main() -> int:
     t0 = time.perf_counter()
     check_vlm_backbones(counters, gpu)
     print(f"[phase 14] {time.perf_counter() - t0:.1f} s on {gpu}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 17. the open_clip tower zoo
+    t0 = time.perf_counter()
+    check_zoo(counters, gpu)
+    print(f"[phase 17] {time.perf_counter() - t0:.1f} s on {gpu}")
 
     def entry(name, source, replaces, path_launches, shape):
         """One kernel's line: the largest max |diff| over its shapes, and

@@ -28,6 +28,13 @@ CLI routes off the TPU. Every int8 route on the card computes in bf16
 (QuantLinear there runs ``cet_gemm_s8``), so ``--int8 --fp32`` raises
 there. The JSON line names the route and the image decoder that ran.
 
+``--model`` takes any name the registry builds as a CLIP (the zoo towers:
+ModifiedResNet, EVA01 / EVA02, ConvNeXt, Swin, ViTamin, FastViT, MCi-ViT,
+the timm and rel-pos ViTs). Their images take the composable tower (EVA01's
+blocks reach the flash kernel on the card; the others' attention is plain,
+as in JAX) and their texts the fused or composable text tower as above;
+``--int8`` on a zoo tower's images raises, where the JAX CLI fails too.
+
 Usage:
   python -m clip_embeds_tpu_torch.cli.embed --model ViT-L-14-336 \
       --pretrained /ckpt.pt --input /data/images --output emb.npy \
@@ -103,13 +110,13 @@ def _run(encode, batches: Iterable[np.ndarray], batch_size: int,
 
 def _as_dtype(model, dtype: torch.dtype):
     """``model`` itself if it computes in ``dtype``, else a cast copy."""
-    if model.visual.proj.dtype == dtype:
+    if model.text_projection.dtype == dtype:
         return model
     return copy.deepcopy(model).to(dtype)
 
 
 def _on_card(model) -> bool:
-    return model.visual.proj.is_cuda
+    return model.text_projection.is_cuda
 
 
 def _int8_fused(model, dtype: torch.dtype) -> bool:
@@ -136,7 +143,14 @@ def image_route(model, int8: bool = False,
     kernels) or 'composable_int8' (static-quant QuantLinear model)."""
     if not int8:
         return "composable"
-    dtype = dtype or model.visual.proj.dtype
+    if model.cfg.vision.tower != "vit":
+        # JAX's CLI quantises the tree's block projections, which the zoo
+        # towers do not read (ScopeParamNotFoundError at the first batch)
+        raise NotImplementedError(
+            f"--int8 on the {model.cfg.vision.tower!r} vision tower: the "
+            "W8A8 serving path quantises the ViT's blocks only (the JAX "
+            "CLI fails on this tower too)")
+    dtype = dtype or model.text_projection.dtype
     return "fused_int8" if _int8_fused(model, dtype) else \
         "composable_int8"
 
@@ -152,8 +166,8 @@ def embed_image_batches(model, batches: Iterable[np.ndarray],
     (keep them fp32, as the JAX package's params are) and the activation
     scales are calibrated on the first batch's first 16 images; the route
     is :func:`image_route`'s."""
-    dtype = dtype or model.visual.proj.dtype
-    device = model.visual.proj.device
+    dtype = dtype or model.text_projection.dtype
+    device = model.text_projection.device
     route = image_route(model, int8, dtype)
     batches = iter(batches)
     first = next(batches, None)

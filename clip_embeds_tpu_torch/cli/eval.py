@@ -79,7 +79,7 @@ def build_head(args, model):
             load_params_npz(args.model_path)))
     else:
         init_head(head, seed=0)
-    return head.to(model.visual.proj.device)
+    return head.to(model.text_projection.device)
 
 
 def build_siglip_scorer(args, dtype):

@@ -245,7 +245,30 @@ def parse_args(argv=None):
     for flag, item in _UNPORTED.items():
         if hasattr(args, flag[2:].replace("-", "_")):
             p.error(f"{flag} is not ported yet: ROADMAP.md {item}")
+    tower = zoo_tower(args.model)
+    if tower is not None:
+        p.error(f"--model {args.model}: training on the {tower!r} tower is "
+                "not ported yet: ROADMAP.md queue 1 item 15c (training on "
+                "the zoo towers)")
     return args
+
+
+def zoo_tower(name: str) -> Optional[str]:
+    """The tower of a model whose training is not ported: a CLIP vision
+    tower other than the ViT, or 'hf-text' for a CustomTextCLIP name; None
+    for the ViT CLIPs, CoCa and names outside the registry."""
+    from ..core.config import MODEL_CONFIGS, get_model_config
+    from ..core.openclip_registry import classify_model, get_raw_model_config
+
+    key = name.replace("/", "-")
+    if key not in MODEL_CONFIGS:
+        if get_raw_model_config(key) is None:
+            return None
+        backend = classify_model(key)[0]
+        if backend != "clip":
+            return backend if backend == "hf-text" else None
+    tower = get_model_config(key).vision.tower
+    return None if tower == "vit" else tower
 
 
 def build_data(args, model_cfg, epoch: int = 0

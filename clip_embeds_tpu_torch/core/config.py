@@ -1,10 +1,10 @@
 """Model configuration dataclasses and the name -> config registry.
 
 The port's own copy of ``clip_embeds_tpu/core/config.py`` (the dataclasses,
-``MODEL_CONFIGS`` and ``get_model_config``); ``tests/test_torch_convert.py``
-holds the two registries equal field by field. Only the hand-written
-configs resolve here: the open_clip registry (``core/openclip_registry.py``)
-is not ported.
+``MODEL_CONFIGS``, ``get_model_config`` and ``list_models``);
+``tests/test_torch_convert.py`` holds the two registries equal field by
+field. A name outside the hand-written configs resolves through the open_clip
+registry (``core/openclip_registry.py``), as in JAX.
 """
 
 from __future__ import annotations
@@ -19,7 +19,9 @@ class VisionConfig:
     patch_size: int = 16
     width: int = 768
     layers: int = 12
-    tower: str = "vit"  # only 'vit' is ported
+    # 'vit' | 'resnet' | 'eva' | 'eva02' | 'timm-vit' | 'relpos-vit' |
+    # 'mci-vit' | 'swin' | 'vitamin' | 'fastvit' | 'convnext'
+    tower: str = "vit"
     resnet_layers: Tuple[int, ...] = ()  # ModifiedResNet stage depths
     convnext_depths: Tuple[int, ...] = ()  # ConvNeXt stage depths
     convnext_dims: Tuple[int, ...] = ()    # ConvNeXt stage widths
@@ -141,7 +143,7 @@ MODEL_CONFIGS: Dict[str, CLIPConfig] = {
     ),
 }
 
-# ModifiedResNet CLIP family (a ResNet tower: not ported)
+# ModifiedResNet CLIP family
 MODEL_CONFIGS["RN50"] = _cfg(
     1024,
     dict(tower="resnet", image_size=224, width=64, resnet_layers=(3, 4, 6, 3)),
@@ -193,15 +195,29 @@ _QUICK_GELU_TAGS = {"openai"}
 def get_model_config(name: str, pretrained: Optional[str] = None
                      ) -> CLIPConfig:
     """Resolve a model name (+ optional pretrained tag, 'openai' selects
-    QuickGELU) to a CLIPConfig. Only the hand-written configs resolve: the
-    open_clip registry (``core/openclip_registry.py``) is not ported."""
+    QuickGELU) to a CLIPConfig. The hand-written configs come first; any
+    other of the registry's 126 names resolves through
+    ``core/openclip_registry.py`` when its backend is 'clip' (the others
+    raise NotImplementedError naming their builder), as in JAX."""
     key = name.replace("/", "-")
     if key not in MODEL_CONFIGS:
-        raise KeyError(
-            f"unknown model {name!r}; the port knows {sorted(MODEL_CONFIGS)}"
-            " (the open_clip registry is not ported yet)"
+        from .openclip_registry import (
+            get_raw_model_config,
+            resolve_clip_config,
         )
-    cfg = MODEL_CONFIGS[key]
+
+        if get_raw_model_config(key) is None:
+            raise KeyError(
+                f"unknown model {name!r}; known: {sorted(MODEL_CONFIGS)} "
+                "+ the open_clip registry (core/openclip_registry.py)"
+            )
+        cfg = resolve_clip_config(key)
+    else:
+        cfg = MODEL_CONFIGS[key]
     if pretrained in _QUICK_GELU_TAGS or key.endswith("-quickgelu"):
         cfg = cfg.replace(quick_gelu=True)
     return cfg
+
+
+def list_models() -> Tuple[str, ...]:
+    return tuple(sorted(MODEL_CONFIGS))

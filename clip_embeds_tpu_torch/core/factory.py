@@ -44,21 +44,75 @@ def _init_tower(tower_blocks, width: int, layers: int,
         nn.init.zeros_(blk.attn.in_proj_bias)
 
 
+# the last layer of each residual branch in the zoo towers (and the
+# BatchNorm after a bottleneck's last conv), drawn at fan-in^-1/2 and then
+# scaled by (branches)^-1/2, as open_clip scales its blocks' out_proj and
+# c_proj by (2 layers)^-1/2
+_ZOO_BRANCH_ENDS = ("attn.proj.weight", "attn.out_proj.weight",
+                    "mlp.fc2.weight", "mlp.c_proj.weight", "mlp.w2.weight",
+                    "conv3_1x1.weight", "token_mixer.proj.weight",
+                    "bn3.weight")
+
+
 @torch.no_grad()
-def init_params(model: CLIP, seed: int = 0) -> None:
+def init_zoo_tower(tower: nn.Module, g: torch.Generator) -> None:
+    """Seeded values, in place, for a zoo vision tower: norms at one and
+    zero (BatchNorm statistics at 0 / 1), biases zero, layer scales at one,
+    matrices and conv kernels normal at fan-in^-1/2, the other tensors
+    (class tokens, positional embeddings, relative-position tables) normal
+    at 0.02; then the residual branches' last layers, and the LayerNorms
+    that close a post-norm block's branches, scaled by (branches)^-1/2,
+    so the stream stays near unit scale at any depth (unscaled, 64
+    post-norm EVA02-E blocks saturate every softmax)."""
+    done = set()
+    for m in tower.modules():
+        if isinstance(m, (nn.LayerNorm, nn.BatchNorm2d)):
+            m.reset_parameters()
+            done.update(id(p) for p in m.parameters())
+    for name, p in tower.named_parameters():
+        if id(p) in done:
+            continue
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf.endswith("bias"):
+            p.zero_()
+        elif leaf == "gamma":
+            p.fill_(1.0)
+        elif p.dim() >= 2 and leaf in ("weight", "in_proj_weight"):
+            nn.init.normal_(p, std=p[0].numel() ** -0.5, generator=g)
+        else:
+            nn.init.normal_(p, std=0.02, generator=g)
+    ends = [p for name, p in tower.named_parameters()
+            if name.endswith(_ZOO_BRANCH_ENDS)]
+    for m in tower.modules():  # EVA02-E's post-norm blocks
+        if getattr(m, "post", False) and hasattr(m, "norm2"):
+            ends += [m.norm1.weight, m.norm2.weight]
+            ends = [p for p in ends if p is not m.attn.proj.weight
+                    and p is not m.mlp.fc2.weight]
+    for p in ends:
+        p.mul_(len(ends) ** -0.5)
+
+
+@torch.no_grad()
+def init_params(model: CLIP, seed: int = 0,
+                generator: Optional[torch.Generator] = None) -> None:
     """Seeded random init in place, on the CPU in fp32, so one seed gives
-    the same weights whatever the target device and dtype."""
-    g = torch.Generator().manual_seed(seed)
+    the same weights whatever the target device and dtype; or from
+    ``generator``, on its device (a model there: no host copy, other
+    values than the CPU's for the seed)."""
+    g = generator or torch.Generator().manual_seed(seed)
     cfg = model.cfg
     v, t = cfg.vision, cfg.text
     vis = model.visual
-    scale = v.width ** -0.5
-    fan_in = 3 * v.patch_size ** 2
-    nn.init.normal_(vis.conv1.weight, std=fan_in ** -0.5, generator=g)
-    nn.init.normal_(vis.class_embedding, std=scale, generator=g)
-    nn.init.normal_(vis.positional_embedding, std=scale, generator=g)
-    nn.init.normal_(vis.proj, std=scale, generator=g)
-    _init_tower(vis.transformer.resblocks, v.width, v.layers, g)
+    if v.tower == "vit":
+        scale = v.width ** -0.5
+        fan_in = 3 * v.patch_size ** 2
+        nn.init.normal_(vis.conv1.weight, std=fan_in ** -0.5, generator=g)
+        nn.init.normal_(vis.class_embedding, std=scale, generator=g)
+        nn.init.normal_(vis.positional_embedding, std=scale, generator=g)
+        nn.init.normal_(vis.proj, std=scale, generator=g)
+        _init_tower(vis.transformer.resblocks, v.width, v.layers, g)
+    else:
+        init_zoo_tower(vis, g)
     nn.init.normal_(model.token_embedding.weight, std=0.02, generator=g)
     nn.init.normal_(model.positional_embedding, std=0.01, generator=g)
     nn.init.normal_(model.text_projection, std=t.width ** -0.5, generator=g)
@@ -94,7 +148,7 @@ def _empty_clip(cfg, **kw) -> CLIP:
         model = CLIP(cfg, **kw)
     model.to_empty(device="cpu")
     for m in model.modules():
-        if isinstance(m, nn.LayerNorm):
+        if isinstance(m, (nn.LayerNorm, nn.BatchNorm2d)):
             m.reset_parameters()
     model.logit_scale.fill_(float(cfg.init_logit_scale))
     if model.logit_bias is not None:
@@ -119,7 +173,9 @@ def create_model(
 
     ``pretrained`` may be None, a tag ('openai' selects QuickGELU; the
     weights are still seeded random), or the path of a torch checkpoint
-    (``.pt``/``.pth``/``.bin``) holding an open_clip state dict.
+    (``.pt``/``.pth``/``.bin``) holding an open_clip state dict. Every
+    registry name whose backend is 'clip' builds (the zoo towers too);
+    the other backends raise NotImplementedError, as in JAX.
     ``remat``, ``block_impl`` and ``compute_dtype`` (default: ``dtype``)
     are the training options of :class:`~..models.clip.CLIP`; the model is
     returned in train mode when ``train``, else in eval mode.
@@ -158,6 +214,34 @@ def create_model(
     else:
         init_params(model, seed)
     return model.to(device=device, dtype=dtype).train(train)
+
+
+def create_model_and_transforms(name: str, pretrained: Optional[str] = None,
+                                aug_cfg=None, **kw):
+    """(model, preprocess, tokenizer), or with ``aug_cfg`` (a dict or an
+    ``image.transform.AugmentationCfg``) (model, preprocess, tokenizer,
+    preprocess_train): JAX's ``create_model_and_transforms`` without its
+    params (the port's model holds them). ``preprocess`` takes the
+    pretrained tag's mean / std / interpolation / resize mode from the
+    registry (``image.transform.pretrained_preprocess_cfg``); ``kw`` goes
+    to :func:`create_model`."""
+    from ..image.transform import (
+        image_transform_v2,
+        pretrained_preprocess_cfg,
+    )
+    from ..text.tokenizer import get_tokenizer
+
+    model = create_model(name, pretrained, **kw)
+    size = model.cfg.vision.image_size
+    tag = pretrained if (pretrained and not os.path.exists(pretrained)) \
+        else ""
+    pp_cfg = pretrained_preprocess_cfg(name.replace("/", "-"), tag, size)
+    preprocess = image_transform_v2(pp_cfg, is_train=False)
+    tokenizer = get_tokenizer(model.cfg.text.context_length)
+    if aug_cfg is not None:
+        return model, preprocess, tokenizer, image_transform_v2(
+            pp_cfg, is_train=True, aug_cfg=aug_cfg)
+    return model, preprocess, tokenizer
 
 
 # the pretrained tags whose CoCa checkpoints need QuickGELU (none in the

@@ -14,9 +14,9 @@ channels-last arrays, the same bytes as the JAX package's for the same
 image and generator. Randomness comes from an explicit
 ``np.random.Generator``: :func:`sample_rng` derives one per (seed, epoch,
 sample), so a threaded loader stays deterministic whatever the order its
-workers finish in. The JAX module's ``pretrained_preprocess_cfg`` needs the
-open_clip registry's per-tag mean/std/interpolation entries, which the
-port's registry copy does not hold; it is not ported.
+workers finish in. :func:`pretrained_preprocess_cfg` overlays a pretrained
+tag's mean / std / interpolation / resize mode from the open_clip registry
+(``core/openclip_registry.py``) on the defaults.
 """
 
 from __future__ import annotations
@@ -391,6 +391,25 @@ def image_transform_v2(
         resize_mode=cfg.resize_mode, interpolation=cfg.interpolation,
         fill_color=cfg.fill_color, aug_cfg=aug_cfg,
     )
+
+
+def pretrained_preprocess_cfg(name: str, tag: str,
+                              image_size: Union[int, Tuple[int, int]]
+                              ) -> PreprocessCfg:
+    """PreprocessCfg of a pretrained-table entry: the entry's mean / std /
+    interpolation / resize_mode / fill_color over the defaults (open_clip
+    factory's merge_preprocess_dict)."""
+    from ..core.openclip_registry import get_pretrained_cfg
+
+    entry = get_pretrained_cfg(name, tag) or {}
+    kw: Dict[str, Any] = {"size": image_size}
+    for k in ("mean", "std"):
+        if entry.get(k):
+            kw[k] = tuple(entry[k])
+    for k in ("interpolation", "resize_mode", "fill_color"):
+        if entry.get(k) is not None:
+            kw[k] = entry[k]
+    return PreprocessCfg(**kw)
 
 
 def sample_rng(seed: int, epoch: int, index: int) -> np.random.Generator:

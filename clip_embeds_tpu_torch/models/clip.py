@@ -1,9 +1,16 @@
-"""Dual-tower CLIP (counterpart of ``clip_embeds_tpu/models/clip.py``), ViT
-vision tower only for now.
+"""Dual-tower CLIP (counterpart of ``clip_embeds_tpu/models/clip.py``).
 
-Parameter names are open_clip's (``open_clip/model.py`` CLIP): the vision
-tower under ``visual.``, the text tower's modules at top level, so an
-open_clip state dict loads with ``load_state_dict``. ``quant`` ('dynamic' /
+The vision tower follows ``cfg.vision.tower`` as JAX's ``CLIP.setup`` does
+(:func:`build_visual`): the ViT of ``models/vit.py``, or one of the zoo
+towers (ModifiedResNet, EVA01 / EVA02, the timm and rel-pos ViTs, MCi-ViT,
+Swin, ViTamin, FastViT, ConvNeXt), each returning (pooled, tokens) as its
+JAX counterpart does. Parameter names are open_clip's (``open_clip/
+model.py`` CLIP): the vision tower under ``visual.`` (``visual.trunk.*`` and
+``visual.head.*`` for the timm trunks), the text tower's modules at top
+level, so an open_clip state dict loads with ``load_state_dict``; a
+CustomTextCLIP checkpoint's ``text.*`` keys (EVA, ViTamin) load too. The zoo
+towers serve only: they take no ``quant``, ``block_impl`` or ``remat``
+(training them is ROADMAP.md queue 1 item 15c). ``quant`` ('dynamic' /
 'static') builds both towers' block projections as int8 QuantLinear (the
 W8A8 serving path, ``models/quant.py``). ``block_impl`` and ``remat`` go to
 both towers' transformers (the training routes, ``models/layers.py``);
@@ -30,6 +37,86 @@ def l2_normalize(x: torch.Tensor, dim: int = -1,
     return x / x.norm(dim=dim, keepdim=True).clamp_min(eps)
 
 
+def build_visual(cfg: CLIPConfig) -> nn.Module:
+    """The zoo vision tower of ``cfg`` (JAX ``models/clip.py:41-160``)."""
+    v, e = cfg.vision, cfg.embed_dim
+    if v.tower == "resnet":
+        from .resnet import ModifiedResNet
+
+        return ModifiedResNet(v.resnet_layers, e, v.width * 32 // 64,
+                              v.image_size, v.width)
+    if v.tower == "eva":
+        from .eva import EVAVisionTower
+
+        return EVAVisionTower(v, e)
+    if v.tower == "eva02":
+        from .eva import EVA02VisionTower
+
+        return EVA02VisionTower(v, e)
+    if v.tower == "timm-vit":
+        from .timm_vit import TimmViTConfig, TimmViTTower
+
+        return TimmViTTower(TimmViTConfig(
+            image_size=v.image_size, patch_size=v.patch_size, width=v.width,
+            depth=v.layers, heads=v.heads, mlp_ratio=v.mlp_ratio,
+            class_token=v.pool_type == "tok",
+            pool="token" if v.pool_type == "tok" else "avg",
+            fc_norm=v.final_ln_after_pool, embed_dim=e))
+    if v.tower == "relpos-vit":
+        from .vit_relpos import RelPosViTConfig, RelPosViTTower
+
+        return RelPosViTTower(RelPosViTConfig(
+            image_size=v.image_size, patch_size=v.patch_size, width=v.width,
+            depth=v.layers, heads=v.heads, mlp_ratio=v.mlp_ratio,
+            embed_dim=e))
+    if v.tower == "mci-vit":
+        from .mci_vit import MCiViTConfig, MCiViTTower
+
+        return MCiViTTower(MCiViTConfig(
+            image_size=v.image_size, width=v.width, depth=v.layers,
+            heads=v.width // v.head_width, mlp_ratio=v.mlp_ratio,
+            embed_dim=e))
+    if v.tower == "swin":
+        from .swin import SwinConfig, SwinTower
+
+        return SwinTower(SwinConfig(
+            image_size=v.image_size, patch_size=v.patch_size,
+            embed_dim=v.width, depths=tuple(v.swin_depths),
+            heads=tuple(v.swin_heads), window=v.swin_window,
+            mlp_ratio=v.mlp_ratio, out_dim=e))
+    if v.tower == "vitamin":
+        from .vitamin import VitaminConfig, VitaminTower
+
+        return VitaminTower(VitaminConfig(
+            image_size=v.image_size,
+            mbconv_dims=tuple(v.vitamin_mbconv_dims),
+            mbconv_depths=tuple(v.vitamin_mbconv_depths), width=v.width,
+            depth=v.layers, heads=v.heads, mlp_ratio=v.mlp_ratio,
+            embed_dim=e))
+    if v.tower == "fastvit":
+        from .fastvit import FastViTConfig, FastViTTower
+
+        return FastViTTower(FastViTConfig(
+            image_size=v.image_size, layers=tuple(v.fastvit_layers),
+            dims=tuple(v.fastvit_dims), mlp_ratio=v.mlp_ratio,
+            embed_dim=e))
+    if v.tower == "convnext":
+        from .convnext import ConvNeXtConfig, ConvNeXtTower
+
+        return ConvNeXtTower(ConvNeXtConfig(
+            depths=v.convnext_depths, dims=v.convnext_dims, embed_dim=e,
+            proj=v.head_proj, image_size=v.image_size))
+    raise ValueError(f"unknown vision tower {v.tower!r}")
+
+
+def _custom_text_keys(module, state_dict, prefix, *args) -> None:
+    """Load pre-hook: open_clip's CustomTextCLIP keeps the text tower under
+    ``text.``; CLIP keeps its modules at top level."""
+    head = prefix + "text."
+    for key in [k for k in state_dict if k.startswith(head)]:
+        state_dict[prefix + key[len(head):]] = state_dict.pop(key)
+
+
 class CLIP(nn.Module):
     def __init__(self, cfg: CLIPConfig, quant: Quant = False,
                  block_impl: str = "composable", remat: Remat = False,
@@ -37,9 +124,17 @@ class CLIP(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.compute_dtype = compute_dtype
-        self.visual = VisionTransformer(cfg.vision, cfg.embed_dim,
-                                        cfg.quick_gelu, quant, block_impl,
-                                        remat, compute_dtype)
+        if cfg.vision.tower == "vit":
+            self.visual = VisionTransformer(cfg.vision, cfg.embed_dim,
+                                            cfg.quick_gelu, quant, block_impl,
+                                            remat, compute_dtype)
+        else:
+            if quant or block_impl != "composable" or remat:
+                raise NotImplementedError(
+                    f"the {cfg.vision.tower!r} tower serves only: quant, "
+                    "block_impl and remat are not ported for it (ROADMAP.md "
+                    "queue 1 item 15c)")
+            self.visual = build_visual(cfg)
         text = TextTransformer(cfg.text, cfg.embed_dim, cfg.quick_gelu, quant,
                                block_impl, remat, compute_dtype)
         # open_clip keeps the text tower's modules at top level
@@ -51,7 +146,10 @@ class CLIP(nn.Module):
         self.logit_scale = nn.Parameter(
             torch.tensor(float(cfg.init_logit_scale)))
         self.logit_bias = (None if cfg.init_logit_bias is None else
-                           nn.Parameter(torch.tensor(cfg.init_logit_bias)))
+                           nn.Parameter(torch.tensor(
+                               float(cfg.init_logit_bias))))
+        self._register_load_state_dict_pre_hook(_custom_text_keys,
+                                                with_module=True)
 
     def encode_image(self, images: torch.Tensor, normalize: bool = False,
                      output_tokens: bool = False, deterministic: bool = True,
@@ -60,8 +158,11 @@ class CLIP(nn.Module):
         ``deterministic=False`` (the train step's) drops patches where the
         config has patch dropout, drawn from ``generator``; eval and
         serving never drop patches."""
-        pooled, tokens = self.visual(images, deterministic=deterministic,
-                                     generator=generator)
+        if self.cfg.vision.tower == "vit":
+            pooled, tokens = self.visual(images, deterministic=deterministic,
+                                         generator=generator)
+        else:
+            pooled, tokens = self.visual(images)
         if normalize:
             pooled = l2_normalize(pooled)
         return (pooled, tokens) if output_tokens else pooled

@@ -258,7 +258,7 @@ def quantize_model(model: nn.Module, mode: Quant = "dynamic",
 
     if tower not in (None, "visual", "text"):
         raise ValueError(f"tower {tower!r}")
-    dtype = dtype or model.visual.proj.dtype
+    dtype = dtype or model.text_projection.dtype
     sd = model.state_dict()
     if tower is not None:
         sd = {k: v for k, v in sd.items()

@@ -231,8 +231,8 @@ def fused_route(model, dtype: torch.dtype) -> bool:
     card, in bf16 (the kernels' type), at shapes
     :func:`fused_path_available` takes. Elsewhere the composable towers
     serve, as the JAX package serves off the TPU."""
-    return (model.visual.proj.is_cuda and dtype == torch.bfloat16
-            and fused_path_available(model))
+    return (fused_path_available(model) and model.text_projection.is_cuda
+            and dtype == torch.bfloat16)
 
 
 # -- W8A8 fused serving path -------------------------------------------------

@@ -85,8 +85,8 @@ class CLIPScorer:
         self.image_size = model.cfg.vision.image_size
         self.preprocess_variant = preprocess_variant
         self.tokenizer = get_tokenizer(model.cfg.text.context_length)
-        self.device = model.visual.proj.device
-        self.dtype = model.visual.proj.dtype
+        self.device = model.text_projection.device
+        self.dtype = model.text_projection.dtype
         self.route = ("fused" if fused_route(model, self.dtype)
                       else "composable")
 
@@ -164,8 +164,8 @@ class _HeadScorer:
         self.image_size = clip_model.cfg.vision.image_size
         self.preprocess_variant = preprocess_variant
         self.tokenizer = get_tokenizer(clip_model.cfg.text.context_length)
-        self.device = clip_model.visual.proj.device
-        self.dtype = clip_model.visual.proj.dtype
+        self.device = clip_model.text_projection.device
+        self.dtype = clip_model.text_projection.dtype
 
     def _pixels(self, images: Sequence[ImageLike]) -> np.ndarray:
         return preprocess_batch(images, self.image_size,

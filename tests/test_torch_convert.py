@@ -65,7 +65,8 @@ def test_model_config_shared_with_jax_package():
     assert cfg.quick_gelu and cfg.vision.heads == 16
     assert cfg.vision.num_patches == 576 and cfg.text.heads == 12
     assert not get_model_config("ViT-L-14-336").quick_gelu
-    with pytest.raises(KeyError, match="not ported"):
+    # a registry name of another backend names its builder, as in JAX
+    with pytest.raises(NotImplementedError, match="needs backend 'siglip'"):
         get_model_config("ViT-SO400M-14-SigLIP")
 
 

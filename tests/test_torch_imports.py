@@ -19,7 +19,7 @@ pkg.create_model, pkg.get_model_config  # the lazy names resolve too
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "clip_embeds_tpu"))
 print(len(names), bad)
-sys.exit(1 if bad or len(names) < 64 else 0)
+sys.exit(1 if bad or len(names) < 76 else 0)
 """
 
 # Ways a file could reach into the JAX package without importing it: its
