@@ -297,6 +297,23 @@ Phases, each of which raises on failure:
      adapter); exact launches (#4 on the ViT / SigLIP towers, none on the
      plain towers and texts), row cosine >= ZOO_COS, img/s on the card.
      No depth is cut.
+ 18. training on the zoo towers and the last entry points (ROADMAP.md
+     items 15c, 15b, 7b): (a) cli/train.py main --model EVA01-g-14 at full
+     width and depth from seeded weights, Z18_STEPS steps at Z18_BATCH on
+     composable blocks, bf16 over fp32 masters, exact #4 / #5 launches a
+     step (Z18_ROUTES), samples/s and the peak, and one step's gradients at
+     Z18_GRAD_BATCH against the same step with every attention plain,
+     cosine >= Z18_GRAD_COS for each of the tower's 40 blocks; (b) the same
+     with --fused-train-blocks --fused-train-backward residual (the text
+     tower's #1 / #2), its first loss within Z18_LOSS_TOL of (a)'s; (c) one
+     step at Z18_FAMILY_BATCH of each other zoo family at its registry size
+     (no kernel launched) and EVA02-E-14 with --lock-image; unlocked, at
+     Z18_BATCH, EVA02-E-14 runs out of the card's memory; (d) cli/profile.py
+     --model EVA01-g-14 ViT-L-14-336 --trace: the CSV rows and the traces;
+     (e) an EVA01-g-14 bundle through core/export.py, written and loaded
+     on the card, the same embeddings; (f) image/preprocess.py
+     jax_preprocess on the card against the CPU. Phase 3 holds #5 at
+     EVA01-g-14's 32x16x257x88 (head dim 88, padded to the 128 kernel).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device it exits
@@ -523,8 +540,10 @@ SIGLIP_TRAIN_ROUTE = {"composable --siglip": (
 # registry and run_benchmark on a LLAVA_WINO-sample Winoground fixture
 LLAVA_SEED, LLAVA_GROUP, LLAVA_TEXTS = 10, 8, 4
 # calls a path is timed over: the paths run host code between launches,
-# and one call's time spreads up to 1.8x from one machine to the next
-LLAVA_TIME_ITERS, LLAVA_PREFILL_ITERS = 3, 5
+# and one call's time spreads up to 1.8x from one machine to the next (one
+# call after the counted one, not three, since phase 18 came: the script's
+# time budget)
+LLAVA_TIME_ITERS, LLAVA_PREFILL_ITERS = 1, 5
 LLAVA_WHATSUP, LLAVA_AGREE, LLAVA_WINO, LLAVA_PLAIN_IMAGES = 64, 16, 16, 2
 # limits on |delta log score| and the least cosine of the answer
 # positions' logits rows. Readings on the H100 (scripts/chip_probe_llava.py
@@ -702,6 +721,39 @@ ZOO_CLIPS = ("EVA02-L-14-336", "EVA02-E-14", "RN50x64", "convnext_xxlarge",
 ZOO_HF_TEXT = ("xlm-roberta-large-ViT-H-14", "mt5-xl-ViT-H-14",
                "nllb-clip-large-siglip")
 ZOO_TEXT_LEN = 32
+# phase 3, phase 18's shape: the attention backward at EVA01-g-14's b32
+# train step (32x16x257x88: head dim 88, which the backward pads to its
+# 128-wide kernel), under the mean limit of FLASH_CASES
+ZOO_FLASH_TRAIN_CASES = (((32, 16, 257, 88), False, 2e-5),)
+# phase 18: training on the zoo towers (ROADMAP.md item 15c) and the last
+# entry points (15b, 7b), from seeded weights drawn on the card. The
+# training CLI's routes on EVA01-g-14 and each kernel's launches a step:
+# the tower's 40 blocks on composable blocks (#4 forward, #5 backward), the
+# 77-token text tower on plain attention, or with --fused-train-blocks
+# --fused-train-backward residual on #1 (forward) and #2 (the residual
+# backward's recompute), 12 blocks
+Z18_MODEL, Z18_SEED = "EVA01-g-14", 18
+Z18_STEPS, Z18_BATCH, Z18_GRAD_BATCH, Z18_FAMILY_BATCH = 3, 32, 8, 8
+Z18_ROUTES = {
+    "composable": ([], {"flash_attention": 40, "flash_attention_bwd": 40}),
+    "fused-train-res": (["--fused-train-blocks", "--fused-train-backward",
+                         "residual"],
+                        {"flash_attention": 40, "flash_attention_bwd": 40,
+                         "fused_block": 12, "fused_block_residuals": 12}),
+}
+# one step's gradients on the flash route against the same step with every
+# attention plain (the bf16 model both times): the least cosine over a
+# tower block's parameters; the routes' first losses (the same weights and
+# batch) within bf16 noise
+Z18_GRAD_COS, Z18_LOSS_TOL = 0.99, 0.02
+Z18_FAMILIES = ("EVA02-L-14-336", "RN50x64", "convnext_xxlarge",
+                "ViTamin-L-336", "swin_base_patch4_window7_224",
+                "vit_medium_patch16_gap_256",
+                "vit_relpos_medium_patch16_cls_224", "MobileCLIP-B")
+# the export round trip's batch, and the preprocess check's photos (h, w)
+# and its limit on |card - CPU| (fp32 filters summed in another order)
+Z18_EXPORT_BATCH, Z18_PREPROCESS_PHOTO, Z18_PREPROCESS_TOL = 4, (480, 640), \
+    1e-4
 # H100 SXM data-sheet peaks (dense): bf16 and int8 tensor cores, HBM3
 PEAK_BF16, PEAK_INT8, HBM_BYTES_PER_S = 989e12, 1979e12, 3.35e12
 # phase 3, the image tower under --force-patch-dropout 0.5: 1 + 288 = 289
@@ -825,13 +877,22 @@ def block_cost(b, n, d, mlp, heads, kv, causal, extra_out=0, int8=False):
     return bound_ms(flops=proj + attn, nbytes=nbytes)
 
 
+def card_randn(rng, *shape, std=1.0, mean=0.0, dtype=torch.bfloat16):
+    """mean + std x normal draws of ``shape``, made on the card from a
+    CUDA generator seeded by the numpy ``rng``: drawn on the host, phase
+    3's operands (tens of millions of draws a case) took most of the
+    phase."""
+    g = torch.Generator("cuda").manual_seed(int(rng.integers(2 ** 62)))
+    return (mean + std * torch.randn(shape, generator=g,
+                                     device="cuda")).to(dtype)
+
+
 def block_inputs(rng, b, n, d, mlp, bias_std=0.5):
     """fused_block inputs at trained-like scales, bf16 on the card. The
     biases are large (std 0.5) so that a kernel which drops one moves the
     mean |diff| far past the limits below."""
     def t(*shape, std=1.0, mean=0.0):
-        a = mean + std * rng.standard_normal(shape).astype(np.float32)
-        return torch.from_numpy(a).to("cuda", torch.bfloat16)
+        return card_randn(rng, *shape, std=std, mean=mean)
 
     ln = lambda: torch.stack([t(d, std=0.1, mean=1.0), t(d, std=0.1)])
     return (t(b, n, d), t(3 * d, d, std=d ** -0.5), t(3 * d, std=bias_std),
@@ -943,8 +1004,7 @@ def flash_forward_case(rng, shape, causal, mean_tol):
     from clip_embeds_tpu_torch.ops.flash_attention import (
         flash_attention, flash_attention_reference)
 
-    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
-        np.float32)).to("cuda", torch.bfloat16) for _ in range(3))
+    q, k, v = (card_randn(rng, *shape) for _ in range(3))
     bh, n, hd = shape[0] * shape[1], shape[2], shape[3]
     pairs = bh * attention_pairs(n, causal) * hd
     name = f"{'x'.join(map(str, shape))} causal={causal}"
@@ -971,8 +1031,7 @@ def flash_train_cases(rng, cases):
     for shape, causal, mean_tol_bwd in cases:
         fwd, (q, k, v) = flash_forward_case(rng, shape, causal, 0.02)
         out.append(fwd)
-        g = torch.from_numpy(rng.standard_normal(shape).astype(
-            np.float32)).to("cuda", torch.bfloat16)
+        g = card_randn(rng, *shape)
         bh, n, hd = shape[0] * shape[1], shape[2], shape[3]
         pairs = bh * attention_pairs(n, causal) * hd
         io = bh * n * hd * 2
@@ -1037,11 +1096,14 @@ def check_kernels(rng):
 
 def zoo_kernel_cases(rng):
     """Phase 3's cases at phase 17's new shapes (ZOO_FLASH_CASES,
-    ZOO_BLOCK_CASES)."""
+    ZOO_BLOCK_CASES) and phase 18's backward (ZOO_FLASH_TRAIN_CASES, its
+    forward already among ZOO_FLASH_CASES)."""
     cases = [flash_forward_case(rng, shape, causal, mean_tol)[0]
              for shape, causal, mean_tol in ZOO_FLASH_CASES]
-    return cases + block_kernel_cases(rng, ZOO_BLOCK_CASES,
-                                      lambda d: 4 * d, "erf", 1e-5, " erf")
+    cases += block_kernel_cases(rng, ZOO_BLOCK_CASES, lambda d: 4 * d, "erf",
+                                1e-5, " erf")
+    return cases + [c for c in flash_train_cases(rng, ZOO_FLASH_TRAIN_CASES)
+                    if c[0].startswith("flash_attention_bwd")]
 
 
 def run_kernel_cases(cases):
@@ -1085,11 +1147,8 @@ def run_kernel_cases(cases):
 def gemm_inputs(rng, m, n, k):
     """cet_gemm operands on the card, bf16: a [m, k], w [n, k] of std
     k^-1/2 (sums of std 1), a bias of std 0.5, a residual [m, n]."""
-    def t(*shape, std=1.0):
-        return torch.from_numpy((std * rng.standard_normal(shape)).astype(
-            np.float32)).to("cuda", torch.bfloat16)
-
-    return t(m, k), t(n, k, std=k ** -0.5), t(n, std=0.5), t(m, n)
+    return (card_randn(rng, m, k), card_randn(rng, n, k, std=k ** -0.5),
+            card_randn(rng, n, std=0.5), card_randn(rng, m, n))
 
 
 def gemm_call(epilogue, a, w, bias, res, act="quick"):
@@ -1153,8 +1212,8 @@ def gemm_s8_inputs(rng, m, n, k):
     (std 40), fp32 column scales and biases (std 0.5), the four fp32 act
     scales, a bf16 residual [m, n]."""
     def codes(*shape):
-        q = np.clip(np.round(40 * rng.standard_normal(shape)), -127, 127)
-        return torch.from_numpy(q.astype(np.int8)).cuda()
+        q = card_randn(rng, *shape, std=40.0, dtype=torch.float32)
+        return q.round().clamp(-127, 127).to(torch.int8)
 
     def f32(a):
         return torch.from_numpy(np.asarray(a, np.float32)).cuda()
@@ -1162,8 +1221,7 @@ def gemm_s8_inputs(rng, m, n, k):
     wscale = (1 + 0.1 * rng.standard_normal(n)) / (30 * k ** 0.5)
     return (codes(m, k), codes(n, k), f32(wscale),
             f32(0.5 * rng.standard_normal(n)), f32(GEMM_S8_ACT_SCALES),
-            torch.from_numpy(rng.standard_normal((m, n)).astype(
-                np.float32)).to("cuda", torch.bfloat16))
+            card_randn(rng, m, n))
 
 
 def gemm_s8_call(epilogue, a_idx, a, w, wscale, bias, act_scales, res,
@@ -1401,17 +1459,16 @@ def grad_agreement(grads, ref):
     return dot / (na * nb), per[worst], worst
 
 
-def check_training(counters, gpu):
-    """Phase 6. Returns each route's launch counts from its CLI run, its
-    b32 train samples/s by CUDA events, and the seed-0 state dict (host)."""
+def check_training(counters, gpu, base):
+    """Phase 6, inside :func:`seeded_from` ``base`` (the seed-0 state dict
+    on the host). Returns each route's launch counts from its CLI run, its
+    b32 train samples/s by CUDA events, and ``base``."""
     from clip_embeds_tpu_torch.cli.train import main as train_main
     from clip_embeds_tpu_torch.train.optim import adamw
     from clip_embeds_tpu_torch.train.schedules import const_lr
     from clip_embeds_tpu_torch.train.steps import (
         TrainState, make_clip_train_step)
 
-    base = {k: v.detach().cpu() for k, v in
-            route_model("composable").state_dict().items()}
     logging.getLogger().setLevel(logging.INFO)
     launches, rates = {}, {}
     for route, (flags, per_step) in {**ROUTES, **SIGLIP_TRAIN_ROUTE}.items():
@@ -1710,17 +1767,47 @@ def recipe_run(counters, label, argv, per_step, steps, gpu, extra=None,
     return state, timed, peak
 
 
+@torch.no_grad()
+def card_empty_clip(cfg, **kw):
+    """``core/factory.py _empty_clip`` with the storage on the card: a
+    build there copies no weights from the host."""
+    from torch import nn
+
+    from clip_embeds_tpu_torch.models.clip import CLIP
+
+    with torch.device("meta"):
+        model = CLIP(cfg, **kw)
+    model.to_empty(device="cuda")
+    for m in model.modules():
+        if isinstance(m, (nn.LayerNorm, nn.BatchNorm2d)):
+            m.reset_parameters()
+    model.logit_scale.fill_(float(cfg.init_logit_scale))
+    if model.logit_bias is not None:
+        model.logit_bias.fill_(float(cfg.init_logit_bias))
+    return model
+
+
 @contextlib.contextmanager
-def recipe_fixtures(base):
-    """Phase 12 (a): its fixture directory (yields (root, phrased)), with
-    the CLIs' seed-0 init taken from phase 6's seed-0 weights ``base``: the
-    same values, without drawing 428M normals on the host for each run.
-    Phase 15 runs inside it too."""
+def seeded_from(base):
+    """Every seeded build of MODEL inside (``create_model``'s seed-0 init,
+    which these phases alone use) takes the seed-0 weights ``base`` (a host
+    state dict: the same values), built on the card from one copy there:
+    no draw of 428M normals on the host, no weights copied, a build."""
     from clip_embeds_tpu_torch.core import factory
 
-    with tempfile.TemporaryDirectory() as root, patched(
-            factory, "init_params",
-            lambda model, seed=0: model.load_state_dict(base)):
+    on_card = {k: v.cuda() for k, v in base.items()}
+    with patched(factory, "init_params",
+                 lambda model, seed=0: model.load_state_dict(on_card)), \
+            patched(factory, "_empty_clip", card_empty_clip):
+        yield
+
+
+@contextlib.contextmanager
+def recipe_fixtures(base):
+    """Phase 12 (a): its fixture directory (yields (root, phrased)), its
+    models seeded from phase 6's ``base`` (:func:`seeded_from`). Phase 15
+    runs inside it too."""
+    with tempfile.TemporaryDirectory() as root, seeded_from(base):
         t0 = time.perf_counter()
         phrased = write_recipe_fixtures(root, RECIPE_SEED)
         print(f"[recipe] (a) fixtures: {RECIPE_JPEGS} JPEGs, "
@@ -4812,7 +4899,7 @@ def check_vlm_backbones(counters, gpu):
 # median); the agreement on the trunk cut to GEN_CUT_LAYERS layers at full
 # width (the tower whole)
 GEN_SEED, GEN_PROMPT, GEN_NEW_TOKENS, GEN_BATCHES = 16, 64, 32, (1, 8)
-GEN_TIME_ITERS, GEN_CUT_LAYERS = 3, 2
+GEN_TIME_ITERS, GEN_CUT_LAYERS = 2, 2  # 2 timed calls since phase 18
 # limits (readings on the H100, scripts/chip_probe_generate.py; PERF.md):
 # a decoded token must equal the argmax of the model's own teacher-forced
 # full forward wherever that forward's top-2 logit margin exceeds
@@ -5249,21 +5336,14 @@ def gen_coca(counters, gpu):
 # -- phase 17: the open_clip tower zoo -------------------------------------
 
 
-def zoo_clip(name, seed):
-    """The fp32 CLIP of registry name ``name``, allocated on the card and
-    drawn there from a CUDA generator (``init_params``): no host copy."""
-    from torch import nn
-
+def zoo_clip(name, seed, **kw):
+    """The fp32 CLIP of registry name ``name`` (``kw``: CLIP's training
+    options), allocated on the card and drawn there from a CUDA generator
+    (``init_params``): no host copy."""
     from clip_embeds_tpu_torch.core.config import get_model_config
     from clip_embeds_tpu_torch.core.factory import init_params
-    from clip_embeds_tpu_torch.models.clip import CLIP
 
-    with torch.device("meta"):
-        model = CLIP(get_model_config(name))
-    model.to_empty(device="cuda")
-    for m in model.modules():
-        if isinstance(m, (nn.LayerNorm, nn.BatchNorm2d)):
-            m.reset_parameters()
+    model = card_empty_clip(get_model_config(name), **kw)
     init_params(model, seed, torch.Generator("cuda").manual_seed(seed))
     return model.eval()
 
@@ -5584,6 +5664,266 @@ def check_zoo(counters, gpu):
     part("(b) LLM2CLIP", zoo_llm2clip, counters, gpu)
 
 
+# -- phase 18: training on the zoo towers; the last entry points -----------
+
+
+def z18_create_model(name, pretrained=None, seed=0, dtype=torch.float32,
+                     device="cuda", remat=False, block_impl="composable",
+                     compute_dtype=None, force_quick_gelu=False,
+                     force_patch_dropout=None, train=False):
+    """The entry points' ``create_model`` in phase 18: the seeded model
+    built and drawn on the card (:func:`zoo_clip`), not on the host."""
+    if pretrained is not None or force_quick_gelu or \
+            force_patch_dropout is not None:
+        raise AssertionError(f"phase 18 builds no {name} from {pretrained}")
+    model = zoo_clip(name, seed, remat=remat, block_impl=block_impl,
+                     compute_dtype=compute_dtype)
+    return model.to(device=device, dtype=dtype).train(train)
+
+
+def z18_batch(name, batch_size, seed):
+    """One synthetic batch (the CLI's data) of ``name``'s sizes, on the
+    card."""
+    from clip_embeds_tpu_torch.cli.train import _to_device
+    from clip_embeds_tpu_torch.core.config import get_model_config
+    from clip_embeds_tpu_torch.data.synthetic import synthetic_batches
+
+    cfg = get_model_config(name)
+    batch = next(synthetic_batches(batch_size, cfg.vision.image_size,
+                                   cfg.text.context_length, seed=seed))
+    return _to_device(batch, torch.device("cuda"))
+
+
+def z18_train(counters, label, name, flags, steps, batch, per_step):
+    """cli/train.py main on ``name``, seeded on the card, ``steps`` steps
+    at ``batch``: exact launches (``per_step`` a step), finite losses.
+    Returns (the train state, the losses)."""
+    from clip_embeds_tpu_torch.cli.train import main as train_main
+    from clip_embeds_tpu_torch.core import factory
+
+    log = _StepLog()
+    logging.getLogger().addHandler(log)
+    for fn in counters.values():
+        fn.launches = 0
+    try:
+        t0 = time.perf_counter()
+        with patched(factory, "create_model", z18_create_model):
+            state = train_main([
+                "--model", name, "--seed", str(Z18_SEED), "--batch-size",
+                str(batch), "--train-num-samples", str(steps * batch),
+                "--lr", "1e-5", "--warmup", "1", "--log-every", "1",
+                *flags])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        logging.getLogger().removeHandler(log)
+    counts = {k: fn.launches for k, fn in counters.items()}
+    want = {k: steps * per_step.get(k, 0) for k in counters}
+    print(f"[zoo train] {label}: {steps} step(s) of {batch} through "
+          f"cli.train.main in {wall:.1f} s; losses {log.losses}; launches "
+          f"{counts}")
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts} != {want}")
+    if len(log.losses) != steps or not np.isfinite(log.losses).all():
+        raise AssertionError(f"{label}: losses {log.losses}")
+    return state, log.losses
+
+
+def z18_step_rate(state, name, gpu, label):
+    """samples/s of the state's step at Z18_BATCH by CUDA events over 3
+    steps after 1, with the peak of device memory."""
+    from clip_embeds_tpu_torch.train.steps import make_clip_train_step
+
+    step = make_clip_train_step(state.model)
+    tb = z18_batch(name, Z18_BATCH, seed=2)
+    torch.cuda.reset_peak_memory_stats()
+    step(state, tb)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        metrics = step(state, tb)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / 3
+    if not np.isfinite(float(metrics["loss"])):
+        raise AssertionError(f"{label}: loss not finite")
+    print(f"[throughput] train_samples_per_s {name} {label} b{Z18_BATCH}: "
+          f"{Z18_BATCH / ms * 1e3:.1f} ({ms:.2f} ms/step, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB) on {gpu}")
+
+
+def z18_block_grads(model, gpu):
+    """One step's gradients at Z18_GRAD_BATCH on the flash route against
+    the same step with every attention plain: the least cosine over the
+    tower's blocks, each block's parameters together."""
+    batch = z18_batch(Z18_MODEL, Z18_GRAD_BATCH, seed=1)
+    grads, loss = train_grads(model, batch)
+    with plain_attention():
+        ref, ref_loss = train_grads(model, batch)
+    cos_all, worst, worst_name = grad_agreement(grads, ref)
+    blocks = {}
+    for k in ref:
+        if k.startswith("visual.trunk.blocks.resblocks."):
+            i = int(k.split(".")[4])
+            blocks.setdefault(i, []).append(k)
+    per = {i: float(F.cosine_similarity(
+        torch.cat([grads[k].flatten() for k in keys]),
+        torch.cat([ref[k].flatten() for k in keys]), dim=0))
+        for i, keys in blocks.items()}
+    low = min(per, key=per.get)
+    print(f"[zoo train] {Z18_MODEL} gradients at b{Z18_GRAD_BATCH}, flash "
+          f"route vs plain attention: {len(per)} tower blocks, least block "
+          f"cosine {per[low]:.6f} (block {low}; limit {Z18_GRAD_COS}); over "
+          f"all {cos_all:.6f}, least per tensor {worst:.6f} ({worst_name}); "
+          f"loss {loss:.6f} vs {ref_loss:.6f} on {gpu}")
+    if len(per) != 40 or per[low] < Z18_GRAD_COS:
+        raise AssertionError(f"{Z18_MODEL}: block gradients disagree: {per}")
+
+
+def z18_eva_routes(counters, gpu):
+    """Phase 18 (a) and (b): EVA01-g-14 through cli/train.py on both
+    routes."""
+    first = {}
+    for route, (flags, per_step) in Z18_ROUTES.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        state, losses = z18_train(counters, f"{Z18_MODEL} {route}",
+                                  Z18_MODEL, flags, Z18_STEPS, Z18_BATCH,
+                                  per_step)
+        first[route] = losses[0]
+        z18_step_rate(state, Z18_MODEL, gpu, route)
+        if route == "composable":
+            z18_block_grads(state.model, gpu)
+        del state
+    gap = abs(first["composable"] - first["fused-train-res"])
+    print(f"[zoo train] {Z18_MODEL} first losses: {first} (|diff| "
+          f"{gap:.5f}, limit {Z18_LOSS_TOL})")
+    if gap > Z18_LOSS_TOL:
+        raise AssertionError(f"{Z18_MODEL}: the routes' losses {first}")
+
+
+def z18_families(counters, gpu):
+    """Phase 18 (c): one step of each other zoo family at
+    Z18_FAMILY_BATCH, EVA02-E-14 locked, and EVA02-E-14 unlocked out of
+    memory."""
+    for name in Z18_FAMILIES + ("EVA02-E-14",):
+        flags = ["--lock-image"] if name == "EVA02-E-14" else []
+        t0 = time.perf_counter()
+        state, _ = z18_train(counters, f"{name}{' ' if flags else ''}"
+                             f"{' '.join(flags)}", name, flags, 1,
+                             Z18_FAMILY_BATCH, {})
+        trained = sum(p.numel() for p in state.model.parameters()
+                      if p.requires_grad)
+        print(f"[zoo train] {name}: {trained / 1e6:.1f} M parameters "
+              f"trained, {time.perf_counter() - t0:.1f} s on {gpu}")
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+    try:
+        z18_train(counters, "EVA02-E-14 unlocked", "EVA02-E-14", [], 1,
+                  Z18_BATCH, {})
+    except torch.cuda.OutOfMemoryError as e:
+        oom = str(e).splitlines()[0][:120]
+    else:
+        raise AssertionError("EVA02-E-14 unlocked trained at "
+                             f"b{Z18_BATCH} on one card")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[zoo train] EVA02-E-14 unlocked at b{Z18_BATCH}: "
+          f"torch.cuda.OutOfMemoryError ({oom}...) on {gpu}")
+
+
+def z18_profile(gpu, tmp):
+    """Phase 18 (d): cli/profile.py on EVA01-g-14 and ViT-L-14-336, with
+    traces on the card."""
+    from clip_embeds_tpu_torch.cli import profile as profile_cli
+    from clip_embeds_tpu_torch.core import factory
+
+    csv_path = os.path.join(tmp, "profile.csv")
+    trace = os.path.join(tmp, "trace")
+    with patched(factory, "create_model", z18_create_model):
+        rows = profile_cli.main(["--model", Z18_MODEL, MODEL,
+                                 "--results-file", csv_path, "--trace",
+                                 trace])
+    for row in rows:
+        path = os.path.join(trace, row["model"], "trace.json")
+        size = os.path.getsize(path)
+        print(f"[profile] {row}; trace {size / 2**20:.1f} MiB on {gpu}")
+        if not (row["gflops"] > 0 and size > 0):
+            raise AssertionError(f"cli/profile.py: {row}, trace {size} B")
+
+
+def z18_export(gpu, tmp):
+    """Phase 18 (e): an EVA01-g-14 bundle written and loaded on the card;
+    the reloaded model's embeddings equal the original's."""
+    from clip_embeds_tpu_torch.core.export import (
+        load_model_bundle, save_model_bundle)
+
+    model = zoo_clip(Z18_MODEL, Z18_SEED)
+    folder = os.path.join(tmp, "bundle")
+    t0 = time.perf_counter()
+    save_model_bundle(folder, model, Z18_MODEL)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = load_model_bundle(folder)
+    t_load = time.perf_counter() - t0
+    px = zoo_pixels(model.cfg.vision.image_size, 18, Z18_EXPORT_BATCH)
+    with torch.inference_mode():
+        a, b = (m.encode_image(px, normalize=True) for m in (model, loaded))
+    diff = float((a - b).abs().max())
+    size = sum(os.path.getsize(os.path.join(folder, f))
+               for f in os.listdir(folder))
+    print(f"[export] {Z18_MODEL} bundle ({size / 2**30:.2f} GiB) written in "
+          f"{t_save:.1f} s, loaded on the card in {t_load:.1f} s; fp32 "
+          f"image embeddings at b{Z18_EXPORT_BATCH} max |diff| {diff:.3g} "
+          f"on {gpu}")
+    if diff > 1e-5:
+        raise AssertionError(f"export: the reloaded embeddings differ by "
+                             f"{diff}")
+
+
+def z18_preprocess(gpu):
+    """Phase 18 (f): jax_preprocess of camera-sized photos on the card
+    against the same on the CPU, both variants, shrinking and growing."""
+    from clip_embeds_tpu_torch.image.preprocess import jax_preprocess
+
+    h, w = Z18_PREPROCESS_PHOTO
+    rng = np.random.default_rng(Z18_SEED)
+    u8 = torch.from_numpy(np.stack([smooth_photo(rng, w, h)
+                                    for _ in range(4)]))
+    worst = 0.0
+    for variant, size in (("clip", 336), ("pacl", 224), ("clip", 768)):
+        got = jax_preprocess(u8.cuda(), size, variant)
+        want = jax_preprocess(u8, size, variant)
+        if got.device.type != "cuda" or got.shape != (4, size, size, 3):
+            raise AssertionError(f"jax_preprocess: {got.device} {got.shape}")
+        worst = max(worst, float((got.cpu() - want).abs().max()))
+    print(f"[preprocess] jax_preprocess {h}x{w} -> 336 / 224 / 768 on the "
+          f"card vs the CPU: max |diff| {worst:.3g} (limit "
+          f"{Z18_PREPROCESS_TOL}) on {gpu}")
+    if worst > Z18_PREPROCESS_TOL:
+        raise AssertionError(f"jax_preprocess: card vs CPU {worst}")
+
+
+def check_zoo_training(counters, gpu):
+    """Phase 18, each part's seconds."""
+    def part(label, fn, *args):
+        t0 = time.perf_counter()
+        fn(*args)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[phase 18] {label}: {time.perf_counter() - t0:.1f} s")
+
+    logging.getLogger().setLevel(logging.INFO)
+    part("(a), (b) EVA01-g-14", z18_eva_routes, counters, gpu)
+    part("(c) the other families", z18_families, counters, gpu)
+    with tempfile.TemporaryDirectory() as tmp:
+        part("(d) cli/profile.py", z18_profile, gpu, tmp)
+        part("(e) export", z18_export, gpu, tmp)
+    part("(f) jax_preprocess", z18_preprocess, gpu)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card",
@@ -5615,6 +5955,7 @@ def main() -> int:
     print(f"[build] {lib._name} in {time.perf_counter() - t0:.1f} s")
 
     # 3. kernels against their plain versions
+    t0 = time.perf_counter()
     rng = np.random.default_rng(0)
     with torch.no_grad():
         kernel_results = check_kernels(rng)
@@ -5625,15 +5966,18 @@ def main() -> int:
         check_int8_linear(gpu, T5_INT8_LINEAR_CASES, seed=13)
         check_int8_linear(gpu, QWEN_INT8_LINEAR_CASES, seed=VB_SEED)
         check_int8_linear(gpu, GEN_INT8_LINEAR_CASES, seed=GEN_SEED)
+    print(f"[phase 3] {time.perf_counter() - t0:.1f} s on {gpu}")
 
     # 4. the main path at full width and depth
-    t0 = time.perf_counter()
+    t45 = t0 = time.perf_counter()
     model = create_model(MODEL, pretrained="openai", seed=0,
                          dtype=torch.bfloat16, device="cuda")
     # fp32: every attention takes the plain path (the kernel is bf16);
     # --int8 quantises from these fp32 weights, as the CLI does
     ref = create_model(MODEL, pretrained="openai", seed=0,
                        dtype=torch.float32, device="cuda")
+    # the seed-0 weights on the host, for phases 6, 12 and 15's builds
+    base = {k: v.detach().cpu() for k, v in ref.state_dict().items()}
     cfg = model.cfg
     print(f"[model] {MODEL} quick_gelu={cfg.quick_gelu} vision "
           f"{cfg.vision.layers}x{cfg.vision.width} heads {cfg.vision.heads} "
@@ -5724,6 +6068,7 @@ def main() -> int:
                   f"(batch {count}, {ms:.2f} ms) on {gpu}")
     del routes, fn  # fn: the last route's call holds ref
     gc.collect()
+    print(f"[phase 4-5] {time.perf_counter() - t45:.1f} s on {gpu}")
 
     # 7. the eval CLI and the host image pipeline, end to end; and 8. the
     # PACL/SPARC heads, on 7's fixtures and models
@@ -5750,7 +6095,11 @@ def main() -> int:
 
     # 6. training at full width and depth, through the CLI; and 9 (c), the
     # --siglip step on the composable route
-    train_launches, train_rates, base = check_training(counters, gpu)
+    t0 = time.perf_counter()
+    with seeded_from(base):
+        train_launches, train_rates, base = check_training(counters, gpu,
+                                                           base)
+    print(f"[phase 6] {time.perf_counter() - t0:.1f} s on {gpu}")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5817,6 +6166,13 @@ def main() -> int:
     t0 = time.perf_counter()
     check_zoo(counters, gpu)
     print(f"[phase 17] {time.perf_counter() - t0:.1f} s on {gpu}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 18. training on the zoo towers; the last entry points
+    t0 = time.perf_counter()
+    check_zoo_training(counters, gpu)
+    print(f"[phase 18] {time.perf_counter() - t0:.1f} s on {gpu}")
 
     def entry(name, source, replaces, path_launches, shape):
         """One kernel's line: the largest max |diff| over its shapes, and

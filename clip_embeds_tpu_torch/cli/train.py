@@ -54,6 +54,13 @@ caption loss at ``--coca-caption-loss-weight``, on composable blocks:
       --dataset-type synthetic --batch-size 32 --train-num-samples 96 \
       --coca-caption-loss-weight 2.0 --coca-contrastive-loss-weight 1.0
 
+Every 'clip' name of the registry trains (``--model EVA01-g-14``, ``RN50``,
+``convnext_xxlarge``, ``MobileCLIP-S2``, ...): its zoo vision tower on
+composable blocks, the text tower on the route the flags pick, as JAX's
+``block_impl`` reaches only the text tower. ``--force-patch-dropout`` and
+``--lock-image-unlocked-groups``, which the JAX CLI applies to the ViT alone,
+exit on a zoo tower; an hf-text name raises JAX's NotImplementedError.
+
 The flags that a route's step would drop exit before the first step,
 naming the flag, where the JAX CLI runs on without them: with
 distillation ``--siglip``, ``--usehardtext`` and ``--grad-cache-chunks`` /
@@ -245,30 +252,7 @@ def parse_args(argv=None):
     for flag, item in _UNPORTED.items():
         if hasattr(args, flag[2:].replace("-", "_")):
             p.error(f"{flag} is not ported yet: ROADMAP.md {item}")
-    tower = zoo_tower(args.model)
-    if tower is not None:
-        p.error(f"--model {args.model}: training on the {tower!r} tower is "
-                "not ported yet: ROADMAP.md queue 1 item 15c (training on "
-                "the zoo towers)")
     return args
-
-
-def zoo_tower(name: str) -> Optional[str]:
-    """The tower of a model whose training is not ported: a CLIP vision
-    tower other than the ViT, or 'hf-text' for a CustomTextCLIP name; None
-    for the ViT CLIPs, CoCa and names outside the registry."""
-    from ..core.config import MODEL_CONFIGS, get_model_config
-    from ..core.openclip_registry import classify_model, get_raw_model_config
-
-    key = name.replace("/", "-")
-    if key not in MODEL_CONFIGS:
-        if get_raw_model_config(key) is None:
-            return None
-        backend = classify_model(key)[0]
-        if backend != "clip":
-            return backend if backend == "hf-text" else None
-    tower = get_model_config(key).vision.tower
-    return None if tower == "vit" else tower
 
 
 def build_data(args, model_cfg, epoch: int = 0
@@ -534,7 +518,9 @@ def build_teacher(args, device: torch.device, dtype: torch.dtype,
 def _block_impl(args, device: torch.device, dtype: torch.dtype, cfg) -> str:
     """The block route: fused only on the card, where the kernels take the
     shapes the blocks will see (in bf16, the kernels' type): the image
-    tower's 1 + kept patches under patch dropout, else 1 + all."""
+    tower's 1 + kept patches under patch dropout, else 1 + all, and the
+    text tower's context. On a zoo model the route is the text tower's
+    alone, as JAX's ``block_impl`` reaches only its text tower."""
     if not args.fused_train_blocks:
         return "composable"
     if device.type != "cuda":
@@ -551,13 +537,37 @@ def _block_impl(args, device: torch.device, dtype: torch.dtype, cfg) -> str:
     drop = (v.patch_dropout if args.force_patch_dropout is None
             else args.force_patch_dropout)
     rows = 1 + patches_kept(v.num_patches, drop)
-    if not (fused_block_supported(rows, v.width, v.heads, v.mlp_ratio)
+    # a zoo model's vision tower stays composable: only its text tower
+    # takes the fused blocks
+    if not ((v.tower != "vit"
+             or fused_block_supported(rows, v.width, v.heads, v.mlp_ratio))
             and fused_block_supported(t.context_length, t.width, t.heads,
                                       t.mlp_ratio)):
         raise SystemExit(f"--fused-train-blocks: the fused-block kernels do "
                          f"not take the shapes of {args.model}")
     return ("fused-train-res" if args.fused_train_backward == "residual"
             else "fused-train")
+
+
+# what the JAX CLI does with a ViT-only flag on a zoo vision tower
+_VIT_ONLY_FLAGS = {
+    "--force-patch-dropout": "drops no patch (its encode_image drops them "
+                             "from the ViT alone)",
+    "--lock-image-unlocked-groups": "freezes the whole tower, head "
+                                    "included (its labels know only the "
+                                    "ViT's groups)",
+}
+
+
+def vit_only_flags(args, tower: str) -> List[str]:
+    """The flags set in ``args`` that the JAX CLI applies to the ViT alone
+    and gets wrong, silently, on the zoo vision ``tower``."""
+    if tower == "vit":
+        return []
+    return [f for f, on in (
+        ("--force-patch-dropout", args.force_patch_dropout is not None),
+        ("--lock-image-unlocked-groups",
+         args.lock_image and args.lock_image_unlocked_groups > 0)) if on]
 
 
 def dropped_flags(args, coca: bool, distill: bool) -> List[str]:
@@ -609,19 +619,27 @@ def main(argv=None):
     distill = args.distill_model is not None and \
         args.distill_pretrained is not None
     coca = is_coca(args.model)
+    # an hf-text name raises JAX's NotImplementedError here, as JAX's does
+    cfg = (resolve_coca_config(args.model.replace("/", "-")) if coca
+           else get_model_config(args.model, args.pretrained))
     dropped = dropped_flags(args, coca, distill)
     if dropped:
         step = "CoCa's step" if coca else "the distillation step"
         it = "it" if len(dropped) == 1 else "them"
         raise SystemExit(f"{', '.join(dropped)}: {step} would drop {it} "
                          f"(the JAX CLI does, silently); leave {it} out")
+    tower = "vit" if coca else cfg.vision.tower
+    bad = vit_only_flags(args, tower)
+    if bad:
+        raise SystemExit("; ".join(
+            f"{flag} on the {tower!r} vision tower: the JAX CLI "
+            f"{_VIT_ONLY_FLAGS[flag]}, silently" for flag in bad)
+            + "; leave it out")
     device = resolve_device(args.device)
     dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
     remat = args.grad_checkpointing and (
         args.grad_checkpointing_policy
         if args.grad_checkpointing_policy in ("dots", "attn") else True)
-    cfg = (resolve_coca_config(args.model.replace("/", "-")) if coca
-           else get_model_config(args.model, args.pretrained))
     block_impl = _block_impl(args, device, dtype, cfg)
     if block_impl != "composable":
         # the fused blocks keep only (x, params) per block already

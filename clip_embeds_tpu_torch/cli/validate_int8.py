@@ -27,7 +27,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..core.constants import OPENAI_DATASET_MEAN, OPENAI_DATASET_STD
+from ..image.preprocess import jax_preprocess
 
 
 def parse_args(argv=None):
@@ -100,21 +100,6 @@ def make_batch(dist: str, n: int, size: int, rng,
     return np.stack(imgs)
 
 
-def preprocess(batch_u8: torch.Tensor, image_size: int,
-               dtype: torch.dtype) -> torch.Tensor:
-    """uint8 [B, S, S, 3] -> CLIP-normalised [B, S, S, 3] (the JAX
-    ``jax_preprocess``, 'clip' variant). Every distribution is made at the
-    model's size, so no resize is ported (``jax.image.resize``'s bicubic is
-    not torch's): another size raises."""
-    if tuple(batch_u8.shape[1:3]) != (image_size, image_size):
-        raise ValueError(f"images must be {image_size}x{image_size}, got "
-                         f"{tuple(batch_u8.shape[1:3])}")
-    mean = torch.tensor(OPENAI_DATASET_MEAN, device=batch_u8.device)
-    std = torch.tensor(OPENAI_DATASET_STD, device=batch_u8.device)
-    x = batch_u8.float() / 255.0
-    return ((x - mean) / std).to(dtype)
-
-
 def _cosine(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     a = a / np.linalg.norm(a, axis=-1, keepdims=True)
     b = b / np.linalg.norm(b, axis=-1, keepdims=True)
@@ -150,17 +135,20 @@ def main(argv=None):
                                               args.images)).to(device)
                for d in dists}
 
+    def pixels(raw, dt=dtype):
+        """JAX's on-device resize (where the size differs) and normalise."""
+        return jax_preprocess(raw, size, "clip", dt)
+
     use_fused = device.type == "cuda" and fused_path_available(model)
     if use_fused:
         def embed_bf16(raw):
-            return fused_encode_image(model, preprocess(raw, size, dtype))
+            return fused_encode_image(model, pixels(raw))
     else:
         bf16 = create_model(args.model, pretrained=args.pretrained,
                             seed=args.seed, dtype=dtype, device=device)
 
         def embed_bf16(raw):
-            return bf16.encode_image(preprocess(raw, size, dtype),
-                                     normalize=True)
+            return bf16.encode_image(pixels(raw), normalize=True)
 
     def run(fn, raw):
         with torch.inference_mode():
@@ -170,11 +158,11 @@ def main(argv=None):
 
     def build_int8(calib_raw):
         """Calibrate on one batch; return embed(raw) for the int8 path."""
-        calib_px = preprocess(calib_raw, size, torch.float32)
+        calib_px = pixels(calib_raw, torch.float32)
         if use_fused:
             qtower = prepare_int8_tower(model, calib_px, dtype)
             return lambda raw: fused_encode_image_int8(
-                model, qtower, preprocess(raw, size, dtype))
+                model, qtower, pixels(raw))
         # QuantLinear on the card runs cet_gemm_s8, which computes in
         # bf16: the card calibrates in bf16, the CPU in fp32 (the int8
         # weights come from the fp32 model either way)
@@ -183,8 +171,7 @@ def main(argv=None):
         with torch.inference_mode():
             calibrate_act_scales(qmodel, [calib_px.to(cal)], "encode_image")
         cast_floating(qmodel, dtype)
-        return lambda raw: qmodel.encode_image(preprocess(raw, size, dtype),
-                                               normalize=True)
+        return lambda raw: qmodel.encode_image(pixels(raw), normalize=True)
 
     report: Dict = {"model": args.model, "pretrained": args.pretrained,
                     "fused_path": bool(use_fused), "pairs": []}

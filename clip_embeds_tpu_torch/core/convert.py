@@ -4,10 +4,12 @@ flax params to and from the port's heads.
 
 :func:`state_dict_from_jax_params` inverts
 ``clip_embeds_tpu/core/torch_convert.py`` ``convert_clip_state_dict`` for
-the plain ViT + text layout: flax Dense kernels are [in, out] and come back
-as ``nn.Linear`` [out, in] weights, ``in_proj`` is repacked into
-``attn.in_proj_weight``, and the patch kernel, whose rows are ordered
-(kh, kw, cin), is rebuilt into ``visual.conv1.weight`` [W, 3, p, p].
+the plain ViT + text layout and EVA01's: flax Dense kernels are [in, out]
+and come back as ``nn.Linear`` [out, in] weights, ``in_proj`` is repacked
+into ``attn.in_proj_weight``, and the patch kernel, whose rows are ordered
+(kh, kw, cin), is rebuilt into the conv [W, 3, p, p];
+:func:`jax_params_from_clip` writes the same trees from the port's CLIP
+(``core/export.py``).
 
 :func:`head_state_dict_from_jax_params` and :func:`jax_params_from_head`
 carry a head (``models/heads.py``, whose submodule names are flax's) across:
@@ -65,7 +67,9 @@ def load_open_clip_state_dict(model: torch.nn.Module,
 
 
 def _t(a) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, np.float32))  # a writable copy
+    # a writable, C-contiguous copy (a transposed kernel comes back in the
+    # layout nn.Linear's own weights have)
+    return torch.from_numpy(np.array(a, np.float32, order="C"))
 
 
 def _ln(p: Mapping[str, Any], prefix: str) -> Dict[str, torch.Tensor]:
@@ -118,13 +122,36 @@ def _vision_tower(v: Mapping[str, Any], prefix: str, head: bool = True
     return sd
 
 
+def _eva01_tower(v: Mapping[str, Any], prefix: str
+                 ) -> Dict[str, torch.Tensor]:
+    """A flax ``EVAVisionTower``'s params -> the port's EVA01 tower under
+    ``prefix`` in its Transformer's names (its load pre-hook takes them)."""
+    kernel = np.asarray(v["patch_embed"]["kernel"])       # [p*p*3, W]
+    width = kernel.shape[1]
+    p = int(round((kernel.shape[0] // 3) ** 0.5))
+    sd = {f"{prefix}.patch_embed.proj.weight": _t(
+              kernel.reshape(p, p, 3, width).transpose(3, 2, 0, 1)),
+          f"{prefix}.patch_embed.proj.bias": _t(v["patch_embed"]["bias"]),
+          f"{prefix}.cls_token": _t(np.reshape(v["cls_token"],
+                                               (1, 1, width))),
+          f"{prefix}.pos_embed": _t(np.asarray(v["pos_embed"])[None])}
+    sd.update(_transformer(v["blocks"], f"{prefix}.blocks"))
+    sd.update(_ln(v["norm"], f"{prefix}.norm"))
+    sd.update(_linear(v["head"], f"{prefix}.head"))
+    return sd
+
+
 def state_dict_from_jax_params(params: Mapping[str, Any]
                                ) -> Dict[str, torch.Tensor]:
-    """flax params of ``clip_embeds_tpu.models.clip.CLIP`` (ViT tower), as
-    numpy arrays -> open_clip CLIP state dict of fp32 tensors."""
+    """flax params of ``clip_embeds_tpu.models.clip.CLIP`` (ViT or EVA01
+    tower), as numpy arrays -> the port's CLIP state dict of fp32 tensors
+    (open_clip's, or EVA01's Transformer names)."""
     v, t = params["visual"], params["text"]
-    sd = _vision_tower(v, "visual")
-    sd["visual.proj"] = _t(v["proj"])
+    if "cls_token" in v:
+        sd = _eva01_tower(v, "visual.trunk")
+    else:
+        sd = _vision_tower(v, "visual")
+        sd["visual.proj"] = _t(v["proj"])
     sd["token_embedding.weight"] = _t(t["token_embedding"]["embedding"])
     sd["positional_embedding"] = _t(t["positional_embedding"])
     sd.update(_transformer(t["transformer"], "transformer"))
@@ -134,6 +161,81 @@ def state_dict_from_jax_params(params: Mapping[str, Any]
     if "logit_bias" in params:
         sd["logit_bias"] = _t(np.asarray(params["logit_bias"]).reshape(()))
     return sd
+
+
+def _flax_blocks(sd: Mapping[str, Any], prefix: str) -> Dict[str, Any]:
+    """The port's ``{prefix}.resblocks.{i}`` (open_clip names) -> a flax
+    ``Transformer``'s ``resblocks_{i}`` tree."""
+    out: Dict[str, Any] = {}
+    i = 0
+    while f"{prefix}.resblocks.{i}.ln_1.weight" in sd:
+        pre = f"{prefix}.resblocks.{i}"
+        out[f"resblocks_{i}"] = {
+            "ln_1": _flax_ln(sd, pre + ".ln_1"),
+            "attn": {"in_proj": {
+                         "kernel": _hf(sd, pre + ".attn.in_proj_weight").T,
+                         "bias": _hf(sd, pre + ".attn.in_proj_bias")},
+                     "out_proj": _flax_linear(sd, pre + ".attn.out_proj")},
+            "ln_2": _flax_ln(sd, pre + ".ln_2"),
+            "mlp": {"c_fc": _flax_linear(sd, pre + ".mlp.c_fc"),
+                    "c_proj": _flax_linear(sd, pre + ".mlp.c_proj")},
+        }
+        i += 1
+    return out
+
+
+def _flax_patch(conv_weight: np.ndarray) -> np.ndarray:
+    """A stride-p conv [W, 3, p, p] -> JAX's patchify kernel [p*p*3, W]
+    (rows in (kh, kw, cin) order)."""
+    return conv_weight.transpose(2, 3, 1, 0).reshape(-1,
+                                                     conv_weight.shape[0])
+
+
+def jax_params_from_clip(model: torch.nn.Module) -> Dict[str, Any]:
+    """The port's CLIP -> the flax tree of JAX's ``CLIP`` (numpy fp32), the
+    inverse of :func:`state_dict_from_jax_params`: the ViT and EVA01 vision
+    towers. The other zoo towers raise NotImplementedError: their flax
+    layouts are JAX's converters' own (ROADMAP.md queue 1 item 15d)."""
+    sd = dict(model.named_parameters())
+    tower = model.cfg.vision.tower
+    if tower == "vit":
+        visual = {"patch_embed": {"kernel": _flax_patch(
+                      _hf(sd, "visual.conv1.weight"))},
+                  "class_embedding": _hf(sd, "visual.class_embedding"),
+                  "positional_embedding": _hf(sd,
+                                              "visual.positional_embedding"),
+                  "transformer": _flax_blocks(sd, "visual.transformer"),
+                  "ln_post": _flax_ln(sd, "visual.ln_post"),
+                  "proj": _hf(sd, "visual.proj")}
+        if "visual.ln_pre.weight" in sd:
+            visual["ln_pre"] = _flax_ln(sd, "visual.ln_pre")
+    elif tower == "eva":
+        pre = "visual.trunk"
+        visual = {"patch_embed": {
+                      "kernel": _flax_patch(_hf(sd, pre + ".patch_embed"
+                                                ".proj.weight")),
+                      "bias": _hf(sd, pre + ".patch_embed.proj.bias")},
+                  "cls_token": _hf(sd, pre + ".cls_token").reshape(-1),
+                  "pos_embed": _hf(sd, pre + ".pos_embed")[0],
+                  "blocks": _flax_blocks(sd, pre + ".blocks"),
+                  "norm": _flax_ln(sd, pre + ".norm"),
+                  "head": _flax_linear(sd, pre + ".head")}
+    else:
+        raise NotImplementedError(
+            f"the {tower!r} vision tower has no flax writer in the port: "
+            "its layout is JAX's converters' own (ROADMAP.md queue 1 item "
+            "15d)")
+    text = {"token_embedding": {"embedding": _hf(sd,
+                                                 "token_embedding.weight")},
+            "positional_embedding": _hf(sd, "positional_embedding"),
+            "transformer": _flax_blocks(sd, "transformer"),
+            "ln_final": _flax_ln(sd, "ln_final"),
+            "text_projection": _hf(sd, "text_projection")}
+    params = {"visual": visual, "text": text,
+              "logit_scale": _hf(sd, "logit_scale")}
+    if "logit_bias" in sd:
+        params["logit_bias"] = _hf(sd, "logit_bias")
+    return params
 
 
 def head_state_dict_from_jax_params(params: Mapping[str, Any], prefix: str = ""
@@ -1041,3 +1143,38 @@ def coca_state_dict_from_flax(params: Mapping[str, Any]
             k = f"text_decoder.cross_attn.{i}.{leaf}"
         out[k] = v
     return out
+
+
+def convert_pacl_head_state_dict(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """The reference PACL/SPARC heads' torch weights (``visual_projection``
+    LayerNorm -> Dropout -> Patch_Projection, ``text_projection`` LayerNorm
+    -> Dropout -> Linear; 'module.' prefixes allowed) -> the flax head tree
+    (JAX's ``convert_pacl_head_state_dict``)."""
+    sd = {k[len("module."):] if k.startswith("module.") else k: v
+          for k, v in sd.items()}
+    vp = "visual_projection.2."
+    return {
+        "visual_projection": {
+            "ln": _flax_ln(sd, "visual_projection.0"),
+            "proj": {
+                "linear": _flax_linear(sd, vp + "linear_projection.0"),
+                "mlp_in": _flax_linear(sd, vp + "non_linear_projection.0"),
+                "mlp_out": _flax_linear(sd, vp + "non_linear_projection.2"),
+            },
+        },
+        "text_projection": {"ln": _flax_ln(sd, "text_projection.0"),
+                            "proj": _flax_linear(sd, "text_projection.2")},
+    }
+
+
+def split_pacl_checkpoint(sd: Mapping[str, Any]):
+    """A reference PACL/SPARC checkpoint (the whole DataParallel module,
+    tower and heads) -> (the tower's open_clip state dict, the heads' flax
+    tree), as JAX's ``split_pacl_checkpoint``."""
+    sd = {k[len("module."):] if k.startswith("module.") else k: v
+          for k, v in sd.items()}
+    clip_sd = {k[len("clip_model."):]: v for k, v in sd.items()
+               if k.startswith("clip_model.")}
+    head_sd = {k: v for k, v in sd.items()
+               if k.startswith(("visual_projection.", "text_projection."))}
+    return clip_sd, convert_pacl_head_state_dict(head_sd)

@@ -177,8 +177,12 @@ def create_model(
     registry name whose backend is 'clip' builds (the zoo towers too);
     the other backends raise NotImplementedError, as in JAX.
     ``remat``, ``block_impl`` and ``compute_dtype`` (default: ``dtype``)
-    are the training options of :class:`~..models.clip.CLIP`; the model is
-    returned in train mode when ``train``, else in eval mode.
+    are the training options of :class:`~..models.clip.CLIP` (on a zoo
+    model ``block_impl`` reaches the text tower alone, and ModifiedResNet
+    takes no ``remat``); the model is returned in train mode when
+    ``train``, else in eval mode. The meta-device build leaves
+    ModifiedResNet's BatchNorm statistics at mean 0 / var 1, where the
+    seeded init keeps them and a loaded state dict sets them.
     ``force_quick_gelu`` and ``force_patch_dropout`` override the config
     (open_clip's ``--force-quick-gelu`` / ``--force-patch-dropout``).
     A registry ``coca_*`` name (outside the hand-written configs) builds a

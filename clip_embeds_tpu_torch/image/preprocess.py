@@ -1,6 +1,7 @@
-"""Host image preprocessing: the port's own copy of
-``clip_embeds_tpu/image/preprocess.py`` without ``jax_preprocess`` (the
-on-device JAX path).
+"""Image preprocessing: the port's own copy of
+``clip_embeds_tpu/image/preprocess.py``, the host pipelines and
+``jax_preprocess``, the on-device squash resize and normalise, on torch
+tensors of any device.
 
 Two pipelines, mirroring the two (inconsistent) reference conventions:
 
@@ -131,6 +132,39 @@ def preprocess_batch(
                 out[i] = fn(images[i], image_size)
             return out
     return np.stack([fn(im, image_size) for im in images])
+
+
+# -- On-device path -------------------------------------------------------
+
+
+def jax_preprocess(batch_u8, image_size: int = 336, variant: str = "clip",
+                   dtype=None):
+    """uint8 [B, H, W, 3] on its device -> [B, S, S, 3] normalised there,
+    with a squash resize where H or W differs from ``image_size`` (JAX's
+    on-device ``jax_preprocess``). 'clip': bicubic and the OpenAI mean /
+    std; 'pacl' (any other variant): bilinear and ImageNet's. The resize is
+    ``jax.image.resize``'s: Keys' cubic at a = -0.5 (or the triangle),
+    widened by the shrink factor where it shrinks, with the weights
+    normalised over the pixels inside the image. ``F.interpolate`` with
+    ``antialias=True`` computes that filter both ways (without it, its
+    bicubic is a = -0.75 and clamps at the border). fp32 sums; ``dtype``
+    (default fp32) is the output's."""
+    import torch
+    import torch.nn.functional as F
+
+    if variant == "clip":
+        mean, std, mode = OPENAI_DATASET_MEAN, OPENAI_DATASET_STD, "bicubic"
+    else:
+        mean, std, mode = IMAGENET_MEAN, IMAGENET_STD, "bilinear"
+    x = batch_u8.float() / 255.0
+    if x.shape[1] != image_size or x.shape[2] != image_size:
+        x = F.interpolate(x.permute(0, 3, 1, 2), size=(image_size,
+                                                       image_size),
+                          mode=mode, align_corners=False, antialias=True)
+        x = x.permute(0, 2, 3, 1)
+    mean = torch.tensor(mean, dtype=torch.float32, device=x.device)
+    std = torch.tensor(std, dtype=torch.float32, device=x.device)
+    return ((x - mean) / std).to(dtype or torch.float32)
 
 
 def expand2square(img: Image.Image, background: Tuple[int, int, int]) -> Image.Image:

@@ -8,16 +8,16 @@ JAX counterpart does. Parameter names are open_clip's (``open_clip/
 model.py`` CLIP): the vision tower under ``visual.`` (``visual.trunk.*`` and
 ``visual.head.*`` for the timm trunks), the text tower's modules at top
 level, so an open_clip state dict loads with ``load_state_dict``; a
-CustomTextCLIP checkpoint's ``text.*`` keys (EVA, ViTamin) load too. The zoo
-towers serve only: they take no ``quant``, ``block_impl`` or ``remat``
-(training them is ROADMAP.md queue 1 item 15c). ``quant`` ('dynamic' /
-'static') builds both towers' block projections as int8 QuantLinear (the
-W8A8 serving path, ``models/quant.py``). ``block_impl`` and ``remat`` go to
-both towers' transformers (the training routes, ``models/layers.py``);
+CustomTextCLIP checkpoint's ``text.*`` keys (EVA, ViTamin) load too.
+``quant`` ('dynamic' / 'static') builds both towers' block projections as
+int8 QuantLinear (the W8A8 serving path, ``models/quant.py``); a zoo tower
+takes none (JAX's ``--int8`` fails on them). ``block_impl`` (the fused
+training blocks, ``models/layers.py``) goes to both towers of a ViT CLIP
+and to the text tower alone of a zoo model, as in JAX; ``remat`` goes to
+every tower but ModifiedResNet's, which takes none in JAX either.
 ``compute_dtype`` (default: the parameters' dtype) is the dtype the towers
 compute in, so fp32 master weights can train in bf16.
 """
-
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -37,22 +37,27 @@ def l2_normalize(x: torch.Tensor, dim: int = -1,
     return x / x.norm(dim=dim, keepdim=True).clamp_min(eps)
 
 
-def build_visual(cfg: CLIPConfig) -> nn.Module:
-    """The zoo vision tower of ``cfg`` (JAX ``models/clip.py:41-160``)."""
+def build_visual(cfg: CLIPConfig, remat: Remat = False,
+                 compute_dtype: Optional[torch.dtype] = None) -> nn.Module:
+    """The zoo vision tower of ``cfg`` (JAX ``models/clip.py:41-160``),
+    computing in ``compute_dtype``; ``remat`` as JAX passes it (a policy
+    string reaches EVA01's Transformer; the other towers rematerialise each
+    block whole; ModifiedResNet takes none)."""
     v, e = cfg.vision, cfg.embed_dim
+    kw = dict(remat=remat, compute_dtype=compute_dtype)
     if v.tower == "resnet":
         from .resnet import ModifiedResNet
 
         return ModifiedResNet(v.resnet_layers, e, v.width * 32 // 64,
-                              v.image_size, v.width)
+                              v.image_size, v.width, compute_dtype)
     if v.tower == "eva":
         from .eva import EVAVisionTower
 
-        return EVAVisionTower(v, e)
+        return EVAVisionTower(v, e, **kw)
     if v.tower == "eva02":
         from .eva import EVA02VisionTower
 
-        return EVA02VisionTower(v, e)
+        return EVA02VisionTower(v, e, **kw)
     if v.tower == "timm-vit":
         from .timm_vit import TimmViTConfig, TimmViTTower
 
@@ -61,21 +66,21 @@ def build_visual(cfg: CLIPConfig) -> nn.Module:
             depth=v.layers, heads=v.heads, mlp_ratio=v.mlp_ratio,
             class_token=v.pool_type == "tok",
             pool="token" if v.pool_type == "tok" else "avg",
-            fc_norm=v.final_ln_after_pool, embed_dim=e))
+            fc_norm=v.final_ln_after_pool, embed_dim=e), **kw)
     if v.tower == "relpos-vit":
         from .vit_relpos import RelPosViTConfig, RelPosViTTower
 
         return RelPosViTTower(RelPosViTConfig(
             image_size=v.image_size, patch_size=v.patch_size, width=v.width,
             depth=v.layers, heads=v.heads, mlp_ratio=v.mlp_ratio,
-            embed_dim=e))
+            embed_dim=e), **kw)
     if v.tower == "mci-vit":
         from .mci_vit import MCiViTConfig, MCiViTTower
 
         return MCiViTTower(MCiViTConfig(
             image_size=v.image_size, width=v.width, depth=v.layers,
             heads=v.width // v.head_width, mlp_ratio=v.mlp_ratio,
-            embed_dim=e))
+            embed_dim=e), **kw)
     if v.tower == "swin":
         from .swin import SwinConfig, SwinTower
 
@@ -83,7 +88,7 @@ def build_visual(cfg: CLIPConfig) -> nn.Module:
             image_size=v.image_size, patch_size=v.patch_size,
             embed_dim=v.width, depths=tuple(v.swin_depths),
             heads=tuple(v.swin_heads), window=v.swin_window,
-            mlp_ratio=v.mlp_ratio, out_dim=e))
+            mlp_ratio=v.mlp_ratio, out_dim=e), **kw)
     if v.tower == "vitamin":
         from .vitamin import VitaminConfig, VitaminTower
 
@@ -92,20 +97,20 @@ def build_visual(cfg: CLIPConfig) -> nn.Module:
             mbconv_dims=tuple(v.vitamin_mbconv_dims),
             mbconv_depths=tuple(v.vitamin_mbconv_depths), width=v.width,
             depth=v.layers, heads=v.heads, mlp_ratio=v.mlp_ratio,
-            embed_dim=e))
+            embed_dim=e), **kw)
     if v.tower == "fastvit":
         from .fastvit import FastViTConfig, FastViTTower
 
         return FastViTTower(FastViTConfig(
             image_size=v.image_size, layers=tuple(v.fastvit_layers),
             dims=tuple(v.fastvit_dims), mlp_ratio=v.mlp_ratio,
-            embed_dim=e))
+            embed_dim=e), **kw)
     if v.tower == "convnext":
         from .convnext import ConvNeXtConfig, ConvNeXtTower
 
         return ConvNeXtTower(ConvNeXtConfig(
             depths=v.convnext_depths, dims=v.convnext_dims, embed_dim=e,
-            proj=v.head_proj, image_size=v.image_size))
+            proj=v.head_proj, image_size=v.image_size), **kw)
     raise ValueError(f"unknown vision tower {v.tower!r}")
 
 
@@ -129,12 +134,12 @@ class CLIP(nn.Module):
                                             cfg.quick_gelu, quant, block_impl,
                                             remat, compute_dtype)
         else:
-            if quant or block_impl != "composable" or remat:
+            if quant:
                 raise NotImplementedError(
-                    f"the {cfg.vision.tower!r} tower serves only: quant, "
-                    "block_impl and remat are not ported for it (ROADMAP.md "
-                    "queue 1 item 15c)")
-            self.visual = build_visual(cfg)
+                    f"the {cfg.vision.tower!r} vision tower takes no quant: "
+                    "int8 serves the ViT towers only (JAX's --int8 fails on "
+                    "the zoo towers, ROADMAP.md queue 3)")
+            self.visual = build_visual(cfg, remat, compute_dtype)
         text = TextTransformer(cfg.text, cfg.embed_dim, cfg.quick_gelu, quant,
                                block_impl, remat, compute_dtype)
         # open_clip keeps the text tower's modules at top level

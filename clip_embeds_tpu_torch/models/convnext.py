@@ -14,11 +14,14 @@ fc2 without). Every norm has eps 1e-6. Module names are open_clip's
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .layers import Conv2d, LayerNorm, run_blocks, tower_dtype
+from .quant import CastLinear
 
 EPS = 1e-6
 
@@ -42,7 +45,7 @@ class ConvNeXtConfig:
     image_size: int = 256
 
 
-class LayerNorm2d(nn.LayerNorm):
+class LayerNorm2d(LayerNorm):
     """LayerNorm over the channels of an NCHW tensor (timm LayerNorm2d)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -52,8 +55,8 @@ class LayerNorm2d(nn.LayerNorm):
 class Mlp(nn.Module):
     def __init__(self, dim: int, hidden: int, out: int, bias2: bool = True):
         super().__init__()
-        self.fc1 = nn.Linear(dim, hidden)
-        self.fc2 = nn.Linear(hidden, out, bias=bias2)
+        self.fc1 = CastLinear(dim, hidden)
+        self.fc2 = CastLinear(hidden, out, bias=bias2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.gelu(self.fc1(x)))
@@ -62,8 +65,8 @@ class Mlp(nn.Module):
 class ConvNeXtBlock(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
-        self.conv_dw = nn.Conv2d(dim, dim, 7, padding=3, groups=dim)
-        self.norm = nn.LayerNorm(dim, eps=EPS)
+        self.conv_dw = Conv2d(dim, dim, 7, padding=3, groups=dim)
+        self.norm = LayerNorm(dim, eps=EPS)
         self.mlp = Mlp(dim, 4 * dim, dim)
         self.gamma = nn.Parameter(torch.empty(dim))
 
@@ -74,35 +77,38 @@ class ConvNeXtBlock(nn.Module):
 
 
 class ConvNeXtStage(nn.Module):
-    def __init__(self, cin: int, dim: int, depth: int, first: bool):
+    def __init__(self, cin: int, dim: int, depth: int, first: bool,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         if not first:
             self.downsample = nn.Sequential(
-                LayerNorm2d(cin, eps=EPS), nn.Conv2d(cin, dim, 2, 2))
+                LayerNorm2d(cin, eps=EPS), Conv2d(cin, dim, 2, 2))
         self.blocks = nn.Sequential(*(ConvNeXtBlock(dim)
                                       for _ in range(depth)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if hasattr(self, "downsample"):
             x = self.downsample(x)
-        return self.blocks(x)
+        return run_blocks(self.blocks, x, self.remat)
 
 
 class HeadNorm(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
-        self.norm = nn.LayerNorm(dim, eps=EPS)
+        self.norm = LayerNorm(dim, eps=EPS)
 
 
 class ConvNeXtTrunk(nn.Module):
-    def __init__(self, cfg: ConvNeXtConfig):
+    def __init__(self, cfg: ConvNeXtConfig, remat: bool = False):
         super().__init__()
         d0 = cfg.dims[0]
-        self.stem = nn.Sequential(nn.Conv2d(3, d0, 4, 4),
+        self.stem = nn.Sequential(Conv2d(3, d0, 4, 4),
                                   LayerNorm2d(d0, eps=EPS))
         cins = (d0,) + tuple(cfg.dims[:-1])
         self.stages = nn.Sequential(*(
-            ConvNeXtStage(cin, dim, depth, i == 0) for i, (cin, dim, depth)
+            ConvNeXtStage(cin, dim, depth, i == 0, remat)
+            for i, (cin, dim, depth)
             in enumerate(zip(cins, cfg.dims, cfg.depths))))
         self.head = HeadNorm(cfg.dims[-1])
 
@@ -111,7 +117,7 @@ class ConvNeXtHead(nn.Module):
     def __init__(self, cfg: ConvNeXtConfig):
         super().__init__()
         if cfg.proj == "linear":
-            self.proj = nn.Linear(cfg.dims[-1], cfg.embed_dim, bias=False)
+            self.proj = CastLinear(cfg.dims[-1], cfg.embed_dim, bias=False)
         elif cfg.proj == "mlp":
             self.mlp = Mlp(cfg.dims[-1], 2 * cfg.embed_dim, cfg.embed_dim,
                            bias2=False)
@@ -124,18 +130,21 @@ class ConvNeXtHead(nn.Module):
 
 class ConvNeXtTower(nn.Module):
     """[B, S, S, 3] -> (pooled [B, embed_dim], final-stage tokens
-    [B, HW, C])."""
+    [B, HW, C]); the tower computes in ``compute_dtype`` (default: the
+    parameters'), each block rematerialised with ``remat``, as JAX's."""
 
-    def __init__(self, cfg: ConvNeXtConfig):
+    def __init__(self, cfg: ConvNeXtConfig, remat: bool = False,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.cfg = cfg
-        self.trunk = ConvNeXtTrunk(cfg)
+        self.cfg, self.compute_dtype = cfg, compute_dtype
+        self.trunk = ConvNeXtTrunk(cfg, remat)
         self.head = ConvNeXtHead(cfg)
 
     def forward(self, images: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         t = self.trunk
-        x = images.to(t.stem[0].weight.dtype).permute(0, 3, 1, 2)
+        x = images.to(tower_dtype(self, self.compute_dtype)).permute(
+            0, 3, 1, 2)
         x = t.stages(t.stem(x))
         tokens = x.flatten(2).transpose(1, 2)
         pooled = t.head.norm(x.mean(dim=(2, 3)))

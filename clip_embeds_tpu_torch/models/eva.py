@@ -33,7 +33,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.config import VisionConfig
-from .layers import Transformer
+from .layers import LayerNorm, Transformer, run_blocks, tower_dtype
+from .quant import CastLinear
 from .timm_vit import PatchEmbed, merge_heads, plain_attention, split_heads
 
 EPS = 1e-6
@@ -88,16 +89,16 @@ def _eva01_to_timm(module, state_dict, prefix, local_metadata) -> None:
 
 
 class EVATrunk(nn.Module):
-    def __init__(self, cfg: VisionConfig, embed_dim: int):
+    def __init__(self, cfg: VisionConfig, embed_dim: int, remat=False):
         super().__init__()
         w = cfg.width
         self.patch_embed = PatchEmbed(w, cfg.patch_size)
         self.cls_token = nn.Parameter(torch.empty(1, 1, w))
         self.pos_embed = nn.Parameter(torch.empty(1, cfg.num_patches + 1, w))
         self.blocks = Transformer(w, cfg.layers, cfg.heads, cfg.mlp_ratio,
-                                  quick_gelu=False, ln_eps=EPS)
-        self.norm = nn.LayerNorm(w, eps=EPS)
-        self.head = nn.Linear(w, embed_dim)
+                                  quick_gelu=False, remat=remat, ln_eps=EPS)
+        self.norm = LayerNorm(w, eps=EPS)
+        self.head = CastLinear(w, embed_dim)
         self._register_load_state_dict_pre_hook(_eva01_from_timm,
                                                 with_module=True)
         self._register_state_dict_hook(_eva01_to_timm)
@@ -110,17 +111,23 @@ def _with_cls(t, x: torch.Tensor) -> torch.Tensor:
 
 
 class EVAVisionTower(nn.Module):
-    """[B, S, S, 3] -> (pooled [B, embed_dim], patch tokens [B, N, W])."""
+    """[B, S, S, 3] -> (pooled [B, embed_dim], patch tokens [B, N, W]).
 
-    def __init__(self, cfg: VisionConfig, embed_dim: int):
+    ``compute_dtype`` (default: the parameters') is the dtype the tower
+    computes in, as flax's ``dtype`` over fp32 parameters; ``remat`` goes
+    to the Transformer (False, True, 'dots' or 'attn', as JAX's)."""
+
+    def __init__(self, cfg: VisionConfig, embed_dim: int, remat=False,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.cfg = cfg
-        self.trunk = EVATrunk(cfg, embed_dim)
+        self.cfg, self.compute_dtype = cfg, compute_dtype
+        self.trunk = EVATrunk(cfg, embed_dim, remat)
 
     def forward(self, images: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         t = self.trunk
-        x = t.norm(t.blocks(_with_cls(t, t.patch_embed(images))))
+        x = t.patch_embed(images.to(tower_dtype(self, self.compute_dtype)))
+        x = t.norm(t.blocks(_with_cls(t, x)))
         return t.head(x[:, 0]), x[:, 1:]
 
 
@@ -194,24 +201,25 @@ class Eva02Attention(nn.Module):
         self.post = cfg.eva_post_norm
         if self.post:
             # fused qkv, BEiT bias layout [q; 0; v]
-            self.qkv = nn.Linear(d, 3 * d, bias=False)
+            self.qkv = CastLinear(d, 3 * d, bias=False)
             self.q_bias = nn.Parameter(torch.empty(d))
             self.v_bias = nn.Parameter(torch.empty(d))
         else:
-            self.q_proj = nn.Linear(d, d)
-            self.k_proj = nn.Linear(d, d, bias=False)
-            self.v_proj = nn.Linear(d, d)
+            self.q_proj = CastLinear(d, d)
+            self.k_proj = CastLinear(d, d, bias=False)
+            self.v_proj = CastLinear(d, d)
         if cfg.eva_attn_inner_norm:
-            self.norm = nn.LayerNorm(d, eps=EPS)
-        self.proj = nn.Linear(d, d)
+            self.norm = LayerNorm(d, eps=EPS)
+        self.proj = CastLinear(d, d)
 
     def forward(self, x: torch.Tensor, rope: Optional[Tuple[torch.Tensor,
                                                             torch.Tensor]]
                 ) -> torch.Tensor:
         if self.post:
             bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias),
-                              self.v_bias])
-            q, k, v = F.linear(x, self.qkv.weight, bias).chunk(3, dim=-1)
+                              self.v_bias]).to(x.dtype)
+            q, k, v = F.linear(x, self.qkv.weight.to(x.dtype), bias).chunk(
+                3, dim=-1)
         else:
             q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
         q, k, v = (split_heads(t, self.heads) for t in (q, k, v))
@@ -230,12 +238,12 @@ class Eva02Mlp(nn.Module):
         hidden = int(d * cfg.mlp_ratio)
         self.swiglu = cfg.eva_swiglu
         if self.swiglu:
-            self.fc1_g = nn.Linear(d, hidden)
-            self.fc1_x = nn.Linear(d, hidden)
-            self.norm = nn.LayerNorm(hidden, eps=EPS)
+            self.fc1_g = CastLinear(d, hidden)
+            self.fc1_x = CastLinear(d, hidden)
+            self.norm = LayerNorm(hidden, eps=EPS)
         else:
-            self.fc1 = nn.Linear(d, hidden)
-        self.fc2 = nn.Linear(hidden, d)
+            self.fc1 = CastLinear(d, hidden)
+        self.fc2 = CastLinear(hidden, d)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.swiglu:
@@ -249,9 +257,9 @@ class Eva02Block(nn.Module):
     def __init__(self, cfg: VisionConfig):
         super().__init__()
         self.post = cfg.eva_post_norm
-        self.norm1 = nn.LayerNorm(cfg.width, eps=EPS)
+        self.norm1 = LayerNorm(cfg.width, eps=EPS)
         self.attn = Eva02Attention(cfg)
-        self.norm2 = nn.LayerNorm(cfg.width, eps=EPS)
+        self.norm2 = LayerNorm(cfg.width, eps=EPS)
         self.mlp = Eva02Mlp(cfg)
 
     def forward(self, x: torch.Tensor, rope) -> torch.Tensor:
@@ -271,16 +279,20 @@ class EVA02Trunk(nn.Module):
         self.pos_embed = nn.Parameter(torch.empty(1, cfg.num_patches + 1, w))
         self.blocks = nn.ModuleList(Eva02Block(cfg)
                                     for _ in range(cfg.layers))
-        self.norm = nn.LayerNorm(w, eps=EPS)
-        self.head = nn.Linear(w, embed_dim)
+        self.norm = LayerNorm(w, eps=EPS)
+        self.head = CastLinear(w, embed_dim)
 
 
 class EVA02VisionTower(nn.Module):
-    """EVA02 trunk + CLIP head: [B, S, S, 3] -> (pooled, patch tokens)."""
+    """EVA02 trunk + CLIP head: [B, S, S, 3] -> (pooled, patch tokens), in
+    ``compute_dtype`` (default: the parameters'), each block
+    rematerialised with ``remat``, as JAX's."""
 
-    def __init__(self, cfg: VisionConfig, embed_dim: int):
+    def __init__(self, cfg: VisionConfig, embed_dim: int,
+                 remat: bool = False,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.remat, self.compute_dtype = cfg, remat, compute_dtype
         self.trunk = EVA02Trunk(cfg, embed_dim)
         self._rope: Dict[Tuple[torch.device, torch.dtype], tuple] = {}
 
@@ -301,9 +313,8 @@ class EVA02VisionTower(nn.Module):
     def forward(self, images: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         t = self.trunk
-        x = _with_cls(t, t.patch_embed(images))
-        rope = self.rope(x.device, x.dtype)
-        for block in t.blocks:
-            x = block(x, rope)
+        x = t.patch_embed(images.to(tower_dtype(self, self.compute_dtype)))
+        x = _with_cls(t, x)
+        x = run_blocks(t.blocks, x, self.remat, self.rope(x.device, x.dtype))
         x = t.norm(x)
         return t.head(x[:, 0]), x[:, 1:]

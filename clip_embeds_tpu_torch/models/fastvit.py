@@ -31,6 +31,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .layers import Conv2d, run_blocks, tower_dtype
+from .quant import CastLinear
 from .timm_vit import merge_heads, plain_attention
 
 SE_RD_RATIO = 0.0625  # SqueezeExcite reduction (rd_divisor=1: exact int())
@@ -71,8 +73,8 @@ class SqueezeExcite(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
         rd = max(1, int(dim * SE_RD_RATIO))
-        self.fc1 = nn.Conv2d(dim, rd, 1)
-        self.fc2 = nn.Conv2d(rd, dim, 1)
+        self.fc1 = Conv2d(dim, rd, 1)
+        self.fc2 = Conv2d(rd, dim, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         s = x.mean(dim=(2, 3), keepdim=True)
@@ -87,7 +89,7 @@ class RepConv(nn.Module):
                  groups: int = 1, use_se: bool = False,
                  use_act: bool = True):
         super().__init__()
-        self.reparam_conv = nn.Conv2d(cin, cout, k, stride, k // 2,
+        self.reparam_conv = Conv2d(cin, cout, k, stride, k // 2,
                                       groups=groups)
         self.se = SqueezeExcite(cout) if use_se else None
         self.use_act = use_act
@@ -105,9 +107,9 @@ class ConvFFN(nn.Module):
 
     def __init__(self, dim: int, hidden: int):
         super().__init__()
-        self.conv = nn.Conv2d(dim, dim, 7, padding=3, groups=dim)
-        self.fc1 = nn.Conv2d(dim, hidden, 1)
-        self.fc2 = nn.Conv2d(hidden, dim, 1)
+        self.conv = Conv2d(dim, dim, 7, padding=3, groups=dim)
+        self.fc1 = Conv2d(dim, hidden, 1)
+        self.fc2 = Conv2d(hidden, dim, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.gelu(self.fc1(self.conv(x))))
@@ -128,8 +130,8 @@ class FoldedAttention(nn.Module):
     def __init__(self, dim: int, head_dim: int):
         super().__init__()
         self.heads = dim // head_dim
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = CastLinear(dim, 3 * dim)
+        self.proj = CastLinear(dim, dim)
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
         b, n, c = t.shape
@@ -163,8 +165,9 @@ class PatchEmbedDown(nn.Module):
 
 
 class FastViTStage(nn.Module):
-    def __init__(self, cfg: FastViTConfig, si: int):
+    def __init__(self, cfg: FastViTConfig, si: int, remat: bool = False):
         super().__init__()
+        self.remat = remat
         dim = cfg.dims[si]
         if si > 0:
             self.downsample = PatchEmbedDown(cfg.dims[si - 1], dim,
@@ -182,23 +185,23 @@ class FastViTStage(nn.Module):
             x = self.downsample.proj(x)
         if hasattr(self, "pos_emb"):
             x = self.pos_emb(x)
-        return self.blocks(x)
+        return run_blocks(self.blocks, x, self.remat)
 
 
 class ClassifierHead(nn.Module):
     def __init__(self, dim: int, embed_dim: int):
         super().__init__()
-        self.fc = nn.Linear(dim, embed_dim)
+        self.fc = CastLinear(dim, embed_dim)
 
 
 class FastViTTrunk(nn.Module):
-    def __init__(self, cfg: FastViTConfig):
+    def __init__(self, cfg: FastViTConfig, remat: bool = False):
         super().__init__()
         d0 = cfg.dims[0]
         self.stem = nn.Sequential(RepConv(3, d0, 3, 2),
                                   RepConv(d0, d0, 3, 2, groups=d0),
                                   RepConv(d0, d0, 1))
-        self.stages = nn.Sequential(*(FastViTStage(cfg, si)
+        self.stages = nn.Sequential(*(FastViTStage(cfg, si, remat)
                                       for si in range(len(cfg.layers))))
         self.final_conv = RepConv(cfg.dims[-1], cfg.final_dim, 3,
                                   groups=cfg.dims[-1], use_se=True)
@@ -210,17 +213,22 @@ class FastViTTrunk(nn.Module):
 
 class FastViTTower(nn.Module):
     """[B, S, S, 3] -> (pooled [B, embed_dim], final-conv tokens
-    [B, HW, C])."""
+    [B, HW, C]). It trains in the folded form, as JAX's: the gradient
+    reaches the folded convs, not timm's branches. The tower computes in
+    ``compute_dtype`` (default: the parameters'); with ``remat`` each
+    RepMixer and attention block is rematerialised, as JAX's."""
 
-    def __init__(self, cfg: FastViTConfig):
+    def __init__(self, cfg: FastViTConfig, remat: bool = False,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.cfg = cfg
-        self.trunk = FastViTTrunk(cfg)
+        self.cfg, self.compute_dtype = cfg, compute_dtype
+        self.trunk = FastViTTrunk(cfg, remat)
 
     def forward(self, images: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         t = self.trunk
-        x = images.to(t.head.fc.weight.dtype).permute(0, 3, 1, 2)
+        x = images.to(tower_dtype(self, self.compute_dtype)).permute(
+            0, 3, 1, 2)
         x = t.final_conv(t.stages(t.stem(x)))
         return t.head.fc(x.mean(dim=(2, 3))), x.flatten(2).transpose(1, 2)
 

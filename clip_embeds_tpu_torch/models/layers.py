@@ -27,7 +27,7 @@ rematerialisation (``remat``: False, True, 'dots' or 'attn').
 from __future__ import annotations
 
 import functools
-from typing import Callable, Optional, Union
+from typing import Callable, Iterable, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -69,6 +69,37 @@ class LayerNorm(nn.LayerNorm):
         return F.layer_norm(x.float(), self.normalized_shape,
                             self.weight.float(), self.bias.float(),
                             self.eps).to(x.dtype)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that computes in its input's dtype: the kernel and bias
+    are cast to it (flax's ``Conv(dtype=...)`` over fp32 params), a no-op
+    where the dtypes agree."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+def tower_dtype(tower: nn.Module,
+                compute_dtype: Optional[torch.dtype]) -> torch.dtype:
+    """The dtype a tower computes in: ``compute_dtype``, else its
+    parameters' (serving: the model cast as a whole)."""
+    return compute_dtype or next(tower.parameters()).dtype
+
+
+def run_blocks(blocks: Iterable[nn.Module], x: torch.Tensor, remat: bool,
+               *args) -> torch.Tensor:
+    """``x`` through ``blocks`` in order, each called as ``block(x,
+    *args)``. With ``remat``, while grad is enabled, each block runs under
+    non-reentrant ``torch.utils.checkpoint``: JAX's ``nn.remat`` of the
+    block, which keeps its input and recomputes the rest in the
+    backward."""
+    remat = remat and torch.is_grad_enabled()
+    for block in blocks:
+        x = (checkpoint(block, x, *args, use_reentrant=False) if remat
+             else block(x, *args))
+    return x
 
 
 class MultiHeadAttention(nn.Module):

@@ -19,12 +19,14 @@ folded convs, so it holds the weights JAX serves.
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Tuple
+from typing import Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .layers import Conv2d, LayerNorm, run_blocks, tower_dtype
+from .quant import CastLinear
 from .timm_vit import LN_EPS, TimmBlock
 
 
@@ -64,7 +66,7 @@ def fold_bn_conv(conv_w: torch.Tensor, conv_b, bn: Mapping[str, torch.Tensor],
 class StemConv(nn.Module):
     def __init__(self, cin: int, cout: int, k: int):
         super().__init__()
-        self.conv = nn.Conv2d(cin, cout, k, k, bias=True)
+        self.conv = Conv2d(cin, cout, k, k, bias=True)
 
 
 class StemEmbed(nn.Module):
@@ -86,8 +88,8 @@ class MCiViTTrunk(nn.Module):
         self.blocks = nn.ModuleList(
             TimmBlock(cfg.width, cfg.heads, cfg.mlp_ratio)
             for _ in range(cfg.depth))
-        self.norm = nn.LayerNorm(cfg.width, eps=LN_EPS)
-        self.head = nn.Linear(cfg.width, cfg.embed_dim)
+        self.norm = LayerNorm(cfg.width, eps=LN_EPS)
+        self.head = CastLinear(cfg.width, cfg.embed_dim)
 
 
 def _fold_stem(module, state_dict, prefix, *args) -> None:
@@ -106,11 +108,15 @@ def _fold_stem(module, state_dict, prefix, *args) -> None:
 
 
 class MCiViTTower(nn.Module):
-    """[B, S, S, 3] -> (pooled [B, embed_dim], tokens [B, N, W])."""
+    """[B, S, S, 3] -> (pooled [B, embed_dim], tokens [B, N, W]); the
+    tower computes in ``compute_dtype`` (default: the parameters'), each
+    block rematerialised with ``remat``, as
+    :class:`~.timm_vit.TimmViTTower`."""
 
-    def __init__(self, cfg: MCiViTConfig):
+    def __init__(self, cfg: MCiViTConfig, remat: bool = False,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.remat, self.compute_dtype = cfg, remat, compute_dtype
         self.trunk = MCiViTTrunk(cfg)
         self.trunk._register_load_state_dict_pre_hook(_fold_stem,
                                                      with_module=True)
@@ -118,7 +124,8 @@ class MCiViTTower(nn.Module):
     def forward(self, images: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         t = self.trunk
-        x = images.to(t.pos_embed.dtype).permute(0, 3, 1, 2)
+        x = images.to(tower_dtype(self, self.compute_dtype)).permute(
+            0, 3, 1, 2)
         stem = t.patch_embed.backbone
         for i, s in enumerate(stem):
             x = s.conv(x)
@@ -126,9 +133,7 @@ class MCiViTTower(nn.Module):
                 x = F.gelu(x)
         x = x.flatten(2).transpose(1, 2) + t.pos_embed.to(x.dtype)
         cls = t.cls_token.to(x.dtype).expand(x.shape[0], -1, -1)
-        x = torch.cat([cls, x], dim=1)
-        for block in t.blocks:
-            x = block(x)
+        x = run_blocks(t.blocks, torch.cat([cls, x], dim=1), self.remat)
         x = t.norm(x)
         return t.head(x[:, 0]), x[:, 1:]
 

@@ -15,12 +15,14 @@ state dict loads with ``load_state_dict``.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .layers import Conv2d, tower_dtype
+from .quant import CastLinear
 from .timm_vit import merge_heads, plain_attention
 
 
@@ -36,8 +38,8 @@ class FrozenBatchNorm2d(nn.BatchNorm2d):
             + shift.to(x.dtype)[:, None, None]
 
 
-def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, k, stride, padding=(k - 1) // 2, bias=False)
+def _conv(cin: int, cout: int, k: int, stride: int = 1) -> Conv2d:
+    return Conv2d(cin, cout, k, stride, padding=(k - 1) // 2, bias=False)
 
 
 class Bottleneck(nn.Module):
@@ -81,10 +83,10 @@ class AttentionPool2d(nn.Module):
         super().__init__()
         self.positional_embedding = nn.Parameter(
             torch.empty(spacial * spacial + 1, embed_dim))
-        self.k_proj = nn.Linear(embed_dim, embed_dim)
-        self.q_proj = nn.Linear(embed_dim, embed_dim)
-        self.v_proj = nn.Linear(embed_dim, embed_dim)
-        self.c_proj = nn.Linear(embed_dim, output_dim)
+        self.k_proj = CastLinear(embed_dim, embed_dim)
+        self.q_proj = CastLinear(embed_dim, embed_dim)
+        self.v_proj = CastLinear(embed_dim, embed_dim)
+        self.c_proj = CastLinear(embed_dim, output_dim)
         self.heads = heads
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -101,11 +103,15 @@ class AttentionPool2d(nn.Module):
 
 
 class ModifiedResNet(nn.Module):
-    """[B, S, S, 3] -> (pooled [B, output_dim], final grid tokens)."""
+    """[B, S, S, 3] -> (pooled [B, output_dim], final grid tokens), in
+    ``compute_dtype`` (default: the parameters'). No ``remat``: JAX's tower
+    takes none."""
 
     def __init__(self, layers: Sequence[int], output_dim: int, heads: int,
-                 image_size: int = 224, width: int = 64):
+                 image_size: int = 224, width: int = 64,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.conv1 = _conv(3, width // 2, 3, 2)
         self.bn1 = FrozenBatchNorm2d(width // 2)
         self.conv2 = _conv(width // 2, width // 2, 3)
@@ -128,7 +134,8 @@ class ModifiedResNet(nn.Module):
 
     def forward(self, images: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        x = images.to(self.conv1.weight.dtype).permute(0, 3, 1, 2)
+        x = images.to(tower_dtype(self, self.compute_dtype)).permute(
+            0, 3, 1, 2)
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.relu(self.bn2(self.conv2(x)))
         x = F.relu(self.bn3(self.conv3(x)))

@@ -16,12 +16,14 @@ and ``visual.head.proj``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from .layers import Conv2d, LayerNorm, run_blocks, tower_dtype
+from .quant import CastLinear
 from .timm_vit import LinearHead, TimmMlp, conv_patchify, merge_heads, \
     plain_attention
 
@@ -89,8 +91,8 @@ class WindowAttention(nn.Module):
     def __init__(self, dim: int, heads: int, window: int):
         super().__init__()
         self.heads, self.window = heads, window
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = CastLinear(dim, 3 * dim)
+        self.proj = CastLinear(dim, dim)
         self.relative_position_bias_table = nn.Parameter(
             torch.empty((2 * window - 1) ** 2, heads))
 
@@ -113,9 +115,9 @@ class SwinBlock(nn.Module):
                  mlp_ratio: float):
         super().__init__()
         self.window, self.shift = window, shift
-        self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.norm1 = LayerNorm(dim, eps=LN_EPS)
         self.attn = WindowAttention(dim, heads, window)
-        self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.norm2 = LayerNorm(dim, eps=LN_EPS)
         self.mlp = TimmMlp(dim, int(dim * mlp_ratio))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, H, W, C]
@@ -138,8 +140,8 @@ class SwinBlock(nn.Module):
 class PatchMerging(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
-        self.norm = nn.LayerNorm(4 * dim, eps=LN_EPS)
-        self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
+        self.norm = LayerNorm(4 * dim, eps=LN_EPS)
+        self.reduction = CastLinear(4 * dim, 2 * dim, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2], x[:, 0::2, 1::2],
@@ -148,8 +150,9 @@ class PatchMerging(nn.Module):
 
 
 class SwinStage(nn.Module):
-    def __init__(self, cfg: SwinConfig, stage: int):
+    def __init__(self, cfg: SwinConfig, stage: int, remat: bool = False):
         super().__init__()
+        self.remat = remat
         dim = cfg.embed_dim * 2 ** stage
         self.blocks = nn.Sequential(*(
             SwinBlock(dim, cfg.heads[stage], cfg.window,
@@ -159,41 +162,45 @@ class SwinStage(nn.Module):
             self.downsample = PatchMerging(dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.blocks(x)
+        x = run_blocks(self.blocks, x, self.remat)
         return self.downsample(x) if hasattr(self, "downsample") else x
 
 
 class SwinPatchEmbed(nn.Module):
     def __init__(self, cfg: SwinConfig):
         super().__init__()
-        self.proj = nn.Conv2d(3, cfg.embed_dim, cfg.patch_size,
+        self.proj = Conv2d(3, cfg.embed_dim, cfg.patch_size,
                               cfg.patch_size)
-        self.norm = nn.LayerNorm(cfg.embed_dim, eps=LN_EPS)
+        self.norm = LayerNorm(cfg.embed_dim, eps=LN_EPS)
 
 
 class SwinTrunk(nn.Module):
-    def __init__(self, cfg: SwinConfig):
+    def __init__(self, cfg: SwinConfig, remat: bool = False):
         super().__init__()
         self.patch_embed = SwinPatchEmbed(cfg)
-        self.layers = nn.Sequential(*(SwinStage(cfg, s)
+        self.layers = nn.Sequential(*(SwinStage(cfg, s, remat)
                                       for s in range(len(cfg.depths))))
-        self.norm = nn.LayerNorm(cfg.num_features, eps=LN_EPS)
+        self.norm = LayerNorm(cfg.num_features, eps=LN_EPS)
 
 
 class SwinTower(nn.Module):
-    """[B, S, S, 3] -> (pooled [B, out_dim], tokens [B, HW, C])."""
+    """[B, S, S, 3] -> (pooled [B, out_dim], tokens [B, HW, C]); the tower
+    computes in ``compute_dtype`` (default: the parameters'), each block
+    rematerialised with ``remat``, as :class:`~.timm_vit.TimmViTTower`."""
 
-    def __init__(self, cfg: SwinConfig):
+    def __init__(self, cfg: SwinConfig, remat: bool = False,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.cfg = cfg
-        self.trunk = SwinTrunk(cfg)
+        self.cfg, self.compute_dtype = cfg, compute_dtype
+        self.trunk = SwinTrunk(cfg, remat)
         self.head = LinearHead(cfg.num_features, cfg.out_dim)
 
     def forward(self, images: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         t, p = self.trunk, self.cfg.patch_size
         b, hh, ww, _ = images.shape
-        x = conv_patchify(images, t.patch_embed.proj)
+        x = conv_patchify(images.to(tower_dtype(self, self.compute_dtype)),
+                          t.patch_embed.proj)
         x = t.patch_embed.norm(x).reshape(b, hh // p, ww // p, -1)
         x = t.layers(x)
         tokens = t.norm(x.reshape(b, -1, x.shape[-1]))

@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .layers import Conv2d, LayerNorm, run_blocks, tower_dtype
+from .quant import CastLinear
 from .vit import patch_weight, patchify
 
 LN_EPS = 1e-6
@@ -69,9 +71,10 @@ def merge_heads(t: torch.Tensor) -> torch.Tensor:
 
 def conv_patchify(images: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
     """[B, S, S, 3] -> [B, N, W]: a stride-p conv as patchify + one matmul
-    in JAX's (kh, kw, cin) order, in the conv's dtype."""
-    x = patchify(images.to(conv.weight.dtype), conv.kernel_size[0])
-    return F.linear(x, patch_weight(conv.weight), conv.bias)
+    in JAX's (kh, kw, cin) order, in the images' dtype (the tower's)."""
+    x = patchify(images, conv.kernel_size[0])
+    bias = None if conv.bias is None else conv.bias.to(x.dtype)
+    return F.linear(x, patch_weight(conv.weight).to(x.dtype), bias)
 
 
 class PatchEmbed(nn.Module):
@@ -79,7 +82,7 @@ class PatchEmbed(nn.Module):
 
     def __init__(self, width: int, patch: int, bias: bool = True):
         super().__init__()
-        self.proj = nn.Conv2d(3, width, patch, patch, bias=bias)
+        self.proj = Conv2d(3, width, patch, patch, bias=bias)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         return conv_patchify(images, self.proj)
@@ -91,8 +94,8 @@ class TimmAttention(nn.Module):
     def __init__(self, dim: int, heads: int, qkv_bias: bool = True):
         super().__init__()
         self.heads = heads
-        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = CastLinear(dim, 3 * dim, bias=qkv_bias)
+        self.proj = CastLinear(dim, dim)
 
     def forward(self, x: torch.Tensor,
                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -105,8 +108,8 @@ class TimmAttention(nn.Module):
 class TimmMlp(nn.Module):
     def __init__(self, dim: int, hidden: int):
         super().__init__()
-        self.fc1 = nn.Linear(dim, hidden)
-        self.fc2 = nn.Linear(hidden, dim)
+        self.fc1 = CastLinear(dim, hidden)
+        self.fc2 = CastLinear(hidden, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.gelu(self.fc1(x)))
@@ -118,9 +121,9 @@ class TimmBlock(nn.Module):
     def __init__(self, dim: int, heads: int, mlp_ratio: float,
                  eps: float = LN_EPS):
         super().__init__()
-        self.norm1 = nn.LayerNorm(dim, eps=eps)
+        self.norm1 = LayerNorm(dim, eps=eps)
         self.attn = TimmAttention(dim, heads)
-        self.norm2 = nn.LayerNorm(dim, eps=eps)
+        self.norm2 = LayerNorm(dim, eps=eps)
         self.mlp = TimmMlp(dim, int(dim * mlp_ratio))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -133,7 +136,7 @@ class LinearHead(nn.Module):
 
     def __init__(self, width: int, embed_dim: int):
         super().__init__()
-        self.proj = nn.Linear(width, embed_dim, bias=False)
+        self.proj = CastLinear(width, embed_dim, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.proj(x)
@@ -152,30 +155,33 @@ class TimmViTTrunk(nn.Module):
             TimmBlock(cfg.width, cfg.heads, cfg.mlp_ratio)
             for _ in range(cfg.depth))
         if cfg.fc_norm:
-            self.fc_norm = nn.LayerNorm(cfg.width, eps=LN_EPS)
+            self.fc_norm = LayerNorm(cfg.width, eps=LN_EPS)
         else:
-            self.norm = nn.LayerNorm(cfg.width, eps=LN_EPS)
+            self.norm = LayerNorm(cfg.width, eps=LN_EPS)
 
 
 class TimmViTTower(nn.Module):
-    """[B, S, S, 3] -> (pooled [B, embed_dim], tokens [B, N, W])."""
+    """[B, S, S, 3] -> (pooled [B, embed_dim], tokens [B, N, W]).
 
-    def __init__(self, cfg: TimmViTConfig):
+    ``compute_dtype`` (default: the parameters') is the dtype the tower
+    computes in, as flax's ``dtype`` over fp32 parameters; ``remat`` runs
+    each block under ``torch.utils.checkpoint`` (JAX's ``nn.remat``)."""
+
+    def __init__(self, cfg: TimmViTConfig, remat: bool = False,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.remat, self.compute_dtype = cfg, remat, compute_dtype
         self.trunk = TimmViTTrunk(cfg)
         self.head = LinearHead(cfg.width, cfg.embed_dim)
 
     def forward(self, images: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         cfg, t = self.cfg, self.trunk
-        x = t.patch_embed(images)
+        x = t.patch_embed(images.to(tower_dtype(self, self.compute_dtype)))
         if cfg.class_token:
             x = torch.cat([t.cls_token.to(x.dtype).expand(x.shape[0], -1, -1),
                            x], dim=1)
-        x = x + t.pos_embed.to(x.dtype)
-        for block in t.blocks:
-            x = block(x)
+        x = run_blocks(t.blocks, x + t.pos_embed.to(x.dtype), self.remat)
         if not cfg.fc_norm:
             x = t.norm(x)
         tokens = x[:, 1:] if cfg.class_token else x

@@ -14,13 +14,15 @@ keeps attention plain (fp32 logits), as in JAX. Module names are open_clip's
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .layers import LayerNorm, run_blocks, tower_dtype
+from .quant import CastLinear
 from .timm_vit import (
     LN_EPS,
     LinearHead,
@@ -71,8 +73,8 @@ def rel_position_index(grid: int) -> np.ndarray:
 class RelPosMlpNet(nn.Module):
     def __init__(self, hidden: int, heads: int):
         super().__init__()
-        self.fc1 = nn.Linear(2, hidden)
-        self.fc2 = nn.Linear(hidden, heads)
+        self.fc1 = CastLinear(2, hidden)
+        self.fc2 = CastLinear(hidden, heads)
 
 
 class RelPosMlp(nn.Module):
@@ -119,12 +121,12 @@ class RelPosBlock(nn.Module):
     def __init__(self, cfg: RelPosViTConfig):
         super().__init__()
         d = cfg.width
-        self.norm1 = nn.LayerNorm(d, eps=LN_EPS)
+        self.norm1 = LayerNorm(d, eps=LN_EPS)
         self.attn = RelPosAttention(d, cfg.heads,
                                     cfg.image_size // cfg.patch_size,
                                     cfg.rel_pos_hidden)
         self.ls1 = LayerScale(d)
-        self.norm2 = nn.LayerNorm(d, eps=LN_EPS)
+        self.norm2 = LayerNorm(d, eps=LN_EPS)
         self.mlp = TimmMlp(d, int(d * cfg.mlp_ratio))
         self.ls2 = LayerScale(d)
 
@@ -140,25 +142,26 @@ class RelPosViTTrunk(nn.Module):
         self.cls_token = nn.Parameter(torch.empty(1, 1, cfg.width))
         self.blocks = nn.ModuleList(RelPosBlock(cfg)
                                     for _ in range(cfg.depth))
-        self.norm = nn.LayerNorm(cfg.width, eps=LN_EPS)
+        self.norm = LayerNorm(cfg.width, eps=LN_EPS)
 
 
 class RelPosViTTower(nn.Module):
-    """[B, S, S, 3] -> (pooled [B, embed_dim], tokens [B, N, W])."""
+    """[B, S, S, 3] -> (pooled [B, embed_dim], tokens [B, N, W]); the
+    blocks compute in ``compute_dtype`` (default: the parameters'), each
+    rematerialised with ``remat``, as :class:`~.timm_vit.TimmViTTower`."""
 
-    def __init__(self, cfg: RelPosViTConfig):
+    def __init__(self, cfg: RelPosViTConfig, remat: bool = False,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.remat, self.compute_dtype = cfg, remat, compute_dtype
         self.trunk = RelPosViTTrunk(cfg)
         self.head = LinearHead(cfg.width, cfg.embed_dim)
 
     def forward(self, images: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         t = self.trunk
-        x = t.patch_embed(images)
+        x = t.patch_embed(images.to(tower_dtype(self, self.compute_dtype)))
         cls = t.cls_token.to(x.dtype).expand(x.shape[0], -1, -1)
-        x = torch.cat([cls, x], dim=1)
-        for block in t.blocks:
-            x = block(x)
+        x = run_blocks(t.blocks, torch.cat([cls, x], dim=1), self.remat)
         x = t.norm(x)
         return self.head(x[:, 0]), x[:, 1:]

@@ -17,13 +17,15 @@ plain as JAX's einsum. Module names are open_clip's ``visual.trunk.*``
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from .convnext import LayerNorm2d
+from .layers import Conv2d, LayerNorm, run_blocks, tower_dtype
+from .quant import CastLinear
 from .timm_vit import LinearHead, TimmAttention
 
 LN_EPS = 1e-6
@@ -66,8 +68,8 @@ def vitamin_config(timm_name: str, image_size: int,
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1,
-          groups: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, k, stride, padding=(k - 1) // 2,
+          groups: int = 1) -> Conv2d:
+    return Conv2d(cin, cout, k, stride, padding=(k - 1) // 2,
                      groups=groups)
 
 
@@ -156,10 +158,10 @@ class HybridEmbed(nn.Module):
 class GeGluMlp(nn.Module):
     def __init__(self, dim: int, hidden: int):
         super().__init__()
-        self.norm = nn.LayerNorm(dim, eps=LN_EPS)
-        self.w0 = nn.Linear(dim, hidden)
-        self.w1 = nn.Linear(dim, hidden)
-        self.w2 = nn.Linear(hidden, dim)
+        self.norm = LayerNorm(dim, eps=LN_EPS)
+        self.w0 = CastLinear(dim, hidden)
+        self.w1 = CastLinear(dim, hidden)
+        self.w2 = CastLinear(hidden, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.norm(x)
@@ -171,9 +173,9 @@ class VitaminBlock(nn.Module):
 
     def __init__(self, dim: int, heads: int, mlp_ratio: float):
         super().__init__()
-        self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.norm1 = LayerNorm(dim, eps=LN_EPS)
         self.attn = TimmAttention(dim, heads)
-        self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.norm2 = LayerNorm(dim, eps=LN_EPS)
         self.mlp = GeGluMlp(dim, int(dim * mlp_ratio))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -190,24 +192,27 @@ class VitaminTrunk(nn.Module):
         self.blocks = nn.ModuleList(
             VitaminBlock(cfg.width, cfg.heads, cfg.mlp_ratio)
             for _ in range(cfg.depth))
-        self.fc_norm = nn.LayerNorm(cfg.width, eps=LN_EPS)
+        self.fc_norm = LayerNorm(cfg.width, eps=LN_EPS)
 
 
 class VitaminTower(nn.Module):
-    """[B, S, S, 3] -> (pooled [B, embed_dim], tokens [B, N, W])."""
+    """[B, S, S, 3] -> (pooled [B, embed_dim], tokens [B, N, W]); the
+    tower computes in ``compute_dtype`` (default: the parameters'); with
+    ``remat`` each ViT block is rematerialised, as JAX's (the MbConv stages
+    are not)."""
 
-    def __init__(self, cfg: VitaminConfig):
+    def __init__(self, cfg: VitaminConfig, remat: bool = False,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.remat, self.compute_dtype = cfg, remat, compute_dtype
         self.trunk = VitaminTrunk(cfg)
         self.head = LinearHead(cfg.width, cfg.embed_dim)
 
     def forward(self, images: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         t = self.trunk
-        x = images.to(t.pos_embed.dtype).permute(0, 3, 1, 2)
+        x = images.to(tower_dtype(self, self.compute_dtype)).permute(
+            0, 3, 1, 2)
         x = t.patch_embed.backbone(x).flatten(2).transpose(1, 2)
-        x = x + t.pos_embed.to(x.dtype)
-        for block in t.blocks:
-            x = block(x)
+        x = run_blocks(t.blocks, x + t.pos_embed.to(x.dtype), self.remat)
         return self.head(t.fc_norm(x.mean(dim=1))), x

@@ -12,6 +12,12 @@
 
 Labels are 'train' or 'freeze' per parameter name (open_clip names: the
 vision tower under ``visual.``, the text tower at top level).
+
+The groups are the ViT's, as in JAX: a zoo tower's parameters all fall in
+the embeddings group (ConvNeXt's linear head in the last, where JAX's
+``proj`` name puts it), so ``lock_image_unlocked_groups`` leaves a zoo tower
+frozen whole, head included, as JAX's labels do; ``cli/train.py`` refuses
+the flag on a zoo tower (ROADMAP.md queue 3).
 """
 
 from __future__ import annotations
@@ -35,12 +41,16 @@ def tower_freeze_labels(model: nn.Module, cfg, lock_image: bool = False,
     """Parameter name -> 'train' | 'freeze'."""
     n_txt = cfg.text.layers
     vis_groups = cfg.vision.layers + 2
+    # JAX's ConvNeXt names its linear head 'proj' at the tower's top, which
+    # its labels take for the ViT's final group
+    zoo_head = cfg.vision.tower == "convnext"
     first_trainable_vis_group = vis_groups - lock_image_unlocked_groups
 
     def vision_label(parts) -> str:
         if parts[1] == "transformer":
             group = 1 + int(parts[3])
-        elif parts[1] in _FINAL_VISION_KEYS:
+        elif parts[1] in _FINAL_VISION_KEYS or (
+                zoo_head and parts[1:3] == ["head", "proj"]):
             group = vis_groups - 1
         else:
             group = 0

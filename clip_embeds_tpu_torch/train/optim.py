@@ -3,7 +3,8 @@ heads, and global-norm clipping (counterpart of
 ``clip_embeds_tpu/train/optim.py``).
 
 Parameters of rank < 2, biases and LayerNorm gains get no weight decay
-(open_clip ``main.py``; the JAX ``_no_decay``); the rest do. The split is
+(open_clip ``main.py``; the JAX ``_no_decay``), nor do the zoo towers'
+class tokens, which JAX holds as vectors; the rest do. The split is
 two parameter groups of one ``torch.optim.AdamW``, whose update is optax's
 ``adamw`` (decoupled decay, scaled by the learning rate). Only trainable
 parameters (``requires_grad``) enter the optimizer, as a frozen parameter
@@ -21,6 +22,9 @@ from torch import nn
 def _no_decay(name: str, param: torch.Tensor) -> bool:
     parts = name.split(".")
     if param.ndim < 2 or "bias" in parts:
+        return True
+    # timm's [1, 1, W] class token, which JAX holds as a [W] vector
+    if parts[-1] == "cls_token":
         return True
     # a LayerNorm gain: the flax 'scale' of ln_1 / ln_2 / ln_pre / ...
     return len(parts) > 1 and parts[-2].startswith("ln") and \

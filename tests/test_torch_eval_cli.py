@@ -3,9 +3,9 @@ test-tiny checkpoint made from JAX params and the PACL/SPARC heads saved by
 the JAX package): identical CLIP tables and results-file text from both
 CLIs on fixtures built as in tests/test_evals.py, the unported scorers'
 exits and the card-by-default device. The PACL/SPARC heads' tables are in
-tests/test_torch_eval_scorers.py."""
-
-import json
+tests/test_torch_eval_scorers.py; the MMVP-VLM tables have files of their
+own (tests/test_torch_eval_cli_mmvpvlm.py, tests/test_torch_eval_heads_
+mmvpvlm_*.py), which ``--dist loadfile`` runs on other workers."""
 
 import pytest
 import torch
@@ -15,35 +15,21 @@ from clip_embeds_tpu_torch.cli.eval import build_scorer, main, parse_args
 from clip_embeds_tpu_torch.scores.scorers import PACLScorer, SPARCScorer
 from torch_eval_fixtures import (  # noqa: F401 - fixtures
     _FIXTURES,
-    _fp32_margin_and_diff,
     _make_coco,
+    check_clip_table,
     checkpoint,
-    scorers,
 )
 
 
 # -- the CLI -----------------------------------------------------------------
 
 
-@pytest.mark.parametrize("dataset", list(_FIXTURES))
-def test_eval_cli_tables_match_jax(tmp_path, checkpoint, scorers, dataset,
-                                   capsys):
-    _FIXTURES[dataset](tmp_path)
-    root = str(tmp_path)
-    margin, diff = _fp32_margin_and_diff(root, dataset, scorers)
-    # a table can only be held equal where no decision is a near-tie
-    assert margin >= 10 * diff, (margin, diff)
-    common = ["--scorer", "clip", "--model", "test-tiny", "--pretrained",
-              checkpoint, "--dataset", dataset, "--root-dir", root,
-              "--precision", "fp32", "--batch-size", "8"]
-    ours, theirs = tmp_path / "ours.txt", tmp_path / "jax.txt"
-    got = main(common + ["--results-file", str(ours), "--device", "cpu"])
-    info = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    want = jax_main(common + ["--results-file", str(theirs)])
-    assert got == want
-    assert ours.read_text() == theirs.read_text()
-    assert info["route"] == "composable" and info["device"] == "cpu"
-    assert info["decoder"] in ("native", "pil") and info["samples"] > 0
+# the MMVP-VLM case is tests/test_torch_eval_cli_mmvpvlm.py
+@pytest.mark.parametrize("dataset", [d for d in _FIXTURES
+                                     if d != "mmvpvlm"])
+def test_eval_cli_tables_match_jax(tmp_path, checkpoint, dataset, capsys,
+                                   monkeypatch):
+    check_clip_table(tmp_path, checkpoint, dataset, capsys, monkeypatch)
 
 
 @pytest.mark.parametrize("argv,item", [

@@ -4,14 +4,11 @@ checkpoint made from JAX params, and PACL/SPARC heads saved by the JAX
 package as .npz): the same scores within 1e-4, and the eval CLI's tables
 with the heads (--scorer pacl|sparc) equal to JAX's CLI."""
 
-import json
-
 import jax
 import numpy as np
 import pytest
 import torch
 
-from clip_embeds_tpu.cli.eval import main as jax_main
 from clip_embeds_tpu.core.factory import create_model as jax_create_model
 from clip_embeds_tpu.core.factory import load_params as jax_load_params
 from clip_embeds_tpu.core.factory import save_params_npz as jax_save_npz
@@ -19,18 +16,16 @@ from clip_embeds_tpu.models import heads as jax_heads
 from clip_embeds_tpu.scores.score import CLIPScore as JaxCLIPScore
 from clip_embeds_tpu.scores.score import Score as JaxScore
 from clip_embeds_tpu.scores.scorers import PACLScorer as JaxPACLScorer
-from clip_embeds_tpu_torch.cli.eval import main
 from clip_embeds_tpu_torch.core.convert import head_state_dict_from_jax_params
 from clip_embeds_tpu_torch.core.factory import create_model
 from clip_embeds_tpu_torch.models import heads
 from clip_embeds_tpu_torch.scores.score import CLIPScore, Score
 from clip_embeds_tpu_torch.scores.scorers import PACLScorer
 from torch_eval_fixtures import (  # noqa: F401 - fixtures
-    _FIXTURES,
     HEAD_VARIANTS,
-    _fp32_margin_and_diff,
     _head_scorers,
     _samples,
+    check_head_table,
     checkpoint,
     head_npz,
     scorers,
@@ -172,26 +167,13 @@ def test_score_api_matches_jax(kind):
                                   theirs.batch_forward(dataset, batch_size=1))
 
 
-@pytest.mark.parametrize("dataset", ["a", "a4", "mmvpvlm"])
+@pytest.mark.parametrize("dataset", ["a", "a4"])
 @pytest.mark.parametrize("variant", ["pacl-rope-after", "sparc-local"])
 def test_eval_cli_head_tables_match_jax(tmp_path, checkpoint, head_npz,
-                                        variant, dataset, capsys):
+                                        variant, dataset, capsys,
+                                        monkeypatch):
     """--scorer pacl|sparc --model-path <a JAX head .npz> [--rope]
-    [--sparc-local]: the same table and results-file text as JAX's CLI."""
-    _FIXTURES[dataset](tmp_path)
-    root = str(tmp_path)
-    margin, diff = _fp32_margin_and_diff(
-        root, dataset, _head_scorers(checkpoint, head_npz, variant))
-    assert margin >= 10 * diff, (margin, diff)
-    kind, flags, _ = HEAD_VARIANTS[variant]
-    common = ["--scorer", kind, "--model", "test-tiny", "--pretrained",
-              checkpoint, "--model-path", head_npz[kind], "--dataset",
-              dataset, "--root-dir", root, "--precision", "fp32",
-              "--batch-size", "8"] + flags
-    ours, theirs = tmp_path / "ours.txt", tmp_path / "jax.txt"
-    got = main(common + ["--results-file", str(ours), "--device", "cpu"])
-    info = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    want = jax_main(common + ["--results-file", str(theirs)])
-    assert got == want
-    assert ours.read_text() == theirs.read_text()
-    assert info["scorer"] == kind and info["route"] == "composable"
+    [--sparc-local]: the same table and results-file text as JAX's CLI
+    (the MMVP-VLM cases in tests/test_torch_eval_heads_mmvpvlm_*.py)."""
+    check_head_table(tmp_path, checkpoint, head_npz, variant, dataset,
+                     capsys, monkeypatch)

@@ -14,7 +14,9 @@ head dim 96, int8_linear with a bias at N = 512, a tiny Phi-3-V,
 LLaVA-NeXT, Qwen2-VL with its W8A8 trunk and Qwen2.5-VL on the card
 against the plain path), and generation and CoCa (int8_linear at a
 decode step's 1 and 8 rows, a tiny greedy decode and a CoCa train step on
-the card against the CPU's plain path).
+the card against the CPU's plain path), and the zoo's training (the
+attention backward at the head dims it pads to 128, 72-96, and a
+two-block EVA01 CLIP's train step with remat against the CPU).
 Marked ``cuda``; without a card they skip. On the card:
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py``."""
 
@@ -1858,3 +1860,73 @@ def test_coca_step_on_card_matches_cpu(cuda):
         eos_token_id=1023)
     assert toks.shape == (4, 12) and (toks[:, 0] == 1022).all()
     assert ((toks == 1023).any(dim=1)).all()
+
+
+@pytest.mark.parametrize("hd", [72, 80, 88, 96])
+def test_flash_bwd_kernel_at_padded_head_dims(cuda, hd):
+    """The backward at head dims it pads to the 128-wide kernel (zero
+    columns past hd), at EVA01-g-14's 257 rows (a partial last tile) and a
+    ragged 200, under the limits of test_flash_bwd_kernel_matches_plain;
+    each output keeps the width it was given."""
+    rng = np.random.default_rng(hd)
+    for shape in ((2, 16, 257, hd), (1, 3, 200, hd)):
+        q, k, v, o, g, lse = _bwd_inputs(rng, shape, False)
+        with torch.inference_mode():
+            got = flash_attention_bwd(q, k, v, o, g, lse)
+            want = flash_attention_bwd_reference(q, k, v, o, g)
+            torch.cuda.synchronize()
+        for name, a, d in zip("qkv", got, _bwd_diff(got, want)):
+            assert a.shape == shape, (name, a.shape)
+            assert d.max().item() <= 0.0625, (shape, name, d.max().item())
+            assert d.mean().item() <= 2e-5, (shape, name, d.mean().item())
+
+
+def test_zoo_train_step_on_card_matches_cpu(cuda):
+    """A two-block EVA01 CLIP at EVA01-g-14's attention shape (16 heads of
+    88 over 257 rows) in bf16 compute on fp32 masters, remat on: a train
+    step launches the flash forward and backward once a tower block each
+    (the text tower's 77 tokens take plain attention), and its loss and
+    gradients agree with the fp32 plain path on the CPU."""
+    from clip_embeds_tpu_torch.core.config import (
+        CLIPConfig, TextConfig, VisionConfig)
+    from clip_embeds_tpu_torch.core.factory import init_params
+    from clip_embeds_tpu_torch.models.clip import CLIP
+    from clip_embeds_tpu_torch.train.steps import clip_train_loss
+
+    cfg = CLIPConfig(
+        embed_dim=256,
+        vision=VisionConfig(tower="eva", image_size=224, patch_size=14,
+                            width=1408, layers=2, head_width=88,
+                            mlp_ratio=6144 / 1408),
+        text=TextConfig(width=256, heads=4, layers=2))
+    ref = CLIP(cfg).train()
+    init_params(ref, seed=0)
+    model = CLIP(cfg, remat=True, compute_dtype=torch.bfloat16).to(cuda)
+    model.load_state_dict(ref.state_dict())
+    model.train()
+    rng = np.random.default_rng(44)
+    texts = np.zeros((4, 77), np.int64)
+    texts[:, 0], texts[:, 1:12], texts[:, 12] = 49406, rng.integers(
+        1, 49000, (4, 11)), 49407
+    batch = {"images": rng.standard_normal((4, 224, 224, 3)).astype(
+        np.float32), "texts": texts}
+    losses, grads = {}, {}
+    for name, m, dev in (("card", model, cuda), ("cpu", ref, "cpu")):
+        flash_attention.launches = flash_attention_bwd.launches = 0
+        loss, _ = clip_train_loss(m, {k: torch.from_numpy(v).to(dev)
+                                      for k, v in batch.items()})
+        loss.backward()
+        torch.cuda.synchronize()
+        if name == "card":
+            # the forward once, then again in remat's recompute
+            assert (flash_attention.launches,
+                    flash_attention_bwd.launches) == (4, 2)
+            assert all(p.grad.dtype == torch.float32
+                       for p in m.parameters())
+        losses[name] = loss.item()
+        grads[name] = torch.cat([p.grad.float().cpu().flatten()
+                                 for p in m.parameters()])
+    assert abs(losses["card"] - losses["cpu"]) < 0.02 * losses["cpu"]
+    cos = torch.nn.functional.cosine_similarity(grads["card"],
+                                                grads["cpu"], dim=0)
+    assert cos > 0.99

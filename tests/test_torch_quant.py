@@ -294,7 +294,13 @@ def test_validate_int8_batches_and_preprocess():
     for dist in ("noise", "smooth", "charts"):
         batch = validate_int8.make_batch(dist, 3, 32, rng)
         assert batch.shape == (3, 32, 32, 3) and batch.dtype == np.uint8
-    px = validate_int8.preprocess(torch.from_numpy(batch), 32, torch.float32)
+    px = validate_int8.jax_preprocess(torch.from_numpy(batch), 32, "clip",
+                                      torch.float32)
     assert px.shape == (3, 32, 32, 3) and px.dtype == torch.float32
-    with pytest.raises(ValueError):  # no resize is ported
-        validate_int8.preprocess(torch.from_numpy(batch), 48, torch.float32)
+    # another size takes JAX's squash resize (tests/test_torch_preprocess.py)
+    from clip_embeds_tpu.image.preprocess import jax_preprocess
+
+    px = validate_int8.jax_preprocess(torch.from_numpy(batch), 48, "clip",
+                                      torch.float32)
+    want = np.asarray(jax_preprocess(batch, 48, "clip"))
+    np.testing.assert_allclose(px.numpy(), want, rtol=0, atol=1e-5)

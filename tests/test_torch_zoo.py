@@ -13,245 +13,28 @@ L2-normalised image and text features within 1e-4, the stored
 ``logit_scale`` equal.
 """
 
-import dataclasses
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from clip_embeds_tpu.core import config as jax_config
-from clip_embeds_tpu.core.torch_convert import (
-    _layernorm,
-    _np,
-    _transformer,
-    convert_clip_state_dict,
-)
 from clip_embeds_tpu.models.clip import CLIP as JaxCLIP
-from clip_embeds_tpu_torch.core.config import (
-    CLIPConfig,
-    TextConfig,
-    VisionConfig,
-)
 from clip_embeds_tpu_torch.core.convert import load_open_clip_state_dict
 from clip_embeds_tpu_torch.core.factory import init_params
 from clip_embeds_tpu_torch.models.clip import CLIP
+from torch_zoo_fixtures import (  # noqa: F401 - fixture
+    one_torch_thread,
+    TOL,
+    TOWERS,
+    inputs,
+    jax_config_of,
+    jax_params,
+    open_clip_state_dict,
+    seeded_state_dict,
+    tiny_config,
+)
 
-TOL = 1e-4
-
-TOWERS = {
-    "resnet": dict(tower="resnet", image_size=64, width=16,
-                   resnet_layers=(1, 1, 2, 1)),
-    "eva": dict(tower="eva", image_size=32, patch_size=16, width=64,
-                layers=2, head_width=16, mlp_ratio=2.0),
-    "eva02-swiglu": dict(tower="eva02", image_size=48, patch_size=16,
-                         width=64, layers=2, head_width=16, mlp_ratio=8 / 3,
-                         eva_rope=True, eva_swiglu=True,
-                         eva_attn_inner_norm=True,
-                         eva_ref_feat_shape=(16, 16)),
-    "eva02-post": dict(tower="eva02", image_size=32, patch_size=16,
-                       width=64, layers=2, head_width=16, mlp_ratio=2.0,
-                       eva_post_norm=True),
-    "timm-vit": dict(tower="timm-vit", image_size=32, patch_size=16,
-                     width=64, layers=2, head_width=16, pool_type="avg",
-                     final_ln_after_pool=True),
-    "relpos-vit": dict(tower="relpos-vit", image_size=48, patch_size=16,
-                       width=64, layers=2, head_width=16),
-    "mci-vit": dict(tower="mci-vit", image_size=64, patch_size=16, width=64,
-                    layers=2, head_width=16),
-    "swin": dict(tower="swin", image_size=64, patch_size=4, width=16,
-                 swin_depths=(2, 2, 2, 2), swin_heads=(2, 2, 4, 4),
-                 swin_window=2),
-    "vitamin": dict(tower="vitamin", image_size=64, patch_size=16, width=64,
-                    layers=2, head_width=16, mlp_ratio=2.0,
-                    vitamin_mbconv_dims=(16, 32),
-                    vitamin_mbconv_depths=(1, 2)),
-    "fastvit": dict(tower="fastvit", image_size=64, patch_size=32, width=64,
-                    fastvit_layers=(1, 2, 1, 1), fastvit_dims=(8, 16, 32, 64),
-                    mlp_ratio=3.0),
-    "convnext-linear": dict(tower="convnext", image_size=64, width=16,
-                            convnext_depths=(1, 1, 2, 1),
-                            convnext_dims=(16, 32, 64, 128)),
-    "convnext-mlp": dict(tower="convnext", image_size=64, width=16,
-                         convnext_depths=(1, 1, 2, 1),
-                         convnext_dims=(16, 32, 64, 128), head_proj="mlp"),
-}
-TEXT = dict(context_length=16, width=32, heads=2, layers=1)
-
-
-def tiny_config(kind: str) -> CLIPConfig:
-    return CLIPConfig(embed_dim=32, vision=VisionConfig(**TOWERS[kind]),
-                      text=TextConfig(**TEXT))
-
-
-def jax_config_of(cfg: CLIPConfig):
-    return jax_config.CLIPConfig(
-        embed_dim=cfg.embed_dim, quick_gelu=cfg.quick_gelu,
-        vision=jax_config.VisionConfig(**dataclasses.asdict(cfg.vision)),
-        text=jax_config.TextConfig(**dataclasses.asdict(cfg.text)))
-
-
-def _value(rng, key: str, shape) -> np.ndarray:
-    """Seeded values for one entry: norms near one (BatchNorm variances in
-    [0.5, 1.5]), matrices and kernels at fan-in^-1/2, the rest at 0.1."""
-    if key.endswith("running_var"):
-        return rng.uniform(0.5, 1.5, shape)
-    if len(shape) == 1 and key.endswith("weight"):
-        return 1.0 + 0.1 * rng.standard_normal(shape)
-    if len(shape) >= 2 and key.endswith("weight"):
-        return rng.standard_normal(shape) * np.prod(shape[1:]) ** -0.5
-    return 0.1 * rng.standard_normal(shape)
-
-
-def seeded_state_dict(model: torch.nn.Module, seed: int = 0):
-    """Every float entry of ``model.state_dict()`` (open_clip's layout)
-    drawn from numpy; integer buffers as they are."""
-    rng = np.random.default_rng(seed)
-    return {k: (torch.from_numpy(np.asarray(_value(
-                rng, k, tuple(v.shape)), np.float32))
-                if v.is_floating_point() else v.clone())
-            for k, v in model.state_dict().items()}
-
-
-def _mobileone(sd, rng, pre, cin, cout, k, groups, stride):
-    """timm's training-layout MobileOneBlock: a kxk conv + BN, a 1x1 scale
-    conv + BN where k > 1, and an identity BN where the shape allows."""
-    put = _put_fn(sd, rng)
-    put(f"{pre}.conv_kxk.0.conv.weight", (cout, cin // groups, k, k))
-    put_bn(sd, rng, f"{pre}.conv_kxk.0.bn", cout)
-    if k > 1:
-        put(f"{pre}.conv_scale.conv.weight", (cout, cin // groups, 1, 1))
-        put_bn(sd, rng, f"{pre}.conv_scale.bn", cout)
-    if cin == cout and stride == 1:
-        put_bn(sd, rng, f"{pre}.identity", cout)
-
-
-def _put_fn(sd, rng):
-    def put(key, shape):
-        sd[key] = torch.from_numpy(_value(rng, key, shape).astype(np.float32))
-    return put
-
-
-def put_bn(sd, rng, pre, c):
-    put = _put_fn(sd, rng)
-    for leaf in ("weight", "bias", "running_mean", "running_var"):
-        put(f"{pre}.{leaf}", (c,))
-
-
-def fastvit_train_layout(model: CLIP, seed: int = 0):
-    """The port model's text tower and logit scale, and a FastViT trunk in
-    timm's unfolded training layout (MobileOne branches with BatchNorms,
-    layer scales, the attention pre-BN, RepCPE, SE), as an open_clip
-    MobileCLIP-S checkpoint holds it."""
-    from clip_embeds_tpu_torch.models.fastvit import SE_RD_RATIO
-
-    rng = np.random.default_rng(seed)
-    sd = {k: v for k, v in seeded_state_dict(model, seed).items()
-          if not k.startswith("visual.")}
-    cfg = model.visual.cfg
-    put = _put_fn(sd, rng)
-    t = "visual.trunk"
-    d0 = cfg.dims[0]
-    for i, (ci, co, k, g, s) in enumerate(((3, d0, 3, 1, 2),
-                                           (d0, d0, 3, d0, 2),
-                                           (d0, d0, 1, 1, 1))):
-        _mobileone(sd, rng, f"{t}.stem.{i}", ci, co, k, g, s)
-
-    def se(pre, c):
-        rd = max(1, int(c * SE_RD_RATIO))
-        put(f"{pre}.fc1.weight", (rd, c, 1, 1))
-        put(f"{pre}.fc1.bias", (rd,))
-        put(f"{pre}.fc2.weight", (c, rd, 1, 1))
-        put(f"{pre}.fc2.bias", (c,))
-
-    for si, (depth, dim) in enumerate(zip(cfg.layers, cfg.dims)):
-        sp = f"{t}.stages.{si}"
-        if si > 0:
-            lk = f"{sp}.downsample.proj.0"
-            put(f"{lk}.large_conv.conv.weight", (dim, 1, 7, 7))
-            put_bn(sd, rng, f"{lk}.large_conv.bn", dim)
-            put(f"{lk}.small_conv.conv.weight", (dim, 1, 3, 3))
-            put_bn(sd, rng, f"{lk}.small_conv.bn", dim)
-            if cfg.se_downsamples[si]:
-                se(f"{lk}.se", dim)
-            _mobileone(sd, rng, f"{sp}.downsample.proj.1", dim, dim, 1, 1, 1)
-        if si in cfg.pos_embed_stages:
-            put(f"{sp}.pos_emb.pos_enc.weight", (dim, 1, 7, 7))
-            put(f"{sp}.pos_emb.pos_enc.bias", (dim,))
-        hidden = int(dim * cfg.mlp_ratio)
-        for bi in range(depth):
-            bp = f"{sp}.blocks.{bi}"
-            if cfg.token_mixers[si] == "attention":
-                put_bn(sd, rng, f"{bp}.norm", dim)
-                put(f"{bp}.token_mixer.qkv.weight", (3 * dim, dim))
-                put(f"{bp}.token_mixer.proj.weight", (dim, dim))
-                put(f"{bp}.token_mixer.proj.bias", (dim,))
-                put(f"{bp}.layer_scale_1.gamma", (dim, 1, 1))
-                put(f"{bp}.layer_scale_2.gamma", (dim, 1, 1))
-            else:
-                mix = f"{bp}.token_mixer"
-                _mobileone(sd, rng, f"{mix}.mixer", dim, dim, 3, dim, 1)
-                put_bn(sd, rng, f"{mix}.norm.identity", dim)
-                put(f"{mix}.layer_scale.gamma", (dim, 1, 1))
-                put(f"{bp}.layer_scale.gamma", (dim, 1, 1))
-            put(f"{bp}.mlp.conv.conv.weight", (dim, 1, 7, 7))
-            put_bn(sd, rng, f"{bp}.mlp.conv.bn", dim)
-            put(f"{bp}.mlp.fc1.weight", (hidden, dim, 1, 1))
-            put(f"{bp}.mlp.fc1.bias", (hidden,))
-            put(f"{bp}.mlp.fc2.weight", (dim, hidden, 1, 1))
-            put(f"{bp}.mlp.fc2.bias", (dim,))
-    _mobileone(sd, rng, f"{t}.final_conv", cfg.dims[-1], cfg.final_dim, 3,
-               cfg.dims[-1], 1)
-    se(f"{t}.final_conv.se", cfg.final_dim)
-    put(f"{t}.head.fc.weight", (cfg.embed_dim, cfg.final_dim))
-    put(f"{t}.head.fc.bias", (cfg.embed_dim,))
-    return sd
-
-
-def open_clip_state_dict(kind: str, model: CLIP):
-    if kind == "fastvit":
-        return fastvit_train_layout(model)
-    sd = seeded_state_dict(model)
-    if kind == "mci-vit":  # timm's stem: conv (no bias) + BatchNorm
-        rng = np.random.default_rng(1)
-        for i in range(2):
-            pre = f"visual.trunk.patch_embed.backbone.{i}"
-            c = sd.pop(f"{pre}.conv.bias").shape[0]
-            put_bn(sd, rng, f"{pre}.bn", c)
-            sd[f"{pre}.bn.num_batches_tracked"] = torch.tensor(0)
-    return sd
-
-
-def jax_params(kind: str, cfg: CLIPConfig, sd):
-    sdn = {k: v for k, v in sd.items() if "num_batches_tracked" not in k}
-    if cfg.vision.tower != "convnext":
-        return convert_clip_state_dict(sdn, vision_tower=cfg.vision.tower)
-    from clip_embeds_tpu.models.convnext import (
-        ConvNeXtConfig,
-        convert_convnext_tower,
-    )
-
-    v = cfg.vision
-    visual = convert_convnext_tower(sdn, ConvNeXtConfig(
-        depths=v.convnext_depths, dims=v.convnext_dims,
-        embed_dim=cfg.embed_dim, proj=v.head_proj, image_size=v.image_size))
-    text = {"token_embedding": {
-                "embedding": _np(sdn["token_embedding.weight"])},
-            "positional_embedding": _np(sdn["positional_embedding"]),
-            "transformer": _transformer(sdn, "transformer", cfg.text.layers),
-            "ln_final": _layernorm(sdn, "ln_final"),
-            "text_projection": _np(sdn["text_projection"])}
-    return {"visual": visual, "text": text,
-            "logit_scale": _np(sdn["logit_scale"]).reshape(())}
-
-
-def inputs(cfg: CLIPConfig, seed: int = 0):
-    rng = np.random.default_rng(seed)
-    s = cfg.vision.image_size
-    images = rng.standard_normal((2, s, s, 3)).astype(np.float32)
-    ids = rng.integers(1, 1000, (2, cfg.text.context_length))
-    ids[:, 5] = 49407  # EOT: the argmax pool's position
-    return images, ids.astype(np.int32)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.mark.parametrize("kind", sorted(TOWERS))

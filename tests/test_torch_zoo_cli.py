@@ -3,9 +3,8 @@
 model (an EVA01 tower) and for a registry name with a native ViT, both
 from one open_clip checkpoint at tiny widths (the names registered in both
 packages for the test); ``cli/eval.py --scorer clip`` writes JAX's table
-for the zoo model; ``--int8`` on a zoo tower's images fails in both;
-``cli/train.py --model <zoo tower>`` exits before the first step, naming
-ROADMAP.md's item."""
+for the zoo model; ``--int8`` on a zoo tower's images fails in both.
+``cli/train.py`` on the zoo towers is ``test_torch_zoo_train_cli.py``."""
 
 import json
 import os
@@ -18,7 +17,6 @@ from PIL import Image
 from clip_embeds_tpu.cli.embed import main as jax_main
 from clip_embeds_tpu.core import config as jax_config
 from clip_embeds_tpu.core import openclip_registry as jax_registry
-from clip_embeds_tpu_torch.cli import train as port_train
 from clip_embeds_tpu_torch.cli.embed import main
 from clip_embeds_tpu_torch.core import config as port_config
 from clip_embeds_tpu_torch.core import openclip_registry as port_registry
@@ -110,22 +108,6 @@ def test_int8_on_a_zoo_tower_fails_as_in_jax(names, tmp_path):
     with pytest.raises(Exception, match='Could not find parameter named '
                        '"kernel"'):
         jax_main(argv + ["--no-data-parallel"])
-
-
-@pytest.mark.parametrize("model", [
-    "RN50", "EVA01-g-14", "EVA02-L-14-336", "convnext_xxlarge",
-    "MobileCLIP-S2", "xlm-roberta-large-ViT-H-14"])
-def test_train_cli_exits_on_a_zoo_tower(model, capsys):
-    """As test_unported_flags_exit_with_their_roadmap_item: argparse's exit
-    (2) before any model is built, naming the item."""
-    with pytest.raises(SystemExit) as exc:
-        port_train.parse_args(["--model", model])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "not ported yet: ROADMAP.md queue 1 item 15c" in err
-    assert model in err
-    for ok in ("ViT-B-32", "ViT-H-14-378", "coca_ViT-B-32"):
-        assert port_train.zoo_tower(ok) is None
 
 
 def test_eval_cli_scores_a_zoo_model_as_jax(names, tmp_path, capsys):

@@ -24,7 +24,7 @@ from clip_embeds_tpu.scores.scorers import SPARCScorer as JaxSPARCScorer
 from clip_embeds_tpu_torch.cli.eval import build_scorer, parse_args
 from clip_embeds_tpu_torch.core.convert import state_dict_from_jax_params
 from clip_embeds_tpu_torch.core.factory import create_model
-from clip_embeds_tpu_torch.evals import mmvp, whatsup
+from clip_embeds_tpu_torch.evals import mmvp
 from clip_embeds_tpu_torch.scores.scorers import (
     CLIPScorer,
     PACLScorer,
@@ -201,37 +201,97 @@ def _recording(fn, log):
     return wrapped
 
 
-def _fp32_margin_and_diff(root, dataset, scorers):
+def _margin_and_diff(dataset, logs):
     """The least margin of a decision under the port's fp32 scores, and the
-    largest score difference between the two packages, on the fixture."""
-    logs = ([], [])
-    for scorer, log in zip(scorers, logs):
-        if dataset in ("mmvp", "mmvpvlm"):
-            mmvp.eval_mmvp(_recording(scorer.pair_score, log), root, dataset)
-            continue
-        batch = _recording(scorer.score_batch, log)
-        data, _ = whatsup.load_annotation(root, dataset)
-        if dataset.startswith("coco"):
-            whatsup.eval_coco_vg(batch, data, root, "coco")
-        else:
-            whatsup.eval_whatsup(batch, data, root, dataset.endswith("4"))
+    largest score difference between the two packages, from the scores
+    each recorded (``logs``: the port's, JAX's)."""
     if dataset in ("mmvp", "mmvpvlm"):
         ours = np.stack(logs[0])
-        margin = np.abs(ours[:, :, 0] - 0.5).min()
-        diff = np.abs(ours - np.stack(logs[1])).max()
-    else:
-        ours, theirs = np.concatenate(logs[0]), np.concatenate(logs[1])
-        # a sample is right when option 0 beats every other option scored:
-        # its margin is the least lead where it is right, else the largest
-        # deficit
-        n_opt = 4 if dataset.endswith("4") else 2
-        lead = ours[:, :1] - ours[:, 1:n_opt]
-        margin = np.where((lead > 0).all(1), lead.min(1),
-                          (-lead).max(1)).min()
-        diff = np.abs(ours - theirs).max()
-    return margin, diff
+        return (np.abs(ours[:, :, 0] - 0.5).min(),
+                np.abs(ours - np.stack(logs[1])).max())
+    ours, theirs = np.concatenate(logs[0]), np.concatenate(logs[1])
+    # a sample is right when option 0 beats every other option scored: its
+    # margin is the least lead where it is right, else the largest deficit
+    n_opt = 4 if dataset.endswith("4") else 2
+    lead = ours[:, :1] - ours[:, 1:n_opt]
+    margin = np.where((lead > 0).all(1), lead.min(1), (-lead).max(1)).min()
+    return margin, np.abs(ours - theirs).max()
+
+
+def _recorded_clis(monkeypatch):
+    """Both eval CLIs with their scorers' scores recorded: (the port's log,
+    JAX's log), each a list the CLI's ``pair_score`` / ``score_batch``
+    outputs are appended to, in call order."""
+    from clip_embeds_tpu.cli import eval as jax_cli
+    from clip_embeds_tpu_torch.cli import eval as port_cli
+
+    logs = ([], [])
+    for cli, log in zip((port_cli, jax_cli), logs):
+        def build(args, _real=cli.build_scorer, _log=log):
+            scorer = _real(args)
+            for name in ("pair_score", "score_batch"):
+                setattr(scorer, name, _recording(getattr(scorer, name),
+                                                 _log))
+            return scorer
+        monkeypatch.setattr(cli, "build_scorer", build)
+    return logs
+
+
+def _run_both_clis(tmp_path, dataset, common, capsys, monkeypatch):
+    """The port's and JAX's eval CLI on one fixture: each table is held to
+    the other where no decision is a near-tie under the scores both
+    recorded in these runs. Returns the port's info line."""
+    from clip_embeds_tpu.cli.eval import main as jax_main
+    from clip_embeds_tpu_torch.cli.eval import main
+
+    logs = _recorded_clis(monkeypatch)
+    ours, theirs = tmp_path / "ours.txt", tmp_path / "jax.txt"
+    # the fixtures' calls are a few rows each: one thread does them, and
+    # the suite's other workers keep the rest of the host's cores
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        got = main(common + ["--results-file", str(ours), "--device",
+                             "cpu"])
+    finally:
+        torch.set_num_threads(threads)
+    info = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    want = jax_main(common + ["--results-file", str(theirs)])
+    margin, diff = _margin_and_diff(dataset, logs)
+    # a table can only be held equal where no decision is a near-tie
+    assert margin >= 10 * diff, (margin, diff)
+    assert got == want
+    assert ours.read_text() == theirs.read_text()
+    return info
 
 
 _FIXTURES = {"a": _make_whatsup, "a4": _make_whatsup, "cocoone": _make_coco,
              "mmvpvlm": lambda root: _make_mmvp(root, vlm=True),
              "mmvp": lambda root: _make_mmvp(root, vlm=False)}
+
+
+def check_head_table(tmp_path, checkpoint, head_npz, variant, dataset,
+                     capsys, monkeypatch):
+    """--scorer pacl|sparc --model-path <a JAX head .npz> [--rope]
+    [--sparc-local] on ``dataset``'s fixture: the same table and
+    results-file text as JAX's CLI, where no decision is a near-tie."""
+    _FIXTURES[dataset](tmp_path)
+    kind, flags, _ = HEAD_VARIANTS[variant]
+    common = ["--scorer", kind, "--model", "test-tiny", "--pretrained",
+              checkpoint, "--model-path", head_npz[kind], "--dataset",
+              dataset, "--root-dir", str(tmp_path), "--precision", "fp32",
+              "--batch-size", "8"] + flags
+    info = _run_both_clis(tmp_path, dataset, common, capsys, monkeypatch)
+    assert info["scorer"] == kind and info["route"] == "composable"
+
+
+def check_clip_table(tmp_path, checkpoint, dataset, capsys, monkeypatch):
+    """--scorer clip on ``dataset``'s fixture: the same table and
+    results-file text as JAX's CLI, where no decision is a near-tie."""
+    _FIXTURES[dataset](tmp_path)
+    common = ["--scorer", "clip", "--model", "test-tiny", "--pretrained",
+              checkpoint, "--dataset", dataset, "--root-dir", str(tmp_path),
+              "--precision", "fp32", "--batch-size", "8"]
+    info = _run_both_clis(tmp_path, dataset, common, capsys, monkeypatch)
+    assert info["route"] == "composable" and info["device"] == "cpu"
+    assert info["decoder"] in ("native", "pil") and info["samples"] > 0
