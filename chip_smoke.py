@@ -314,6 +314,20 @@ Phases, each of which raises on failure:
      on the card, the same embeddings; (f) image/preprocess.py
      jax_preprocess on the card against the CPU. Phase 3 holds #5 at
      EVA01-g-14's 32x16x257x88 (head dim 88, padded to the 128 kernel).
+ 19. multi-GPU (ROADMAP.md item 6), run after phase 6 on its seed-0
+     weights, in a one-rank NCCL group opened through a file:// store: (a)
+     cli/train.py main with phase 6's fused-train-res argv plus --fsdp,
+     TRAIN_STEPS steps at TRAIN_BATCH, launches held to phase 6's per-step
+     counts, losses within MULTI_LOSS_TOL of phase 6's on that route, its
+     checkpoint equal bit for bit to the gathered state and to a plain
+     one-process model loaded from it; (b) the same steps through DDP in a
+     one-rank torchrun-style environment (RANK / WORLD_SIZE / LOCAL_RANK),
+     the same checks; FSDP and DDP samples/s (CUDA events, 3 steps after 1)
+     and peak memory beside phase 6's; (c) the gathered clip_loss and
+     siglip_loss_ring with their feature gradients at one rank against
+     clip_loss and siglip_loss (MULTI_FEAT_TOL); (d) cli/embed.py
+     --data-parallel over the one card, its .npy bit-equal to
+     --no-data-parallel, bf16 and --int8, with exact launches.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device it exits
@@ -359,6 +373,17 @@ ROUTES = {
                         {"fused_block": 36, "fused_block_residuals": 36,
                          "flash_attention_bwd": 24}),
 }
+# phase 19: the fused-train-res CLI run's losses under FSDP and DDP at one
+# rank against phase 6's (the same weights, batches and kernels: at one
+# rank the wrappers only copy; scripts/chip_probe_parallel.py read them
+# bit-equal, max |diff| 0, on the H100), and the gathered losses and their
+# feature gradients against the plain ones (fp32 features on the card;
+# read bit-equal too). The limits leave room for a summation order only:
+# a parameter read stale or freed after FSDP's reshard moves a loss of
+# ~3.5 by far more
+MULTI_LOSS_TOL = 1e-5
+MULTI_FEAT_TOL = 1e-5
+MULTI_IMAGES, MULTI_BATCH = 16, 8
 # gradient agreement with the plain fp32 composable path at batch 8
 # (readings on the H100, scripts/chip_probe_train.py, PERF.md). The sound
 # routes read 0.99455-0.99476 over all and >= 0.990 per tensor, the
@@ -1462,7 +1487,8 @@ def grad_agreement(grads, ref):
 def check_training(counters, gpu, base):
     """Phase 6, inside :func:`seeded_from` ``base`` (the seed-0 state dict
     on the host). Returns each route's launch counts from its CLI run, its
-    b32 train samples/s by CUDA events, and ``base``."""
+    train samples/s by CUDA events by (route, batch), ``base``, and for
+    phase 19 each route's CLI losses and peak GiB by (route, batch)."""
     from clip_embeds_tpu_torch.cli.train import main as train_main
     from clip_embeds_tpu_torch.train.optim import adamw
     from clip_embeds_tpu_torch.train.schedules import const_lr
@@ -1470,7 +1496,7 @@ def check_training(counters, gpu, base):
         TrainState, make_clip_train_step)
 
     logging.getLogger().setLevel(logging.INFO)
-    launches, rates = {}, {}
+    launches, rates, losses, peaks = {}, {}, {}, {}
     for route, (flags, per_step) in {**ROUTES, **SIGLIP_TRAIN_ROUTE}.items():
         gc.collect()
         torch.cuda.empty_cache()
@@ -1507,6 +1533,7 @@ def check_training(counters, gpu, base):
             raise AssertionError(f"{route}: only {moved} of {len(base)} "
                                  f"parameter tensors moved")
         launches[route] = counts
+        losses[route] = list(log.losses)
         del state, after
 
     # gradients against the plain fp32 composable path, one batch of 8
@@ -1556,13 +1583,14 @@ def check_training(counters, gpu, base):
             if not np.isfinite(float(metrics["loss"])):
                 raise AssertionError(f"{route} b{bs}: loss not finite")
             rates[route, bs] = bs / ms * 1e3
+            peaks[route, bs] = torch.cuda.max_memory_allocated() / 2**30
             print(f"[throughput] train_samples_per_s {route} b{bs}: "
                   f"{bs / ms * 1e3:.1f} ({ms:.2f} ms/step, peak "
                   f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB) "
                   f"on {gpu}")
             del tb
         del model, opt, state, step, grads
-    return launches, rates, base
+    return launches, rates, base, {"losses": losses, "peaks": peaks}
 
 
 # -- phase 12: the fine-tune recipe and the real-data loaders ---------------
@@ -5924,6 +5952,232 @@ def check_zoo_training(counters, gpu):
     part("(f) jax_preprocess", z18_preprocess, gpu)
 
 
+# -- phase 19: multi-GPU at one rank ---------------------------------------
+
+
+def multi_train_run(counters, label, flags, want, losses6, tmp):
+    """Phase 19 (a) / (b): cli/train.py main with phase 6's fused-train-res
+    argv and ``flags`` in the open group, launches and losses held; a
+    checkpoint in ``tmp`` equal bit for bit to the gathered state and to a
+    plain model loaded from it. Returns the run's wall seconds."""
+    from clip_embeds_tpu_torch.cli.train import main as train_main
+    from clip_embeds_tpu_torch.core import checkpoint as ckpt
+    from clip_embeds_tpu_torch.core.factory import create_model
+
+    log = _StepLog()
+    logging.getLogger().addHandler(log)
+    for fn in counters.values():
+        fn.launches = 0
+    try:
+        t0 = time.perf_counter()
+        state = train_main([
+            "--model", MODEL, "--pretrained", "openai", "--seed", "0",
+            "--batch-size", str(TRAIN_BATCH), "--train-num-samples",
+            str(TRAIN_STEPS * TRAIN_BATCH), "--lr", "1e-5", "--warmup", "1",
+            "--log-every", "1", *ROUTES["fused-train-res"][0], *flags,
+            "--checkpoint-dir", tmp])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        logging.getLogger().removeHandler(log)
+    counts = {k: fn.launches for k, fn in counters.items()}
+    diff = (float(np.abs(np.subtract(log.losses, losses6)).max())
+            if len(log.losses) == len(losses6) else float("inf"))
+    print(f"[multi] ({label}) {TRAIN_STEPS} steps of {TRAIN_BATCH} through "
+          f"cli.train.main in {wall:.1f} s; losses {log.losses} (phase 6 "
+          f"{losses6}: max |diff| {diff:.3g}, limit {MULTI_LOSS_TOL}); "
+          f"launches {counts}")
+    if counts != want:
+        raise AssertionError(f"({label}) launches {counts} != {want}")
+    if not diff <= MULTI_LOSS_TOL:
+        raise AssertionError(f"({label}) losses {log.losses} != phase 6's "
+                             f"{losses6}")
+    t0 = time.perf_counter()
+    full = ckpt.full_state_dict(state.model)
+    saved = ckpt.load(os.path.join(tmp, "epoch_1.pt"))["state_dict"]
+    plain = create_model(MODEL, pretrained=os.path.join(tmp, "epoch_1.pt"),
+                         dtype=torch.float32, device="cuda").state_dict()
+    bad = [k for k, v in full.items()
+           if not (torch.equal(saved[k], v.cpu())
+                   and torch.equal(plain[k].cpu(), saved[k]))]
+    print(f"[multi] ({label}) checkpoint of {len(saved)} tensors: the "
+          f"gathered state, the file and a plain one-process model loaded "
+          f"from it bit-equal: {not bad} ({time.perf_counter() - t0:.1f} s)")
+    if bad or sorted(saved) != sorted(full):
+        raise AssertionError(f"({label}) checkpoint differs: {bad[:4]}")
+    del state, full, saved, plain
+    return wall
+
+
+def multi_step_rate(gpu, fsdp, rate6=None, peak6=None):
+    """Phase 19: the b32 fused-train-res step's samples/s by CUDA events (3
+    steps after 1) and its peak GiB, wrapped for one rank (``fsdp`` None:
+    not wrapped), beside phase 6's; returns both."""
+    from clip_embeds_tpu_torch.parallel import mesh as pmesh
+    from clip_embeds_tpu_torch.parallel.sharding_rules import distribute
+    from clip_embeds_tpu_torch.train.optim import adamw
+    from clip_embeds_tpu_torch.train.schedules import const_lr
+    from clip_embeds_tpu_torch.train.steps import (
+        TrainState, make_clip_train_step)
+
+    model = route_model("fused-train-res")
+    forward, grad_sync = model, None
+    if fsdp is not None:
+        forward, grad_sync = distribute(model, pmesh.create_mesh(),
+                                        fsdp=fsdp)
+    state = TrainState(model, adamw(model, 1e-5), const_lr(1e-5),
+                       grad_sync=grad_sync)
+    step = make_clip_train_step(forward)
+    tb = train_batch(TRAIN_BATCH, seed=2)
+    torch.cuda.reset_peak_memory_stats()
+    step(state, tb)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        metrics = step(state, tb)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / 3
+    if not np.isfinite(float(metrics["loss"])):
+        raise AssertionError("phase 19: loss not finite")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    label = {True: "FSDP 1 rank", False: "DDP 1 rank", None: "plain"}[fsdp]
+    beside = ("" if rate6 is None else f" against phase 6's {rate6:.1f} "
+              f"(peak {peak6:.2f} GiB)")
+    print(f"[throughput] train_samples_per_s fused-train-res {label} "
+          f"b{TRAIN_BATCH}: {TRAIN_BATCH / ms * 1e3:.1f} ({ms:.2f} ms/step, "
+          f"peak {peak:.2f} GiB){beside} on {gpu}")
+    return TRAIN_BATCH / ms * 1e3, peak
+
+
+def multi_losses(gpu):
+    """Phase 19 (c), before the group: (features, the plain losses and
+    their feature gradients); after: held against the gathered ones."""
+    from clip_embeds_tpu_torch.losses.clip_loss import clip_loss
+    from clip_embeds_tpu_torch.losses.siglip import (
+        siglip_loss, siglip_loss_ring)
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    feats = [F.normalize(torch.randn(TRAIN_BATCH, 768, device="cuda",
+                                     generator=gen), dim=-1)
+             for _ in range(2)]
+    scale, bias = torch.tensor(10.0, device="cuda"), \
+        torch.tensor(-10.0, device="cuda")
+
+    def run(clip_fn, sig_fn):
+        out = {}
+        for name, fn in (("clip_loss", lambda i, t: clip_fn(i, t, scale)),
+                         ("siglip", lambda i, t: sig_fn(i, t, scale, bias))):
+            i, t = (f.clone().requires_grad_() for f in feats)
+            loss = fn(i, t)
+            loss.backward()
+            out[name] = (loss.item(), i.grad, t.grad)
+        return out
+
+    want = run(clip_loss, siglip_loss)
+
+    def check():
+        got = run(clip_loss, siglip_loss_ring)
+        worst = max(float((a - b).abs().max()) for k in got
+                    for a, b in zip(got[k][1:], want[k][1:]))
+        vals = {k: (got[k][0], want[k][0]) for k in got}
+        print(f"[multi] (c) one rank: gathered clip_loss and "
+              f"siglip_loss_ring against clip_loss and siglip_loss {vals}; "
+              f"feature gradients max |diff| {worst:.3g} (limit "
+              f"{MULTI_FEAT_TOL}) on {gpu}")
+        if worst > MULTI_FEAT_TOL or any(
+                abs(a - b) > MULTI_FEAT_TOL * max(1.0, abs(b))
+                for a, b in vals.values()):
+            raise AssertionError("phase 19 (c): the gathered losses differ")
+    return check
+
+
+def multi_embed(counters, gpu):
+    """Phase 19 (d): cli/embed.py --data-parallel over the one card against
+    --no-data-parallel, bf16 and --int8: the .npy bit-equal, launches
+    exact (as phase 7's, by batch)."""
+    from clip_embeds_tpu_torch.cli.embed import main as embed_main
+
+    calls = MULTI_IMAGES // MULTI_BATCH
+    with tempfile.TemporaryDirectory() as tmp:
+        write_photos([os.path.join(tmp, "img", f"{i:03d}.jpg")
+                      for i in range(MULTI_IMAGES)], 19)
+        for label, flags, want in (
+                ("bf16", [], {"flash_attention": 24 * calls}),
+                ("int8", ["--int8"], {"fused_block_int8": 23 * calls,
+                                      "flash_attention": 24})):
+            outs = []
+            for dp in ("--data-parallel", "--no-data-parallel"):
+                out = os.path.join(tmp, f"{label}{dp}.npy")
+                for fn in counters.values():
+                    fn.launches = 0
+                rc, info = run_main(embed_main, [
+                    "--model", MODEL, "--pretrained", "openai", "--input",
+                    os.path.join(tmp, "img"), "--output", out,
+                    "--batch-size", str(MULTI_BATCH), *flags, dp])
+                torch.cuda.synchronize()
+                counts = {k: fn.launches for k, fn in counters.items()}
+                expect = {k: want.get(k, 0) for k in counts}
+                if rc != 0 or info["devices"] != 1 or counts != expect:
+                    raise AssertionError(f"(d) {label} {dp}: rc {rc}, "
+                                         f"{info}, launches {counts} != "
+                                         f"{expect}")
+                outs.append(np.load(out))
+            same = outs[0].shape == outs[1].shape and \
+                np.array_equal(outs[0], outs[1])
+            print(f"[multi] (d) {label}: cli/embed.py --data-parallel on 1 "
+                  f"card bit-equal to --no-data-parallel over "
+                  f"{MULTI_IMAGES} images: {same}; launches {counts} on "
+                  f"{gpu}")
+            if not same:
+                raise AssertionError(f"(d) {label}: the outputs differ")
+
+
+def check_multi_gpu(counters, gpu, train_rates, phase6):
+    """Phase 19, inside phase 6's :func:`seeded_from`."""
+    from clip_embeds_tpu_torch.parallel import mesh as pmesh
+
+    check_losses = multi_losses(gpu)
+    want = {k: TRAIN_STEPS * ROUTES["fused-train-res"][1].get(k, 0)
+            for k in counters}
+    losses6 = phase6["losses"]["fused-train-res"]
+    rate6 = train_rates["fused-train-res", TRAIN_BATCH]
+    peak6 = phase6["peaks"]["fused-train-res", TRAIN_BATCH]
+    pmesh.init_distributed("cuda")
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0"}
+    try:
+        print(f"[multi] one-rank {torch.distributed.get_backend()} group "
+              f"through a file:// store on {gpu}")
+        with tempfile.TemporaryDirectory() as tmp:
+            multi_train_run(counters, "a: --fsdp", ["--fsdp"], want,
+                            losses6, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        old = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            with tempfile.TemporaryDirectory() as tmp:
+                multi_train_run(counters, "b: DDP, torchrun's environment",
+                                [], want, losses6, tmp)
+        finally:
+            for k, v in old.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        for fsdp in (True, False):
+            gc.collect()
+            torch.cuda.empty_cache()
+            multi_step_rate(gpu, fsdp, rate6, peak6)
+        check_losses()
+    finally:
+        pmesh.close_distributed()
+    gc.collect()
+    torch.cuda.empty_cache()
+    multi_embed(counters, gpu)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card",
@@ -6097,9 +6351,16 @@ def main() -> int:
     # --siglip step on the composable route
     t0 = time.perf_counter()
     with seeded_from(base):
-        train_launches, train_rates, base = check_training(counters, gpu,
-                                                           base)
-    print(f"[phase 6] {time.perf_counter() - t0:.1f} s on {gpu}")
+        train_launches, train_rates, base, phase6 = check_training(
+            counters, gpu, base)
+        print(f"[phase 6] {time.perf_counter() - t0:.1f} s on {gpu}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 19. multi-GPU at one rank, on phase 6's weights
+        t0 = time.perf_counter()
+        check_multi_gpu(counters, gpu, train_rates, phase6)
+        print(f"[phase 19] {time.perf_counter() - t0:.1f} s on {gpu}")
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -28,6 +28,13 @@ CLI routes off the TPU. Every int8 route on the card computes in bf16
 (QuantLinear there runs ``cet_gemm_s8``), so ``--int8 --fp32`` raises
 there. The JSON line names the route and the image decoder that ran.
 
+``--data-parallel`` (the default where more than one card is visible;
+``--no-data-parallel`` turns it off) serves in this one process over every
+visible card, as the JAX CLI's single controller does over its devices:
+one replica a card (int8 calibrated once, on the first card, before it is
+replicated), each batch split in order over them and the outputs joined in
+input order; ``--batch-size`` is rounded down to a multiple of the cards.
+
 ``--model`` takes any name the registry builds as a CLIP (the zoo towers:
 ModifiedResNet, EVA01 / EVA02, ConvNeXt, Swin, ViTamin, FastViT, MCi-ViT,
 the timm and rel-pos ViTs). Their images take the composable tower (EVA01's
@@ -39,7 +46,7 @@ Usage:
   python -m clip_embeds_tpu_torch.cli.embed --model ViT-L-14-336 \
       --pretrained /ckpt.pt --input /data/images --output emb.npy \
       [--batch-size 256] [--fp32] [--int8] [--workers N] [--fast-jpeg] \
-      [--device cuda|cpu]
+      [--device cuda|cpu] [--data-parallel | --no-data-parallel]
 """
 
 from __future__ import annotations
@@ -96,16 +103,61 @@ def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return x.pin_memory().to(device, non_blocking=True)
 
 
-def _run(encode, batches: Iterable[np.ndarray], batch_size: int,
-         device: torch.device) -> np.ndarray:
+def _replicate(obj, device: torch.device):
+    """A copy of ``obj`` (a module, tensors, or containers of them) on
+    ``device`` (a quantised tower's other tower, left on the meta device,
+    stays there)."""
+    if isinstance(obj, torch.nn.Module):
+        return copy.deepcopy(obj)._apply(
+            lambda t: t if t.is_meta else t.to(device))
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if isinstance(obj, dict):
+        return {k: _replicate(v, device) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_replicate(v, device) for v in obj)
+    return obj
+
+
+def _run(encode, state, batches: Iterable[np.ndarray], batch_size: int,
+         devices: List[torch.device]) -> np.ndarray:
+    """``encode(state, x)`` over the padded batches; with several devices,
+    ``state`` (on the first) and a replica of it on each other, every
+    batch split in order over them, the outputs joined in input order on
+    the first."""
+    replicas = [state] + [_replicate(state, d) for d in devices[1:]]
     outputs = []
     with torch.inference_mode():
         for arr in batches:
-            x = _to_device(_pad_tail(arr, batch_size), device)
-            outputs.append(encode(x)[: len(arr)])
+            parts = np.split(_pad_tail(arr, batch_size), len(devices))
+            outs = [encode(st, _to_device(p, d))
+                    for st, p, d in zip(replicas, parts, devices)]
+            outputs.append(torch.cat([o.to(devices[0]) for o in outs])
+                           [: len(arr)])
     if not outputs:
         return np.zeros((0, 0), np.float32)
     return torch.cat(outputs).float().cpu().numpy()
+
+
+def visible_devices(device: torch.device) -> List[torch.device]:
+    """The devices data-parallel serving spreads over: every visible card
+    for the card, the one CPU otherwise."""
+    if device.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [device]
+
+
+def data_parallel_batch(batch_size: int, n_devices: int) -> int:
+    """``batch_size`` rounded down to a multiple of ``n_devices`` (at least
+    one row a device), with the JAX CLI's line on stderr where it
+    changes."""
+    if batch_size % n_devices == 0:
+        return batch_size
+    rounded = max(n_devices, batch_size // n_devices * n_devices)
+    print(f"batch size rounded to {rounded} ({n_devices}-device data "
+          "parallel)", file=sys.stderr)
+    return rounded
 
 
 def _as_dtype(model, dtype: torch.dtype):
@@ -157,7 +209,9 @@ def image_route(model, int8: bool = False,
 
 def embed_image_batches(model, batches: Iterable[np.ndarray],
                         batch_size: int, int8: bool = False,
-                        dtype: Optional[torch.dtype] = None) -> np.ndarray:
+                        dtype: Optional[torch.dtype] = None,
+                        devices: Optional[List[torch.device]] = None
+                        ) -> np.ndarray:
     """Decoded pixel batches (float32 [b <= batch_size, S, S, 3]) ->
     L2-normalised embeddings, float32 [N, embed_dim], computed in
     ``dtype`` (default: the model's).
@@ -165,7 +219,9 @@ def embed_image_batches(model, batches: Iterable[np.ndarray],
     With ``int8``, the int8 weights are quantised from ``model``'s weights
     (keep them fp32, as the JAX package's params are) and the activation
     scales are calibrated on the first batch's first 16 images; the route
-    is :func:`image_route`'s."""
+    is :func:`image_route`'s. ``devices`` (default: the model's) serve
+    data-parallel, a replica each; ``batch_size`` must divide by their
+    number."""
     dtype = dtype or model.text_projection.dtype
     device = model.text_projection.device
     route = image_route(model, int8, dtype)
@@ -180,24 +236,24 @@ def embed_image_batches(model, batches: Iterable[np.ndarray],
             prepare_int8_tower,
         )
 
-        qtower = prepare_int8_tower(model, calib, dtype)
+        state = (model, prepare_int8_tower(model, calib, dtype))
 
-        def encode(px):
-            return fused_encode_image_int8(model, qtower, px, dtype=dtype)
+        def encode(st, px):
+            return fused_encode_image_int8(st[0], st[1], px, dtype=dtype)
     else:
         if route == "composable_int8":
             from ..models.quant import calibrate_act_scales, quantize_model
 
-            tower = quantize_model(model, "dynamic", dtype, tower="visual")
+            state = quantize_model(model, "dynamic", dtype, tower="visual")
             with torch.inference_mode():
-                calibrate_act_scales(tower, [calib], "encode_image")
+                calibrate_act_scales(state, [calib], "encode_image")
         else:
-            tower = _as_dtype(model, dtype)
+            state = _as_dtype(model, dtype)
 
-        def encode(px):
+        def encode(tower, px):
             return tower.encode_image(px.to(dtype), normalize=True)
-    return _run(encode, itertools.chain([first], batches), batch_size,
-                device)
+    return _run(encode, state, itertools.chain([first], batches), batch_size,
+                devices or [device])
 
 
 def text_route(model, int8: bool = False,
@@ -215,13 +271,16 @@ def text_route(model, int8: bool = False,
 def embed_text_batches(model, batches: Iterable[np.ndarray],
                        batch_size: int, int8: bool = False,
                        dtype: Optional[torch.dtype] = None,
-                       calib: Optional[np.ndarray] = None) -> np.ndarray:
+                       calib: Optional[np.ndarray] = None,
+                       devices: Optional[List[torch.device]] = None
+                       ) -> np.ndarray:
     """Token-id batches (int [b <= batch_size, ctx]) -> L2-normalised
     embeddings, float32 [N, embed_dim], computed in ``dtype``.
 
     With ``int8`` and the 'fused_int8' route, the activation scales are
     calibrated on ``calib`` (default: the first batch); off that route
-    texts stay on the fp tower, as in the JAX CLI."""
+    texts stay on the fp tower, as in the JAX CLI. ``devices`` as in
+    :func:`embed_image_batches`."""
     dtype = dtype or model.text_projection.dtype
     device = model.text_projection.device
     route = text_route(model, int8, dtype)
@@ -236,26 +295,30 @@ def embed_text_batches(model, batches: Iterable[np.ndarray],
         )
 
         ids = first if calib is None else calib
-        qtower = prepare_int8_text_tower(
-            model, torch.from_numpy(ids).long().to(device), dtype)
+        state = (model, prepare_int8_text_tower(
+            model, torch.from_numpy(ids).long().to(device), dtype))
 
-        def encode(ids):
-            return fused_encode_text_int8(model, qtower, ids, dtype=dtype)
+        def encode(st, ids):
+            return fused_encode_text_int8(st[0], st[1], ids, dtype=dtype)
     elif route == "fused":
         from ..models.serving import fused_encode_text
 
-        def encode(ids):
-            return fused_encode_text(model, ids, dtype=dtype)
+        state = model
+
+        def encode(m, ids):
+            return fused_encode_text(m, ids, dtype=dtype)
     else:
-        tower = _as_dtype(model, dtype)
+        state = _as_dtype(model, dtype)
 
-        def encode(ids):
+        def encode(tower, ids):
             return tower.encode_text(ids, normalize=True)
-    return _run(lambda ids: encode(ids.long()),
-                itertools.chain([first], batches), batch_size, device)
+    return _run(lambda st, ids: encode(st, ids.long()), state,
+                itertools.chain([first], batches), batch_size,
+                devices or [device])
 
 
-def _embed_texts(args, model, dtype: torch.dtype) -> int:
+def _embed_texts(args, model, dtype: torch.dtype,
+                 devices: List[torch.device]) -> int:
     """One caption per line -> [N, D] .npy."""
     from ..text.tokenizer import get_tokenizer
 
@@ -270,7 +333,7 @@ def _embed_texts(args, model, dtype: torch.dtype) -> int:
     embs = embed_text_batches(
         model, (tokenizer(texts[i: i + bs]) for i in range(0, len(texts), bs)),
         bs, int8=args.int8, dtype=dtype,
-        calib=tokenizer(texts[:64]) if args.int8 else None)
+        calib=tokenizer(texts[:64]) if args.int8 else None, devices=devices)
     elapsed = time.perf_counter() - t0
     np.save(args.output, embs)
     print(json.dumps({
@@ -280,6 +343,7 @@ def _embed_texts(args, model, dtype: torch.dtype) -> int:
         "texts_per_sec": round(len(texts) / elapsed, 2),
         "route": text_route(model, args.int8, dtype),
         "device": device_name(model.text_projection.device),
+        "devices": len(devices),
         "output": args.output,
     }))
     return 0
@@ -309,6 +373,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (the default: exits if there is no card) "
                     "or 'cpu'")
+    ap.add_argument("--data-parallel", action="store_true", default=None,
+                    help="split batches over every visible card (default: "
+                    "on when more than one is visible)")
+    ap.add_argument("--no-data-parallel", dest="data_parallel",
+                    action="store_false")
     args = ap.parse_args(argv)
 
     if (args.input is None) == (args.input_texts is None):
@@ -331,8 +400,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     model = create_model(args.model, pretrained=args.pretrained,
                          dtype=torch.float32 if args.int8 else dtype,
                          device=device)
+    devices = visible_devices(device)
+    use_dp = (args.data_parallel if args.data_parallel is not None
+              else len(devices) > 1)
+    if use_dp:
+        args.batch_size = data_parallel_batch(args.batch_size, len(devices))
+    else:
+        devices = [device]
     if args.input_texts is not None:
-        return _embed_texts(args, model, dtype)
+        return _embed_texts(args, model, dtype, devices)
 
     paths = list_images(args.input)
     if not paths:
@@ -365,7 +441,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     t0 = time.perf_counter()
     embs = embed_image_batches(model, batches(), bs, int8=args.int8,
-                               dtype=dtype)
+                               dtype=dtype, devices=devices)
     elapsed = time.perf_counter() - t0
     if not kept_paths:
         print(f"no decodable images under {args.input}", file=sys.stderr)
@@ -382,6 +458,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         "decoder": decoder,
         "workers": args.workers,
         "device": device_name(device),
+        "devices": len(devices),
         "output": args.output,
     }))
     return 0

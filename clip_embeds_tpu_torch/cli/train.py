@@ -1,4 +1,4 @@
-"""Single-GPU contrastive training of CLIP (counterpart of
+"""Contrastive training of CLIP on one card or many (counterpart of
 ``clip_embeds_tpu/cli/train.py``; open_clip's ``training.main``).
 
 fp32 master weights and AdamW state; the towers compute in ``--precision``
@@ -46,6 +46,18 @@ distillation loss from that frozen teacher:
       --checkpoint-dir ckpt --async-checkpoints --remote-sync /mnt/mirror \\
       --report-to jsonl --logs logs --name run1
 
+Many cards: one process a card under ``torchrun``, each rank training its
+contiguous slice of every global batch (``--batch-size`` is global, as in
+JAX, and must divide by the ranks) through ``DistributedDataParallel``, or
+with ``--fsdp`` through FSDP2 with JAX's ``fsdp_param_specs``
+(``parallel/sharding_rules.py``); the losses gather the features, so the
+gradients are the global batch's. ``--fsdp`` without ``torchrun`` trains
+in a one-rank group. Rank 0 alone logs, writes ``results.jsonl`` and the
+checkpoints (whole, from every rank's shards) and runs the mirror:
+
+  torchrun --nproc-per-node 8 -m clip_embeds_tpu_torch.cli.train \
+      --model ViT-L-14-336 --batch-size 256 [--fsdp] ...
+
 A registry CoCa (``--model coca_ViT-L-14``) trains with CoCa's step:
 the contrastive loss at ``--coca-contrastive-loss-weight`` plus the
 caption loss at ``--coca-caption-loss-weight``, on composable blocks:
@@ -66,10 +78,7 @@ naming the flag, where the JAX CLI runs on without them: with
 distillation ``--siglip``, ``--usehardtext`` and ``--grad-cache-chunks`` /
 ``--accum-freq`` above 1; with a CoCa those, ``--force-patch-dropout``,
 ``--fused-train-blocks``, ``--grad-checkpointing`` and the distillation
-flags. The flags of the JAX CLI that are not ported yet (``--fsdp``) exit
-with an error that names the ROADMAP.md item that will port them; none is
-parsed and ignored. ``main(argv)`` returns the
-:class:`~..train.steps.TrainState`.
+flags. ``main(argv)`` returns the :class:`~..train.steps.TrainState`.
 """
 
 from __future__ import annotations
@@ -83,14 +92,6 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-
-# JAX flags that this CLI does not take yet, by the ROADMAP.md item that
-# will port them
-_UNPORTED_ITEMS = {
-    "queue 1 item 6 (multi-GPU)": ("--fsdp",),
-}
-_UNPORTED = {flag: item for item, flags in _UNPORTED_ITEMS.items()
-             for flag in flags}
 
 
 class ParseKwargs(argparse.Action):
@@ -186,6 +187,11 @@ def parse_args(argv=None):
                    help="blocks through the fused-block kernels, with a "
                         "custom backward (ops/fused_block_ad.py); on the "
                         "card, in bf16")
+    p.add_argument("--fsdp", action="store_true",
+                   help="fully shard the parameters over the ranks "
+                        "(parallel/sharding_rules.py fsdp_param_specs; "
+                        "FSDP2, the same math); without torchrun, a "
+                        "one-rank group")
     p.add_argument("--fused-train-backward", default="vjp",
                    choices=["residual", "vjp"],
                    help="with --fused-train-blocks: 'residual' recomputes "
@@ -245,35 +251,45 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda",
                    help="'cuda' (the default: exits if there is no card) "
                         "or 'cpu'")
-    for flag, item in _UNPORTED.items():
-        p.add_argument(flag, nargs="*", default=argparse.SUPPRESS,
-                       help=f"not ported yet: ROADMAP.md {item}")
-    args = p.parse_args(argv)
-    for flag, item in _UNPORTED.items():
-        if hasattr(args, flag[2:].replace("-", "_")):
-            p.error(f"{flag} is not ported yet: ROADMAP.md {item}")
-    return args
+    return p.parse_args(argv)
 
 
-def build_data(args, model_cfg, epoch: int = 0
+def build_data(args, model_cfg, epoch: int = 0, rank: int = 0,
+               world: int = 1
                ) -> Tuple[Iterator[Dict[str, np.ndarray]], int]:
     """(epoch ``epoch``'s batches, steps an epoch), as the JAX CLI's
     ``build_data``: CSV and datamix take ``len(dataset) // batch_size``
     steps, webdataset and synthetic ``--train-num-samples //
     batch_size``; ``auto`` picks CSV or webdataset by the first file's
-    extension."""
+    extension. Of ``world`` ranks, rank ``rank`` gets its contiguous slice
+    of each global batch: CSV decodes only its rows; the synthetic draw,
+    datamix (whose captions come from one stream over the batch) and
+    webdataset make the global batch and keep the slice."""
+    from ..parallel.mesh import shard_batch
+
+    batches, steps = _loader(args, model_cfg, epoch, rank, world)
+    if world > 1 and _dataset_type(args) != "csv":
+        batches = (shard_batch(b, rank, world) for b in batches)
+    return batches, steps
+
+
+def _dataset_type(args) -> str:
+    if args.dataset_type != "auto":
+        return args.dataset_type
+    ext = args.train_data[0].split(".")[-1]
+    if ext in ("csv", "tsv"):
+        return "csv"
+    if ext == "tar":
+        return "webdataset"
+    raise ValueError(f"cannot infer dataset type from extension {ext!r}")
+
+
+def _loader(args, model_cfg, epoch: int, rank: int, world: int):
+    """(batches, steps an epoch) of the dataset type's loader: the rank's
+    rows from CSV, the global batches from the others."""
     from ..text.tokenizer import get_tokenizer
 
-    dataset_type = args.dataset_type
-    if dataset_type == "auto":
-        ext = args.train_data[0].split(".")[-1]
-        if ext in ("csv", "tsv"):
-            dataset_type = "csv"
-        elif ext == "tar":
-            dataset_type = "webdataset"
-        else:
-            raise ValueError(
-                f"cannot infer dataset type from extension {ext!r}")
+    dataset_type = _dataset_type(args)
     tokenizer = get_tokenizer(model_cfg.text.context_length)
     if dataset_type == "csv":
         from ..data.csv_dataset import CsvPairDataset, csv_batches
@@ -286,6 +302,8 @@ def build_data(args, model_cfg, epoch: int = 0
             ds, args.batch_size, model_cfg.vision.image_size, tokenizer,
             epoch=epoch, seed=args.seed,
             train_transform=build_train_transform(args, model_cfg),
+            rows=slice(rank * args.batch_size // world,
+                       (rank + 1) * args.batch_size // world),
         ), len(ds) // args.batch_size
     if dataset_type == "webdataset":
         from ..data.wds import (
@@ -602,13 +620,34 @@ def _to_device(batch: Dict[str, np.ndarray], device: torch.device):
     return out
 
 
+def _distributed(args) -> bool:
+    """Whether this run trains in a process group: under torchrun, in a
+    group the caller opened, or with ``--fsdp``."""
+    from ..parallel.mesh import distributed
+
+    return args.fsdp or "WORLD_SIZE" in os.environ or distributed()
+
+
 def main(argv=None):
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
 
+    from ..parallel import mesh as pmesh
+
+    opened = _distributed(args) and not pmesh.distributed()
+    try:
+        return _train(args)
+    finally:
+        if opened:
+            pmesh.close_distributed()
+
+
+def _train(args):
     from ..core import checkpoint as ckpt
     from ..core.factory import create_model, resolve_device
     from ..core.config import get_model_config
+    from ..parallel import mesh as pmesh
+    from ..parallel.sharding_rules import distribute
     from ..train.freeze import apply_freeze, tower_freeze_labels
     from ..train.optim import adamw
     from ..train.schedules import const_lr, const_lr_cooldown, cosine_lr
@@ -635,7 +674,19 @@ def main(argv=None):
             f"{flag} on the {tower!r} vision tower: the JAX CLI "
             f"{_VIT_ONLY_FLAGS[flag]}, silently" for flag in bad)
             + "; leave it out")
-    device = resolve_device(args.device)
+    mesh = None
+    if _distributed(args):
+        device = pmesh.init_distributed(args.device)
+        mesh = pmesh.create_mesh()
+    else:
+        device = resolve_device(args.device)
+    rank, world = pmesh.data_rank(), pmesh.data_world()
+    main_rank = rank == 0
+    if not main_rank:
+        logging.getLogger().setLevel(logging.WARNING)
+    if args.batch_size % world:
+        raise SystemExit(f"--batch-size {args.batch_size} is the global "
+                         f"batch: {world} ranks cannot split it evenly")
     dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
     remat = args.grad_checkpointing and (
         args.grad_checkpointing_policy
@@ -650,7 +701,8 @@ def main(argv=None):
         device=device, remat=remat, block_impl=block_impl,
         compute_dtype=dtype, force_quick_gelu=args.force_quick_gelu,
         force_patch_dropout=args.force_patch_dropout, train=True)
-    data_iter, steps_per_epoch = build_data(args, model.cfg)
+    data_iter, steps_per_epoch = build_data(args, model.cfg, rank=rank,
+                                            world=world)
     total_steps = steps_per_epoch * args.epochs
 
     if args.lr_scheduler == "cosine":
@@ -683,9 +735,6 @@ def main(argv=None):
             lock_text=args.lock_text,
             lock_text_unlocked_layers=args.lock_text_unlocked_layers,
             lock_text_freeze_layer_norm=args.lock_text_freeze_layer_norm))
-    state = TrainState(model, adamw(model, args.lr, args.beta1, args.beta2,
-                                    args.eps, args.wd),
-                       sched, args.grad_clip_norm)
 
     start_epoch = 0
     if args.resume and args.checkpoint_dir:
@@ -697,25 +746,37 @@ def main(argv=None):
             start_epoch = int(restored["step"])
             logging.info("resumed at epoch %d", start_epoch)
 
+    # the ranks' wrapper: DDP, or FSDP in place (before the optimizer,
+    # which then holds the shards); the logit scale gets no gradient under
+    # grad-cache, which DDP must be told
+    forward, grad_sync = model, None
+    if mesh is not None:
+        forward, grad_sync = distribute(
+            model, mesh, fsdp=args.fsdp,
+            find_unused_parameters=args.grad_cache_chunks > 1)
+    state = TrainState(model, adamw(model, args.lr, args.beta1, args.beta2,
+                                    args.eps, args.wd),
+                       sched, args.grad_clip_norm, grad_sync=grad_sync)
+
     if distill:
         from ..train.steps import make_distill_train_step
 
-        step_fn = make_distill_train_step(model, teacher)
+        step_fn = make_distill_train_step(forward, teacher)
     elif coca:
         from ..train.steps import make_coca_train_step
 
         step_fn = make_coca_train_step(
-            model, caption_loss_weight=args.coca_caption_loss_weight,
+            forward, caption_loss_weight=args.coca_caption_loss_weight,
             clip_loss_weight=args.coca_contrastive_loss_weight)
     else:
         step_fn = make_clip_train_step(
-            model, use_hard_text=args.usehardtext,
+            forward, use_hard_text=args.usehardtext,
             grad_cache_chunks=args.grad_cache_chunks,
             use_siglip=args.siglip, seed=args.seed)
 
     # the metrics fan-out (open_clip --report-to; core/logging_utils.py)
     writer = None
-    if args.report_to or args.logs:
+    if main_rank and (args.report_to or args.logs):
         from ..core.logging_utils import MetricsLogger
 
         run_name = args.name or time.strftime("run-%Y%m%d-%H%M%S")
@@ -726,7 +787,7 @@ def main(argv=None):
 
     # the checkpoint directory mirrored on a thread (core/remote_sync.py)
     syncer = None
-    if args.remote_sync and args.checkpoint_dir:
+    if main_rank and args.remote_sync and args.checkpoint_dir:
         from ..core.remote_sync import RemoteSync
 
         syncer = RemoteSync(args.checkpoint_dir, args.remote_sync,
@@ -734,12 +795,14 @@ def main(argv=None):
         syncer.start()
 
     prev_ckpt_step = None
-    logging.info("device=%s blocks=%s steps/epoch=%d%s", device, block_impl,
+    logging.info("device=%s ranks=%d%s blocks=%s steps/epoch=%d%s", device,
+                 world, " (fsdp)" if args.fsdp else "", block_impl,
                  steps_per_epoch,
                  f" distill from {args.distill_model}" if distill else "")
     for epoch in range(start_epoch, args.epochs):
         if epoch > start_epoch or epoch > 0:
-            data_iter, _ = build_data(args, model.cfg, epoch=epoch)
+            data_iter, _ = build_data(args, model.cfg, epoch=epoch,
+                                      rank=rank, world=world)
         t0 = time.perf_counter()
         seen = 0
         for i, batch in enumerate(data_iter):
@@ -752,12 +815,14 @@ def main(argv=None):
                     "epoch %d step %d loss %.4f lr %.2e "
                     "samples/s %.1f samples/s/chip %.1f",
                     epoch, i + 1, loss, sched(state.step), seen / dt,
-                    seen / dt)
+                    seen / dt / world)
                 if writer:
                     writer.log({"loss": loss, "lr": sched(state.step),
                                 "samples_per_s": seen / dt},
                                step=state.step)
         done = epoch + 1
+        # every rank runs the evals (an FSDP forward needs them all); rank
+        # 0 reports
         if args.val_data and (done % args.val_frequency == 0
                               or done == args.epochs):
             val = run_validation(model, args, device)
@@ -775,14 +840,18 @@ def main(argv=None):
         if args.checkpoint_dir and (
                 (args.save_frequency > 0 and done % args.save_frequency == 0)
                 or done == args.epochs or args.save_most_recent):
-            # an async save returns with the state copied to the host, and
-            # after the previous async save committed: pruning it is safe
-            ckpt.save(args.checkpoint_dir,
-                      {"state_dict": model.state_dict(), "step": done},
-                      step=done, blocking=not args.async_checkpoints)
+            # every rank gathers its shards; rank 0 writes. An async save
+            # returns with the state copied to the host, and after the
+            # previous async save committed: pruning it is safe
+            full = ckpt.full_state_dict(model)
+            if main_rank:
+                ckpt.save(args.checkpoint_dir,
+                          {"state_dict": full, "step": done},
+                          step=done, blocking=not args.async_checkpoints)
+            del full
             # --delete-previous-checkpoint, or the transient
             # --save-most-recent copy
-            if prev_ckpt_step is not None and (
+            if main_rank and prev_ckpt_step is not None and (
                     args.delete_previous_checkpoint
                     or (args.save_most_recent
                         and (args.save_frequency <= 0

@@ -31,8 +31,14 @@ model as a score bundle under ``<output_dir>/merged``.
 
 ``main`` returns ``(state, report)``: the report holds the losses, the
 samples/s of each logged step and the peak device memory (GiB, on the
-card). The mesh flags (``--data_parallel``, ``--model_parallel``) belong
-to multi-GPU training and raise unless they ask for one device.
+card). Many cards: one process a card under ``torchrun``; ``--data_parallel
+N`` (-1: every rank) makes the global batch ``per_device_train_batch_size``
+x N, as in JAX, each rank encoding its rows and the loss taking its
+negatives from the gathered representations; the adapters' (or the whole
+model's) gradients are averaged over the ranks, and rank 0 logs and saves.
+``--model_parallel`` above 1 (tensor parallelism of the trunk) is refused by
+every route here, naming ROADMAP.md queue 1 item 6b: the materialized
+merge and the W8A8 base cannot take a sharded weight yet.
 
   python -m clip_embeds_tpu_torch.cli.train_vlm2vec --lora --lora_r 16 \
       --grad_cache --gc_q_chunk_size 2 --per_device_train_batch_size 64 \
@@ -111,12 +117,25 @@ def split_device(argv):
     return ns.device, rest
 
 
-def check_single_device(training_args) -> None:
-    if training_args.model_parallel != 1 or \
-            training_args.data_parallel not in (-1, 1):
+def data_ranks(training_args, route: str) -> int:
+    """The data ranks the flags ask for, JAX's sizing (-1: every rank).
+    Tensor parallelism (``--model_parallel`` above 1) exits naming its
+    ROADMAP item, as does a data size other than the ranks running."""
+    import torch.distributed as dist
+
+    n_mp = max(training_args.model_parallel, 1)
+    if n_mp > 1:
         raise ValueError(
-            "--data_parallel / --model_parallel other than 1: multi-GPU "
-            "training is not ported yet: ROADMAP.md queue 1 item 6")
+            f"--model_parallel {n_mp}: the {route} route cannot take a "
+            "tensor-parallel trunk yet: ROADMAP.md queue 1 item 6b")
+    world = dist.get_world_size() if dist.is_initialized() else \
+        int(os.environ.get("WORLD_SIZE", 1))
+    n_dp = training_args.data_parallel
+    n_dp = world if n_dp == -1 else max(n_dp, 1)
+    if n_dp != world:
+        raise ValueError(f"--data_parallel {n_dp} with {world} rank(s) "
+                         "running: start one rank a card with torchrun")
+    return n_dp
 
 
 def load_base(ckpt, seed, device, dtype, quant=False, **llava_kw):
@@ -186,20 +205,45 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     log = logging.getLogger("vlm2vec")
 
-    from ..core.factory import resolve_device
-    from ..models.lora import init_lora, lora_tensors, merge_lora
+    from ..parallel import mesh as pmesh
     from ..train.arguments import (DataArguments, ModelArguments,
                                    TrainingArguments, parse_dataclasses)
+
+    device_arg, argv = split_device(argv)
+    model_args, data_args, training_args = parse_dataclasses(
+        [ModelArguments, DataArguments, TrainingArguments], argv)
+    route = ("quant_base" if model_args.quant_base else
+             "lora" if model_args.lora else "full")
+    n_dp = data_ranks(training_args, route)
+    opened = n_dp > 1 and not pmesh.distributed()
+    try:
+        return _train(log, device_arg, model_args, data_args, training_args,
+                      route, n_dp)
+    finally:
+        if opened:
+            pmesh.close_distributed()
+
+
+def _train(log, device_arg, model_args, data_args, training_args, route,
+           n_dp):
+    from ..core.factory import resolve_device
+    from ..models.lora import init_lora, lora_tensors, merge_lora
+    from ..parallel import mesh as pmesh
+    from ..parallel.sharding_rules import allreduce_grads
     from ..train.optim import adamw_over
     from ..train.schedules import const_lr, cosine_lr, linear_lr
     from ..train.vlm2vec import (Vlm2VecState, make_vlm2vec_mixed_train_step,
                                  make_vlm2vec_train_step)
 
-    device_arg, argv = split_device(argv)
-    model_args, data_args, training_args = parse_dataclasses(
-        [ModelArguments, DataArguments, TrainingArguments], argv)
-    check_single_device(training_args)
-    device = resolve_device(device_arg)
+    if n_dp > 1:
+        device = pmesh.init_distributed(device_arg)
+        pmesh.create_mesh(n_dp, 1)
+    else:
+        device = resolve_device(device_arg)
+    rank = pmesh.data_rank()
+    main_rank = rank == 0
+    if not main_rank:
+        log.setLevel(logging.WARNING)
     dtype = torch.bfloat16 if training_args.bf16 else torch.float32
     if model_args.quant_base and not model_args.lora:
         raise ValueError("--quant_base requires --lora (the int8 trunk is "
@@ -220,8 +264,13 @@ def main(argv=None):
         log.info("--quant_base: W8A8 trunk + unmaterialized LoRA r=%d",
                  model_args.lora_r)
 
-    # -- data -----------------------------------------------------------------
-    bs = training_args.per_device_train_batch_size
+    # -- data: the global batch is per_device x n_dp (the reference's
+    # torchrun semantics, JAX's sizing); each rank keeps its rows ----------
+    local_bs = training_args.per_device_train_batch_size
+    bs = local_bs * n_dp
+    if n_dp > 1:
+        log.info("global batch %d = %d per device x %d data-parallel",
+                 bs, local_bs, n_dp)
     image_size = cfg.vision.image_size
     name = data_args.dataset_name
     if name is None:
@@ -302,17 +351,29 @@ def main(argv=None):
              "cosine": lambda: cosine_lr(lr, warm, total),
              "const": lambda: const_lr(lr, warm),
              }[training_args.lr_scheduler_type]()
+    grad_sync = None
+    if n_dp > 1:
+        # every rank starts from rank 0's trainable tensors; their
+        # gradients are averaged over the ranks before each update
+        group = pmesh.data_group()
+        with torch.no_grad():
+            for t in tensors:
+                torch.distributed.broadcast(t.data, 0, group=group)
+        grad_sync = lambda: allreduce_grads(tensors, group)  # noqa: E731
     # HF TrainingArguments default: weight decay 0 (run_train.sh sets none)
     state = Vlm2VecState(model=model, optimizer=adamw_over(tensors),
-                         schedule=sched, params=trainable)
+                         schedule=sched, params=trainable,
+                         grad_sync=grad_sync)
 
     chunks = 0
     if training_args.grad_cache:
+        # each rank chunks its own rows; the cached gradients are the
+        # global loss's
         chunk_size = max(training_args.gc_q_chunk_size, 1)
-        if bs % chunk_size:
-            raise ValueError(f"batch size {bs} not divisible by "
+        if local_bs % chunk_size:
+            raise ValueError(f"batch size {local_bs} not divisible by "
                              f"gc_q_chunk_size {chunk_size}")
-        chunks = bs // chunk_size
+        chunks = local_bs // chunk_size
     common = dict(lora_alpha=float(model_args.lora_alpha),
                   temperature=model_args.temperature,
                   grad_cache_chunks=chunks)
@@ -320,7 +381,7 @@ def main(argv=None):
                                           **common)
             if mixed else make_vlm2vec_train_step(model, **common))
 
-    out_dir = training_args.output_dir
+    out_dir = training_args.output_dir if main_rank else None
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
 
@@ -345,22 +406,24 @@ def main(argv=None):
              f", grad-cache chunks {chunks}" if chunks else "",
              ", mixed batches" if mixed else ", image-query pairs")
     report = {"losses": [], "samples_per_s": [], "peak_gib": None,
-              "route": ("quant_base" if model_args.quant_base else
-                        "lora" if model_args.lora else "full")}
+              "route": route}
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     for i, batch in enumerate(batches):
         if i >= total:
             break
+        if n_dp > 1:
+            batch = pmesh.shard_batch(batch, rank, n_dp)
         metrics = step(state, to_device(batch, device, dtype))
         if (i + 1) % training_args.logging_steps == 0:
             loss = float(metrics["loss"])  # waits for the step
             rate = bs * (i + 1) / (time.perf_counter() - t0)
             report["losses"].append(loss)
             report["samples_per_s"].append(rate)
-            log.info("step %d/%d loss %.4f (%.1f samples/s)", i + 1, total,
-                     loss, rate)
+            log.info("step %d/%d loss %.4f (%.1f samples/s, %.1f "
+                     "samples/s/chip)", i + 1, total, loss, rate,
+                     rate / n_dp)
         if (i + 1) % training_args.save_steps == 0 and i + 1 < total:
             save_trainable(f"{i + 1:06d}")
     if device.type == "cuda":

@@ -9,6 +9,11 @@ port's ``--pretrained`` loads the file as it is. A save writes a temporary
 file in the same directory and ``os.replace``-s it into place, so a reader
 sees the old file or the new one, never half of one.
 
+Under a process group rank 0 alone writes, from :func:`full_state_dict`,
+which every rank calls (an FSDP-sharded model gathers its shards there), so
+a checkpoint of any number of ranks loads into one process and the
+reverse.
+
 ``save(..., blocking=False)`` (``--async-checkpoints``; JAX's orbax
 ``AsyncCheckpointer``) copies the state to the host, returns, and writes
 the file on a thread. Saves stay in order: any save first waits until the
@@ -68,6 +73,22 @@ def save(directory: str, state: Dict[str, Any], step: int,
     _writer = threading.Thread(target=run, name="checkpoint-writer")
     _writer.start()
     return path
+
+
+def full_state_dict(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """``model``'s whole state dict on the host: an FSDP-sharded model's
+    gathered (``get_model_state_dict(full_state_dict=True,
+    cpu_offload=True)``: a collective, which every rank calls; rank 0
+    gets the tensors, the others an empty dict), else ``state_dict()``."""
+    from torch.distributed.tensor import DTensor
+
+    if any(isinstance(p, DTensor) for p in model.parameters()):
+        from torch.distributed.checkpoint.state_dict import (
+            StateDictOptions, get_model_state_dict)
+
+        return get_model_state_dict(model, options=StateDictOptions(
+            full_state_dict=True, cpu_offload=True))
+    return model.state_dict()
 
 
 def wait_for_saves() -> None:

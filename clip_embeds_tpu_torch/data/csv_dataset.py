@@ -71,8 +71,12 @@ def csv_batches(
     drop_last: bool = True,
     train_transform=None,
     num_workers: int = 8,
+    rows: Optional[slice] = None,
 ) -> Iterator[Dict[str, np.ndarray]]:
     """Deterministic epoch-shuffled fixed-size numpy batches.
+
+    ``rows`` keeps only those rows of each batch (a rank's slice of the
+    global batch; the other rows are not decoded).
 
     Images decode+preprocess per batch on the C++ fast path (PIL fallback
     per slot); an image file that fails to decode raises, matching the
@@ -99,6 +103,8 @@ def csv_batches(
             idx = order[start : start + batch_size]
             if len(idx) < batch_size and drop_last:
                 return
+            if rows is not None:
+                idx = idx[rows]
             caps = [dataset.captions[i] for i in idx]
             if pool is not None:
                 images = np.stack(list(pool.map(fetch, idx)))

@@ -1,7 +1,11 @@
 """Contrastive losses (counterpart of ``clip_embeds_tpu/losses/clip_loss.py``):
 InfoNCE (+ NegCLIP hard texts), distillation, PACL, VLM2Vec embedding.
 
-Pure functions over one device's full feature batch. Logits are fp32: the
+Pure functions over the global feature batch. Without a process group that
+is this process's batch; under one each rank passes its slice and the
+features are gathered with gradient (``parallel/mesh.py gather_rows``:
+open_clip's ``gather_with_grad=True``, ``local_loss=False``), so every rank
+computes the whole loss of JAX's global batch. Logits are fp32: the
 features (bf16 under bf16 compute) are multiplied in fp32, as the JAX
 ``einsum(..., preferred_element_type=float32)``.
 
@@ -15,6 +19,8 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+
+from ..parallel.mesh import gather_rows
 
 
 def _logits(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -34,6 +40,8 @@ def clip_loss(image_features: torch.Tensor, text_features: torch.Tensor,
               logit_scale: torch.Tensor,
               logit_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Symmetric InfoNCE over the batch (open_clip ``ClipLoss``)."""
+    image_features = gather_rows(image_features)
+    text_features = gather_rows(text_features)
     logits_img = logit_scale * _logits(image_features, text_features)
     if logit_bias is not None:
         logits_img = logits_img + logit_bias
@@ -53,7 +61,13 @@ def clip_loss_hard_text(image_features: torch.Tensor,       # [B, D]
     """NegCLIP loss with appended hard negative captions: image rows see
     B + H text columns with target i (columns of padding hard rows,
     ``hard_valid`` False, are masked to -inf); text rows score only the B
-    images."""
+    images. Under a group the texts are JAX's global [B originals, H
+    hard] layout: each rank holds its slice of both."""
+    image_features = gather_rows(image_features)
+    text_features = gather_rows(text_features)
+    hard_text_features = gather_rows(hard_text_features)
+    if hard_valid is not None:
+        hard_valid = gather_rows(hard_valid.to(torch.uint8)).bool()
     b = image_features.shape[0]
     all_text = torch.cat([text_features, hard_text_features], dim=0)
     logits_img = logit_scale * _logits(image_features, all_text)  # [B, B+H]
@@ -89,6 +103,10 @@ def distill_clip_loss(image_features: torch.Tensor,
     symmetric InfoNCE on the student plus the KD cross-entropy between the
     teacher's logits and the student's, both directions, halved. Pass the
     teacher's features detached."""
+    image_features, text_features, dist_image_features, \
+        dist_text_features = map(gather_rows, (
+            image_features, text_features, dist_image_features,
+            dist_text_features))
     logits_img = logit_scale * _logits(image_features, text_features)
     t_logits_img = dist_logit_scale * _logits(dist_image_features,
                                               dist_text_features)
@@ -115,6 +133,7 @@ def embedding_contrastive_loss(query_reps: torch.Tensor,
                                temperature: float = 0.02) -> torch.Tensor:
     """VLM2Vec's one-directional contrastive loss:
     CE(query @ target^T / T) with diagonal targets."""
+    query_reps, target_reps = gather_rows(query_reps), gather_rows(target_reps)
     logits = _logits(query_reps, target_reps) / temperature
     labels = torch.arange(query_reps.shape[0], device=query_reps.device)
     return softmax_cross_entropy(logits, labels).mean()
@@ -124,6 +143,8 @@ def embedding_contrastive_loss(query_reps: torch.Tensor,
 def clip_metrics(image_features: torch.Tensor, text_features: torch.Tensor,
                  logit_scale: torch.Tensor) -> Dict[str, torch.Tensor]:
     """In-batch retrieval accuracy, both directions."""
+    image_features = gather_rows(image_features)
+    text_features = gather_rows(text_features)
     logits = logit_scale * _logits(image_features, text_features)
     labels = torch.arange(logits.shape[0], device=logits.device)
     return {

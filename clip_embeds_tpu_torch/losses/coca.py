@@ -9,18 +9,20 @@ from typing import Dict
 
 import torch
 
+from ..parallel.mesh import global_mean
 from .clip_loss import clip_loss, softmax_cross_entropy
 
 
 def caption_loss(logits: torch.Tensor, labels: torch.Tensor,
                  pad_id: int = 0) -> torch.Tensor:
     """Mean cross-entropy of ``logits`` [B, L, V] against ``labels`` [B, L]
-    over the labels that are not ``pad_id`` (fp32)."""
+    over the labels that are not ``pad_id`` (fp32); under a process group,
+    over the global batch's (``parallel/mesh.py global_mean``)."""
     flat_labels = labels.reshape(-1)
     valid = flat_labels != pad_id
     ce = softmax_cross_entropy(logits.reshape(-1, logits.shape[-1]),
                                torch.where(valid, flat_labels, 0))
-    return (ce * valid).sum() / valid.sum().clamp_min(1)
+    return global_mean((ce * valid).sum(), valid.sum())
 
 
 def coca_loss(model_out: Dict[str, torch.Tensor],

@@ -158,14 +158,16 @@ class CLIP(nn.Module):
 
     def encode_image(self, images: torch.Tensor, normalize: bool = False,
                      output_tokens: bool = False, deterministic: bool = True,
-                     generator: Optional[torch.Generator] = None):
+                     generator: Optional[torch.Generator] = None,
+                     keep_idx: Optional[torch.Tensor] = None):
         """images [B, S, S, 3] -> [B, embed_dim] (and tokens).
         ``deterministic=False`` (the train step's) drops patches where the
-        config has patch dropout, drawn from ``generator``; eval and
-        serving never drop patches."""
+        config has patch dropout, drawn from ``generator`` or given as
+        ``keep_idx``; eval and serving never drop patches."""
         if self.cfg.vision.tower == "vit":
             pooled, tokens = self.visual(images, deterministic=deterministic,
-                                         generator=generator)
+                                         generator=generator,
+                                         keep_idx=keep_idx)
         else:
             pooled, tokens = self.visual(images)
         if normalize:
@@ -183,13 +185,14 @@ class CLIP(nn.Module):
     def forward(self, images: Optional[torch.Tensor] = None,
                 text_ids: Optional[torch.Tensor] = None,
                 deterministic: bool = True,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                keep_idx: Optional[torch.Tensor] = None
                 ) -> Dict[str, torch.Tensor]:
         out = {"logit_scale": self.logit_scale.exp()}
         if images is not None:
             out["image_features"] = self.encode_image(
                 images, normalize=True, deterministic=deterministic,
-                generator=generator)
+                generator=generator, keep_idx=keep_idx)
         if text_ids is not None:
             out["text_features"] = self.encode_text(text_ids, normalize=True)
         if self.logit_bias is not None:

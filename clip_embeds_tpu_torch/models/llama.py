@@ -215,9 +215,11 @@ class LlamaAttention(nn.Module):
         cfg = self.cfg
         b, n, _ = x.shape
         hd, rep = cfg.head_dim, cfg.num_heads // cfg.kv_heads
-        q = self.q_proj(x).view(b, n, cfg.num_heads, hd).transpose(1, 2)
-        k = self.k_proj(x).view(b, n, cfg.kv_heads, hd).transpose(1, 2)
-        v = self.v_proj(x).view(b, n, cfg.kv_heads, hd).transpose(1, 2)
+        # the heads this rank holds: all of them, or its share under tensor
+        # parallelism (parallel/sharding_rules.py shard_params)
+        q = self.q_proj(x).view(b, n, -1, hd).transpose(1, 2)
+        k = self.k_proj(x).view(b, n, -1, hd).transpose(1, 2)
+        v = self.v_proj(x).view(b, n, -1, hd).transpose(1, 2)
         q = apply_rotary(q, cos, sin)
         k = apply_rotary(k, cos, sin)
         sown = (k, v) if sow_kv else None
@@ -277,7 +279,7 @@ class LlamaAttention(nn.Module):
             out = dot_product_attention(q, _repeat_kv(k, rep),
                                         _repeat_kv(v, rep), causal=True,
                                         mask=mask)
-        out = out.transpose(1, 2).reshape(b, n, cfg.num_heads * hd)
+        out = out.transpose(1, 2).reshape(b, n, q.shape[1] * hd)
         return self.o_proj(out), sown
 
 

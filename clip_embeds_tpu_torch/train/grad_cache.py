@@ -14,7 +14,8 @@ re-forward needs no RNG replay.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional
+import contextlib
+from typing import Callable, ContextManager, Dict, List, Optional
 
 import torch
 
@@ -35,14 +36,20 @@ def cache_grad_step(encode_fn: Callable[[Dict[str, torch.Tensor]], Reps],
                     loss_fn: Callable[[Reps], torch.Tensor],
                     batch: Dict[str, torch.Tensor],
                     n_chunks: int,
-                    after_backward: Optional[Callable[[], None]] = None
+                    after_backward: Optional[Callable[[], None]] = None,
+                    no_sync: Optional[Callable[[], ContextManager]] = None
                     ) -> torch.Tensor:
     """Loss of ``loss_fn(encode_fn(batch))``; the gradients of every
     parameter ``encode_fn`` reaches are accumulated into ``.grad``.
 
     encode_fn(chunk) -> reps with leading axis the chunk size;
     loss_fn(full_reps) -> scalar over the full batch (global negatives);
-    after_backward(), if given, runs after each chunk's backward.
+    after_backward(), if given, runs after each chunk's backward;
+    no_sync(), if given (a ``DistributedDataParallel``'s), holds every
+    chunk's forward and backward but the last, so the ranks reduce the
+    accumulated gradients once. Under a process group ``loss_fn`` gathers
+    the ranks' representations, so the cached gradients are the global
+    loss's.
     """
     chunks = _chunks(batch, n_chunks)
     with torch.no_grad():
@@ -54,9 +61,11 @@ def cache_grad_step(encode_fn: Callable[[Dict[str, torch.Tensor]], Reps],
         rep_grads = torch.autograd.grad(loss, list(reps.values()))
     cotangents = {k: g.chunk(n_chunks) for k, g in zip(reps, rep_grads)}
     for i, chunk in enumerate(chunks):
-        out = encode_fn(chunk)
-        torch.autograd.backward([out[k] for k in reps],
-                                [cotangents[k][i] for k in reps])
+        hold = no_sync is not None and i + 1 < n_chunks
+        with no_sync() if hold else contextlib.nullcontext():
+            out = encode_fn(chunk)
+            torch.autograd.backward([out[k] for k in reps],
+                                    [cotangents[k][i] for k in reps])
         if after_backward is not None:
             after_backward()
     return loss.detach()

@@ -13,7 +13,7 @@ gets optax ``set_to_zero``: no update and no decay.
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -43,15 +43,20 @@ def adamw(model: nn.Module, lr: float = 5e-6, beta1: float = 0.9,
     """AdamW over ``model``'s trainable parameters with CLIP defaults
     (beta2 0.98, eps 1e-6): one group with ``weight_decay``, one without.
     The learning rate is set before each update by the train state."""
+    return torch.optim.AdamW(decay_groups(model, weight_decay), lr=lr,
+                             betas=(beta1, beta2), eps=eps)
+
+
+def decay_groups(model: nn.Module, weight_decay: float) -> List[dict]:
+    """The two parameter groups of :func:`adamw`: ``model``'s trainable
+    parameters with ``weight_decay``, and those without decay."""
     mask = decay_mask(model)
     groups: Tuple[list, list] = ([], [])
     for name, p in model.named_parameters():
         if p.requires_grad:
             groups[0 if mask[name] else 1].append(p)
-    return torch.optim.AdamW(
-        [{"params": groups[0], "weight_decay": weight_decay},
-         {"params": groups[1], "weight_decay": 0.0}],
-        lr=lr, betas=(beta1, beta2), eps=eps)
+    return [{"params": groups[0], "weight_decay": weight_decay},
+            {"params": groups[1], "weight_decay": 0.0}]
 
 
 def adam(model: nn.Module, lr: float = 1e-4) -> torch.optim.Adam:
@@ -69,16 +74,21 @@ def clip_by_global_norm(params: Iterable[torch.Tensor],
                         max_norm: float) -> Optional[torch.Tensor]:
     """Scale the gradients in place by ``max / max(norm, max)``, optax's
     ``clip_by_global_norm`` (no epsilon, unlike ``clip_grad_norm_``); the
-    norm covers the given parameters' gradients. Returns the norm (a 0-d
-    tensor, no host sync) or None when no parameter has a gradient."""
+    norm covers the given parameters' gradients, an FSDP-sharded one's
+    over all its shards. Returns the norm (a 0-d tensor, no host sync) or
+    None when no parameter has a gradient."""
+    from torch.distributed.tensor import DTensor
+
     grads = [p.grad for p in params if p.grad is not None]
     if not grads:
         return None
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    norms = [torch.linalg.vector_norm(g.float()) for g in grads]
+    norm = torch.linalg.vector_norm(torch.stack([
+        n.full_tensor() if isinstance(n, DTensor) else n for n in norms]))
     scale = max_norm / torch.clamp(norm, min=max_norm)
     for g in grads:
-        g.mul_(scale.to(g.dtype))
+        local = g.to_local() if isinstance(g, DTensor) else g
+        local.mul_(scale.to(g.dtype))
     return norm
 
 

@@ -1,5 +1,6 @@
 """The port stands without jax: importing every module of
-clip_embeds_tpu_torch pulls in neither jax, flax nor clip_embeds_tpu, and
+clip_embeds_tpu_torch (parallel/ among them) pulls in neither jax, flax nor
+clip_embeds_tpu, and
 no file of the port (nor chip_smoke.py) reads a file of clip_embeds_tpu."""
 
 import os
@@ -18,8 +19,10 @@ for name in names:
 pkg.create_model, pkg.get_model_config  # the lazy names resolve too
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "clip_embeds_tpu"))
-print(len(names), bad)
-sys.exit(1 if bad or len(names) < 76 else 0)
+need = {"clip_embeds_tpu_torch.parallel.mesh",
+        "clip_embeds_tpu_torch.parallel.sharding_rules"}
+print(len(names), bad, sorted(need - set(names)))
+sys.exit(1 if bad or len(names) < 79 or not need <= set(names) else 0)
 """
 
 # Ways a file could reach into the JAX package without importing it: its

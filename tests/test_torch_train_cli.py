@@ -2,8 +2,8 @@
 from one random test-tiny checkpoint, on the CPU in fp32; --lock-image,
 --resume latest, the real-data loaders (datamix with hard texts, CSV,
 WebDataset, auto) through the train augmentations, the flags they bring,
-distillation from a teacher checkpoint, and the JAX flags that are not
-ported yet."""
+distillation from a teacher checkpoint, and --fsdp in a one-rank
+group."""
 
 import io
 import json
@@ -126,15 +126,24 @@ def test_resume_latest_restores_the_step(checkpoint, tmp_path, caplog):
         assert not torch.equal(first.model.state_dict()[k], v), k
 
 
-@pytest.mark.parametrize("argv", [[flag] for flag in
-                                  sorted(port_train._UNPORTED)],
-                         ids=lambda a: " ".join(a))
-def test_unported_flags_exit_with_their_roadmap_item(argv, capsys):
-    with pytest.raises(SystemExit) as exc:
-        port_train.parse_args(["--model", "test-tiny"] + argv)
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "not ported yet: ROADMAP.md queue 1 item" in err and argv[0] in err
+def test_fsdp_trains_in_a_one_rank_group(checkpoint):
+    """--fsdp without torchrun opens a one-rank group on the device (gloo
+    for --device cpu), shards the large leaves and trains as the plain
+    run does (fp32: within 1e-6); the group is closed after."""
+    from torch.distributed.tensor import DTensor
+
+    from clip_embeds_tpu_torch.core.checkpoint import full_state_dict
+    from clip_embeds_tpu_torch.parallel.mesh import distributed
+
+    path, _ = checkpoint
+    plain = _port(COMMON + ["--pretrained", path])
+    fsdp = _port(COMMON + ["--pretrained", path, "--fsdp"])
+    assert not distributed()
+    assert any(isinstance(p, DTensor) for p in fsdp.model.parameters())
+    assert fsdp.step == plain.step == 2
+    got = full_state_dict(fsdp.model)
+    for k, v in plain.model.state_dict().items():
+        torch.testing.assert_close(got[k], v, rtol=0, atol=1e-6, msg=k)
 
 
 def test_fused_blocks_off_the_card_keep_composable(checkpoint, caplog):

@@ -196,14 +196,19 @@ def test_embedding_scorer_matches_jax(base):
 
 def test_clis_run_on_the_card_unless_asked():
     """Without --device cpu the CLIs ask for the card and exit without one;
-    the mesh flags of multi-GPU training raise, naming its ROADMAP item."""
+    the mesh flags ask for ranks: --data_parallel 2 in one process exits
+    (tests/test_torch_parallel_cli.py runs it at 2 ranks), and a
+    tensor-parallel trunk raises on every route, naming its ROADMAP
+    item."""
     if torch.cuda.is_available():
         pytest.skip("a card is present")
     for main in (train_main, eval_main):
         with pytest.raises(SystemExit, match="no CUDA device"):
             main(["--lora", "--max_steps", "1"])
-    for flag in ("--data_parallel", "--model_parallel"):
-        with pytest.raises(ValueError, match="queue 1 item 6"):
-            train_main(["--lora", flag, "2", "--device", "cpu"])
+    with pytest.raises(ValueError, match="start one rank a card"):
+        train_main(["--lora", "--data_parallel", "2", "--device", "cpu"])
+    for route in (["--lora"], ["--lora", "--quant_base"], ["--no_bf16"]):
+        with pytest.raises(ValueError, match="queue 1 item 6b"):
+            train_main(route + ["--model_parallel", "2", "--device", "cpu"])
     with pytest.raises(ValueError, match="fp32"):
         train_main(["--device", "cpu", "--max_steps", "1"])
