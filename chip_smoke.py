@@ -328,6 +328,19 @@ Phases, each of which raises on failure:
      clip_loss and siglip_loss (MULTI_FEAT_TOL); (d) cli/embed.py
      --data-parallel over the one card, its .npy bit-equal to
      --no-data-parallel, bf16 and --int8, with exact launches.
+ 20. (run last) every zoo tower's bundle in the JAX layout (ROADMAP.md
+     item 15d): for each of Z20_FAMILIES (Z18_FAMILIES and MobileCLIP-S2,
+     FastViT) at its registry size, seeded on the card by zoo_clip,
+     core/export.py save_model_bundle, then load_model_bundle on the card:
+     the fp32 image embeddings at Z20_IMAGE_BATCH within Z20_TOL of the
+     original's; the captions at Z20_TEXT_BATCH through models/serving.py
+     fused_encode_text in bf16 on both models, rows bit-equal with exact
+     fused_block (#1) launches, one a text layer a call (a text tower that
+     fails fused_block_supported is printed as such); and
+     create_model(name, pretrained=<the bundle's .npz>, device="cuda"),
+     whose image embeddings equal the loaded bundle's; the seconds to
+     write, load and build, and the bundle's GiB. One bundle on disk at a
+     time, in a temporary directory whose free space is checked first.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device it exits
@@ -779,6 +792,16 @@ Z18_FAMILIES = ("EVA02-L-14-336", "RN50x64", "convnext_xxlarge",
 # and its limit on |card - CPU| (fp32 filters summed in another order)
 Z18_EXPORT_BATCH, Z18_PREPROCESS_PHOTO, Z18_PREPROCESS_TOL = 4, (480, 640), \
     1e-4
+# phase 20: each zoo family's bundle in the JAX layout, written and read
+# on the card: the families of phase 18 (c) and MobileCLIP-S2 (FastViT),
+# at registry size (no cut); the image batch and limit of phase 18 (e), the
+# captions' batch; bf16 text rows of the reloaded model bit-equal
+Z20_FAMILIES = Z18_FAMILIES + ("MobileCLIP-S2",)
+Z20_SEED, Z20_IMAGE_BATCH, Z20_TEXT_BATCH, Z20_TOL = 20, 4, 8, 1e-5
+Z20_CAPTIONS = ("a photo of a dog on a red sofa", "two cups left of a bowl",
+                "a mug under the lamp", "a book on top of a box",
+                "a plate right of a can", "an empty street at night",
+                "a cat sleeping in the sun", "a diagram of a circuit")
 # H100 SXM data-sheet peaks (dense): bf16 and int8 tensor cores, HBM3
 PEAK_BF16, PEAK_INT8, HBM_BYTES_PER_S = 989e12, 1979e12, 3.35e12
 # phase 3, the image tower under --force-patch-dropout 0.5: 1 + 288 = 289
@@ -5952,6 +5975,108 @@ def check_zoo_training(counters, gpu):
     part("(f) jax_preprocess", z18_preprocess, gpu)
 
 
+# -- phase 20: the zoo towers' bundles in the JAX layout ------------------
+
+
+def z20_family(name, counters, gpu, tmp):
+    """Phase 20 for one family: its bundle written and loaded on the card,
+    the image embeddings, the bf16 text rows with exact #1 launches, and
+    create_model from the bundle's .npz; returns the #1 launches."""
+    from clip_embeds_tpu_torch.core.export import (
+        WEIGHTS_NAME, load_model_bundle, save_model_bundle)
+    from clip_embeds_tpu_torch.core.factory import create_model
+    from clip_embeds_tpu_torch.models.serving import fused_encode_text
+    from clip_embeds_tpu_torch.ops.fused_block import (
+        fused_block, fused_block_supported)
+    from clip_embeds_tpu_torch.text.tokenizer import get_tokenizer
+
+    model = zoo_clip(name, Z20_SEED)
+    need = sum(v.numel() * 4 for v in model.state_dict().values())
+    free = shutil.disk_usage(tmp).free
+    if free < 1.2 * need:
+        raise AssertionError(f"{name}: {free / 2**30:.1f} GiB free in "
+                             f"{tmp}, the bundle needs {need / 2**30:.1f}")
+    folder = os.path.join(tmp, "bundle")
+    t0 = time.perf_counter()
+    save_model_bundle(folder, model, name)
+    t_save = time.perf_counter() - t0
+    size = sum(os.path.getsize(os.path.join(folder, f))
+               for f in os.listdir(folder))
+    t0 = time.perf_counter()
+    loaded = load_model_bundle(folder)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    px = zoo_pixels(model.cfg.vision.image_size, 20, Z20_IMAGE_BATCH)
+    with torch.inference_mode():
+        a, b = (m.encode_image(px, normalize=True) for m in (model, loaded))
+    diff = float((a - b).abs().max())
+    if not (torch.isfinite(a).all() and diff <= Z20_TOL):
+        raise AssertionError(f"{name}: the reloaded embeddings differ by "
+                             f"{diff} (limit {Z20_TOL})")
+
+    t = model.cfg.text
+    ids = torch.from_numpy(get_tokenizer(t.context_length)(
+        list(Z20_CAPTIONS[:Z20_TEXT_BATCH]))).long().cuda()
+    text, launches = "fused_block_supported fails: no #1 route", 0
+    if fused_block_supported(-(-t.context_length // 16) * 16, t.width,
+                             t.heads, t.mlp_ratio):
+        rows = []
+        launches = 0
+        for m in (model, loaded):
+            bf = zoo_bf16(m)
+            for fn in counters.values():
+                fn.launches = 0
+            with torch.inference_mode():
+                rows.append(fused_encode_text(bf, ids))
+            torch.cuda.synchronize()
+            if fused_block.launches != t.layers:
+                raise AssertionError(f"{name}: fused_block launches "
+                                     f"{fused_block.launches} != {t.layers}")
+            launches += fused_block.launches
+            del bf
+        if not (torch.isfinite(rows[0]).all()
+                and torch.equal(rows[0], rows[1])):
+            raise AssertionError(f"{name}: the reloaded bf16 text rows "
+                                 "differ")
+        text = (f"bf16 text rows at b{Z20_TEXT_BATCH} bit-equal, #1 "
+                f"{t.layers} a call")
+
+    t0 = time.perf_counter()
+    made = create_model(name, pretrained=os.path.join(folder, WEIGHTS_NAME),
+                        device="cuda")
+    torch.cuda.synchronize()
+    t_make = time.perf_counter() - t0
+    with torch.inference_mode():
+        c = made.encode_image(px, normalize=True)
+    if not torch.equal(c, b):
+        raise AssertionError(f"{name}: create_model from the .npz differs "
+                             f"by {float((c - b).abs().max())}")
+    shutil.rmtree(folder)
+    print(f"[bundle] {name} ({model.cfg.vision.tower}): {size / 2**30:.2f} "
+          f"GiB written in {t_save:.1f} s, loaded on the card in "
+          f"{t_load:.1f} s; fp32 image embeddings at b{Z20_IMAGE_BATCH} max "
+          f"|diff| {diff:.3g}; {text}; create_model from the .npz in "
+          f"{t_make:.1f} s, equal on {gpu}")
+    return launches
+
+
+def check_zoo_bundles(counters, gpu, families=Z20_FAMILIES):
+    """Phase 20, one family at a time; returns the #1 launches."""
+    launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        print(f"[phase 20] {shutil.disk_usage(tmp).free / 2**30:.1f} GiB "
+              f"free in the temporary directory")
+        for name in families:
+            t0 = time.perf_counter()
+            launches += z20_family(name, counters, gpu, tmp)
+            gc.collect()
+            torch.cuda.empty_cache()
+            print(f"[phase 20] {name}: {time.perf_counter() - t0:.1f} s")
+    print(f"[phase 20] #1 launches {launches} over {len(families)} "
+          "families' text calls")
+    return launches
+
+
 # -- phase 19: multi-GPU at one rank ---------------------------------------
 
 
@@ -6434,6 +6559,13 @@ def main() -> int:
     t0 = time.perf_counter()
     check_zoo_training(counters, gpu)
     print(f"[phase 18] {time.perf_counter() - t0:.1f} s on {gpu}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 20. every zoo tower's bundle in the JAX layout
+    t0 = time.perf_counter()
+    check_zoo_bundles(counters, gpu)
+    print(f"[phase 20] {time.perf_counter() - t0:.1f} s on {gpu}")
 
     def entry(name, source, replaces, path_launches, shape):
         """One kernel's line: the largest max |diff| over its shapes, and

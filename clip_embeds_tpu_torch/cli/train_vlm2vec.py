@@ -36,9 +36,11 @@ N`` (-1: every rank) makes the global batch ``per_device_train_batch_size``
 x N, as in JAX, each rank encoding its rows and the loss taking its
 negatives from the gathered representations; the adapters' (or the whole
 model's) gradients are averaged over the ranks, and rank 0 logs and saves.
-``--model_parallel`` above 1 (tensor parallelism of the trunk) is refused by
-every route here, naming ROADMAP.md queue 1 item 6b: the materialized
-merge and the W8A8 base cannot take a sharded weight yet.
+``--model_parallel M`` lays the ranks out as JAX's (data, model) mesh of
+N x M (``--data_parallel -1``: world // M) and, as JAX, shards nothing over
+the model axis: every rank holds the whole trunk, the M ranks of a model
+group draw the same rows, and the global batch stays per-device x N; the
+gradients averaged over all the ranks are JAX's replicated step's.
 
   python -m clip_embeds_tpu_torch.cli.train_vlm2vec --lora --lora_r 16 \
       --grad_cache --gc_q_chunk_size 2 --per_device_train_batch_size 64 \
@@ -52,7 +54,7 @@ import json
 import logging
 import os
 import time
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Tuple
 
 import numpy as np
 import torch
@@ -117,25 +119,21 @@ def split_device(argv):
     return ns.device, rest
 
 
-def data_ranks(training_args, route: str) -> int:
-    """The data ranks the flags ask for, JAX's sizing (-1: every rank).
-    Tensor parallelism (``--model_parallel`` above 1) exits naming its
-    ROADMAP item, as does a data size other than the ranks running."""
+def data_ranks(training_args) -> Tuple[int, int]:
+    """(n_dp, n_mp): the mesh the flags ask for, JAX's sizing
+    (``--data_parallel -1``: the world over ``--model_parallel``). A world
+    other than n_dp x n_mp exits."""
     import torch.distributed as dist
 
     n_mp = max(training_args.model_parallel, 1)
-    if n_mp > 1:
-        raise ValueError(
-            f"--model_parallel {n_mp}: the {route} route cannot take a "
-            "tensor-parallel trunk yet: ROADMAP.md queue 1 item 6b")
     world = dist.get_world_size() if dist.is_initialized() else \
         int(os.environ.get("WORLD_SIZE", 1))
     n_dp = training_args.data_parallel
-    n_dp = world if n_dp == -1 else max(n_dp, 1)
-    if n_dp != world:
+    n_dp = max(world // n_mp if n_dp == -1 else n_dp, 1)
+    if n_dp * n_mp != world:
         raise ValueError(f"--data_parallel {n_dp} with {world} rank(s) "
                          "running: start one rank a card with torchrun")
-    return n_dp
+    return n_dp, n_mp
 
 
 def load_base(ckpt, seed, device, dtype, quant=False, **llava_kw):
@@ -214,18 +212,18 @@ def main(argv=None):
         [ModelArguments, DataArguments, TrainingArguments], argv)
     route = ("quant_base" if model_args.quant_base else
              "lora" if model_args.lora else "full")
-    n_dp = data_ranks(training_args, route)
-    opened = n_dp > 1 and not pmesh.distributed()
+    n_dp, n_mp = data_ranks(training_args)
+    opened = n_dp * n_mp > 1 and not pmesh.distributed()
     try:
         return _train(log, device_arg, model_args, data_args, training_args,
-                      route, n_dp)
+                      route, n_dp, n_mp)
     finally:
         if opened:
             pmesh.close_distributed()
 
 
 def _train(log, device_arg, model_args, data_args, training_args, route,
-           n_dp):
+           n_dp, n_mp):
     from ..core.factory import resolve_device
     from ..models.lora import init_lora, lora_tensors, merge_lora
     from ..parallel import mesh as pmesh
@@ -235,13 +233,16 @@ def _train(log, device_arg, model_args, data_args, training_args, route,
     from ..train.vlm2vec import (Vlm2VecState, make_vlm2vec_mixed_train_step,
                                  make_vlm2vec_train_step)
 
-    if n_dp > 1:
+    if n_dp * n_mp > 1:
         device = pmesh.init_distributed(device_arg)
-        pmesh.create_mesh(n_dp, 1)
+        # the trunk stays whole on every rank: the model axis only repeats
+        # each data rank's rows, as JAX's replicated state does
+        pmesh.create_mesh(n_dp, n_mp)
+        main_rank = torch.distributed.get_rank() == 0
     else:
         device = resolve_device(device_arg)
+        main_rank = True
     rank = pmesh.data_rank()
-    main_rank = rank == 0
     if not main_rank:
         log.setLevel(logging.WARNING)
     dtype = torch.bfloat16 if training_args.bf16 else torch.float32
@@ -271,6 +272,9 @@ def _train(log, device_arg, model_args, data_args, training_args, route,
     if n_dp > 1:
         log.info("global batch %d = %d per device x %d data-parallel",
                  bs, local_bs, n_dp)
+    if n_mp > 1:
+        log.info("mesh %d x %d: the model axis holds whole replicas",
+                 n_dp, n_mp)
     image_size = cfg.vision.image_size
     name = data_args.dataset_name
     if name is None:
@@ -352,14 +356,14 @@ def _train(log, device_arg, model_args, data_args, training_args, route,
              "const": lambda: const_lr(lr, warm),
              }[training_args.lr_scheduler_type]()
     grad_sync = None
-    if n_dp > 1:
+    if n_dp * n_mp > 1:
         # every rank starts from rank 0's trainable tensors; their
-        # gradients are averaged over the ranks before each update
-        group = pmesh.data_group()
+        # gradients are averaged over all the ranks before each update (a
+        # model group's ranks hold equal gradients)
         with torch.no_grad():
             for t in tensors:
-                torch.distributed.broadcast(t.data, 0, group=group)
-        grad_sync = lambda: allreduce_grads(tensors, group)  # noqa: E731
+                torch.distributed.broadcast(t.data, 0)
+        grad_sync = lambda: allreduce_grads(tensors)  # noqa: E731
     # HF TrainingArguments default: weight decay 0 (run_train.sh sets none)
     state = Vlm2VecState(model=model, optimizer=adamw_over(tensors),
                          schedule=sched, params=trainable,

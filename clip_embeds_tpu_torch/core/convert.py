@@ -7,9 +7,10 @@ flax params to and from the port's heads.
 the plain ViT + text layout and EVA01's: flax Dense kernels are [in, out]
 and come back as ``nn.Linear`` [out, in] weights, ``in_proj`` is repacked
 into ``attn.in_proj_weight``, and the patch kernel, whose rows are ordered
-(kh, kw, cin), is rebuilt into the conv [W, 3, p, p];
-:func:`jax_params_from_clip` writes the same trees from the port's CLIP
-(``core/export.py``).
+(kh, kw, cin), is rebuilt into the conv [W, 3, p, p]; the other zoo
+towers' trees (JAX's per-tower converters) cross both ways through one
+table each (``_ZOO_RULES``). :func:`jax_params_from_clip` writes the same
+trees from the port's CLIP (``core/export.py``).
 
 :func:`head_state_dict_from_jax_params` and :func:`jax_params_from_head`
 carry a head (``models/heads.py``, whose submodule names are flax's) across:
@@ -45,6 +46,7 @@ families into the same flax trees the JAX converters give.
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -100,17 +102,21 @@ def _transformer(p: Mapping[str, Any], prefix: str
     return out
 
 
+def _conv_from_patch(kernel: np.ndarray) -> np.ndarray:
+    """JAX's patchify kernel [p*p*3, W] -> the stride-p conv [W, 3, p, p]
+    (the inverse of :func:`_flax_patch`)."""
+    p = int(round((kernel.shape[0] // 3) ** 0.5))
+    return kernel.reshape(p, p, 3, kernel.shape[1]).transpose(3, 2, 0, 1)
+
+
 def _vision_tower(v: Mapping[str, Any], prefix: str, head: bool = True
                   ) -> Dict[str, torch.Tensor]:
     """A flax ``VisionTransformer``'s params (numpy) -> the port's tower
     state dict under ``prefix``, without the output projection; without
     ``ln_post`` either unless ``head``."""
-    kernel = np.asarray(v["patch_embed"]["kernel"])       # [p*p*3, W]
-    width = kernel.shape[1]
-    p = int(round((kernel.shape[0] // 3) ** 0.5))
-    conv = kernel.reshape(p, p, 3, width).transpose(3, 2, 0, 1)
     sd: Dict[str, torch.Tensor] = {
-        f"{prefix}.conv1.weight": _t(conv),
+        f"{prefix}.conv1.weight": _t(_conv_from_patch(
+            np.asarray(v["patch_embed"]["kernel"]))),
         f"{prefix}.class_embedding": _t(v["class_embedding"]),
         f"{prefix}.positional_embedding": _t(v["positional_embedding"]),
     }
@@ -126,14 +132,11 @@ def _eva01_tower(v: Mapping[str, Any], prefix: str
                  ) -> Dict[str, torch.Tensor]:
     """A flax ``EVAVisionTower``'s params -> the port's EVA01 tower under
     ``prefix`` in its Transformer's names (its load pre-hook takes them)."""
-    kernel = np.asarray(v["patch_embed"]["kernel"])       # [p*p*3, W]
-    width = kernel.shape[1]
-    p = int(round((kernel.shape[0] // 3) ** 0.5))
-    sd = {f"{prefix}.patch_embed.proj.weight": _t(
-              kernel.reshape(p, p, 3, width).transpose(3, 2, 0, 1)),
+    sd = {f"{prefix}.patch_embed.proj.weight": _t(_conv_from_patch(
+              np.asarray(v["patch_embed"]["kernel"]))),
           f"{prefix}.patch_embed.proj.bias": _t(v["patch_embed"]["bias"]),
           f"{prefix}.cls_token": _t(np.reshape(v["cls_token"],
-                                               (1, 1, width))),
+                                               (1, 1, -1))),
           f"{prefix}.pos_embed": _t(np.asarray(v["pos_embed"])[None])}
     sd.update(_transformer(v["blocks"], f"{prefix}.blocks"))
     sd.update(_ln(v["norm"], f"{prefix}.norm"))
@@ -143,15 +146,20 @@ def _eva01_tower(v: Mapping[str, Any], prefix: str
 
 def state_dict_from_jax_params(params: Mapping[str, Any]
                                ) -> Dict[str, torch.Tensor]:
-    """flax params of ``clip_embeds_tpu.models.clip.CLIP`` (ViT or EVA01
-    tower), as numpy arrays -> the port's CLIP state dict of fp32 tensors
-    (open_clip's, or EVA01's Transformer names)."""
+    """flax params of ``clip_embeds_tpu.models.clip.CLIP``, as numpy arrays
+    -> the port's CLIP state dict of fp32 tensors (open_clip's names, or
+    EVA01's Transformer names), the inverse of :func:`jax_params_from_clip`
+    for every vision tower, which the tree's names tell
+    (:func:`_flax_tower`). Only transposes and reshapes: exact both ways."""
     v, t = params["visual"], params["text"]
-    if "cls_token" in v:
+    tower = _flax_tower(v)
+    if tower == "eva":
         sd = _eva01_tower(v, "visual.trunk")
-    else:
+    elif tower == "vit":
         sd = _vision_tower(v, "visual")
         sd["visual.proj"] = _t(v["proj"])
+    else:
+        sd = _zoo_state_dict(tower, v)
     sd["token_embedding.weight"] = _t(t["token_embedding"]["embedding"])
     sd["positional_embedding"] = _t(t["positional_embedding"])
     sd.update(_transformer(t["transformer"], "transformer"))
@@ -193,11 +201,23 @@ def _flax_patch(conv_weight: np.ndarray) -> np.ndarray:
 
 def jax_params_from_clip(model: torch.nn.Module) -> Dict[str, Any]:
     """The port's CLIP -> the flax tree of JAX's ``CLIP`` (numpy fp32), the
-    inverse of :func:`state_dict_from_jax_params`: the ViT and EVA01 vision
-    towers. The other zoo towers raise NotImplementedError: their flax
-    layouts are JAX's converters' own (ROADMAP.md queue 1 item 15d)."""
-    sd = dict(model.named_parameters())
+    tree JAX's own converter gives for the port's ``state_dict()``: the
+    ViT and EVA01 towers here, the other zoo towers through
+    :func:`_zoo_flax_visual`, which reads the state dict, buffers too:
+    JAX's ModifiedResNet holds its BatchNorm statistics as parameters.
+    The inverse is :func:`state_dict_from_jax_params`. Another model (a
+    CoCa, a CustomTextCLIP with an HF text tower, SigLIP) raises
+    TypeError: JAX's bundles hold the CLIP class alone."""
+    from ..models.clip import CLIP
+
+    if type(model) is not CLIP:
+        raise TypeError(f"{type(model).__name__} is not the port's CLIP: a "
+                        "bundle holds JAX's CLIP tree")
     tower = model.cfg.vision.tower
+    # EVA01's state dict is timm's (its save hook); its parameters keep
+    # the Transformer's names, which the EVA01 writer reads
+    sd = dict(model.named_parameters()) if tower == "eva" else \
+        model.state_dict()
     if tower == "vit":
         visual = {"patch_embed": {"kernel": _flax_patch(
                       _hf(sd, "visual.conv1.weight"))},
@@ -221,10 +241,7 @@ def jax_params_from_clip(model: torch.nn.Module) -> Dict[str, Any]:
                   "norm": _flax_ln(sd, pre + ".norm"),
                   "head": _flax_linear(sd, pre + ".head")}
     else:
-        raise NotImplementedError(
-            f"the {tower!r} vision tower has no flax writer in the port: "
-            "its layout is JAX's converters' own (ROADMAP.md queue 1 item "
-            "15d)")
+        visual = _zoo_flax_visual(tower, sd)
     text = {"token_embedding": {"embedding": _hf(sd,
                                                  "token_embedding.weight")},
             "positional_embedding": _hf(sd, "positional_embedding"),
@@ -236,6 +253,372 @@ def jax_params_from_clip(model: torch.nn.Module) -> Dict[str, Any]:
     if "logit_bias" in sd:
         params["logit_bias"] = _hf(sd, "logit_bias")
     return params
+
+
+# -- the zoo towers' flax trees -----------------------------------------------
+#
+# Each tower's layout is a table of rules, (state-dict template, flax
+# template, kind), read both ways: a template's ``{x}`` is a number, and
+# ``{x:a|b}`` one of the names listed; the state-dict side is relative to
+# ``visual.``, the flax side to the tree's ``visual``. A module kind carries
+# each of the module's leaves across (``_MODULE_KINDS``); a leaf kind maps
+# one key to one leaf (``_LEAF_KINDS``). The tables are the numpy layouts of
+# JAX's converters, which read open_clip's names (the port's): ModifiedResNet
+# ``clip_embeds_tpu/core/torch_convert.py:430-479``, the timm ViT
+# ``models/timm_vit.py:124-162``, the rel-pos ViT ``models/vit_relpos.py:
+# 171-208``, EVA02 ``models/eva.py:291-364``, Swin ``models/swin.py:216-261``,
+# ViTamin ``models/vitamin.py:251-306``, MCi-ViT ``models/mci_vit.py:131-167``
+# (its stem already folded: the port folds the BatchNorm at load), FastViT
+# ``models/fastvit.py:460-578`` (the port's state dict is already folded, so
+# the folded convs map one to one onto JAX's ``FastViTTower``) and ConvNeXt
+# ``models/convnext.py:153-190``.
+
+
+def _same(a):
+    return a
+
+
+def _transpose(a):
+    return a.T
+
+
+def _hwio(a):
+    return a.transpose(2, 3, 1, 0)
+
+
+def _oihw(a):
+    return a.transpose(3, 2, 0, 1)
+
+
+_BIAS = ("bias", _same, _same)
+# a module's leaves: state-dict leaf -> (flax leaf, to flax, from flax)
+_MODULE_KINDS = {
+    "linear": {"weight": ("kernel", _transpose, _transpose), "bias": _BIAS},
+    "conv": {"weight": ("kernel", _hwio, _oihw), "bias": _BIAS},
+    # a 1x1 conv that JAX runs as a Dense layer (FastViT's squeeze-excite)
+    "dense1x1": {"weight": ("kernel", lambda a: a[:, :, 0, 0].T,
+                            lambda a: a.T[:, :, None, None]),
+                 "bias": _BIAS},
+    "patch": {"weight": ("kernel", _flax_patch, _conv_from_patch),
+              "bias": _BIAS},
+    "ln": {"weight": ("scale", _same, _same), "bias": _BIAS},
+    "bn": {"weight": ("scale", _same, _same), "bias": _BIAS,
+           "running_mean": ("mean", _same, _same),
+           "running_var": ("var", _same, _same)},
+}
+# one key -> one leaf: (to flax, from flax)
+_LEAF_KINDS = {
+    "raw": (_same, _same),
+    "flat": (lambda a: a.reshape(-1), lambda a: a.reshape(1, 1, -1)),
+    "rows": (lambda a: a.reshape(-1, a.shape[-1]), lambda a: a[None]),
+}
+
+
+def _vit_block_rules(pre: str, out: str):
+    return [(f"{pre}.norm{{n:1|2}}", f"{out}/norm{{n}}", "ln"),
+            (f"{pre}.attn.qkv", f"{out}/qkv", "linear"),
+            (f"{pre}.attn.proj", f"{out}/attn_proj", "linear")]
+
+
+_TIMM_BLOCK = _vit_block_rules("trunk.blocks.{i}", "blocks_{i}") + [
+    ("trunk.blocks.{i}.mlp.fc{n:1|2}", "blocks_{i}/fc{n}", "linear")]
+
+_ZOO_RULES = {
+    "resnet": [
+        ("conv{i}", "stem{i}/conv", "conv"),
+        ("bn{i}", "stem{i}/bn", "bn"),
+        ("layer{s}.{i}.conv{j}", "layer{s}_{i}/c{j}/conv", "conv"),
+        ("layer{s}.{i}.bn{j}", "layer{s}_{i}/c{j}/bn", "bn"),
+        ("layer{s}.{i}.downsample.0", "layer{s}_{i}/downsample/conv", "conv"),
+        ("layer{s}.{i}.downsample.1", "layer{s}_{i}/downsample/bn", "bn"),
+        ("attnpool.positional_embedding", "attnpool/positional_embedding",
+         "raw"),
+        ("attnpool.{p:q|k|v|c}_proj", "attnpool/{p}_proj", "linear"),
+    ],
+    "timm-vit": [
+        ("trunk.patch_embed.proj", "patch_embed", "patch"),
+        ("trunk.pos_embed", "pos_embed", "rows"),
+        ("trunk.cls_token", "cls_token", "flat"),
+        *_TIMM_BLOCK,
+        ("trunk.{n:norm|fc_norm}", "{n}", "ln"),
+        ("head.proj", "head_proj", "linear"),
+    ],
+    "relpos-vit": [
+        ("trunk.patch_embed.proj", "patch_embed", "patch"),
+        ("trunk.cls_token", "cls_token", "flat"),
+        *_TIMM_BLOCK,
+        ("trunk.blocks.{i}.attn.rel_pos.mlp.fc{n:1|2}", "blocks_{i}/rel_fc{n}",
+         "linear"),
+        ("trunk.blocks.{i}.ls{n:1|2}.gamma", "blocks_{i}/ls{n}", "raw"),
+        ("trunk.norm", "norm", "ln"),
+        ("head.proj", "head_proj", "linear"),
+    ],
+    "mci-vit": [
+        ("trunk.patch_embed.backbone.{i}.conv", "stem_{i}", "conv"),
+        ("trunk.pos_embed", "pos_embed", "rows"),
+        ("trunk.cls_token", "cls_token", "flat"),
+        *_TIMM_BLOCK,
+        ("trunk.norm", "norm", "ln"),
+        ("trunk.head", "head", "linear"),
+    ],
+    "eva02": [
+        ("trunk.patch_embed.proj", "patch_embed", "patch"),
+        ("trunk.cls_token", "cls_token", "flat"),
+        ("trunk.pos_embed", "pos_embed", "rows"),
+        ("trunk.blocks.{i}.norm{n:1|2}", "resblocks_{i}/ln_{n}", "ln"),
+        # the post-norm layout's q and v biases are JAX's packed bias with
+        # a zero k third (before the qkv kernel's rule, which reads the
+        # rest of in_proj)
+        ("trunk.blocks.{i}.attn.{w:q|v}_bias",
+         "resblocks_{i}/attn/in_proj/bias", "qv_bias"),
+        ("trunk.blocks.{i}.attn.qkv", "resblocks_{i}/attn/in_proj",
+         "linear"),
+        ("trunk.blocks.{i}.attn.{p:q|k|v}_proj",
+         "resblocks_{i}/attn/{p}_proj", "linear"),
+        ("trunk.blocks.{i}.attn.proj", "resblocks_{i}/attn/out_proj",
+         "linear"),
+        ("trunk.blocks.{i}.attn.norm", "resblocks_{i}/attn/inner_norm",
+         "ln"),
+        # SwiGLU's MLP; the plain MLP's are _EVA02_PLAIN_MLP's
+        ("trunk.blocks.{i}.mlp.{n:fc1_g|fc1_x|fc2}",
+         "resblocks_{i}/mlp/{n}", "linear"),
+        ("trunk.blocks.{i}.mlp.norm", "resblocks_{i}/mlp/norm", "ln"),
+        ("trunk.norm", "norm", "ln"),
+        ("trunk.head", "head", "linear"),
+    ],
+    "swin": [
+        ("trunk.patch_embed.proj", "patch_embed", "patch"),
+        ("trunk.patch_embed.norm", "patch_norm", "ln"),
+        *_vit_block_rules("trunk.layers.{s}.blocks.{i}", "stage{s}_block{i}"),
+        ("trunk.layers.{s}.blocks.{i}.attn.relative_position_bias_table",
+         "stage{s}_block{i}/relative_position_bias_table", "raw"),
+        ("trunk.layers.{s}.blocks.{i}.mlp.fc{n:1|2}",
+         "stage{s}_block{i}/fc{n}", "linear"),
+        ("trunk.layers.{s}.downsample.norm", "downsample{s}/norm", "ln"),
+        ("trunk.layers.{s}.downsample.reduction", "downsample{s}/reduction",
+         "linear"),
+        ("trunk.norm", "norm", "ln"),
+        ("head.proj", "head_proj", "linear"),
+    ],
+    "vitamin": [
+        ("trunk.patch_embed.backbone.stem.conv{n:1|2}", "stem_conv{n}",
+         "conv"),
+        ("trunk.patch_embed.backbone.stem.norm1", "stem_norm1", "ln"),
+        ("trunk.patch_embed.backbone.pool.norm", "pool_norm", "ln"),
+        ("trunk.patch_embed.backbone.pool.proj", "pool_proj", "conv"),
+        ("trunk.patch_embed.backbone.stages.{s}.{i}.pre_norm",
+         "stage{s}_block{i}/pre_norm", "ln"),
+        ("trunk.patch_embed.backbone.stages.{s}.{i}."
+         "{c:conv1_1x1|conv2_kxk|conv3_1x1}", "stage{s}_block{i}/{c}",
+         "conv"),
+        # timm's stride-2 shortcut, Downsample2d's ``expand`` conv
+        ("trunk.patch_embed.backbone.stages.{s}.{i}.shortcut.expand",
+         "stage{s}_block{i}/shortcut_expand", "conv"),
+        *_vit_block_rules("trunk.blocks.{i}", "blocks_{i}"),
+        ("trunk.blocks.{i}.mlp.norm", "blocks_{i}/mlp/norm", "ln"),
+        ("trunk.blocks.{i}.mlp.{w:w0|w1|w2}", "blocks_{i}/mlp/{w}", "linear"),
+        ("trunk.pos_embed", "pos_embed", "rows"),
+        ("trunk.fc_norm", "fc_norm", "ln"),
+        ("head.proj", "head_proj", "linear"),
+    ],
+    "fastvit": [
+        ("trunk.stem.{i}.reparam_conv", "stem_{i}/conv", "conv"),
+        ("trunk.stages.{s}.downsample.proj.0.reparam_conv", "down_{s}_lk/conv",
+         "conv"),
+        ("trunk.stages.{s}.downsample.proj.0.se.{f:fc1|fc2}",
+         "down_{s}_lk/se/{f}", "dense1x1"),
+        ("trunk.stages.{s}.downsample.proj.1.reparam_conv", "down_{s}_pw/conv",
+         "conv"),
+        ("trunk.stages.{s}.pos_emb.reparam_conv", "pos_emb_{s}/conv", "conv"),
+        ("trunk.stages.{s}.blocks.{b}.token_mixer.reparam_conv",
+         "stage_{s}_block_{b}/mixer/conv", "conv"),
+        ("trunk.stages.{s}.blocks.{b}.token_mixer.{p:qkv|proj}",
+         "stage_{s}_block_{b}/{p}", "linear"),
+        ("trunk.stages.{s}.blocks.{b}.mlp.{c:conv|fc1|fc2}",
+         "stage_{s}_block_{b}/ffn/{c}", "conv"),
+        ("trunk.final_conv.reparam_conv", "final_conv/conv", "conv"),
+        ("trunk.final_conv.se.{f:fc1|fc2}", "final_conv/se/{f}", "dense1x1"),
+        ("trunk.head.fc", "head", "linear"),
+    ],
+    "convnext": [
+        ("trunk.stem.0", "stem_conv", "conv"),
+        ("trunk.stem.1", "stem_norm", "ln"),
+        ("trunk.stages.{s}.downsample.0", "down_norm_{s}", "ln"),
+        ("trunk.stages.{s}.downsample.1", "down_conv_{s}", "conv"),
+        ("trunk.stages.{s}.blocks.{b}.conv_dw", "stage_{s}_block_{b}/conv_dw",
+         "conv"),
+        ("trunk.stages.{s}.blocks.{b}.norm", "stage_{s}_block_{b}/norm", "ln"),
+        ("trunk.stages.{s}.blocks.{b}.mlp.fc{n:1|2}",
+         "stage_{s}_block_{b}/fc{n}", "linear"),
+        ("trunk.stages.{s}.blocks.{b}.gamma", "stage_{s}_block_{b}/gamma",
+         "raw"),
+        ("trunk.head.norm", "head_norm", "ln"),
+        ("head.proj", "proj", "linear"),
+        ("head.mlp.fc{n:1|2}", "proj_fc{n}", "linear"),
+    ],
+}
+# EVA02's plain (post-norm) MLP, in place of SwiGLU's rules
+_EVA02_PLAIN_MLP = [
+    ("trunk.blocks.{i}.mlp.fc1", "resblocks_{i}/mlp/c_fc", "linear"),
+    ("trunk.blocks.{i}.mlp.fc2", "resblocks_{i}/mlp/c_proj", "linear"),
+]
+
+
+def _template_regex(template: str, specs: Dict[str, str]):
+    """A rule template -> its compiled full-match pattern; each ``{x}`` a
+    named group (digits, or ``specs[x]``'s names)."""
+    out, pos = [], 0
+    for m in re.finditer(r"\{(\w+)(?::([\w|]+))?\}", template):
+        out.append(re.escape(template[pos:m.start()]))
+        out.append(f"(?P<{m.group(1)}>{specs.get(m.group(1), r'[0-9]+')})")
+        pos = m.end()
+    out.append(re.escape(template[pos:]))
+    return re.compile("".join(out))
+
+
+def _fill(template: str, groups: Mapping[str, str]) -> str:
+    return re.sub(r"\{(\w+)(?::[\w|]+)?\}", lambda m: groups[m.group(1)],
+                  template)
+
+
+def _compiled_rules(tower: str, swiglu: bool = True):
+    """(sd pattern, flax pattern, sd template, flax template, kind) of
+    ``tower``'s table; EVA02 with its plain MLP unless ``swiglu``."""
+    rules = list(_ZOO_RULES[tower])
+    if tower == "eva02" and not swiglu:
+        rules = [r for r in rules if "/mlp/" not in r[1]] + _EVA02_PLAIN_MLP
+    out = []
+    for sd_t, fx_t, kind in rules:
+        specs = dict(re.findall(r"\{(\w+):([\w|]+)\}", sd_t + fx_t))
+        out.append((_template_regex(sd_t, specs),
+                    _template_regex(fx_t, specs), sd_t, fx_t, kind))
+    return out
+
+
+def _put(tree: Dict[str, Any], path: str, value) -> None:
+    *heads, leaf = path.split("/")
+    for name in heads:
+        tree = tree.setdefault(name, {})
+    if leaf in tree:
+        raise ValueError(f"two state-dict entries write the flax leaf {path}")
+    tree[leaf] = value
+
+
+def _zoo_flax_visual(tower: str, sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """The port's ``visual.*`` entries of a zoo tower -> JAX's tree of that
+    tower (numpy fp32). Every entry maps to a leaf but BatchNorm's step
+    counters, which JAX does not keep; one that no rule reads raises."""
+    keys = [k[len("visual."):] for k in sd if k.startswith("visual.")
+            and not k.endswith(".num_batches_tracked")]
+    swiglu = any(k.endswith(".mlp.fc1_g.weight") for k in keys)
+    rules = _compiled_rules(tower, swiglu)
+    tree: Dict[str, Any] = {}
+    for key in keys:
+        mod, _, leaf = key.rpartition(".")
+        for sd_re, _, _, fx_t, kind in rules:
+            if kind == "qv_bias":
+                m = sd_re.fullmatch(key)
+                if m:
+                    if m["w"] == "q":  # the v entry joins q's
+                        q = _hf(sd, "visual." + key)
+                        v = _hf(sd, "visual." + key[:-len("q_bias")]
+                                + "v_bias")
+                        _put(tree, _fill(fx_t, m.groupdict()),
+                             np.concatenate([q, np.zeros_like(q), v]))
+                    break
+            elif kind in _LEAF_KINDS:
+                m = sd_re.fullmatch(key)
+                if m:
+                    _put(tree, _fill(fx_t, m.groupdict()),
+                         _LEAF_KINDS[kind][0](_hf(sd, "visual." + key)))
+                    break
+            elif leaf in _MODULE_KINDS[kind]:
+                m = sd_re.fullmatch(mod)
+                if m:
+                    name, fwd, _ = _MODULE_KINDS[kind][leaf]
+                    _put(tree, f"{_fill(fx_t, m.groupdict())}/{name}",
+                         fwd(_hf(sd, "visual." + key)))
+                    break
+        else:
+            raise KeyError(f"visual.{key}: no flax leaf of the {tower!r} "
+                           "tower reads it")
+    return tree
+
+
+def _flat_tree(tree: Mapping[str, Any], prefix: str = ""):
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, Mapping):
+            yield from _flat_tree(v, path)
+        else:
+            yield path, v
+
+
+def _zoo_state_dict(tower: str, visual: Mapping[str, Any]
+                    ) -> Dict[str, torch.Tensor]:
+    """JAX's tree of a zoo tower -> the port's ``visual.*`` entries (fp32),
+    the inverse of :func:`_zoo_flax_visual`; each BatchNorm gets a step
+    counter of 0. A leaf that no rule reads raises, as does an EVA02 k
+    bias that is not zero (the port's post-norm attention has none)."""
+    leaves = dict(_flat_tree(visual))
+    swiglu = any("/mlp/fc1_g/" in p for p in leaves)
+    rules = _compiled_rules(tower, swiglu)
+    sd: Dict[str, torch.Tensor] = {}
+    for path, value in leaves.items():
+        a = np.asarray(value, np.float32)
+        mod, _, leaf = path.rpartition("/")
+        for _, fx_re, sd_t, _, kind in rules:
+            if kind == "qv_bias":
+                m = fx_re.fullmatch(path)
+                if m:
+                    q, k, v = np.split(a, 3)
+                    if np.any(k):
+                        raise ValueError(
+                            f"visual/{path}: the k third is not zero, and "
+                            "the port's EVA02 attention has no k bias")
+                    for w, part in (("q", q), ("v", v)):
+                        sd["visual." + _fill(sd_t, {**m.groupdict(),
+                                                    "w": w})] = _t(part)
+                    break
+            elif kind in _LEAF_KINDS:
+                m = fx_re.fullmatch(path)
+                if m:
+                    sd["visual." + _fill(sd_t, m.groupdict())] = _t(
+                        _LEAF_KINDS[kind][1](a))
+                    break
+            else:
+                m = fx_re.fullmatch(mod)
+                hit = [(sd_leaf, inv) for sd_leaf, (name, _, inv)
+                       in _MODULE_KINDS[kind].items() if name == leaf]
+                if m and hit:
+                    sd_leaf, inv = hit[0]
+                    sd[f"visual.{_fill(sd_t, m.groupdict())}.{sd_leaf}"] = \
+                        _t(inv(a))
+                    break
+        else:
+            raise KeyError(f"visual/{path}: no entry of the port's "
+                           f"{tower!r} tower takes it")
+    for key in [k for k in sd if k.endswith(".running_mean")]:
+        sd[key[:-len("running_mean")] + "num_batches_tracked"] = \
+            torch.tensor(0)
+    return sd
+
+
+def _flax_tower(visual: Mapping[str, Any]) -> str:
+    """The vision tower (``VisionConfig.tower``) whose flax tree
+    ``visual`` is, read from its top-level names."""
+    for name, tower in (("stem1", "resnet"), ("stem_conv", "convnext"),
+                        ("stem_conv1", "vitamin"), ("final_conv", "fastvit"),
+                        ("stem_0", "mci-vit"), ("patch_norm", "swin"),
+                        ("resblocks_0", "eva02"), ("blocks", "eva"),
+                        ("transformer", "vit")):
+        if name in visual:
+            return tower
+    if "blocks_0" in visual:
+        return "relpos-vit" if "rel_fc1" in visual["blocks_0"] else \
+            "timm-vit"
+    raise ValueError(f"no vision tower has the flax names "
+                     f"{sorted(visual)[:8]}")
 
 
 def head_state_dict_from_jax_params(params: Mapping[str, Any], prefix: str = ""
@@ -1119,12 +1502,9 @@ def coca_state_dict_from_flax(params: Mapping[str, Any]
     packed ``attn.in_proj_bias``; and each ``cross_attn_{i}``, whose
     packed projection and ``out_proj`` sit under ``cross_attn.{i}.attn``."""
     sd = state_dict_from_flax(params)
-    kernel = np.asarray(params["visual"]["patch_embed"]["kernel"])
-    width = kernel.shape[1]
-    p = int(round((kernel.shape[0] // 3) ** 0.5))
     del sd["visual.patch_embed.weight"]
-    sd["visual.conv1.weight"] = _t(kernel.reshape(p, p, 3, width).transpose(
-        3, 2, 0, 1))
+    sd["visual.conv1.weight"] = _t(_conv_from_patch(
+        np.asarray(params["visual"]["patch_embed"]["kernel"])))
     pool = "visual.attn_pool."
     biases = []
     for n in "qkv":

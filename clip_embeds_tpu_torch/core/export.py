@@ -7,9 +7,10 @@ with ``model_cfg`` (the config dataclass) and ``preprocess_cfg`` (the
 image size, and the pretrained tag's mean / std / interpolation / resize
 mode from the registry), byte for byte as JAX writes them, so a bundle of
 either package loads in the other. The port writes and reads the flax
-trees of the ViT and EVA01 towers (``core/convert.py``); the other zoo
-towers raise, naming ROADMAP.md queue 1 item 15d. ``push_to_hub`` uploads
-a folder through ``huggingface_hub`` where it is installed.
+trees of every vision tower, exactly (``core/convert.py``
+``jax_params_from_clip`` and ``state_dict_from_jax_params``).
+``push_to_hub`` uploads a folder through ``huggingface_hub`` where it is
+installed.
 
     from clip_embeds_tpu_torch.core.export import (
         load_model_bundle, save_model_bundle)
@@ -86,10 +87,6 @@ def load_model_bundle(folder: str,
         "vision": vision, "text": TextConfig(**mc["text"])})
     with np.load(os.path.join(folder, WEIGHTS_NAME)) as data:
         params = unflatten_params({k: data[k] for k in data.files})
-    if cfg.vision.tower not in ("vit", "eva"):
-        raise NotImplementedError(
-            f"the {cfg.vision.tower!r} vision tower has no flax reader in "
-            "the port (ROADMAP.md queue 1 item 15d)")
     with torch.device("meta"):  # the loaded tensors become the weights
         model = CLIP(cfg)
     model.load_state_dict(state_dict_from_jax_params(params), assign=True)

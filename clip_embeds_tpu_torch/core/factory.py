@@ -25,7 +25,8 @@ from ..models.layers import Remat
 from .config import MODEL_CONFIGS, get_model_config
 from .convert import load_open_clip_state_dict
 
-_CKPT_EXTS = (".pt", ".pth", ".bin")
+# the weights files ``pretrained`` may name, in the order JAX looks a tag up
+_WEIGHTS_EXTS = (".pt", ".pth", ".bin", ".npz")
 
 
 def _init_tower(tower_blocks, width: int, layers: int,
@@ -171,9 +172,12 @@ def create_model(
 ) -> CLIP:
     """Build the port's CLIP on ``device`` with parameters in ``dtype``.
 
-    ``pretrained`` may be None, a tag ('openai' selects QuickGELU; the
-    weights are still seeded random), or the path of a torch checkpoint
-    (``.pt``/``.pth``/``.bin``) holding an open_clip state dict. Every
+    ``pretrained`` may be None, a tag ('openai' selects QuickGELU), or a
+    path, resolved as JAX resolves it (:func:`resolve_pretrained`): a
+    torch checkpoint (``.pt``/``.pth``/``.bin``) holding an open_clip
+    state dict, or an ``.npz`` of JAX's flax tree (a bundle's weights);
+    a tag without a file under ``$CLIP_EMBEDS_CKPT_DIR`` gives seeded
+    random weights. Every
     registry name whose backend is 'clip' builds (the zoo towers too);
     the other backends raise NotImplementedError, as in JAX.
     ``remat``, ``block_impl`` and ``compute_dtype`` (default: ``dtype``)
@@ -208,16 +212,52 @@ def create_model(
             cfg.vision, patch_dropout=force_patch_dropout))
     model = _empty_clip(cfg, block_impl=block_impl, remat=remat,
                         compute_dtype=compute_dtype)
-    if pretrained and os.path.exists(pretrained):
-        sd = torch.load(pretrained, map_location="cpu", weights_only=True)
+    path = resolve_pretrained(name, pretrained)
+    if path is None:
+        init_params(model, seed)
+    elif path.endswith(".npz"):
+        from .convert import state_dict_from_jax_params
+
+        load_open_clip_state_dict(model, state_dict_from_jax_params(
+            load_params_npz(path)))
+    else:
+        sd = torch.load(path, map_location="cpu", weights_only=True)
         if "state_dict" in sd:
             sd = sd["state_dict"]
         load_open_clip_state_dict(model, sd)
-    elif pretrained and pretrained.endswith(_CKPT_EXTS):
+    return model.to(device=device, dtype=dtype).train(train)
+
+
+def resolve_pretrained(name: str, pretrained: Optional[str]
+                       ) -> Optional[str]:
+    """The weights file that ``pretrained`` names, as JAX's
+    ``create_model`` resolves it (``clip_embeds_tpu/core/factory.py:85-98``):
+    an existing path, or a tag found as
+    ``$CLIP_EMBEDS_CKPT_DIR/<name>__<tag>`` with ``.pt``, ``.pth``,
+    ``.bin`` or ``.npz``, in that order; None for no ``pretrained`` or a
+    tag without a file (seeded weights). A weights path that does not
+    exist raises FileNotFoundError (JAX would seed), and a directory,
+    JAX's orbax checkpoint, ValueError: the port cannot read orbax."""
+    if not pretrained:
+        return None
+    path = None
+    if os.path.exists(pretrained):
+        path = pretrained
+    elif pretrained.endswith(_WEIGHTS_EXTS):
         raise FileNotFoundError(pretrained)
     else:
-        init_params(model, seed)
-    return model.to(device=device, dtype=dtype).train(train)
+        ckpt_dir = os.environ.get("CLIP_EMBEDS_CKPT_DIR", "")
+        for ext in _WEIGHTS_EXTS:
+            cand = os.path.join(ckpt_dir, f"{name}__{pretrained}{ext}")
+            if ckpt_dir and os.path.exists(cand):
+                path = cand
+                break
+    if path is not None and os.path.isdir(path):
+        raise ValueError(
+            f"{path}: a directory is the JAX package's orbax checkpoint, "
+            "which the port cannot read; convert it to an .npz of the flax "
+            "tree (core/export.py's bundle weights) or a torch state dict")
+    return path
 
 
 def create_model_and_transforms(name: str, pretrained: Optional[str] = None,
@@ -316,7 +356,8 @@ def create_coca_model(
     """A ``models/coca.py CoCa`` of registry name ``name`` (JAX
     ``create_coca_model``) on ``device`` with parameters in ``dtype``:
     from the open_clip CoCa state dict at ``pretrained`` (a ``.pt`` /
-    ``.pth`` / ``.bin`` path) or seeded (:func:`init_coca`), built on the
+    ``.pth`` / ``.bin`` path), JAX's flax tree (an ``.npz``), a tag's file
+    (:func:`resolve_pretrained`), or seeded (:func:`init_coca`), built on the
     meta device and drawn on ``device`` from a ``torch.Generator`` of that
     device, so a seed gives other values on another device type.
     ``compute_dtype`` (default ``dtype``) is the dtype the towers compute
@@ -330,14 +371,18 @@ def create_coca_model(
         cfg = dataclasses.replace(cfg, quick_gelu=True)
     with torch.device("meta"):
         model = CoCa(cfg, compute_dtype=compute_dtype)
-    if pretrained and os.path.exists(pretrained):
-        sd = torch.load(pretrained, map_location="cpu", weights_only=True)
-        sd = sd.get("state_dict", sd)
+    path = resolve_pretrained(name, pretrained)
+    if path is not None:
+        if path.endswith(".npz"):
+            from .convert import coca_state_dict_from_flax
+
+            sd = coca_state_dict_from_flax(load_params_npz(path))
+        else:
+            sd = torch.load(path, map_location="cpu", weights_only=True)
+            sd = sd.get("state_dict", sd)
         model.to_empty(device="cpu")
         load_open_clip_state_dict(model, sd)
         model.to(device=device, dtype=dtype)
-    elif pretrained and pretrained.endswith(_CKPT_EXTS):
-        raise FileNotFoundError(pretrained)
     else:
         model.to(dtype).to_empty(device=device)
         init_coca(model, torch.Generator(device=device).manual_seed(seed))

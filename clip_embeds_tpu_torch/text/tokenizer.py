@@ -12,7 +12,12 @@ copy of the same file's offline POS bucketizer, ``simple_pos_tagger``, which
 the PACL noun-phrase chunker reads (``tests/test_torch_pacl.py`` holds it to
 JAX's), and of its SigLIP sentencepiece tokenizer, ``SigLipTokenizer`` with
 ``basic_clean`` and ``canonicalize_text`` (``tests/test_torch_siglip.py``
-holds its ids to JAX's).
+holds its ids to JAX's). Also the rest of that file: the ``clean`` modes
+(``whitespace_clean``, ``get_clean_fn``) and ``additional_special_tokens``
+of ``BPETokenizer``, the ``HFTokenizer`` wrapper, and the context-length
+reduction masks (``random_mask_tokenize``, ``simple_mask_tokenize``,
+``syntax_mask_tokenize``, ``get_reduction_mask_fn``), which
+``tests/test_torch_tokenizer.py`` holds to JAX's.
 """
 
 from __future__ import annotations
@@ -70,8 +75,22 @@ def basic_clean(text: str) -> str:
     return html.unescape(html.unescape(_fix_text(text))).strip()
 
 
+def whitespace_clean(text: str) -> str:
+    return " ".join(text.split()).strip()
+
+
 def _clean_lower(text: str) -> str:
-    return " ".join(basic_clean(text).split()).strip().lower()
+    return whitespace_clean(basic_clean(text)).lower()
+
+
+def _clean_whitespace(text: str) -> str:
+    return whitespace_clean(basic_clean(text))
+
+
+_CLEAN_FNS = {
+    "lower": _clean_lower,
+    "whitespace": _clean_whitespace,
+}
 
 
 def canonicalize_text(
@@ -102,11 +121,14 @@ class BPETokenizer:
 
     Vocabulary ids: [0, 256) byte units, [256, 512) byte units + '</w>',
     [512, 49406) merge results in merge-rank order, 49406 / 49407
-    <start_of_text> / <end_of_text>.
+    <start_of_text> / <end_of_text>, then ``additional_special_tokens``.
+    ``clean``: 'lower' (CLIP's) or 'whitespace' (case kept).
     """
 
     def __init__(self, bpe_path: Optional[str] = None,
-                 context_length: Optional[int] = DEFAULT_CONTEXT_LENGTH):
+                 context_length: Optional[int] = DEFAULT_CONTEXT_LENGTH,
+                 clean: str = "lower",
+                 additional_special_tokens: Optional[List[str]] = None):
         self.byte_encoder = byte_to_unicode()
         self.byte_decoder = {v: k for k, v in self.byte_encoder.items()}
         with gzip.open(bpe_path or default_bpe_path(), "rt",
@@ -120,6 +142,8 @@ class BPETokenizer:
         vocab += [ch + "</w>" for ch in self.byte_encoder.values()]
         vocab += ["".join(pair) for pair in merges]
         specials = ["<start_of_text>", "<end_of_text>"]
+        if additional_special_tokens:
+            specials = specials + list(additional_special_tokens)
         vocab += specials
         self.encoder = {tok: i for i, tok in enumerate(vocab)}
         self.decoder = {i: tok for tok, i in self.encoder.items()}
@@ -128,9 +152,11 @@ class BPETokenizer:
         self.pattern = re.compile("|".join(specials) + "|" + _WORD_PATTERN,
                                   re.IGNORECASE)
         self.vocab_size = len(vocab)
+        self.all_special_ids = [self.encoder[t] for t in specials]
         self.sot_token_id = self.encoder["<start_of_text>"]
         self.eot_token_id = self.encoder["<end_of_text>"]
         self.context_length = context_length
+        self.clean_fn = _CLEAN_FNS[clean]
 
     def _bpe(self, token: str) -> List[str]:
         """Greedy lowest-rank merge loop over one pre-tokenized word."""
@@ -165,7 +191,7 @@ class BPETokenizer:
 
     def encode(self, text: str) -> List[int]:
         ids: List[int] = []
-        for word in re.findall(self.pattern, _clean_lower(text)):
+        for word in re.findall(self.pattern, self.clean_fn(text)):
             word_bytes = "".join(self.byte_encoder[b]
                                  for b in word.encode("utf-8"))
             ids.extend(self.encoder[piece] for piece in self._bpe(word_bytes))
@@ -199,6 +225,63 @@ class BPETokenizer:
 def get_tokenizer(context_length: int = DEFAULT_CONTEXT_LENGTH
                   ) -> BPETokenizer:
     return BPETokenizer(context_length=context_length)
+
+
+def _clean_canonicalize(text: str) -> str:
+    return canonicalize_text(basic_clean(text))
+
+
+def get_clean_fn(kind: str):
+    """The text cleaner ``kind`` names: 'canonicalize', 'lower' or
+    'whitespace' (reference tokenizer.py:93-101)."""
+    if kind == "canonicalize":
+        return _clean_canonicalize
+    if kind == "lower":
+        return _clean_lower
+    if kind == "whitespace":
+        return _clean_whitespace
+    raise ValueError(f"Invalid clean function ({kind})")
+
+
+class HFTokenizer:
+    """HuggingFace tokenizer wrapper (reference tokenizer.py:403-462; a
+    copy of the JAX package's): clean -> batch encode -> pad / truncate to
+    the context length; optional sep-token stripping. Returns int32 numpy
+    [B, context_length]. ``transformers`` is imported when one is built,
+    so this module does not need it."""
+
+    def __init__(
+        self,
+        tokenizer_name: str,
+        context_length: Optional[int] = DEFAULT_CONTEXT_LENGTH,
+        clean: str = "whitespace",
+        strip_sep_token: bool = False,
+        cache_dir: Optional[str] = None,
+        **kwargs,
+    ):
+        from transformers import AutoTokenizer
+
+        self.tokenizer = AutoTokenizer.from_pretrained(
+            tokenizer_name, cache_dir=cache_dir, **kwargs)
+        self.context_length = context_length
+        self.clean_fn = get_clean_fn(clean)
+        self.strip_sep_token = strip_sep_token
+
+    def __call__(self, texts, context_length: Optional[int] = None
+                 ) -> np.ndarray:
+        if isinstance(texts, str):
+            texts = [texts]
+        context_length = context_length or self.context_length
+        assert context_length, "set a context length"
+        texts = [self.clean_fn(t) for t in texts]
+        ids = self.tokenizer.batch_encode_plus(
+            texts, return_tensors="np", max_length=context_length,
+            padding="max_length", truncation=True,
+        ).input_ids.astype(np.int32)
+        if self.strip_sep_token:
+            ids = np.where(ids == self.tokenizer.sep_token_id,
+                           np.zeros_like(ids), ids)
+        return ids
 
 
 class SigLipTokenizer:
@@ -278,3 +361,112 @@ def simple_pos_tagger(tokens):
             tag = "NN"  # content-word default: captions are noun-heavy
         out.append((tok, tag))
     return out
+
+
+# -- context-length reduction (reference tokenizer.py:280-400; copies of the
+# JAX package's, each drawing from a numpy Generator ``rng``) ---------------
+
+
+def random_mask_tokenize(texts, tokenizer: BPETokenizer,
+                         context_length: Optional[int] = None,
+                         shuffle: bool = False, rng=None) -> np.ndarray:
+    """Randomly drop tokens to fit (keep their order unless ``shuffle``)."""
+    rng = rng or np.random.default_rng()
+    if isinstance(texts, str):
+        texts = [texts]
+    context_length = context_length or tokenizer.context_length
+    sot, eot = tokenizer.sot_token_id, tokenizer.eot_token_id
+    result = np.zeros((len(texts), context_length), np.int32)
+    for i, text in enumerate(texts):
+        tokens = tokenizer.encode(text)
+        if len(tokens) > context_length - 2:
+            keep = context_length - 2
+            indices = rng.permutation(len(tokens))[:keep]
+            if not shuffle:
+                indices = np.sort(indices)
+            tokens = [tokens[j] for j in indices]
+        n = len(tokens)
+        result[i, 0] = sot
+        result[i, 1: n + 1] = tokens
+        result[i, n + 1] = eot
+    return result
+
+
+def simple_mask_tokenize(texts, tokenizer: BPETokenizer,
+                         context_length: Optional[int] = None,
+                         rng=None) -> np.ndarray:
+    """Keep a random contiguous block of the tokens."""
+    rng = rng or np.random.default_rng()
+    if isinstance(texts, str):
+        texts = [texts]
+    context_length = context_length or tokenizer.context_length
+    sot, eot = tokenizer.sot_token_id, tokenizer.eot_token_id
+    result = np.zeros((len(texts), context_length), np.int32)
+    for i, text in enumerate(texts):
+        tokens = tokenizer.encode(text)
+        if len(tokens) > context_length - 2:
+            keep = context_length - 2
+            start = int(rng.integers(0, len(tokens) - keep + 1))
+            tokens = tokens[start: start + keep]
+        row = [sot] + tokens + [eot]
+        result[i, : len(row)] = row
+    return result
+
+
+def syntax_mask_tokenize(texts, tokenizer: BPETokenizer,
+                         context_length: Optional[int] = None,
+                         pos_tag_fn=None) -> np.ndarray:
+    """Keep nouns > adjectives > verbs > the rest, then tokenize
+    (reference tokenizer.py:330-389). ``pos_tag_fn(words) -> [(word,
+    tag)]`` defaults to nltk's ``pos_tag`` where nltk and its data are
+    installed, else to :func:`simple_pos_tagger`."""
+    if isinstance(texts, str):
+        texts = [texts]
+    context_length = context_length or tokenizer.context_length
+    sot, eot = tokenizer.sot_token_id, tokenizer.eot_token_id
+    word_tokenize = None
+    if pos_tag_fn is None:
+        try:
+            import nltk
+
+            nltk.tokenize.word_tokenize("probe")  # raises without data
+            word_tokenize = nltk.tokenize.word_tokenize
+            pos_tag_fn = nltk.pos_tag
+        except Exception:
+            pos_tag_fn = simple_pos_tagger
+
+    def get_order(tag: str) -> int:
+        for rank, prefix in enumerate(("NN", "JJ", "VB"), 1):
+            if tag.startswith(prefix):
+                return rank
+        return 4
+
+    result = np.zeros((len(texts), context_length), np.int32)
+    for i, text in enumerate(texts):
+        words = (word_tokenize(text) if word_tokenize is not None
+                 else text.split())
+        tags = pos_tag_fn(words)
+        order = np.asarray([get_order(tag) for _, tag in tags])
+        sorted_ids = np.argsort(order, kind="stable")
+        sampled_ids = sorted(sorted_ids[: context_length - 2].tolist())
+        sampled = [words[j] for j in sampled_ids]
+        tokens = [sot] + tokenizer.encode(" ".join(sampled)) + [eot]
+        if len(tokens) > context_length:
+            tokens = tokens[:context_length]
+            tokens[-1] = eot
+        result[i, : len(tokens)] = tokens
+    return result
+
+
+def get_reduction_mask_fn(kind: str):
+    """The reduction mask ``kind`` names: 'simple', 'random', 'shuffle' or
+    'syntax' (reference tokenizer.py:390-400)."""
+    if kind == "simple":
+        return simple_mask_tokenize
+    if kind == "random":
+        return random_mask_tokenize
+    if kind == "shuffle":
+        return functools.partial(random_mask_tokenize, shuffle=True)
+    if kind == "syntax":
+        return syntax_mask_tokenize
+    raise ValueError(f"unsupported reduction mask: {kind}")

@@ -8,8 +8,8 @@ train.py:29-45 / eval.py). The field names are the reference's, so its run
 scripts translate 1:1; TrainingArguments carries the mesh / bf16 /
 grad-cache fields instead of subclassing the HF Trainer arguments
 (``data_parallel``: the ranks of the data dimension, one a card under
-torchrun; ``model_parallel`` above 1 is refused by the port's VLM2Vec
-routes, ROADMAP.md queue 1 item 6b). ``pooling``,
+torchrun; ``model_parallel``: the ranks of the model dimension, each a
+whole replica, as JAX's mesh holds the state). ``pooling``,
 ``normalize`` and ``lora_dropout`` are read by nothing, here as in JAX.
 ``parse_dataclasses`` is the HfArgumentParser equivalent: it turns the
 dataclass fields into an argparse parser (bool -> flag pairs, List[str] ->

@@ -2,8 +2,10 @@
 bundle written by the port loads in JAX's ``load_model_bundle`` and one
 written by JAX loads in the port, the same embeddings (fp32, within 1e-5)
 and the config JSON equal byte for byte; an EVA01 bundle round-trips in the
-port and loads in JAX; the other zoo towers raise, naming ROADMAP.md's
-item; ``push_to_hub`` raises JAX's RuntimeError without
+port and loads in JAX (the other zoo towers' bundles:
+``tests/test_torch_export_zoo*.py``); what still raises: a model that is
+not a CLIP, and JAX's orbax directory; ``push_to_hub`` raises JAX's
+RuntimeError without
 ``huggingface_hub``; the loader runs on the card unless asked."""
 
 import os
@@ -113,12 +115,20 @@ def test_eva01_bundle_round_trips_and_loads_in_jax(tmp_path, monkeypatch):
 
 
 def test_other_zoo_towers_raise_naming_the_item(tmp_path, monkeypatch):
+    """Every zoo tower writes its bundle now; what raises is a model that
+    is not a CLIP (a CoCa: JAX's bundles hold the CLIP tree alone), and a
+    directory given as ``pretrained``, JAX's orbax format."""
     monkeypatch.setitem(port_config.MODEL_CONFIGS, "tiny-resnet",
                         tiny_config("resnet"))
     model = create_model("tiny-resnet", seed=0)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1 item 15d"):
-        pexport.save_model_bundle(str(tmp_path / "rn"), model)
+    pexport.save_model_bundle(str(tmp_path / "rn"), model)
+    assert pexport.load_model_bundle(str(tmp_path / "rn"),
+                                     device="cpu").cfg == model.cfg
+    coca = create_model("coca_ViT-B-32", seed=0)
+    with pytest.raises(TypeError, match="not the port's CLIP"):
+        pexport.save_model_bundle(str(tmp_path / "coca"), coca)
+    with pytest.raises(ValueError, match="orbax"):
+        create_model("tiny-resnet", pretrained=str(tmp_path / "rn"))
 
 
 def test_push_to_hub_raises_as_jax_without_the_package(monkeypatch,

@@ -4,7 +4,9 @@ global ``--batch-size`` (also with distillation, ``--siglip``, hard texts,
 ``--lock-image``, the CSV loader and validation, whose results.jsonl rank
 0 writes), an FSDP checkpoint written at 2 ranks resuming in
 one process and a one-process checkpoint resuming at 2 ranks, and
-``cli/train_vlm2vec.py --data_parallel 2`` at half the batch a device.
+``cli/train_vlm2vec.py --data_parallel 2`` at half the batch a device,
+and ``--model_parallel 2 --data_parallel 1`` (JAX's 1 x 2 mesh of
+replicas) at the whole batch a device.
 The ranks' runs share one spawn (tests/torch_dist_fixtures.py).
 Tolerances: losses rel 1e-5; parameters atol 1e-4, a tenth of the lr of
 the 2 AdamW steps: Adam divides each gradient by its own running
@@ -130,6 +132,8 @@ def runs(tmp_path_factory):
         ("train", base + ["--fsdp"] + resume(one_ckpt, "r1")),
         ("vlm2vec", V2V + ["--per_device_train_batch_size", "2",
                            "--data_parallel", "2"]),
+        ("vlm2vec", V2V + ["--per_device_train_batch_size", "4",
+                           "--model_parallel", "2", "--data_parallel", "1"]),
     ])
     # the 2-rank FSDP checkpoint in one process, and the one-process
     # checkpoint's own continuation
@@ -198,6 +202,22 @@ def test_vlm2vec_data_parallel_equals_one_process(runs):
     state, report = runs["v_one"]
     for r in runs["more"]:
         got = r[3]
+        assert got["report"]["losses"] == pytest.approx(report["losses"],
+                                                        rel=1e-5)
+        for k, ab in state.params.items():
+            for n, t in ab.items():
+                torch.testing.assert_close(got["adapters"][k][n], t,
+                                           rtol=0, atol=1e-5, msg=(k, n))
+
+
+def test_vlm2vec_model_parallel_equals_one_process(runs):
+    """--model_parallel 2 --data_parallel 1 at 4 a device: JAX's 1 x 2
+    mesh, whose model axis holds whole replicas, trains the global batch of
+    4 that one process trains; both ranks draw the same rows and end with
+    the one process's losses and adapters."""
+    state, report = runs["v_one"]
+    for r in runs["more"]:
+        got = r[4]
         assert got["report"]["losses"] == pytest.approx(report["losses"],
                                                         rel=1e-5)
         for k, ab in state.params.items():

@@ -196,10 +196,9 @@ def test_embedding_scorer_matches_jax(base):
 
 def test_clis_run_on_the_card_unless_asked():
     """Without --device cpu the CLIs ask for the card and exit without one;
-    the mesh flags ask for ranks: --data_parallel 2 in one process exits
-    (tests/test_torch_parallel_cli.py runs it at 2 ranks), and a
-    tensor-parallel trunk raises on every route, naming its ROADMAP
-    item."""
+    the mesh flags ask for ranks, JAX's n_dp x n_mp: --data_parallel 2 in
+    one process exits, and so does --model_parallel 2 on every route (a
+    1 x 2 mesh; tests/test_torch_parallel_cli.py runs both at 2 ranks)."""
     if torch.cuda.is_available():
         pytest.skip("a card is present")
     for main in (train_main, eval_main):
@@ -208,7 +207,8 @@ def test_clis_run_on_the_card_unless_asked():
     with pytest.raises(ValueError, match="start one rank a card"):
         train_main(["--lora", "--data_parallel", "2", "--device", "cpu"])
     for route in (["--lora"], ["--lora", "--quant_base"], ["--no_bf16"]):
-        with pytest.raises(ValueError, match="queue 1 item 6b"):
+        with pytest.raises(ValueError, match="--data_parallel 1 with 1 "
+                           "rank.*start one rank a card"):
             train_main(route + ["--model_parallel", "2", "--device", "cpu"])
     with pytest.raises(ValueError, match="fp32"):
         train_main(["--device", "cpu", "--max_steps", "1"])
