@@ -63,6 +63,7 @@ from typing import Iterable, List, Optional
 import numpy as np
 import torch
 
+from ..core import tracing
 from ..core.factory import create_model, device_name, resolve_device
 
 IMAGE_EXTS = {".jpg", ".jpeg", ".png", ".bmp", ".webp"}
@@ -96,11 +97,16 @@ def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     memory without blocking; the pinned buffer comes from PyTorch's caching
     host allocator, which records an event for the copy and hands the
     buffer out again only after that copy has finished, so the host can
-    stage the next batch while this one is in flight."""
+    stage the next batch while this one is in flight. The span
+    ``embed.h2d`` holds the copy alone (not the pinning) and counts its
+    bytes as ``h2d_bytes``."""
     x = torch.from_numpy(arr)
-    if device.type != "cuda":
-        return x.to(device)
-    return x.pin_memory().to(device, non_blocking=True)
+    pinned = device.type == "cuda"
+    if pinned:
+        x = x.pin_memory()
+    with tracing.span("embed.h2d"):
+        tracing.count("h2d_bytes", x.nbytes)
+        return x.to(device, non_blocking=pinned)
 
 
 def _replicate(obj, device: torch.device):
@@ -124,19 +130,29 @@ def _run(encode, state, batches: Iterable[np.ndarray], batch_size: int,
     """``encode(state, x)`` over the padded batches; with several devices,
     ``state`` (on the first) and a replica of it on each other, every
     batch split in order over them, the outputs joined in input order on
-    the first."""
+    the first.
+
+    Under a torch profiler it records the spans ``embed.call`` >
+    ``embed.loop`` > ``embed.batch`` (``seq``: the batch) and
+    ``embed.call`` > ``embed.fetch`` (the single fetch of every
+    embedding), the loop's and the fetch's ``cudaMalloc`` calls among
+    them (``core/tracing.py``)."""
     replicas = [state] + [_replicate(state, d) for d in devices[1:]]
     outputs = []
-    with torch.inference_mode():
-        for arr in batches:
-            parts = np.split(_pad_tail(arr, batch_size), len(devices))
-            outs = [encode(st, _to_device(p, d))
-                    for st, p, d in zip(replicas, parts, devices)]
-            outputs.append(torch.cat([o.to(devices[0]) for o in outs])
-                           [: len(arr)])
-    if not outputs:
-        return np.zeros((0, 0), np.float32)
-    return torch.cat(outputs).float().cpu().numpy()
+    with tracing.span("embed.call"), torch.inference_mode():
+        with tracing.span("embed.loop", mallocs=True):
+            for i, arr in enumerate(batches):
+                with tracing.span("embed.batch", seq=i, rows=len(arr)):
+                    parts = np.split(_pad_tail(arr, batch_size),
+                                     len(devices))
+                    outs = [encode(st, _to_device(p, d))
+                            for st, p, d in zip(replicas, parts, devices)]
+                    outputs.append(torch.cat([o.to(devices[0])
+                                              for o in outs])[: len(arr)])
+        if not outputs:
+            return np.zeros((0, 0), np.float32)
+        with tracing.span("embed.fetch", mallocs=True):
+            return torch.cat(outputs).float().cpu().numpy()
 
 
 def visible_devices(device: torch.device) -> List[torch.device]:

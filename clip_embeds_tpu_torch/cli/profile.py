@@ -17,7 +17,11 @@ counts: the parameters, and ModifiedResNet's BatchNorm statistics, which
 JAX holds as parameters. ``--trace DIR`` also writes a ``torch.profiler``
 Chrome trace of 3 warm forward steps at ``--trace-batch-size`` on
 ``--device`` (the card by default; without one it exits) to
-``DIR/<model>/trace.json``.
+``DIR/<model>/trace.json``. The trace shows the port's own spans
+(``core/tracing.py``; here ``tower.image`` and ``tower.text``, one a tower
+call) as ranges above the operators and kernels each launched; any torch
+profiler session around the port's entry points and train steps records
+them the same way (``embed.*``, ``train.*``).
 """
 
 from __future__ import annotations

@@ -25,6 +25,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from ..core import tracing
 from ..core.config import CLIPConfig
 from .layers import Remat
 from .quant import Quant
@@ -163,23 +164,27 @@ class CLIP(nn.Module):
         """images [B, S, S, 3] -> [B, embed_dim] (and tokens).
         ``deterministic=False`` (the train step's) drops patches where the
         config has patch dropout, drawn from ``generator`` or given as
-        ``keep_idx``; eval and serving never drop patches."""
-        if self.cfg.vision.tower == "vit":
-            pooled, tokens = self.visual(images, deterministic=deterministic,
-                                         generator=generator,
-                                         keep_idx=keep_idx)
-        else:
-            pooled, tokens = self.visual(images)
-        if normalize:
-            pooled = l2_normalize(pooled)
+        ``keep_idx``; eval and serving never drop patches. The span
+        ``tower.image`` under a torch profiler (``core/tracing.py``)."""
+        with tracing.span("tower.image"):
+            if self.cfg.vision.tower == "vit":
+                pooled, tokens = self.visual(
+                    images, deterministic=deterministic, generator=generator,
+                    keep_idx=keep_idx)
+            else:
+                pooled, tokens = self.visual(images)
+            if normalize:
+                pooled = l2_normalize(pooled)
         return (pooled, tokens) if output_tokens else pooled
 
     def encode_text(self, text_ids: torch.Tensor, normalize: bool = False,
                     output_tokens: bool = False):
-        """int [B, ctx] -> [B, embed_dim] (and tokens)."""
-        pooled, tokens = encode_text_tower(self, self.cfg.text, text_ids)
-        if normalize:
-            pooled = l2_normalize(pooled)
+        """int [B, ctx] -> [B, embed_dim] (and tokens); the span
+        ``tower.text``."""
+        with tracing.span("tower.text"):
+            pooled, tokens = encode_text_tower(self, self.cfg.text, text_ids)
+            if normalize:
+                pooled = l2_normalize(pooled)
         return (pooled, tokens) if output_tokens else pooled
 
     def forward(self, images: Optional[torch.Tensor] = None,

@@ -28,6 +28,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..core import tracing
 from ..ops.fused_block import _ln as _ln_affine
 from ..ops.fused_block import (
     fused_block,
@@ -64,46 +65,47 @@ def _encode_image(model, images, block_fn: Callable, normalize: bool,
                   dtype: torch.dtype, cls_fast_last: bool,
                   output_tokens: bool):
     """The fused image tower; ``block_fn(i, x, n_valid)`` runs block i on
-    the padded sequence."""
-    cfg = model.cfg.vision
-    v = model.visual
-    b = images.shape[0]
+    the padded sequence. The span ``tower.image`` (``core/tracing.py``)."""
+    with tracing.span("tower.image"):
+        cfg = model.cfg.vision
+        v = model.visual
+        b = images.shape[0]
 
-    x = patchify(images.to(dtype), cfg.patch_size)
-    x = x @ patch_weight(v.conv1.weight.to(dtype)).t()
-    cls = v.class_embedding.to(dtype).expand(b, 1, cfg.width)
-    x = torch.cat([cls, x], dim=1) + v.positional_embedding.to(dtype)
-    n_valid = x.shape[1]
-    if v.ln_pre is not None:
-        x = _ln_affine(x, v.ln_pre.weight, v.ln_pre.bias, 1e-5)
-    x = _pad_rows(x, _round_up(n_valid, 16))
+        x = patchify(images.to(dtype), cfg.patch_size)
+        x = x @ patch_weight(v.conv1.weight.to(dtype)).t()
+        cls = v.class_embedding.to(dtype).expand(b, 1, cfg.width)
+        x = torch.cat([cls, x], dim=1) + v.positional_embedding.to(dtype)
+        n_valid = x.shape[1]
+        if v.ln_pre is not None:
+            x = _ln_affine(x, v.ln_pre.weight, v.ln_pre.bias, 1e-5)
+        x = _pad_rows(x, _round_up(n_valid, 16))
 
-    # pool 'tok' reads only the CLS row of the last block's output, so the
-    # last block runs in CLS-only form (k/v full, q/out/MLP one row)
-    use_cls_fast = cls_fast_last and cfg.pool_type == "tok" \
-        and not output_tokens
-    for i in range(cfg.layers - 1 if use_cls_fast else cfg.layers):
-        x = block_fn(i, x, n_valid)
+        # pool 'tok' reads only the CLS row of the last block's output, so the
+        # last block runs in CLS-only form (k/v full, q/out/MLP one row)
+        use_cls_fast = cls_fast_last and cfg.pool_type == "tok" \
+            and not output_tokens
+        for i in range(cfg.layers - 1 if use_cls_fast else cfg.layers):
+            x = block_fn(i, x, n_valid)
 
-    lnp = v.ln_post
-    tokens = None
-    if use_cls_fast:
-        pooled = _cls_only_last_block(x, v.transformer.resblocks[-1],
-                                      cfg.heads, n_valid,
-                                      model.cfg.quick_gelu, dtype)
-        # for 'tok', ln-then-pool and pool-then-ln agree on the CLS row
-        pooled = _ln_affine(pooled, lnp.weight, lnp.bias, 1e-5)
-    else:
-        x = x[:, :n_valid]
-        if cfg.final_ln_after_pool:
-            pooled, tokens = v.pool(x)
+        lnp = v.ln_post
+        tokens = None
+        if use_cls_fast:
+            pooled = _cls_only_last_block(x, v.transformer.resblocks[-1],
+                                          cfg.heads, n_valid,
+                                          model.cfg.quick_gelu, dtype)
+            # for 'tok', ln-then-pool and pool-then-ln agree on the CLS row
             pooled = _ln_affine(pooled, lnp.weight, lnp.bias, 1e-5)
         else:
-            pooled, tokens = v.pool(_ln_affine(x, lnp.weight, lnp.bias,
-                                               1e-5))
-    pooled = pooled @ v.proj.to(dtype)
-    pooled = l2_normalize(pooled) if normalize else pooled
-    return (pooled, tokens) if output_tokens else pooled
+            x = x[:, :n_valid]
+            if cfg.final_ln_after_pool:
+                pooled, tokens = v.pool(x)
+                pooled = _ln_affine(pooled, lnp.weight, lnp.bias, 1e-5)
+            else:
+                pooled, tokens = v.pool(_ln_affine(x, lnp.weight, lnp.bias,
+                                                   1e-5))
+        pooled = pooled @ v.proj.to(dtype)
+        pooled = l2_normalize(pooled) if normalize else pooled
+        return (pooled, tokens) if output_tokens else pooled
 
 
 def fused_encode_image(
@@ -178,21 +180,22 @@ def _cls_only_last_block(
 def _encode_text(model, text_ids, block_fn: Callable, normalize: bool,
                  dtype: torch.dtype) -> torch.Tensor:
     """The fused text tower; ``block_fn(i, x, n_valid, causal)`` runs
-    block i on the padded sequence."""
-    cfg = model.cfg.text
-    n_valid = text_ids.shape[1]
-    x = model.token_embedding.weight.to(dtype)[text_ids]
-    x = x + model.positional_embedding[:n_valid].to(dtype)
-    x = _pad_rows(x, _round_up(n_valid, 16))
+    block i on the padded sequence. The span ``tower.text``."""
+    with tracing.span("tower.text"):
+        cfg = model.cfg.text
+        n_valid = text_ids.shape[1]
+        x = model.token_embedding.weight.to(dtype)[text_ids]
+        x = x + model.positional_embedding[:n_valid].to(dtype)
+        x = _pad_rows(x, _round_up(n_valid, 16))
 
-    causal = not cfg.no_causal_mask
-    for i in range(cfg.layers):
-        x = block_fn(i, x, n_valid, causal)
-    x = x[:, :n_valid]
-    x = _ln_affine(x, model.ln_final.weight, model.ln_final.bias, 1e-5)
-    pooled, _ = text_global_pool(x, text_ids, cfg.pool_type)
-    pooled = pooled @ model.text_projection.to(dtype)
-    return l2_normalize(pooled) if normalize else pooled
+        causal = not cfg.no_causal_mask
+        for i in range(cfg.layers):
+            x = block_fn(i, x, n_valid, causal)
+        x = x[:, :n_valid]
+        x = _ln_affine(x, model.ln_final.weight, model.ln_final.bias, 1e-5)
+        pooled, _ = text_global_pool(x, text_ids, cfg.pool_type)
+        pooled = pooled @ model.text_projection.to(dtype)
+        return l2_normalize(pooled) if normalize else pooled
 
 
 def fused_encode_text(

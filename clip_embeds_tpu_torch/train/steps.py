@@ -33,6 +33,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core import tracing
 from ..losses.clip_loss import (
     clip_loss, clip_loss_hard_text, clip_metrics, distill_clip_loss)
 from ..losses.siglip import siglip_loss, siglip_loss_ring
@@ -61,18 +62,20 @@ class TrainState:
         """Average what ``grad_sync`` averages, clip (optax
         ``clip_by_global_norm`` over the trainable parameters), set the
         scheduled learning rate, update, clear the gradients and count the
-        update."""
-        if self.grad_sync is not None:
-            self.grad_sync()
-        params = [p for g in self.optimizer.param_groups for p in g["params"]]
-        if self.max_grad_norm is not None:
-            clip_by_global_norm(params, self.max_grad_norm)
-        lr = self.schedule(self.step)
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
-        self.optimizer.step()
-        self.optimizer.zero_grad(set_to_none=True)
-        self.step += 1
+        update (the span ``train.update``)."""
+        with tracing.span("train.update"):
+            if self.grad_sync is not None:
+                self.grad_sync()
+            params = [p for g in self.optimizer.param_groups
+                      for p in g["params"]]
+            if self.max_grad_norm is not None:
+                clip_by_global_norm(params, self.max_grad_norm)
+            lr = self.schedule(self.step)
+            for group in self.optimizer.param_groups:
+                group["lr"] = lr
+            self.optimizer.step()
+            self.optimizer.zero_grad(set_to_none=True)
+            self.step += 1
 
 
 def patch_dropout_generator(seed: int, step: int,
@@ -156,7 +159,10 @@ def make_clip_train_step(model: nn.Module, use_hard_text: bool = False,
     process group, over the global batch (:func:`global_keep_idx`).
     ``model`` may be a ``DistributedDataParallel`` wrapper, whose
     ``no_sync`` then keeps all but the last GradCache chunk's gradients
-    local."""
+    local. Under a torch profiler the step records the spans
+    ``train.step`` > ``train.forward``, ``train.backward``,
+    ``train.update`` (``core/tracing.py``); a GradCache step's chunks
+    interleave forward and backward, so only its update is split out."""
     core = unwrap(model)
     use_patch_dropout = core.cfg.vision.patch_dropout > 0.0
     if grad_cache_chunks > 1 and (use_hard_text or use_siglip):
@@ -167,31 +173,35 @@ def make_clip_train_step(model: nn.Module, use_hard_text: bool = False,
         return {"img": out["image_features"], "txt": out["text_features"]}
 
     def train_step(state: TrainState, batch: Batch) -> Dict:
-        if grad_cache_chunks > 1:
-            scale = core.logit_scale.detach().exp()
-            loss = cache_grad_step(
-                encode, lambda reps: clip_loss(reps["img"], reps["txt"],
-                                               scale),
-                batch, grad_cache_chunks,
-                no_sync=getattr(model, "no_sync", None))
-            metrics = {"logit_scale": scale}
-        else:
-            generator = keep_idx = None
-            if use_patch_dropout:
-                generator = patch_dropout_generator(
-                    seed, state.step, batch["images"].device)
-                if data_world() > 1:
-                    keep_idx = global_keep_idx(
-                        core.cfg, batch["images"].shape[0], generator,
-                        batch["images"].device)
-                    generator = None
-            loss, metrics = clip_train_loss(model, batch, use_hard_text,
-                                            use_siglip, generator, keep_idx)
-            loss.backward()
-            loss = loss.detach()
-        state.apply_gradients()
-        with torch.no_grad():
-            core.logit_scale.clamp_(max=LOGIT_SCALE_MAX)
+        with tracing.span("train.step", seq=state.step, mallocs=True):
+            if grad_cache_chunks > 1:
+                scale = core.logit_scale.detach().exp()
+                loss = cache_grad_step(
+                    encode, lambda reps: clip_loss(reps["img"], reps["txt"],
+                                                   scale),
+                    batch, grad_cache_chunks,
+                    no_sync=getattr(model, "no_sync", None))
+                metrics = {"logit_scale": scale}
+            else:
+                generator = keep_idx = None
+                if use_patch_dropout:
+                    generator = patch_dropout_generator(
+                        seed, state.step, batch["images"].device)
+                    if data_world() > 1:
+                        keep_idx = global_keep_idx(
+                            core.cfg, batch["images"].shape[0], generator,
+                            batch["images"].device)
+                        generator = None
+                with tracing.span("train.forward"):
+                    loss, metrics = clip_train_loss(
+                        model, batch, use_hard_text, use_siglip, generator,
+                        keep_idx)
+                with tracing.span("train.backward"):
+                    loss.backward()
+                loss = loss.detach()
+            state.apply_gradients()
+            with torch.no_grad():
+                core.logit_scale.clamp_(max=LOGIT_SCALE_MAX)
         return dict(metrics, loss=loss)
 
     return train_step
